@@ -1,0 +1,304 @@
+"""The 2D Cahn–Hilliard ADI solver (paper §V, "cuCahnPentADI"; counterpart of
+``repro.core.cahn_hilliard``).
+
+Solves  dC/dt = D grad^2 (C^3 - C - gamma grad^2 C)  on a periodic box with
+the two-step scheme of paper eq. (2):
+
+    L_x w = -(2/3)(C^n - C^{n-1})
+            - (2/3) dt D gamma grad^4 Cbar^{n+1}
+            + (2/3) D dt grad^2 (C^3 - C)^n
+    L_y v = w
+    C^{n+1} = Cbar^{n+1} + v,        Cbar^{n+1} = 2 C^n - C^{n-1}
+
+with L = I + (2/3) D gamma dt d^4/dx^4 (pentadiagonal, factored once), and
+the ADI half-step pair of eq. (3) to bootstrap C^1 from C^0.
+
+Two RHS paths:
+
+- ``rhs_mode='fused'`` (default) — the RHS and the x-sweep in one CUDA
+  kernel (:func:`repro_torch.kernels.ops.ch_rhs_xsweep`);
+- ``rhs_mode='stencil'`` — paper-faithful: the RHS from cuSten plan calls,
+  a 5x5 weighted plan for grad^4 and a 3x3 function-pointer plan applying
+  the Laplacian to (C^3 - C).
+
+Everything runs on ``CHConfig.device`` (the card unless the caller asks for
+the CPU).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from collections.abc import Callable
+
+import numpy as np
+import torch
+
+from repro_torch import api as _api
+from repro_torch.core import metrics as _metrics
+from repro_torch.kernels import ops as _ops
+from repro_torch.util import refuse_unported, resolve_device, torch_dtype
+
+# Stencil weight tables (paper eq. 4; §V.B stencil shapes), from the registry
+_D4 = np.asarray(_api.get_operator("biharmonic").weights(1))  # eq. (4b)
+_D2 = np.asarray(_api.get_operator("laplacian").weights(1))  # eq. (4a)
+_LAP = np.asarray(_api.get_operator("laplacian").weights(2))
+
+
+def biharmonic_weights() -> np.ndarray:
+    """5x5 weights of delta_x^2 + delta_y^2 + 2 delta_x delta_y (units h^-4)."""
+    return np.asarray(_api.get_operator("biharmonic").weights(2))
+
+
+def init_explicit_weights_a() -> np.ndarray:
+    """(5y x 3x) weights of 2 delta_x delta_y + delta_y^2 (eq. 3a explicit)."""
+    w = np.zeros((5, 3))
+    w[:, 1] += _D4
+    w[1:4, :] += 2.0 * np.outer(_D2, _D2)
+    return w
+
+
+def init_explicit_weights_b() -> np.ndarray:
+    """(3y x 5x) weights of delta_x^2 + 2 delta_x delta_y (eq. 3b explicit)."""
+    w = np.zeros((3, 5))
+    w[1, :] += _D4
+    w[:, 1:4] += 2.0 * np.outer(_D2, _D2)
+    return w
+
+
+def cube_laplacian_point_fn(windows, coeffs):
+    """The paper's flagship function pointer: apply Laplacian weights to
+    (C^3 - C) of each window — nonlinearity inside the stencil sweep.  Its
+    CUDA counterpart is the stencil kernel's ``CubePoint``."""
+    out = None
+    for w, c in zip(windows, coeffs, strict=True):
+        term = c * (w * w * w - w)
+        out = term if out is None else out + term
+    return out
+
+
+cube_laplacian_point_fn.device_point_fn = "cube_laplacian"
+
+_RHS_MODES = ("fused", "stencil")
+
+
+@dataclasses.dataclass(frozen=True)
+class CHConfig:
+    nx: int = 1024
+    ny: int = 1024
+    lx: float = 2.0 * np.pi
+    ly: float = 2.0 * np.pi
+    dt: float = 1e-3
+    D: float = 0.6
+    gamma: float = 0.01
+    dtype: str = "float64"
+    rhs_mode: str = "fused"  # 'fused' | 'stencil'
+    backend: str = "auto"  # 'auto' | 'cuda' | 'torch'
+    streams: int | None = None
+    max_tile_bytes: int | None = None
+    tune: str = "off"
+    device: str = "cuda"
+
+    @property
+    def dx(self) -> float:
+        return self.lx / self.nx
+
+    @property
+    def dy(self) -> float:
+        return self.ly / self.ny
+
+    def validate(self):
+        if abs(self.dx - self.dy) > 1e-12:
+            raise ValueError("paper scheme assumes a uniform grid dx == dy")
+        refuse_unported(
+            streams=self.streams, max_tile_bytes=self.max_tile_bytes,
+            tune=self.tune,
+        )
+        if self.rhs_mode == "batch1d":
+            raise NotImplementedError(
+                "rhs_mode='batch1d' is not ported yet (ROADMAP.md queue 1, "
+                "item 5)"
+            )
+        if self.rhs_mode not in _RHS_MODES:
+            raise ValueError(f"unknown rhs_mode {self.rhs_mode!r}")
+
+
+class CahnHilliardADI:
+    """Create-once / compute-many solver object (the cuSten usage pattern)."""
+
+    def __init__(self, cfg: CHConfig):
+        cfg.validate()
+        self.cfg = cfg
+        self.device = resolve_device(cfg.device)
+        self.dtype = torch_dtype(cfg.dtype)
+        h2, h4 = cfg.dx**2, cfg.dx**4
+        self.inv_h2 = 1.0 / h2
+        self.inv_h4 = 1.0 / h4
+
+        # Create: factor the implicit operators once (cuPentBatch pattern)
+        beta_full = (2.0 / 3.0) * cfg.D * cfg.gamma * cfg.dt / h4
+        beta_half = 0.5 * cfg.D * cfg.gamma * cfg.dt / h4
+        mk_op = functools.partial(
+            _api.create, "hyperdiffusion", (cfg.ny, cfg.nx), mode="adi",
+            cyclic=True, dtype=self.dtype, backend=cfg.backend,
+            device=self.device,
+        )
+        self.op_full = mk_op(alpha=beta_full)
+        self.op_half = mk_op(alpha=beta_half)
+
+        # Create: the stencil plans (bootstrap and paper-faithful RHS path)
+        mk = functools.partial(
+            _api.create, shape=(cfg.ny, cfg.nx), mode="xy", bc="periodic",
+            dtype=self.dtype, backend=cfg.backend, device=self.device,
+        )
+        self.plan_bih = mk("biharmonic")
+        self.plan_lap_cube = mk(
+            cube_laplacian_point_fn,
+            coeffs=_LAP.ravel(),
+            extents=dict(left=1, right=1, top=1, bottom=1),
+        )
+        self.plan_init_a = mk(init_explicit_weights_a())
+        self.plan_init_b = mk(init_explicit_weights_b())
+
+    # -- explicit RHS of the full scheme (eq. 2a) ---------------------------
+    def rhs(self, c_n: torch.Tensor, c_nm1: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.rhs_mode == "fused":
+            return _ops.ch_rhs(
+                c_n, c_nm1, dt=cfg.dt, D=cfg.D, gamma=cfg.gamma,
+                inv_h2=self.inv_h2, inv_h4=self.inv_h4, backend=cfg.backend,
+            )
+        cbar = 2.0 * c_n - c_nm1
+        lin = -(2.0 / 3.0) * (c_n - c_nm1)
+        hyper = (
+            -(2.0 / 3.0) * cfg.dt * cfg.gamma * cfg.D * self.inv_h4
+            * self.plan_bih.apply(cbar)
+        )
+        nonlin = (
+            (2.0 / 3.0) * cfg.D * cfg.dt * self.inv_h2
+            * self.plan_lap_cube.apply(c_n)
+        )
+        return lin + hyper + nonlin
+
+    def _increment(self, c_n: torch.Tensor, c_nm1: torch.Tensor) -> torch.Tensor:
+        """``v = L_y^{-1} L_x^{-1} rhs(c_n, c_nm1)``: the fused path
+        assembles the RHS straight into the x-sweep (one kernel); both
+        sweeps consume their Create-time factors in their native layout."""
+        cfg = self.cfg
+        if cfg.rhs_mode == "fused":
+            w = _ops.ch_rhs_xsweep(
+                c_n, c_nm1, self.op_full.fac_x, dt=cfg.dt, D=cfg.D,
+                gamma=cfg.gamma, inv_h2=self.inv_h2, inv_h4=self.inv_h4,
+                backend=cfg.backend,
+            )
+        else:
+            w = self.op_full.solve_x(self.rhs(c_n, c_nm1))
+        return self.op_full.solve_y(w)
+
+    # -- one full scheme step (eq. 2) ---------------------------------------
+    def step(
+        self, c_n: torch.Tensor, c_nm1: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One full-scheme step: returns ``(c_{n+1}, c_n)``."""
+        v = self._increment(c_n, c_nm1)
+        return 2.0 * c_n - c_nm1 + v, c_n
+
+    # -- bootstrap step (eq. 3) ---------------------------------------------
+    def initial_step(self, c0: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        half = 0.5 * cfg.dt
+        coef_h = cfg.D * cfg.gamma * self.inv_h4
+        lap_cube = self.plan_lap_cube.apply
+        rhs_a = c0 + half * (
+            -coef_h * self.plan_init_a.apply(c0)
+            + cfg.D * self.inv_h2 * lap_cube(c0)
+        )
+        c_half = self.op_half.solve_x(rhs_a)
+        rhs_b = c_half + half * (
+            -coef_h * self.plan_init_b.apply(c_half)
+            + cfg.D * self.inv_h2 * lap_cube(c_half)
+        )
+        return self.op_half.solve_y(rhs_b)
+
+    # -- drivers -------------------------------------------------------------
+    def make_evolve(self, chunk: int) -> Callable:
+        """A ``(c_n, c_nm1) -> (c_{n+chunk}, c_{n+chunk-1})`` multi-step
+        driver on two field buffers.  It updates IN PLACE: each step writes
+        ``c_{n+1} = 2 c_n - c_{n-1} + v`` over the buffer that held
+        ``c_{n-1}`` and swaps the pair (cuSten's pointer Swap), so the two
+        buffers passed in hold the result.  The arithmetic is that of
+        :meth:`step`, rounding for rounding."""
+
+        def evolve(c_n: torch.Tensor, c_nm1: torch.Tensor):
+            for _ in range(chunk):
+                v = self._increment(c_n, c_nm1)
+                c_nm1.neg_().add_(c_n, alpha=2.0).add_(v)
+                c_n, c_nm1 = c_nm1, c_n
+            return c_n, c_nm1
+
+        return evolve
+
+    def run(self, c0, n_steps: int, *, save_every: int = 0,
+            metrics_fn: Callable | None = None):
+        """Integrate ``n_steps`` of the full scheme after the bootstrap step;
+        delegates to :func:`ch_evolve`."""
+        return ch_evolve(
+            self, c0, n_steps, save_every=save_every, metrics_fn=metrics_fn
+        )
+
+
+def ch_evolve(
+    solver: CahnHilliardADI,
+    c0,
+    n_steps: int,
+    *,
+    save_every: int = 0,
+    metrics_fn: Callable | None = None,
+):
+    """Multi-step driver: the bootstrap step (step 1), then ``n_steps``
+    further steps in chunks of ``save_every`` (all at once when 0).
+
+    The reference donates a ``jit(scan)`` carry; here two preallocated
+    field buffers swap and are updated in place (:meth:`CahnHilliardADI.
+    make_evolve`).  ``c0`` is copied once on entry, so the caller's tensor
+    is left as it was.  Returns ``(c_final, history)`` with history a list
+    of ``(step, metrics_fn(c))`` every ``save_every`` steps."""
+    c0 = torch.as_tensor(c0, dtype=solver.dtype, device=solver.device).clone()
+    c1 = solver.initial_step(c0)
+    carry = _api.swap((c0, c1))  # the fresh field becomes the carry's current
+    chunk = save_every if save_every else n_steps
+    history = []
+    done = 1  # the bootstrap counts as step 1
+    while done < n_steps + 1:
+        todo = min(chunk, n_steps + 1 - done)
+        carry = solver.make_evolve(todo)(*carry)
+        done += todo
+        if metrics_fn is not None:
+            history.append((done, metrics_fn(carry[0])))
+    return carry[0], history
+
+
+def deep_quench_ic(
+    ny: int, nx: int, *, seed: int = 0, amp: float = 0.1, dtype="float64",
+    device="cuda",
+) -> torch.Tensor:
+    """The paper's initial condition: uniform random values in [-amp, amp],
+    drawn with numpy from ``seed`` (the same values as the reference's)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(
+        rng.uniform(-amp, amp, (ny, nx)), dtype=torch_dtype(dtype), device=dev
+    )
+
+
+def coarsening_metrics(cfg: CHConfig):
+    """metrics_fn for :meth:`CahnHilliardADI.run` returning (s, 1/k1, F, M)."""
+
+    def fn(c):
+        s = _metrics.s_metric(c, cfg.lx, cfg.ly)
+        k1 = _metrics.k1_metric(c, cfg.lx, cfg.ly)
+        F = _metrics.free_energy(c, cfg.gamma, cfg.lx, cfg.ly)
+        m = _metrics.mass(c, cfg.lx, cfg.ly)
+        return s, 1.0 / k1, F, m
+
+    return fn

@@ -25,6 +25,10 @@ def pytest_configure(config):
         "markers",
         "slow: slow multi-device subprocess tests (deselect with -m 'not slow')",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the repro_torch kernels); skips without one",
+    )
     # The pre-facade entry points (stencil_create_2d & co, make_adi_operator*)
     # are deprecation shims for one release; the legacy-API suites exercise
     # them on purpose, so their warning is filtered here to keep tier-1
