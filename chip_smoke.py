@@ -11,21 +11,40 @@ printing a result:
 1. Card: name and power limit (``nvidia-smi``), torch and CUDA versions.
 2. Build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
    one process per source, started together); build seconds.
-3. Kernels against their plain PyTorch versions on the card, at the main
-   path's shapes (1024x1024 float64), at a ragged shape (1021x1019) and in
-   float32; each with its max abs error against the stated tolerance, its
-   time (CUDA events, median of 20 launches), its bound and a library
-   call as a yardstick the port never calls: circular-padded
-   ``F.conv2d`` for the weighted periodic stencil, ``torch.linalg.lu_solve``
-   on a dense LU of the cyclic band for the two sweeps.
-4. Main path: the 1024x1024 float64 Cahn–Hilliard solver, bootstrap plus
-   20 steps through ``ch_evolve`` from a band-limited deep quench, in
-   ``rhs_mode='fused'`` on the kernels (launch counts asserted) and on the
-   plain versions (``backend='torch'``), and in ``rhs_mode='stencil'``;
-   fields compared, finite, mass conserved.  Then, as an observation that
-   fails nothing, the same run from the full-resolution deep quench.
-5. Timing: ms/step over 200 fused steps after 20 steps of warm-up (host
-   clock, CUDA events, and the host's enqueue time per step).
+3. Kernels against their plain PyTorch versions on the card, each with its
+   max abs error against the stated tolerance, its time (CUDA events,
+   median of 20 launches), its bound and a library call as a yardstick
+   the port never calls.  The 2D solver's kernels at 1024x1024 float64, a
+   ragged 1021x1019 and float32 (yardsticks: circular-padded ``F.conv2d``
+   for the stencil, ``torch.linalg.lu_solve`` on a dense LU of the cyclic
+   band for the two sweeps); the batched-1D stencil (the ``_D4``/``_D2``
+   and ``cube_laplacian`` plans along x and along y) and the standalone
+   RHS at the same shapes (yardstick: circular pad + ``F.conv1d``; none
+   for the RHS); the 3D stencil and the plane-layout sweep at 256^3
+   float64, a ragged 61x67x71 and float32 (yardsticks: circular pad +
+   ``F.conv3d``; ``lu_solve`` broadcast over the planes).
+4. Paths, each run with the launch counts set to 0 just before it and
+   read just after:
+   a. Main path: the 1024x1024 float64 Cahn–Hilliard solver, bootstrap
+      plus 20 steps through ``ch_evolve`` from a band-limited deep quench,
+      in ``rhs_mode='fused'`` on the kernels (launch counts asserted) and
+      on the plain versions (``backend='torch'``), and in
+      ``rhs_mode='stencil'``; fields compared, finite, mass conserved.
+      Then, as an observation that fails nothing, the same run from the
+      full-resolution deep quench.
+   b. ``rhs_mode='batch1d'``: the same run on the batched-1D kernel
+      (launch counts asserted), against its plain run and the fused run;
+      mass conserved.  ``CahnHilliardADI.rhs`` in fused mode (the
+      standalone RHS kernel) against its plain version and the stencil
+      mode's RHS.
+   c. 3D: the LOD diffusion step of ``examples/diffusion3d_adi.py`` at
+      256^3 float64 through ``create``/``compute`` (x-, plane- and
+      z-sweeps), 20 steps, each held to the exact discrete decay of the
+      separable mode; the Laplacian plan's residual as a diagnostic;
+      against the ``backend='torch'`` run.
+5. Timing: ms/step of the fused step over 200 steps after 20 of warm-up,
+   of the batched-1D step and of the 3D LOD step (host clock, CUDA
+   events, and the host's enqueue time per step).
 6. The ``kernels`` JSON line, the card line, and the result line.
 
 A full record goes to ``chiprun_out/chip_smoke.json`` and the nvcc log to
@@ -35,6 +54,7 @@ A full record goes to ``chiprun_out/chip_smoke.json`` and the nvcc log to
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -48,6 +68,11 @@ N_MAIN = 1024
 RAGGED = (1021, 1019)
 N_STEPS = 20
 N_TIMED = 200
+N_TIMED_B1D = 50
+N3 = 256  # the 3D path's box: 134 MB per float64 field
+RAGGED_3D = (61, 67, 71)
+N_TIMED_3D = 20
+LOD = dict(D=0.5, dt=2e-3)  # examples/diffusion3d_adi.py defaults
 
 # Published H100 SXM peaks, from NVIDIA's H100 SXM data sheet: HBM3
 # bandwidth, float32 and float64 outside the tensor cores.
@@ -68,11 +93,31 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 #   as penta_*) -> scale 10, which keeps the float32 limit (0.26 at 1024^2)
 #   under what the nonlinear term k_lap * lap(c^3 - c) adds after the
 #   x-solve, so a kernel that dropped it fails.
-# Main path: 21 steps each within the fused tolerance -> scale 21 * 10.
+# stencil1d_batch, stencil3d: one pass of <= 5 (<= 27) products, as
+#   stencil2d -> scale 10.
+# ch_rhs: the RHS alone, about 60 operations per point whose terms carry
+#   k_bih ~ 2.8e3 at 1024^2; max|plain| already carries that factor, so
+#   what is left is a few ulp of the summation -> scale 10.  Phase 3 also
+#   checks that the nonlinear term k_lap lap(c^3 - c) alone exceeds each
+#   limit, so a kernel that dropped it would fail.
+# penta_mid: the recurrence of penta_cols over M = 256 steps and its
+#   closure -> scale 100, as penta_*.
+# Main path: 21 steps each within the fused tolerance -> scale 21 * 10;
+#   the batched-1D run is held to the same limit, against its plain run
+#   and against the fused run (its RHS differs from the fused one by
+#   summation order only).
+# 3D path: 20 steps of three sweeps, each within the recurrence tolerance
+#   -> scale 20 * 100 against the plain run.  Against the exact decay of
+#   the separable mode: |amp / (amp0 g^k) - 1| <= 1e-10 (the cyclic sweeps
+#   keep the mode to rounding; 20 steps of 3 sweeps at cond ~ 1 + 4 r,
+#   r ~ 1.7, leave it near 1e-14).
 SCALE = {"stencil2d": 10, "penta_rows": 100, "penta_cols": 100,
-         "ch_rhs_xsweep": 10}
+         "ch_rhs_xsweep": 10, "ch_rhs": 10, "stencil1d_batch": 10,
+         "stencil3d": 10, "penta_mid": 100}
 SCALE_MAIN = (N_STEPS + 1) * SCALE["ch_rhs_xsweep"]
+SCALE_3D = N_STEPS * SCALE["penta_mid"]
 MASS_DRIFT_MAX = 1e-10
+DECAY_MAX = 1e-10
 
 KERNEL_INFO = {
     "ch_rhs_xsweep": ("src/repro_torch/kernels/csrc/fused_ch.cu",
@@ -83,6 +128,14 @@ KERNEL_INFO = {
                    "src/repro/kernels/penta.py:375"),
     "stencil2d": ("src/repro_torch/kernels/csrc/stencil2d.cu",
                   "src/repro/kernels/stencil2d.py:153"),
+    "ch_rhs": ("src/repro_torch/kernels/csrc/fused_ch.cu",
+               "src/repro/kernels/fused_ch.py:104"),
+    "stencil1d_batch": ("src/repro_torch/kernels/csrc/stencil1d_batch.cu",
+                        "src/repro/kernels/stencil1d_batch.py:116"),
+    "stencil3d": ("src/repro_torch/kernels/csrc/stencil3d.cu",
+                  "src/repro/kernels/stencil3d.py:111"),
+    "penta_mid": ("src/repro_torch/kernels/csrc/penta.cu",
+                  "src/repro/kernels/penta.py:427"),
 }
 
 
@@ -151,8 +204,12 @@ def main() -> int:
         CahnHilliardADI, CHConfig, ch_evolve, deep_quench_ic,
     )
     from repro_torch.kernels import _build, ops
+    from repro_torch.core.adi import apply_along_x, apply_along_y
+    from repro_torch.core.cahn_hilliard import cube_laplacian_point_fn
     from repro_torch.kernels import penta as P
-    from repro_torch.kernels.ref import penta_dense_cyclic
+    from repro_torch.kernels.ref import (
+        ch_coefficients, laplacian_ref, penta_dense_cyclic,
+    )
     from repro_torch.util import tolerance_for
 
     torch.backends.cudnn.allow_tf32 = False
@@ -244,6 +301,83 @@ def main() -> int:
                       lambda b, op=op, cn=cn, cm=cm: ops.ch_rhs_xsweep(
                           cn, cm, op.fac_x, backend=b, **ch_kw)))
 
+    # the batched-1D plans (along x, and along y on the transposed view)
+    # and the standalone RHS, at the same 2D shapes
+    plans_1d = {"d4": solver.plan_d4_1d, "d2": solver.plan_d2_1d,
+                "lap_cube fn": solver.plan_lap_cube_1d}
+
+    def batch_call(plan, data, out_init=None, bc="periodic"):
+        def run(backend):
+            return ops.stencil_apply_batch1d(
+                data, plan.coeffs.to(data.dtype), out_init,
+                point_fn=plan.point_fn, bc=bc, backend=backend,
+                **plan._halo_kwargs(),
+            )
+        return run
+
+    k_lap = ch_coefficients(**ch_kw)[2]
+    nl_term = {}  # label -> max|k_lap lap(c^3 - c)|, what a dropped term moves
+    for dtype, (ny, nx), tag in (("float64", (N_MAIN, N_MAIN), "main"),
+                                 ("float64", RAGGED, "ragged"),
+                                 ("float32", (N_MAIN, N_MAIN), "f32")):
+        cn, cm = fields(ny, nx, dtype)
+        init = torch.full_like(cn, 7.0)
+        for name, plan in plans_1d.items():
+            for axis, data, oi in (("x", cn, init), ("y", cn.T, init.T)):
+                for bc in ("periodic", "np"):
+                    cases.append((
+                        "stencil1d_batch", f"{name} along {axis} {bc} {tag}",
+                        dtype, batch_call(plan, data, oi if bc == "np" else None,
+                                          bc)))
+        cases.append(("ch_rhs", f"rhs {tag}", dtype,
+                      lambda b, cn=cn, cm=cm: ops.ch_rhs(cn, cm, backend=b,
+                                                         **ch_kw)))
+        nl_term[f"rhs {tag}"] = float(
+            (k_lap * laplacian_ref(cn**3 - cn, 1.0)).abs().max())
+
+    # the 3D path's kernels: the 7-point Laplacian plan and the plane-layout
+    # y-sweep of the LOD diffusion operator, at 256^3, ragged and float32
+    h3 = 2.0 * math.pi / N3
+    lap3 = rt.create("laplacian", (N3,) * 3, bc="periodic", h=h3)
+
+    def box3(shape, dtype, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        u = torch.rand(shape, generator=g, device=dev, dtype=torch.float64)
+        return (2.0 * u - 1.0).to(getattr(torch, dtype))
+
+    def stencil3d_call(plan, data, out_init=None, bc="periodic", point_fn=None):
+        def run(backend):
+            return ops.stencil_apply_3d(
+                data, plan.coeffs.to(data.dtype), out_init,
+                point_fn=point_fn or plan.point_fn, halos=plan.halos, bc=bc,
+                backend=backend,
+            )
+        return run
+
+    for dtype, shape, tag in (("float64", (N3,) * 3, "main"),
+                              ("float64", RAGGED_3D, "ragged"),
+                              ("float32", (N3,) * 3, "f32")):
+        u = box3(shape, dtype, 5)
+        cases.append(("stencil3d", f"lap 7-pt periodic {tag}", dtype,
+                      stencil3d_call(lap3, u)))
+        if tag != "f32":
+            cases.append(("stencil3d", f"lap 7-pt np+out_init {tag}", dtype,
+                          stencil3d_call(lap3, u, torch.full_like(u, 7.0), "np")))
+        if tag == "ragged":
+            cases.append(("stencil3d", f"lap_cube fn periodic {tag}", dtype,
+                          stencil3d_call(lap3, u,
+                                         point_fn=cube_laplacian_point_fn)))
+        r = LOD["D"] * LOD["dt"] / (2.0 * math.pi / shape[2]) ** 2
+        for cyclic in ((True,) if tag == "f32" else (True, False)):
+            op3 = rt.create("diffusion", shape, mode="adi", alpha=r,
+                            cyclic=cyclic, dtype=dtype)
+            solve = (P.cyclic_penta_solve_factored_mid if cyclic
+                     else P.penta_solve_factored_mid)
+            cases.append(("penta_mid",
+                          f"{'cyclic' if cyclic else 'plain-band'} mid {tag}",
+                          dtype, lambda b, s=solve, f=op3.fac_y, u=u: s(
+                              f, u, backend=b)))
+
     checks, failures = [], []
     for kernel, label, dtype, run in cases:
         got = run("cuda")
@@ -262,6 +396,16 @@ def main() -> int:
               flush=True)
         if not ok:
             failures.append(f"{kernel} {label}")
+    for c in checks:
+        if c["kernel"] != "ch_rhs":
+            continue
+        moved = nl_term[c["label"]]
+        c["dropped_nonlinear_term_moves"] = moved
+        print(f"[check] ch_rhs {c['label']}: dropping k_lap lap(c^3 - c) would "
+              f"move it by {moved:.3e} > limit {c['limit']:.3e}")
+        if not moved > c["limit"]:
+            failures.append(f"ch_rhs {c['label']}: limit cannot catch a "
+                            "dropped nonlinear term")
     record["checks"] = checks
     if failures:
         (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -290,6 +434,25 @@ def main() -> int:
                                         backend=b, **ch_kw),
             3 * N * isz + n_fac, 64 * N),
     }
+    # the new kernels at their paths' shapes: the batched-1D _D4 plan along
+    # x and the RHS at 1024^2, the 3D Laplacian and the cyclic plane-layout
+    # sweep at 256^3; all float64
+    N3c = N3**3
+    r3 = LOD["D"] * LOD["dt"] / h3**2
+    u3 = box3((N3,) * 3, "float64", 6)
+    op3 = rt.create("diffusion", (N3,) * 3, mode="adi", alpha=r3, cyclic=True)
+    d4 = solver.plan_d4_1d
+    timed.update({
+        "stencil1d_batch": (batch_call(d4, cn), 2 * N * isz,
+                            (2 * d4.num_sten - 1) * N),
+        "ch_rhs": (lambda b: ops.ch_rhs(cn, cm, backend=b, **ch_kw),
+                   3 * N * isz, 88 * N),
+        "stencil3d": (stencil3d_call(lap3, u3), 2 * N3c * isz,
+                      (2 * lap3.num_sten - 1) * N3c),
+        "penta_mid": (
+            lambda b: P.cyclic_penta_solve_factored_mid(op3.fac_y, u3, backend=b),
+            2 * N3c * isz + 9 * N3 * isz, 17 * N3c),
+    })
     timings = {}
     for kernel, (run, nbytes, flops) in timed.items():
         ms = time_ms(lambda run=run: run("cuda"))
@@ -319,14 +482,31 @@ def main() -> int:
 
     lu_cols = dense_lu(beta_full)
     lu_rows = dense_lu(beta_half, transpose=True)
+    # the plane layout: the dense LU of the cyclic y band, broadcast over
+    # the z planes (lu_solve broadcasts LU (M, M) against rhs (P, M, N))
+    lu_mid = torch.linalg.lu_factor(penta_dense_cyclic(
+        *(torch.as_tensor(d, device=dev) for d in P.diffusion_diagonals(N3, r3))))
+    F = torch.nn.functional
+    w_d4 = d4.coeffs.view(1, 1, -1)
+    w_lap3 = lap3.coeffs.view(1, 1, 3, 3, 3)
     lib = {
         "penta_cols": lambda: torch.linalg.lu_solve(*lu_cols, rhs),
         "penta_rows": lambda: torch.linalg.lu_solve(*lu_rows, rhs, left=False),
+        "penta_mid": lambda: torch.linalg.lu_solve(*lu_mid, u3),
+        # circular pad + conv1d over the rows as a batch of 1-channel lines
+        "stencil1d_batch": lambda: F.conv1d(
+            F.pad(cn[:, None, :], (d4.left, d4.right), mode="circular"),
+            w_d4)[:, 0],
+        "stencil3d": lambda: F.conv3d(
+            F.pad(u3[None, None], (1,) * 6, mode="circular"), w_lap3)[0, 0],
     }
     lib_err = {}
     for kernel, fn in lib.items():
         lib_err[kernel] = float((fn() - timed[kernel][0]("cuda")).abs().max())
         timings[kernel]["library_ms"] = time_ms(fn)
+    # the batched-1D kernel along y: the transposed view, read in place
+    timings["stencil1d_batch along y"] = dict(
+        ms=time_ms(lambda: batch_call(d4, cn.T)("cuda")))
     # the step's elementwise glue, c_{n+1} = 2 c_n - c_{n-1} + v, in place
     buf = cm.clone()
     timings["glue"] = dict(ms=time_ms(
@@ -338,12 +518,16 @@ def main() -> int:
         if kernel == "glue":
             print(f"[time] step glue (3 in-place torch ops) {t['ms']:.4f} ms")
             continue
+        if kernel == "stencil1d_batch along y":
+            print(f"[time] stencil1d_batch d4 along y (transposed view) "
+                  f"{t['ms']:.4f} ms")
+            continue
         lib = "" if t["library_ms"] is None else f" library {t['library_ms']:.4f} ms"
         print(f"[time] {kernel:14s} {t['ms']:.4f} ms (plain {t['plain_ms']:.3f} ms, "
               f"bound {t['bound_ms']:.4f} ms by {t['bound_by']}){lib}")
     print(f"[time] conv2d yardstick agrees with stencil2d to {conv_err:.2e}")
     for kernel, e in lib_err.items():
-        print(f"[time] lu_solve yardstick agrees with {kernel} to {e:.2e}")
+        print(f"[time] library yardstick agrees with {kernel} to {e:.2e}")
     record["library_max_abs_diff"] = dict(lib_err, stencil2d=conv_err)
 
     # -- 4. main path --------------------------------------------------------
@@ -358,8 +542,33 @@ def main() -> int:
         return out, dict(_build.LAUNCHES)
 
     def expect(got, want, what):
+        """Launch counts: ``want`` names the kernels the run launches; every
+        other kernel must not have launched."""
+        want = dict(dict.fromkeys(_build.LAUNCHES, 0), **want)
         if got != want:
             raise PhaseError(f"{what}: launches {got}, expected {want}")
+
+    def compare(name, got, want, tol, into):
+        """Fail unless ``got`` is finite and within ``tol`` of ``want``
+        (norm-wise, as the kernel checks)."""
+        err = float((got - want).abs().max())
+        limit = tol["atol"] + tol["rtol"] * float(want.abs().max())
+        into[name] = dict(max_abs_err=err, limit=limit)
+        print(f"[paths] {name}: max|diff| {err:.3e} <= {limit:.3e}")
+        if not (bool(torch.isfinite(got).all()) and err <= limit):
+            raise PhaseError(f"{name}: differ by {err:.3e} (limit {limit:.3e})")
+
+    def mass_drift(name, c, into):
+        """Fail unless the (N_MAIN, N_MAIN) field ``c`` is finite and keeps
+        the plain sum of the start field: |sum c - sum c0| / sum|c0|."""
+        if tuple(c.shape) != (N_MAIN, N_MAIN) or not bool(torch.isfinite(c).all()):
+            raise PhaseError(f"{name}: bad field")
+        drift = abs(float(c.sum()) - m0) / a0
+        into[f"mass drift {name}"] = drift
+        print(f"[paths] {name}: relative mass drift {drift:.3e} "
+              f"(|sum c - sum c0| / sum|c0|) <= {MASS_DRIFT_MAX:.0e}")
+        if not drift <= MASS_DRIFT_MAX:
+            raise PhaseError(f"{name}: mass drift {drift:.3e}")
 
     _, n_boot = counts_of(lambda: solver.initial_step(c0))
     expect(n_boot, dict(stencil2d=4, penta_cols=1, penta_rows=1,
@@ -388,23 +597,10 @@ def main() -> int:
 
     tol = tolerance_for("float64", scale=SCALE_MAIN)
     main_checks = {}
-    for name, other in (("fused kernels vs plain", c_plain),
-                        ("stencil vs fused", c_sten)):
-        err = float((c_fused - other).abs().max())
-        limit = tol["atol"] + tol["rtol"] * float(other.abs().max())
-        main_checks[name] = dict(max_abs_err=err, limit=limit)
-        print(f"[main] {name}: max|diff| {err:.3e} <= {limit:.3e}")
-        if not err <= limit:
-            raise PhaseError(f"main path: {name} differ by {err:.3e}")
+    compare("fused kernels vs plain", c_fused, c_plain, tol, main_checks)
+    compare("stencil vs fused", c_fused, c_sten, tol, main_checks)
     for name, c in (("fused", c_fused), ("stencil", c_sten), ("plain", c_plain)):
-        if tuple(c.shape) != (N_MAIN, N_MAIN) or not bool(torch.isfinite(c).all()):
-            raise PhaseError(f"main path ({name}): bad field")
-        drift = abs(float(c.sum()) - m0) / a0
-        main_checks[f"mass drift {name}"] = drift
-        print(f"[main] {name}: relative mass drift {drift:.3e} "
-              f"(|sum c - sum c0| / sum|c0|) <= {MASS_DRIFT_MAX:.0e}")
-        if not drift <= MASS_DRIFT_MAX:
-            raise PhaseError(f"main path ({name}): mass drift {drift:.3e}")
+        mass_drift(name, c, main_checks)
     record["main"] = dict(launches=main_launches, seconds=main_s, **main_checks)
 
     # observation: the full-resolution deep quench through the same path
@@ -420,37 +616,182 @@ def main() -> int:
           f"{deep['end_max_abs']:.3e} after {N_STEPS} steps, finite "
           f"{deep['end_finite']}")
 
-    # -- 5. timing -----------------------------------------------------------
-    pair = (solver.initial_step(c0), c0.clone())
-    pair = solver.make_evolve(N_STEPS)(*pair)
-    evolve = solver.make_evolve(N_TIMED)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    # -- 4b. rhs_mode='batch1d' and the fused-mode RHS -----------------------
+    b1d = CahnHilliardADI(CHConfig(nx=N_MAIN, ny=N_MAIN, rhs_mode="batch1d"))
+    _, n_boot = counts_of(lambda: b1d.initial_step(c0))
+    expect(n_boot, dict(stencil1d_batch=10, penta_cols=1, penta_rows=1),
+           "batch1d bootstrap")
+    _, n_step = counts_of(lambda: b1d.step(c0, c0))
+    expect(n_step, dict(stencil1d_batch=6, penta_cols=1, penta_rows=1),
+           "batch1d step")
     t0 = time.perf_counter()
-    start.record()
-    pair = evolve(*pair)
-    end.record()
-    t_enqueued = time.perf_counter()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3 / N_TIMED
-    enqueue_ms = (t_enqueued - t0) * 1e3 / N_TIMED
-    dev_ms = start.elapsed_time(end) / N_TIMED
-    if not bool(torch.isfinite(pair[0]).all()):
-        raise PhaseError("timed run produced non-finite values")
-    record["ms_per_step"] = dict(host=host_ms, events=dev_ms,
-                                 host_enqueue=enqueue_ms, steps=N_TIMED)
-    print(f"[time] fused step at {N_MAIN}^2 float64: {host_ms:.4f} ms/step "
-          f"(host clock), {dev_ms:.4f} ms/step (CUDA events), host enqueue "
-          f"{enqueue_ms:.4f} ms/step; {N_TIMED} steps after {N_STEPS} warm-up")
+    (c_b1d, _), b1d_launches = counts_of(lambda: ch_evolve(b1d, c0, N_STEPS))
+    b1d_s = time.perf_counter() - t0
+    expect(b1d_launches, dict(stencil1d_batch=10 + 6 * N_STEPS,
+                              penta_cols=1 + N_STEPS, penta_rows=1 + N_STEPS),
+           "rhs_mode='batch1d' run")
+    print(f"[b1d] batch1d: bootstrap + {N_STEPS} steps in {b1d_s:.3f} s, "
+          f"launches {b1d_launches}", flush=True)
+    b1d_plain = CahnHilliardADI(CHConfig(nx=N_MAIN, ny=N_MAIN, rhs_mode="batch1d",
+                                         backend="torch"))
+    (c_b1d_plain, _), n_plain = counts_of(lambda: ch_evolve(b1d_plain, c0, N_STEPS))
+    expect(n_plain, {}, "batch1d backend='torch' run")
+    b1d_checks = {}
+    compare("batch1d kernels vs plain", c_b1d, c_b1d_plain, tol, b1d_checks)
+    compare("batch1d vs fused", c_b1d, c_fused, tol, b1d_checks)
+    for name, c in (("batch1d", c_b1d), ("batch1d plain", c_b1d_plain)):
+        mass_drift(name, c, b1d_checks)
+
+    # CahnHilliardADI.rhs in fused mode: the standalone RHS kernel
+    c1 = solver.initial_step(c0)
+    rhs_k, rhs_launches = counts_of(lambda: solver.rhs(c1, c0))
+    expect(rhs_launches, dict(ch_rhs=1), "fused-mode rhs")
+    rhs_tol = tolerance_for("float64", scale=SCALE["ch_rhs"])
+    compare("fused-mode rhs kernel vs plain", rhs_k, plain.rhs(c1, c0), rhs_tol,
+            b1d_checks)
+    compare("fused-mode rhs vs stencil-mode rhs", rhs_k, stencil.rhs(c1, c0),
+            rhs_tol, b1d_checks)
+    record["batch1d"] = dict(launches=b1d_launches, seconds=b1d_s,
+                             rhs_launches=rhs_launches, **b1d_checks)
+
+    # -- 4c. 3D: the LOD diffusion step of examples/diffusion3d_adi.py -------
+    x3 = torch.arange(N3, device=dev, dtype=torch.float64) * h3
+    s3 = torch.sin(x3)
+    c3_0 = s3[:, None, None] * s3[None, :, None] * s3[None, None, :]
+    amp0 = float(c3_0.abs().max())
+    g = float(1.0 / (1.0 + 4.0 * r3 * math.sin(h3 / 2.0) ** 2) ** 3)
+    op3_plain = rt.create("diffusion", (N3,) * 3, mode="adi", alpha=r3,
+                          cyclic=True, backend="torch")
+    lap3_plain = rt.create("laplacian", (N3,) * 3, bc="periodic", h=h3,
+                           backend="torch")
+    diag_steps = [k for k in range(1, N_STEPS + 1)
+                  if k == 1 or k % max(N_STEPS // 8, 1) == 0]
+
+    def lod_run(op, lap):
+        c, worst, rows = c3_0.clone(), 0.0, []
+        for k in range(1, N_STEPS + 1):
+            c = rt.compute(op, c)
+            amp = float(c.abs().max())
+            dev_k = abs(amp / (amp0 * g**k) - 1.0)
+            worst = max(worst, dev_k)
+            if not dev_k <= DECAY_MAX:
+                raise PhaseError(f"3D LOD step {k}: |amp/exact - 1| = {dev_k:.3e}")
+            if k in diag_steps:
+                res = float(((1.0 - 1.0 / g) / LOD["dt"] * c
+                             - LOD["D"] * rt.compute(lap, c)).abs().max())
+                rows.append((k, amp, amp / (amp0 * g**k), res))
+        return c, worst, rows
+
+    t0 = time.perf_counter()
+    (c3, worst3, rows3), lod_launches = counts_of(lambda: lod_run(op3, lap3))
+    lod_s = time.perf_counter() - t0
+    expect(lod_launches, dict(penta_rows=N_STEPS, penta_mid=N_STEPS,
+                              penta_cols=N_STEPS, stencil3d=len(diag_steps)),
+           "3D LOD run")
+    print(f"[3d] LOD diffusion {N3}^3 float64, dt {LOD['dt']}, D {LOD['D']}, "
+          f"r {r3:.4f}: {N_STEPS} steps in {lod_s:.3f} s, launches "
+          f"{lod_launches}", flush=True)
+    print("[3d] step, amp, amp/exact_discrete, lap_residual")
+    for k, amp, ratio, res in rows3:
+        print(f"[3d] {k:4d} {amp:.6e} {ratio:.15f} {res:.3e}")
+    print(f"[3d] max over {N_STEPS} steps of |amp/exact_discrete - 1| = "
+          f"{worst3:.3e} <= {DECAY_MAX:.0e}")
+    (c3_plain, worst3_plain, _), n_plain = counts_of(
+        lambda: lod_run(op3_plain, lap3_plain))
+    expect(n_plain, {}, "3D backend='torch' run")
+    lod_checks = dict(decay_max_dev=worst3, decay_max_dev_plain=worst3_plain)
+    compare("3D kernels vs plain", c3, c3_plain,
+            tolerance_for("float64", scale=SCALE_3D), lod_checks)
+    record["lod3d"] = dict(launches=lod_launches, seconds=lod_s,
+                           diagnostics=rows3, **lod_checks)
+    del c3_plain, op3_plain, lap3_plain
+
+    # -- 5. timing -----------------------------------------------------------
+    def per_step(run, carry, steps):
+        """ms/step of ``carry = run(carry)`` (one call does ``steps`` steps):
+        host clock to the synchronize, CUDA events, host enqueue time."""
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        carry = run(carry)
+        end.record()
+        t_enqueued = time.perf_counter()
+        torch.cuda.synchronize()
+        out = dict(host=(time.perf_counter() - t0) * 1e3 / steps,
+                   events=start.elapsed_time(end) / steps,
+                   host_enqueue=(t_enqueued - t0) * 1e3 / steps, steps=steps)
+        return carry, out
+
+    def pair_of(s):
+        return s.make_evolve(N_STEPS)(s.initial_step(c0), c0.clone())
+
+    step_times = {}
+    for name, s_, steps in (("fused", solver, N_TIMED),
+                            ("batch1d", b1d, N_TIMED_B1D)):
+        evolve = s_.make_evolve(steps)
+        pair, step_times[name] = per_step(lambda p, e=evolve: e(*p), pair_of(s_),
+                                          steps)
+        if not bool(torch.isfinite(pair[0]).all()):
+            raise PhaseError(f"timed {name} run produced non-finite values")
+    del pair
+
+    def lod_steps(c):
+        for _ in range(N_TIMED_3D):
+            c = rt.compute(op3, c)
+        return c
+
+    c3 = lod_steps(c3_0.clone())  # warm-up
+    c3, step_times["lod3d"] = per_step(lod_steps, c3, N_TIMED_3D)
+    if not bool(torch.isfinite(c3).all()):
+        raise PhaseError("timed 3D run produced non-finite values")
+    # where the batched-1D and 3D steps go: each piece timed alone at the
+    # step's shapes (CUDA events, median of 20)
+    b1d_rhs = b1d.rhs(c1, c0)
+    pieces = {
+        "batch1d rhs: 6 stencil1d_batch + elementwise": lambda: b1d.rhs(c1, c0),
+        f"batch1d x-sweep: penta_rows ({N_MAIN}, {N_MAIN})":
+            lambda: b1d.op_full.solve_x(b1d_rhs),
+        f"batch1d y-sweep: penta_cols ({N_MAIN}, {N_MAIN})":
+            lambda: b1d.op_full.solve_y(b1d_rhs),
+        f"3D x-sweep: penta_rows ({N3 * N3}, {N3})": lambda: op3.solve_x(u3),
+        f"3D y-sweep: penta_mid ({N3}, {N3}, {N3})": lambda: op3.solve_y(u3),
+        f"3D z-sweep: penta_cols ({N3}, {N3 * N3})": lambda: op3.solve_z(u3),
+    }
+    breakdown = {name: time_ms(fn) for name, fn in pieces.items()}
+    record["step_breakdown_ms"] = breakdown
+    for name, ms in breakdown.items():
+        print(f"[time] {name}: {ms:.4f} ms")
+    record["ms_per_step"] = step_times["fused"]
+    record["ms_per_step_batch1d"] = step_times["batch1d"]
+    record["ms_per_step_lod3d"] = step_times["lod3d"]
+    for name, what in (("fused", f"fused step at {N_MAIN}^2 float64"),
+                       ("batch1d", f"batch1d step at {N_MAIN}^2 float64"),
+                       ("lod3d", f"3D LOD step at {N3}^3 float64")):
+        t = step_times[name]
+        print(f"[time] {what}: {t['host']:.4f} ms/step (host clock), "
+              f"{t['events']:.4f} ms/step (CUDA events), host enqueue "
+              f"{t['host_enqueue']:.4f} ms/step; {t['steps']} steps after "
+              f"warm-up")
 
     # -- 6. result lines -----------------------------------------------------
+    # launches: each kernel's count from the run of the path it serves
+    path_launches = dict(
+        ch_rhs_xsweep=main_launches, penta_cols=main_launches,
+        penta_rows=main_launches, stencil2d=main_launches,
+        stencil1d_batch=b1d_launches, ch_rhs=rhs_launches,
+        stencil3d=lod_launches, penta_mid=lod_launches,
+    )
     kernels = []
-    for name in ("ch_rhs_xsweep", "penta_cols", "penta_rows", "stencil2d"):
+    for name, counts in path_launches.items():
+        if not counts[name] > 0:
+            raise PhaseError(f"{name} was not launched on its path")
         source, replaces = KERNEL_INFO[name]
         t = timings[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=main_launches[name],
+            launches=counts[name],
             max_abs_err=max(c["max_abs_err"] for c in checks
                             if c["kernel"] == name and "main" in c["label"]),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],

@@ -1,10 +1,14 @@
 """The four-function facade — Create / Compute / Swap / Destroy (counterpart
-of ``repro.api``, rank-2 plans).
+of ``repro.api``).
 
-- :func:`create` — a :class:`~repro_torch.core.stencil.Stencil2D`
-  (``mode='xy'|'x'|'y'``) or a 2D :class:`~repro_torch.core.adi.ADIOperator`
-  (``mode='adi'``), built on ``device`` (the card unless the caller asks for
-  the CPU).
+- :func:`create` — the plan family from the rank of ``shape`` and the
+  ``mode`` hint: a :class:`~repro_torch.core.stencil.Stencil2D`
+  (``mode='xy'|'x'|'y'``), a
+  :class:`~repro_torch.core.stencil.StencilBatch1D` (``mode='batch'`` on a
+  ``(B, M)`` stack), a :class:`~repro_torch.core.stencil.Stencil3D`
+  (rank 3, ``mode='xyz'|'x'|'y'|'z'``), or a 2D/3D ADI operator
+  (``mode='adi'``), built on ``device`` (the card unless the caller asks
+  for the CPU).
 - :func:`compute` — the single apply path for any plan.
 - :func:`swap` — the double-buffer flip between time steps.
 - :func:`destroy` — unified, idempotent teardown.
@@ -98,14 +102,9 @@ _D2 = np.array([1.0, -2.0, 1.0])  # delta (paper eq. 4a)
 _D4 = np.array([1.0, -4.0, 6.0, -4.0, 1.0])  # delta^2 (paper eq. 4b)
 
 
-def _rank3_refused():
-    return NotImplementedError(
-        "rank-3 (3D) plans are not ported yet (ROADMAP.md queue 1, item 7)"
-    )
-
-
 def _laplacian_weights(ndim: int = 2, h: float = 1.0):
-    """delta^2 in 1D, the 5-point cross in 2D (units h^-2)."""
+    """delta^2 in 1D, the 5-point cross in 2D, the 7-point box in 3D
+    (units h^-2)."""
     if ndim == 1:
         return _D2 / h**2
     if ndim == 2:
@@ -114,7 +113,7 @@ def _laplacian_weights(ndim: int = 2, h: float = 1.0):
         w[:, 1] += _D2
         return w / h**2
     if ndim == 3:
-        raise _rank3_refused()
+        return _stencil.laplacian3d_weights(h)
     raise ValueError(f"laplacian weights: ndim must be 1|2|3, got {ndim}")
 
 
@@ -134,7 +133,7 @@ def _biharmonic_weights(ndim: int = 2, h: float = 1.0):
 
 register_operator(
     "laplacian", weights=_laplacian_weights,
-    doc="grad^2: 3-point / 5-point cross (units h^-2)",
+    doc="grad^2: 3-point / 5-point cross / 7-point box (units h^-2)",
 )
 register_operator(
     "biharmonic", weights=_biharmonic_weights,
@@ -154,7 +153,36 @@ register_operator(
 )
 
 
-_EXTENT_KEYS = ("left", "right", "top", "bottom")
+_BATCH_MODES = ("batch", "batch1d", "1d_batch")
+_EXTENT_KEYS = ("left", "right", "top", "bottom", "front", "back")
+
+
+def _resolve_direction(rank: int, mode: str | None, wndim: int | None):
+    """Plan direction from the shape rank, the mode hint, and (when
+    weights are an explicit array) their dimensionality."""
+    if rank == 2:
+        if mode is None:
+            return "xy" if wndim in (2, None) else "x"
+        if mode in _stencil._DIRECTIONS:
+            return mode
+        raise ValueError(
+            f"mode for a rank-2 shape must be one of "
+            f"{_stencil._DIRECTIONS + _BATCH_MODES[:1] + ('adi',)}, "
+            f"got {mode!r}"
+        )
+    if mode is None:
+        if wndim in (3, None):
+            return "xyz"
+        raise ValueError(
+            "1D weights on a rank-3 shape are ambiguous: pass "
+            "mode='x'|'y'|'z'"
+        )
+    if mode in _stencil._DIRECTIONS_3D:
+        return mode
+    raise ValueError(
+        f"mode for a rank-3 shape must be one of "
+        f"{_stencil._DIRECTIONS_3D + ('adi',)}, got {mode!r}"
+    )
 
 
 def create(
@@ -169,6 +197,7 @@ def create(
     dtype=None,
     alpha=None,
     alpha_y=None,
+    alpha_z=None,
     cyclic: bool | None = None,
     backend: str = "auto",
     streams: int | None = None,
@@ -177,28 +206,40 @@ def create(
     lint: str | None = None,
     device="cuda",
 ):
-    """Create a plan — the one entry point for the rank-2 plan families.
+    """Create a plan — the one entry point for every plan family.
 
     ``weights_or_fn`` is an explicit weights array, a point function (the
     paper's function-pointer mode; give ``coeffs`` and ``extents``), or a
-    registered operator name.  ``shape`` is ``(ny, nx)``; ``mode`` is the
-    stencil direction ``'x'|'y'|'xy'`` (default from the weights) or
-    ``'adi'`` for an implicit operator (named operator with bands +
-    ``alpha=``; ``bc='periodic'`` gives cyclic bands).  ``backend`` is
-    ``'auto'|'cuda'|'torch'``; ``device`` defaults to the card.
+    registered operator name (weights built for the inferred
+    dimensionality with grid spacing ``h``).  The family comes from the
+    rank of ``shape`` and ``mode``:
+
+    ========================  =========================================
+    ``shape``, ``mode``       plan
+    ========================  =========================================
+    ``(ny, nx)``              :class:`Stencil2D` (``mode`` = direction
+                              ``'x'|'y'|'xy'``; default from weights)
+    ``(B, M)``, ``'batch'``   :class:`StencilBatch1D` (one 1D stencil,
+                              every row of the stack)
+    ``(nz, ny, nx)``          :class:`Stencil3D` (``mode`` = direction
+                              ``'x'|'y'|'z'|'xyz'``)
+    any, ``'adi'``            :class:`ADIOperator` / :class:`ADIOperator3D`
+                              (named operator with bands + ``alpha=``;
+                              ``bc='periodic'`` gives cyclic bands)
+    ========================  =========================================
+
+    ``backend`` is ``'auto'|'cuda'|'torch'``; ``device`` defaults to the
+    card.
     """
     refuse_unported(
         streams=streams, max_tile_bytes=max_tile_bytes, tune=tune, lint=lint
     )
     shape = tuple(int(s) for s in shape)
-    if len(shape) == 3:
-        raise _rank3_refused()
-    if len(shape) != 2:
-        raise ValueError(f"shape must be rank 2, got {shape!r}")
-    if mode in ("batch", "batch1d", "1d_batch"):
-        raise NotImplementedError(
-            "mode='batch' (batched-1D plans) is not ported yet "
-            "(ROADMAP.md queue 1, item 5)"
+    rank = len(shape)
+    if rank not in (2, 3):
+        raise ValueError(
+            f"shape must be rank 2 or 3, got {shape!r} "
+            "(batched-1D stacks are rank-2 (B, M) with mode='batch')"
         )
     opdef = get_operator(weights_or_fn) if isinstance(weights_or_fn, str) else None
 
@@ -222,71 +263,93 @@ def create(
                 f"bc={bc!r} asks for a non-cyclic operator but cyclic=True "
                 "was passed; drop one of them"
             )
-        ny, nx = shape
-        return _adi._make_adi_operator(
-            ny, nx, alpha, alpha_over_h4_y=alpha_y, cyclic=cyclic,
-            dtype=torch.float64 if dtype is None else dtype, backend=backend,
-            operator=opdef.name, device=device,
+        common = dict(
+            cyclic=cyclic, dtype=torch.float64 if dtype is None else dtype,
+            backend=backend, operator=opdef.name, device=device,
+        )
+        if rank == 2:
+            if alpha_z is not None:
+                raise ValueError("alpha_z only applies to rank-3 shapes")
+            ny, nx = shape
+            return _adi._make_adi_operator(
+                ny, nx, alpha, alpha_over_h4_y=alpha_y, **common
+            )
+        nz, ny, nx = shape
+        return _adi._make_adi_operator_3d(
+            nz, ny, nx, alpha, alpha_y=alpha_y, alpha_z=alpha_z, **common
         )
 
-    for nm, val in (("alpha", alpha), ("alpha_y", alpha_y), ("cyclic", cyclic)):
+    for nm, val in (("alpha", alpha), ("alpha_y", alpha_y),
+                    ("alpha_z", alpha_z), ("cyclic", cyclic)):
         if val is not None:
             raise ValueError(
                 f"{nm}= only applies to mode='adi' (implicit ADI plans)"
             )
+    batch = mode in _BATCH_MODES
+    if batch and rank != 2:
+        raise ValueError("mode='batch' takes a rank-2 (B, M) stack")
     if opdef is None and h != 1.0:
         raise ValueError(
             "h= only scales registry-operator weights; explicit weights and "
             f"point functions already encode the grid spacing (got h={h!r})"
         )
-    if mode is not None and mode not in _stencil._DIRECTIONS:
-        raise ValueError(
-            f"mode for a rank-2 shape must be one of "
-            f"{_stencil._DIRECTIONS + ('adi',)}, got {mode!r}"
-        )
     weights = func = None
+    direction = None
     if opdef is not None:
         if opdef.weights is None:
             raise ValueError(
                 f"operator {opdef.name!r} defines no stencil weights "
                 "(band-only); use mode='adi'"
             )
-        direction = mode or "xy"
-        weights = opdef.weights(2 if direction == "xy" else 1, h)
+        if not batch:
+            direction = _resolve_direction(rank, mode, None)
+        wndim = 1 if batch else {"xy": 2, "xyz": 3}.get(direction, 1)
+        weights = opdef.weights(wndim, h)
     elif callable(weights_or_fn) and not isinstance(
         weights_or_fn, (np.ndarray, torch.Tensor)
     ):
         func = weights_or_fn
-        direction = mode or "xy"
+        if not batch:
+            direction = _resolve_direction(rank, mode, None)
     else:
         weights = weights_or_fn
-        ndim = np.ndim(weights)
-        direction = mode or ("xy" if ndim == 2 else "x")
+        if not batch:
+            direction = _resolve_direction(rank, mode, np.ndim(weights))
 
     ext = dict(extents or {})
-    bad = sorted(set(ext) - set(_EXTENT_KEYS))
+    allowed = _EXTENT_KEYS[:2] if batch else _EXTENT_KEYS[: 2 * rank]
+    bad = sorted(set(ext) - set(allowed))
     if bad:
-        raise ValueError(f"unknown extents keys {bad}; allowed: {list(_EXTENT_KEYS)}")
-    return _stencil._create_2d(
-        direction, bc, weights=weights, func=func, coeffs=coeffs,
-        backend=backend, dtype=dtype, device=device,
+        raise ValueError(f"unknown extents keys {bad}; allowed: {list(allowed)}")
+    common = dict(
+        weights=weights, func=func, coeffs=coeffs, backend=backend,
+        dtype=dtype, device=device,
         op_name=None if opdef is None else opdef.name,
         **{f"num_sten_{k}": v for k, v in ext.items()},
     )
+    if batch:
+        return _stencil._create_1d_batch(bc, **common)
+    if rank == 2:
+        return _stencil._create_2d(direction, bc, **common)
+    return _stencil._create_3d(direction, bc, **common)
 
 
 def compute(plan, field, *extra):
     """Apply any plan to ``field`` — the single Compute path.  Stencil plans
     take an optional ``out_init`` extra; ADI plans apply the full implicit
-    solve ``L_y^{-1} L_x^{-1}``."""
+    solve, ``L_y^{-1} L_x^{-1}`` in 2D and ``L_z^{-1} L_y^{-1} L_x^{-1}``
+    in 3D."""
     if getattr(plan, "_destroyed", False):
         raise ValueError("plan has been destroyed; create a new one")
     if isinstance(plan, _stencil.PlanCore):
         return plan.apply(field, *extra)
-    if isinstance(plan, _adi.ADIOperator):
+    if isinstance(plan, (_adi.ADIOperator, _adi.ADIOperator3D)):
         if extra:
             raise TypeError("ADI compute takes no extra operands")
-        return plan.solve_y(plan.solve_x(field))
+        out = plan.solve_y(plan.solve_x(field))
+        if isinstance(plan, _adi.ADIOperator3D):
+            out = plan.solve_z(out)
+        return out
     raise TypeError(
         f"compute wants a stencil plan or ADI operator, got {type(plan).__name__}"
     )

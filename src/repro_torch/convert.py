@@ -1,7 +1,8 @@
 """Carry the reference's state across: turn numpy arrays into the port's
 objects.
 
-The reference's factor sets, ADI operators and stencil plans hold arrays;
+The reference's factor sets, ADI operators (2D and 3D) and stencil plans
+(2D, batched-1D and 3D) hold arrays;
 pass ``np.asarray`` of each and these functions build the port's
 counterpart on ``device``.  Feeding the reference's own factors to the
 port separates differences in the substitution from differences in the
@@ -15,8 +16,8 @@ from collections.abc import Callable, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.adi import ADIOperator
-from repro_torch.core.stencil import Stencil2D
+from repro_torch.core.adi import ADIOperator, ADIOperator3D
+from repro_torch.core.stencil import Stencil2D, Stencil3D, StencilBatch1D
 from repro_torch.kernels.penta import CyclicPentaFactors, PentaFactors
 from repro_torch.kernels.ref import weighted_point_fn
 from repro_torch.util import resolve_device
@@ -62,6 +63,72 @@ def adi_operator(
     )
 
 
+def adi_operator_3d(
+    fac_x: PentaFactors | CyclicPentaFactors,
+    fac_y: PentaFactors | CyclicPentaFactors,
+    fac_z: PentaFactors | CyclicPentaFactors,
+    *,
+    backend: str = "auto",
+    operator: str = "hyperdiffusion",
+) -> ADIOperator3D:
+    """A :class:`ADIOperator3D` from three converted factor sets (cyclic
+    when all three are cyclic)."""
+    kinds = {isinstance(f, CyclicPentaFactors) for f in (fac_x, fac_y, fac_z)}
+    if len(kinds) != 1:
+        raise ValueError("fac_x, fac_y and fac_z must all be cyclic or all plain")
+    return ADIOperator3D(
+        fac_x=fac_x, fac_y=fac_y, fac_z=fac_z, cyclic=kinds.pop(),
+        backend=backend, operator=operator,
+    )
+
+
+def _check_weighted(coeffs_t: torch.Tensor, point_fn: Callable, n: int) -> None:
+    if point_fn is weighted_point_fn and coeffs_t.numel() != n:
+        raise ValueError("weighted coeffs must hold one weight per window")
+
+
+def stencil_batch1d(
+    coeffs,
+    *,
+    left: int,
+    right: int,
+    bc: str = "periodic",
+    point_fn: Callable = weighted_point_fn,
+    backend: str = "auto",
+    device="cuda",
+) -> StencilBatch1D:
+    """A :class:`StencilBatch1D` from its ``coeffs`` (left to right) and
+    extents."""
+    coeffs_t = _tensor(coeffs, resolve_device(device)).reshape(-1)
+    _check_weighted(coeffs_t, point_fn, left + right + 1)
+    return StencilBatch1D(
+        bc=bc, left=left, right=right, coeffs=coeffs_t, point_fn=point_fn,
+        backend=backend,
+    )
+
+
+def stencil3d(
+    coeffs,
+    *,
+    halos,
+    bc: str = "periodic",
+    point_fn: Callable = weighted_point_fn,
+    backend: str = "auto",
+    device="cuda",
+) -> Stencil3D:
+    """A :class:`Stencil3D` from flat ``coeffs`` (z-major, then row-major
+    over (y, x)) and ``halos`` ``(front, back, top, bottom, left, right)``."""
+    fr, bk, tp, bt, lf, rt = (int(h) for h in halos)
+    coeffs_t = _tensor(coeffs, resolve_device(device)).reshape(-1)
+    _check_weighted(coeffs_t, point_fn, (fr + bk + 1) * (tp + bt + 1) * (lf + rt + 1))
+    axes = "".join(a for a, on in (("x", lf or rt), ("y", tp or bt), ("z", fr or bk)) if on)
+    return Stencil3D(
+        direction=axes if len(axes) == 1 else "xyz", bc=bc, front=fr, back=bk,
+        top=tp, bottom=bt, left=lf, right=rt, coeffs=coeffs_t,
+        point_fn=point_fn, backend=backend,
+    )
+
+
 def stencil2d(
     coeffs,
     *,
@@ -77,10 +144,7 @@ def stencil2d(
     """A :class:`Stencil2D` from flat ``coeffs`` (row-major from the
     stencil's top-left) and its extents."""
     coeffs_t = _tensor(coeffs, resolve_device(device)).reshape(-1)
-    if point_fn is weighted_point_fn and coeffs_t.numel() != (
-        (left + right + 1) * (top + bottom + 1)
-    ):
-        raise ValueError("weighted coeffs must hold one weight per window")
+    _check_weighted(coeffs_t, point_fn, (left + right + 1) * (top + bottom + 1))
     direction = "xy" if (left or right) and (top or bottom) else (
         "y" if (top or bottom) else "x"
     )

@@ -1,12 +1,18 @@
-"""2D ADI (alternating-direction implicit) operator (counterpart of
-``repro.core.adi``, 2D part).
+"""ADI (alternating-direction implicit) operators in 2D and 3D (counterpart
+of ``repro.core.adi``), and the directional application of batched-1D
+stencil plans (:func:`apply_along_x`, :func:`apply_along_y`).
 
 Each ADI step inverts the per-direction implicit operator
-``L = I + alpha delta^4`` along x and then along y.  The factorisation
-happens once at Create (:func:`_make_adi_operator`); each Compute is a
-batched banded substitution, transpose-free in both sweeps: the x-sweep
-runs the row-layout solve on the ``(ny, nx)`` field as it lies, the y-sweep
-the column-layout solve.
+``L = I + alpha delta^4`` (or the registry operator's band) along each
+grid direction.  The factorisation happens once at Create
+(:func:`_make_adi_operator`, :func:`_make_adi_operator_3d`); each Compute
+is a batched banded substitution, transpose-free in every sweep:
+
+- 2D :class:`ADIOperator`: the x-sweep runs the row-layout solve on the
+  ``(ny, nx)`` field as it lies, the y-sweep the column-layout solve;
+- 3D :class:`ADIOperator3D`: the x-sweep runs the row layout on the
+  ``(nz*ny, nx)`` view, the y-sweep the plane layout on the field itself,
+  the z-sweep the column layout on the ``(nz, ny*nx)`` view.
 """
 
 from __future__ import annotations
@@ -16,14 +22,17 @@ import dataclasses
 import torch
 
 from repro_torch.kernels._build import check_backend
+from repro_torch.core.stencil import StencilBatch1D
 from repro_torch.kernels.penta import (
     CyclicPentaFactors,
     PentaFactors,
     cyclic_penta_factor,
     cyclic_penta_solve_factored,
+    cyclic_penta_solve_factored_mid,
     cyclic_penta_solve_factored_rows,
     penta_factor,
     penta_solve_factored,
+    penta_solve_factored_mid,
     penta_solve_factored_rows,
 )
 from repro_torch.util import refuse_unported, resolve_device
@@ -41,6 +50,30 @@ def _band_builder(operator: str):
             "(it is stencil-weights-only)"
         )
     return opdef.diagonals
+
+
+def apply_along_x(
+    plan: StencilBatch1D,
+    field: torch.Tensor,
+    out_init: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Apply a batched-1D plan along the x (last) axis of an (ny, nx) field:
+    the ny rows are the batch."""
+    return plan.apply(field, out_init)
+
+
+def apply_along_y(
+    plan: StencilBatch1D,
+    field: torch.Tensor,
+    out_init: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Apply a batched-1D plan along the y (first) axis of an (ny, nx)
+    field: the nx columns are the batch.  ``field.T`` is a view, and the
+    CUDA kernel reads it in place through its strides (no transposed copy);
+    its result has the view's layout, so the ``.T`` that undoes it is
+    contiguous again."""
+    out_init_t = None if out_init is None else out_init.T
+    return plan.apply(field.T, out_init_t).T
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +139,98 @@ def _make_adi_operator(
     return ADIOperator(
         fac_x=factor(*diagonals(nx, alpha_over_h4, dtype), device=dev),
         fac_y=factor(*diagonals(ny, ay, dtype), device=dev),
+        cyclic=cyclic,
+        backend=backend,
+        operator=operator,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class ADIOperator3D:
+    """Factored per-direction operators for 3D ADI sweeps on an
+    ``(nz, ny, nx)`` field, every sweep transpose-free:
+
+    - :meth:`solve_x` — row layout on the ``(nz*ny, nx)`` view;
+    - :meth:`solve_y` — plane layout on the field itself (recurrence along
+      the middle axis, batch on planes x lanes);
+    - :meth:`solve_z` — column layout on the ``(nz, ny*nx)`` view.
+    """
+
+    fac_x: CyclicPentaFactors | PentaFactors  # along x (length nx)
+    fac_y: CyclicPentaFactors | PentaFactors  # along y (length ny)
+    fac_z: CyclicPentaFactors | PentaFactors  # along z (length nz)
+    cyclic: bool
+    backend: str = "auto"
+    operator: str = "hyperdiffusion"
+
+    @property
+    def destroyed(self) -> bool:
+        """True once ``repro_torch.destroy`` ran on this operator."""
+        return getattr(self, "_destroyed", False)
+
+    def solve_x(self, rhs: torch.Tensor) -> torch.Tensor:
+        """Solve ``L_x w = rhs`` along the x (last) axis — row layout on the
+        flattened ``(nz*ny, nx)`` batch."""
+        nz, ny, nx = rhs.shape
+        solve = (
+            cyclic_penta_solve_factored_rows if self.cyclic
+            else penta_solve_factored_rows
+        )
+        out = solve(self.fac_x, rhs.reshape(nz * ny, nx), backend=self.backend)
+        return out.reshape(rhs.shape)
+
+    def solve_y(self, rhs: torch.Tensor) -> torch.Tensor:
+        """Solve ``L_y v = rhs`` along the y (middle) axis — plane layout."""
+        solve = (
+            cyclic_penta_solve_factored_mid if self.cyclic
+            else penta_solve_factored_mid
+        )
+        return solve(self.fac_y, rhs, backend=self.backend)
+
+    def solve_z(self, rhs: torch.Tensor) -> torch.Tensor:
+        """Solve ``L_z u = rhs`` along the z (first) axis — column layout on
+        the ``(nz, ny*nx)`` view."""
+        nz, ny, nx = rhs.shape
+        solve = cyclic_penta_solve_factored if self.cyclic else penta_solve_factored
+        out = solve(self.fac_z, rhs.reshape(nz, ny * nx), backend=self.backend)
+        return out.reshape(rhs.shape)
+
+
+def _make_adi_operator_3d(
+    nz: int,
+    ny: int,
+    nx: int,
+    alpha,
+    *,
+    cyclic: bool = True,
+    dtype=torch.float64,
+    backend: str = "auto",
+    alpha_y: float | None = None,
+    alpha_z: float | None = None,
+    streams: int | None = None,
+    max_tile_bytes: int | None = None,
+    tune: str = "off",
+    operator: str = "hyperdiffusion",
+    device="cuda",
+) -> ADIOperator3D:
+    """Create (factor) the 3D ADI operator triple.
+
+    ``alpha`` multiplies the per-direction difference operator:
+    ``I + alpha delta^4`` for ``operator='hyperdiffusion'``,
+    ``I - alpha delta^2`` for ``operator='diffusion'`` (backward-Euler heat
+    sweeps, ``alpha = D dt / h^2``).  ``alpha_y``/``alpha_z`` override the
+    x coefficient per direction on anisotropic grids."""
+    refuse_unported(streams=streams, max_tile_bytes=max_tile_bytes, tune=tune)
+    check_backend(backend)
+    dev = resolve_device(device)
+    diagonals = _band_builder(operator)
+    ay = alpha if alpha_y is None else alpha_y
+    az = alpha if alpha_z is None else alpha_z
+    factor = cyclic_penta_factor if cyclic else penta_factor
+    return ADIOperator3D(
+        fac_x=factor(*diagonals(nx, alpha, dtype), device=dev),
+        fac_y=factor(*diagonals(ny, ay, dtype), device=dev),
+        fac_z=factor(*diagonals(nz, az, dtype), device=dev),
         cyclic=cyclic,
         backend=backend,
         operator=operator,

@@ -13,13 +13,18 @@ the two-step scheme of paper eq. (2):
 with L = I + (2/3) D gamma dt d^4/dx^4 (pentadiagonal, factored once), and
 the ADI half-step pair of eq. (3) to bootstrap C^1 from C^0.
 
-Two RHS paths:
+Three RHS paths:
 
 - ``rhs_mode='fused'`` (default) — the RHS and the x-sweep in one CUDA
-  kernel (:func:`repro_torch.kernels.ops.ch_rhs_xsweep`);
+  kernel (:func:`repro_torch.kernels.ops.ch_rhs_xsweep`); ``rhs`` alone is
+  the standalone RHS kernel (:func:`repro_torch.kernels.ops.ch_rhs`);
 - ``rhs_mode='stencil'`` — paper-faithful: the RHS from cuSten plan calls,
   a 5x5 weighted plan for grad^4 and a 3x3 function-pointer plan applying
-  the Laplacian to (C^3 - C).
+  the Laplacian to (C^3 - C);
+- ``rhs_mode='batch1d'`` — the RHS assembled from batched-1D plans
+  (cuSten's 1DBatch family) applied along x and along y: delta^2 and delta
+  factors for grad^4 and a 3-point function-pointer plan for the
+  Laplacian of (C^3 - C), six directional applies per step.
 
 Everything runs on ``CHConfig.device`` (the card unless the caller asks for
 the CPU).
@@ -36,6 +41,7 @@ import torch
 
 from repro_torch import api as _api
 from repro_torch.core import metrics as _metrics
+from repro_torch.core.adi import apply_along_x, apply_along_y
 from repro_torch.kernels import ops as _ops
 from repro_torch.util import refuse_unported, resolve_device, torch_dtype
 
@@ -79,7 +85,7 @@ def cube_laplacian_point_fn(windows, coeffs):
 
 cube_laplacian_point_fn.device_point_fn = "cube_laplacian"
 
-_RHS_MODES = ("fused", "stencil")
+_RHS_MODES = ("fused", "stencil", "batch1d")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +98,7 @@ class CHConfig:
     D: float = 0.6
     gamma: float = 0.01
     dtype: str = "float64"
-    rhs_mode: str = "fused"  # 'fused' | 'stencil'
+    rhs_mode: str = "fused"  # 'fused' | 'stencil' | 'batch1d'
     backend: str = "auto"  # 'auto' | 'cuda' | 'torch'
     streams: int | None = None
     max_tile_bytes: int | None = None
@@ -114,11 +120,6 @@ class CHConfig:
             streams=self.streams, max_tile_bytes=self.max_tile_bytes,
             tune=self.tune,
         )
-        if self.rhs_mode == "batch1d":
-            raise NotImplementedError(
-                "rhs_mode='batch1d' is not ported yet (ROADMAP.md queue 1, "
-                "item 5)"
-            )
         if self.rhs_mode not in _RHS_MODES:
             raise ValueError(f"unknown rhs_mode {self.rhs_mode!r}")
 
@@ -160,6 +161,38 @@ class CahnHilliardADI:
         self.plan_init_a = mk(init_explicit_weights_a())
         self.plan_init_b = mk(init_explicit_weights_b())
 
+        # Create: the batched-1D plans (rhs_mode='batch1d').  Each is one
+        # directional factor; apply_along_{x,y} runs it over all grid lines.
+        mk1d = functools.partial(
+            _api.create, shape=(cfg.ny, cfg.nx), mode="batch", bc="periodic",
+            dtype=self.dtype, backend=cfg.backend, device=self.device,
+        )
+        self.plan_d4_1d = mk1d(_D4)
+        self.plan_d2_1d = mk1d(_D2)
+        self.plan_lap_cube_1d = mk1d(
+            cube_laplacian_point_fn, coeffs=_D2, extents=dict(left=1, right=1),
+        )
+
+    # -- batched-1D directional assembly (rhs_mode='batch1d') ----------------
+    def _cross_batch1d(self, c: torch.Tensor) -> torch.Tensor:
+        """delta_x delta_y c — two directional 3-point factors."""
+        return apply_along_x(self.plan_d2_1d, apply_along_y(self.plan_d2_1d, c))
+
+    def _bih_batch1d(self, c: torch.Tensor) -> torch.Tensor:
+        """delta_x^2 + delta_y^2 + 2 delta_x delta_y (units h^-4)."""
+        return (
+            apply_along_x(self.plan_d4_1d, c)
+            + apply_along_y(self.plan_d4_1d, c)
+            + 2.0 * self._cross_batch1d(c)
+        )
+
+    def _lap_cube_batch1d(self, c: torch.Tensor) -> torch.Tensor:
+        """Laplacian of (C^3 - C) via the per-direction function-pointer
+        plan: the nonlinearity is evaluated inside each 1D sweep."""
+        return apply_along_x(self.plan_lap_cube_1d, c) + apply_along_y(
+            self.plan_lap_cube_1d, c
+        )
+
     # -- explicit RHS of the full scheme (eq. 2a) ---------------------------
     def rhs(self, c_n: torch.Tensor, c_nm1: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -168,16 +201,15 @@ class CahnHilliardADI:
                 c_n, c_nm1, dt=cfg.dt, D=cfg.D, gamma=cfg.gamma,
                 inv_h2=self.inv_h2, inv_h4=self.inv_h4, backend=cfg.backend,
             )
+        batch1d = cfg.rhs_mode == "batch1d"
+        bih = self._bih_batch1d if batch1d else self.plan_bih.apply
+        lap_cube = self._lap_cube_batch1d if batch1d else self.plan_lap_cube.apply
         cbar = 2.0 * c_n - c_nm1
         lin = -(2.0 / 3.0) * (c_n - c_nm1)
         hyper = (
-            -(2.0 / 3.0) * cfg.dt * cfg.gamma * cfg.D * self.inv_h4
-            * self.plan_bih.apply(cbar)
+            -(2.0 / 3.0) * cfg.dt * cfg.gamma * cfg.D * self.inv_h4 * bih(cbar)
         )
-        nonlin = (
-            (2.0 / 3.0) * cfg.D * cfg.dt * self.inv_h2
-            * self.plan_lap_cube.apply(c_n)
-        )
+        nonlin = (2.0 / 3.0) * cfg.D * cfg.dt * self.inv_h2 * lap_cube(c_n)
         return lin + hyper + nonlin
 
     def _increment(self, c_n: torch.Tensor, c_nm1: torch.Tensor) -> torch.Tensor:
@@ -208,15 +240,26 @@ class CahnHilliardADI:
         cfg = self.cfg
         half = 0.5 * cfg.dt
         coef_h = cfg.D * cfg.gamma * self.inv_h4
-        lap_cube = self.plan_lap_cube.apply
+        if cfg.rhs_mode == "batch1d":
+            # per-direction explicit operators of eq. (3), assembled from
+            # the 1D plans: a = delta_y^2 + 2 dxdy, b = delta_x^2 + 2 dxdy
+            def expl_a(c):
+                return apply_along_y(self.plan_d4_1d, c) + 2.0 * self._cross_batch1d(c)
+
+            def expl_b(c):
+                return apply_along_x(self.plan_d4_1d, c) + 2.0 * self._cross_batch1d(c)
+
+            lap_cube = self._lap_cube_batch1d
+        else:
+            expl_a = self.plan_init_a.apply
+            expl_b = self.plan_init_b.apply
+            lap_cube = self.plan_lap_cube.apply
         rhs_a = c0 + half * (
-            -coef_h * self.plan_init_a.apply(c0)
-            + cfg.D * self.inv_h2 * lap_cube(c0)
+            -coef_h * expl_a(c0) + cfg.D * self.inv_h2 * lap_cube(c0)
         )
         c_half = self.op_half.solve_x(rhs_a)
         rhs_b = c_half + half * (
-            -coef_h * self.plan_init_b.apply(c_half)
-            + cfg.D * self.inv_h2 * lap_cube(c_half)
+            -coef_h * expl_b(c_half) + cfg.D * self.inv_h2 * lap_cube(c_half)
         )
         return self.op_half.solve_y(rhs_b)
 

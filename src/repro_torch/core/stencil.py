@@ -1,18 +1,22 @@
-"""The plan-based 2D stencil engine (counterpart of ``repro.core.stencil``,
-reduced to the monolithic apply).
+"""The plan-based stencil engine (counterpart of ``repro.core.stencil``,
+reduced to the monolithic apply), for the three plan families: 2D
+(:class:`Stencil2D`), batched-1D (:class:`StencilBatch1D`, cuSten's
+1DBatch) and 3D (:class:`Stencil3D`, paper §VI.A).
 
-- :func:`_create_2d` — Create: validate geometry, capture weights or the
-  function pointer, the boundary mode and the backend, return an immutable
-  plan whose coefficients already live on the plan's device.
-- :meth:`Stencil2D.apply` — Compute, through
-  :func:`repro_torch.kernels.ops.stencil_apply`.
+- :func:`_create_2d`, :func:`_create_1d_batch`, :func:`_create_3d` —
+  Create: validate geometry, capture weights or the function pointer, the
+  boundary mode and the backend, return an immutable plan whose
+  coefficients already live on the plan's device.
+- ``plan.apply`` — Compute, through the family's op in
+  :mod:`repro_torch.kernels.ops`.
 - :class:`DoubleBuffer` — Swap.
 - :func:`plan_destroy` — Destroy (an idempotent mark; tensors are freed by
   reference counting).
 
 Direction is encoded by the halo extents: an X plan has ``left/right``, a
-Y plan ``top/bottom``, an XY plan all four.  ``bc='np'`` computes interior
-points only and passes ``out_init`` through on the boundary.
+Y plan ``top/bottom``, a Z plan ``front/back``, an XY or XYZ plan all of
+its axes'.  ``bc='np'`` computes interior points only and passes
+``out_init`` through on the boundary.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from repro_torch.kernels.ref import weighted_point_fn
 from repro_torch.util import refuse_unported, resolve_device, torch_dtype
 
 _DIRECTIONS = ("x", "y", "xy")
+_DIRECTIONS_3D = ("x", "y", "z", "xyz")
 _BCS = ("periodic", "np")
 
 
@@ -65,13 +70,17 @@ class PlanCore:
     def _halo_kwargs(self) -> dict:
         raise NotImplementedError
 
+    def _mono_apply(self, *args, **kwargs) -> torch.Tensor:
+        """The family's Compute op in :mod:`repro_torch.kernels.ops`."""
+        raise NotImplementedError
+
     def apply(
         self, data: torch.Tensor, out_init: torch.Tensor | None = None
     ) -> torch.Tensor:
         """Apply the stencil to ``data`` (the Compute call).  For
         ``bc='np'`` the cells within the halo of the domain edge are copied
         from ``out_init`` (zeros if not given)."""
-        return ops.stencil_apply(
+        return self._mono_apply(
             data, self.coeffs, out_init, point_fn=self.point_fn, bc=self.bc,
             backend=self.backend, **self._halo_kwargs(),
         )
@@ -105,6 +114,9 @@ class Stencil2D(PlanCore):
     def _halo_kwargs(self) -> dict:
         return dict(left=self.left, right=self.right, top=self.top,
                     bottom=self.bottom)
+
+    def _mono_apply(self, *args, **kwargs):
+        return ops.stencil_apply(*args, **kwargs)
 
     @property
     def num_sten(self) -> int:
@@ -150,13 +162,7 @@ def _create_2d(
     check_backend(backend)
     if (weights is None) == (func is None):
         raise ValueError("exactly one of weights / func must be given")
-    dev = resolve_device(device)
-    dt = None if dtype is None else torch_dtype(dtype)
-
-    def tensor(a: np.ndarray) -> torch.Tensor:
-        t = torch.as_tensor(np.ascontiguousarray(a))
-        return t.to(device=dev, dtype=dt if dt is not None else t.dtype)
-
+    tensor = _tensor_factory(device, dtype)
     if weights is not None:
         w = _host(weights)
         if direction == "x":
@@ -193,6 +199,216 @@ def _create_2d(
         bottom=bottom, coeffs=coeffs_t, point_fn=point_fn,
         backend=backend, op_name=op_name,
     )
+
+
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class StencilBatch1D(PlanCore):
+    """An immutable batched-1D stencil plan (cuSten's 1DBatch family): one
+    1D stencil (extents ``left``/``right``) along axis 1 of a ``(B, M)``
+    stack, every row independently."""
+
+    left: int
+    right: int
+
+    def _halo_kwargs(self) -> dict:
+        return dict(left=self.left, right=self.right)
+
+    def _mono_apply(self, *args, **kwargs):
+        return ops.stencil_apply_batch1d(*args, **kwargs)
+
+    @property
+    def num_sten(self) -> int:
+        return self.left + self.right + 1
+
+    @property
+    def halo(self) -> tuple[int, int]:
+        return (self.left, self.right)
+
+
+def _create_1d_batch(
+    bc: str,
+    *,
+    weights=None,
+    func: Callable | None = None,
+    coeffs=None,
+    num_sten_left: int | None = None,
+    num_sten_right: int | None = None,
+    backend: str = "auto",
+    dtype=None,
+    device="cuda",
+    streams: int | None = None,
+    max_tile_bytes: int | None = None,
+    tune: str = "off",
+    op_name: str | None = None,
+) -> StencilBatch1D:
+    """Create a batched-1D stencil plan (cuSten ``custenCreate1DBatch*``).
+
+    Weighted mode: 1D ``weights`` of length ``numSten`` (symmetric split
+    inferred for odd lengths, or give ``num_sten_left/right``).  Function
+    mode (``Fun`` variants): ``func(windows, coeffs)`` plus ``coeffs`` and
+    the explicit extents; ``windows`` sweep left to right."""
+    refuse_unported(streams=streams, max_tile_bytes=max_tile_bytes, tune=tune)
+    if bc not in _BCS:
+        raise ValueError(f"bc must be one of {_BCS}")
+    check_backend(backend)
+    if (weights is None) == (func is None):
+        raise ValueError("exactly one of weights / func must be given")
+    tensor = _tensor_factory(device, dtype)
+    if weights is not None:
+        w = _host(weights)
+        if w.ndim != 1:
+            raise ValueError("batched-1D stencil weights must be 1D")
+        left, right = _split_extents(w.shape[0], num_sten_left, num_sten_right)
+        coeffs_t, point_fn = tensor(w), weighted_point_fn
+    else:
+        left = num_sten_left or 0
+        right = num_sten_right or 0
+        if coeffs is None:
+            coeffs = np.zeros((1,), np.float32)
+        coeffs_t, point_fn = tensor(_host(coeffs)), func
+    return StencilBatch1D(
+        bc=bc, left=left, right=right, coeffs=coeffs_t, point_fn=point_fn,
+        backend=backend, op_name=op_name,
+    )
+
+
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class Stencil3D(PlanCore):
+    """An immutable 3D stencil plan on ``(nz, ny, nx)`` fields.  Halos:
+    ``front/back`` along z, ``top/bottom`` along y, ``left/right`` along x."""
+
+    direction: str
+    front: int
+    back: int
+    top: int
+    bottom: int
+    left: int
+    right: int
+
+    def _halo_kwargs(self) -> dict:
+        return dict(halos=self.halos)
+
+    def _mono_apply(self, *args, **kwargs):
+        return ops.stencil_apply_3d(*args, **kwargs)
+
+    @property
+    def num_sten(self) -> int:
+        return ((self.front + self.back + 1) * (self.top + self.bottom + 1)
+                * (self.left + self.right + 1))
+
+    @property
+    def halo(self) -> tuple[int, int, int, int, int, int]:
+        return self.halos
+
+    @property
+    def halos(self) -> tuple[int, int, int, int, int, int]:
+        """(front, back, top, bottom, left, right) — the kernel's order."""
+        return (self.front, self.back, self.top, self.bottom, self.left,
+                self.right)
+
+
+def _create_3d(
+    direction: str,
+    bc: str,
+    *,
+    weights=None,
+    func: Callable | None = None,
+    coeffs=None,
+    num_sten_front: int | None = None,
+    num_sten_back: int | None = None,
+    num_sten_top: int | None = None,
+    num_sten_bottom: int | None = None,
+    num_sten_left: int | None = None,
+    num_sten_right: int | None = None,
+    backend: str = "auto",
+    dtype=None,
+    device="cuda",
+    streams: int | None = None,
+    max_tile_bytes: int | None = None,
+    tune: str = "off",
+    op_name: str | None = None,
+) -> Stencil3D:
+    """Create a 3D stencil plan (the §VI.A Create call).
+
+    Weighted mode: 1D ``weights`` for directions ``'x'|'y'|'z'`` (symmetric
+    split inferred for odd lengths, or the explicit extent pair), or a 3D
+    ``(sz, sy, sx)`` box for ``'xyz'``.  Function mode: ``func(windows,
+    coeffs)`` plus the explicit extents; windows are enumerated z-major,
+    then row-major over (y, x)."""
+    refuse_unported(streams=streams, max_tile_bytes=max_tile_bytes, tune=tune)
+    if direction not in _DIRECTIONS_3D:
+        raise ValueError(f"direction must be one of {_DIRECTIONS_3D}")
+    if bc not in _BCS:
+        raise ValueError(f"bc must be one of {_BCS}")
+    check_backend(backend)
+    if (weights is None) == (func is None):
+        raise ValueError("exactly one of weights / func must be given")
+    tensor = _tensor_factory(device, dtype)
+    front = back = top = bottom = left = right = 0
+    if weights is not None:
+        w = _host(weights)
+        if direction == "xyz":
+            if w.ndim != 3:
+                raise ValueError("xyz stencil weights must be 3D (sz, sy, sx)")
+            front, back = _split_extents(w.shape[0], num_sten_front, num_sten_back)
+            top, bottom = _split_extents(w.shape[1], num_sten_top, num_sten_bottom)
+            left, right = _split_extents(w.shape[2], num_sten_left, num_sten_right)
+        else:
+            if w.ndim != 1:
+                raise ValueError(f"{direction} stencil weights must be 1D")
+            if direction == "x":
+                left, right = _split_extents(w.shape[0], num_sten_left, num_sten_right)
+            elif direction == "y":
+                top, bottom = _split_extents(w.shape[0], num_sten_top, num_sten_bottom)
+            else:
+                front, back = _split_extents(w.shape[0], num_sten_front, num_sten_back)
+        coeffs_t, point_fn = tensor(w.ravel()), weighted_point_fn
+    else:
+        front = num_sten_front or 0
+        back = num_sten_back or 0
+        top = num_sten_top or 0
+        bottom = num_sten_bottom or 0
+        left = num_sten_left or 0
+        right = num_sten_right or 0
+        off_axis = {
+            "x": front or back or top or bottom,
+            "y": front or back or left or right,
+            "z": top or bottom or left or right,
+            "xyz": 0,
+        }[direction]
+        if off_axis:
+            raise ValueError(f"{direction} stencil cannot have off-axis extents")
+        if coeffs is None:
+            coeffs = np.zeros((1,), np.float32)
+        coeffs_t, point_fn = tensor(_host(coeffs)), func
+    return Stencil3D(
+        direction=direction, bc=bc, front=front, back=back, top=top,
+        bottom=bottom, left=left, right=right, coeffs=coeffs_t,
+        point_fn=point_fn, backend=backend, op_name=op_name,
+    )
+
+
+def laplacian3d_weights(h: float = 1.0) -> np.ndarray:
+    """7-point 3D Laplacian as a ``(3, 3, 3)`` box (units ``h^-2``)."""
+    w = np.zeros((3, 3, 3))
+    w[1, 1, 0] = w[1, 1, 2] = 1.0
+    w[1, 0, 1] = w[1, 2, 1] = 1.0
+    w[0, 1, 1] = w[2, 1, 1] = 1.0
+    w[1, 1, 1] = -6.0
+    return w / h**2
+
+
+def _tensor_factory(device, dtype) -> Callable:
+    """numpy array -> contiguous tensor on ``device`` in ``dtype`` (the
+    array's own dtype when ``dtype`` is None)."""
+    dev = resolve_device(device)
+    dt = None if dtype is None else torch_dtype(dtype)
+
+    def tensor(a: np.ndarray) -> torch.Tensor:
+        t = torch.as_tensor(np.ascontiguousarray(a))
+        return t.to(device=dev, dtype=dt if dt is not None else t.dtype)
+
+    return tensor
 
 
 def _host(a) -> np.ndarray:

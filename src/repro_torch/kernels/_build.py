@@ -44,24 +44,38 @@ LAUNCHES: dict[str, int] = {
     "penta_cols": 0,
     "penta_rows": 0,
     "ch_rhs_xsweep": 0,
+    "ch_rhs": 0,
+    "stencil1d_batch": 0,
+    "stencil3d": 0,
+    "penta_mid": 0,
 }
 
 BACKENDS = ("auto", "cuda", "torch")
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_L = ctypes.c_longlong
 # C entry points per library: (name, argtypes).  Pointers and the stream are
 # c_void_p, so ctypes does not cut them to 32 bits.
 _ENTRY_POINTS = {
     "penta.cu": (
         ("penta_cols", [_I] + [_P] * 5 + [_P, _P, _P, _I, _I, _P]),
         ("penta_rows", [_I] + [_P] * 5 + [_P, _P, _P, _I, _I, _I, _P]),
+        ("penta_mid", [_I] + [_P] * 5 + [_P, _P, _P, _I, _I, _I, _P]),
     ),
     "stencil2d.cu": (
         ("stencil2d", [_I, _I, _I, _P, _P, _P, _P] + [_I] * 6 + [_P]),
     ),
+    "stencil1d_batch.cu": (
+        ("stencil1d_batch",
+         [_I, _I, _I, _P, _P, _P, _P, _I, _I, _L, _L, _I, _I, _P]),
+    ),
+    "stencil3d.cu": (
+        ("stencil3d", [_I, _I, _I, _P, _P, _P, _P] + [_I] * 9 + [_P]),
+    ),
     "fused_ch.cu": (
         ("ch_rhs_xsweep",
          [_I, _P, _P] + [_P] * 5 + [_P, _P, _I, _I, _I, _D, _D, _D, _P]),
+        ("ch_rhs", [_I, _P, _P, _P, _I, _I, _D, _D, _D, _P]),
     ),
 }
 SOURCES = tuple(_ENTRY_POINTS)

@@ -1,9 +1,11 @@
 // Shared pieces of the repro_torch CUDA kernels: the C export macro, the
 // error-string and device-query entry points every library carries, the
-// periodic index wrap, and the in-shared-memory row-layout pentadiagonal
-// substitution used by both penta.cu (standalone x-sweep) and fused_ch.cu
-// (fused RHS + x-sweep), so the two stay in lockstep as they do in the
-// reference (repro/kernels/penta.py:rows_substitute_refs).
+// periodic index wrap, the device point functions of the stencil kernels
+// (stencil2d.cu, stencil1d_batch.cu, stencil3d.cu), and the
+// in-shared-memory row-layout pentadiagonal substitution used by both
+// penta.cu (standalone x-sweep) and fused_ch.cu (fused RHS + x-sweep), so
+// the two stay in lockstep as they do in the reference
+// (repro/kernels/penta.py:rows_substitute_refs).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,6 +29,42 @@ RT_EXPORT int rt_device_info(int dev, int* smem_optin, int* sms) {
 __device__ __forceinline__ int wrap_index(int a, int n) {
   a %= n;
   return a < 0 ? a + n : a;
+}
+
+// The stencil kernels' "function pointer": the reference traces a Python
+// point_fn into the kernel body; here each one the kernels know is a
+// compile-time device point function, named by the Python function's
+// device_point_fn tag (DEVICE_POINT_FNS in kernels/stencil2d.py), and a
+// window's contribution is P::term(coefficient, value):
+//   0 WeightedPoint  c w            (repro weighted_point_fn)
+//   1 CubePoint      c (w^3 - w)    (cahn_hilliard.py cube_laplacian_point_fn)
+// The kernels sum the terms in window order, as the point functions do.
+struct WeightedPoint {
+  template <typename T>
+  static __device__ __forceinline__ T term(T c, T w) {
+    return c * w;
+  }
+};
+
+struct CubePoint {
+  template <typename T>
+  static __device__ __forceinline__ T term(T c, T w) {
+    return c * (w * w * w - w);
+  }
+};
+
+// Call f(P{}) with the device point function of id `point_fn`; an unknown
+// id is cudaErrorInvalidValue.
+template <typename F>
+inline int with_point_fn(int point_fn, F&& f) {
+  switch (point_fn) {
+    case 0:
+      return f(WeightedPoint{});
+    case 1:
+      return f(CubePoint{});
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // In-place forward/backward substitution of one row of length M held in

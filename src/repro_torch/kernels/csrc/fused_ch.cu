@@ -1,31 +1,43 @@
-// Fused Cahn–Hilliard explicit RHS + cyclic x-sweep: L_x^{-1} rhs(c_n, c_nm1).
+// The Cahn–Hilliard explicit RHS of scheme eq. 2a, alone (ch_rhs) and
+// fused with the cyclic x-sweep (ch_rhs_xsweep: L_x^{-1} rhs(c_n, c_nm1)).
 //
-// Replaces the TPU kernel repro/kernels/fused_ch.py:ch_rhs_xsweep_pallas
+// Both evaluate the RHS point by point with one __device__ function,
+// ch_rhs_at, in the expanded 13-point form of
+// repro/kernels/fused_ch.py:48-97,
+//   rhs = k_lin (c_n - c_nm1) + k_bih (dx2 + dy2 + 2 dxdy)[cbar]
+//         + k_lap lap5[c_n^3 - c_n],   cbar = 2 c_n - c_nm1,
+// with k_lin = -2/3, k_bih = -(2/3) dt gamma D / h^4 and
+// k_lap = (2/3) D dt / h^2, so the two kernels cannot drift apart.
+//
+// ch_rhs replaces the TPU kernel repro/kernels/fused_ch.py:ch_rhs_pallas
+// (body _ch_kernel), which assembles a halo-2 band from 3x3 neighbour
+// tiles of each field.  Here one thread owns one output point and wraps
+// its own row and column indices (any extent, no tile rule: the halo
+// wraps onto itself when an extent is below 2), and a warp covers 32
+// consecutive x so every tap's load is coalesced.  What bounds it on the
+// card: device-memory bandwidth (two fields read, one written; about 60
+// flops per point); the 13-point neighbourhood's re-reads hit L1/L2.
+//
+// ch_rhs_xsweep replaces repro/kernels/fused_ch.py:ch_rhs_xsweep_pallas
 // (body _ch_xsweep_kernel), the first half of every fused ADI step.  A
 // block owns R consecutive rows (R chosen by the wrapper from nx, the
 // opt-in shared memory and the SM count) and works in three phases:
 //
-// 1. RHS assembly, straight into a dynamic shared-memory buffer of R rows
-//    (row stride nx+1).  The eq. 2a RHS is evaluated in the expanded
-//    13-point form of repro/kernels/fused_ch.py:54-63,
-//      rhs = k_lin (c_n - c_nm1) + k_bih (dx2 + dy2 + 2 dxdy)[cbar]
-//            + k_lap lap5[c_n^3 - c_n],   cbar = 2 c_n - c_nm1,
-//    with k_lin = -2/3, k_bih = -(2/3) dt gamma D / h^4 and
-//    k_lap = (2/3) D dt / h^2.  The halo (2 rows above and below the block,
-//    2 columns left and right) is read with periodic wrap directly from
-//    global memory; neighbouring threads read neighbouring x, so every tap
-//    is a coalesced load and the re-reads hit L1/L2.
+// 1. RHS assembly (ch_rhs_at), straight into a dynamic shared-memory
+//    buffer of R rows (row stride nx+1).  The halo (2 rows above and below
+//    the block, 2 columns left and right) is read with periodic wrap
+//    directly from global memory; neighbouring threads read neighbouring
+//    x, so every tap is a coalesced load and the re-reads hit L1/L2.
 // 2. The row-layout substitution in place in shared memory, one thread per
 //    row (common.cuh:substitute_row, shared with penta.cu).
 // 3. The rank-4 Woodbury closure on the coalesced write-out.
 //
 // The RHS never reaches device memory, as on the TPU.  Unlike the TPU
 // kernel, no tile has to divide ny and a block may hold a single row: the
-// halo rows come from wherever they lie, with wrap.
-//
-// What bounds it on the card: not bandwidth (24 MB of traffic at 1024^2
-// float64) but the serial recurrence of phase 2, which has only R threads
-// per block and ny threads in all; it is latency-bound, like penta_rows.
+// halo rows come from wherever they lie, with wrap.  What bounds it on the
+// card: not bandwidth (24 MB of traffic at 1024^2 float64) but the serial
+// recurrence of phase 2, which has only R threads per block and ny threads
+// in all; it is latency-bound, like penta_rows.
 #include "common.cuh"
 
 namespace {
@@ -33,6 +45,56 @@ namespace {
 // near wrap for |d| <= 2 and n >= 6 (nx is a cyclic factor length)
 __device__ __forceinline__ int wrap_near(int a, int n) {
   return a < 0 ? a + n : (a >= n ? a - n : a);
+}
+
+// The eq. 2a RHS at one point.  n_r[d] / m_r[d] are the rows j + d - 2 of
+// c_n / c_nm1 and col[d] the columns i + d - 2, both already wrapped.
+template <typename T>
+__device__ __forceinline__ T ch_rhs_at(const T* const n_r[5],
+                                       const T* const m_r[5],
+                                       const int col[5], T k_lin, T k_bih,
+                                       T k_lap) {
+  // cbar at (dy, dx) offsets: b(dy, dx), dy, dx in -2..2
+  auto b = [&](int dy, int dx) {
+    const int c = col[dx + 2];
+    return T(2) * __ldg(n_r[dy + 2] + c) - __ldg(m_r[dy + 2] + c);
+  };
+  auto nl = [&](int dy, int dx) {
+    const T v = __ldg(n_r[dy + 2] + col[dx + 2]);
+    return v * v * v - v;
+  };
+  const T dx2 = b(0, -2) - T(4) * b(0, -1) + T(6) * b(0, 0) -
+                T(4) * b(0, 1) + b(0, 2);
+  const T dy2 = b(-2, 0) - T(4) * b(-1, 0) + T(6) * b(0, 0) -
+                T(4) * b(1, 0) + b(2, 0);
+  const T dxdy = b(-1, -1) - T(2) * b(-1, 0) + b(-1, 1) -
+                 T(2) * (b(0, -1) - T(2) * b(0, 0) + b(0, 1)) + b(1, -1) -
+                 T(2) * b(1, 0) + b(1, 1);
+  const T bih = dx2 + dy2 + T(2) * dxdy;
+  const T lap = nl(-1, 0) + nl(1, 0) + nl(0, -1) + nl(0, 1) - T(4) * nl(0, 0);
+  const T lin = __ldg(n_r[2] + col[2]) - __ldg(m_r[2] + col[2]);
+  return k_lin * lin + k_bih * bih + k_lap * lap;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256) ch_rhs_kernel(
+    const T* __restrict__ cn, const T* __restrict__ cm, T* __restrict__ out,
+    int ny, int nx, T k_lin, T k_bih, T k_lap) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int j = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= nx || j >= ny) return;
+  const T* n_r[5];
+  const T* m_r[5];
+  int col[5];
+#pragma unroll
+  for (int d = 0; d < 5; ++d) {
+    const size_t off = static_cast<size_t>(wrap_index(j + d - 2, ny)) * nx;
+    n_r[d] = cn + off;
+    m_r[d] = cm + off;
+    col[d] = wrap_index(i + d - 2, nx);
+  }
+  out[static_cast<size_t>(j) * nx + i] =
+      ch_rhs_at(n_r, m_r, col, k_lin, k_bih, k_lap);
 }
 
 template <typename T>
@@ -62,27 +124,7 @@ __global__ void __launch_bounds__(256) ch_rhs_xsweep_kernel(
       int col[5];
 #pragma unroll
       for (int d = 0; d < 5; ++d) col[d] = wrap_near(i + d - 2, nx);
-      // cbar at (dy, dx) offsets: b(dy, dx), dy, dx in -2..2
-      auto b = [&](int dy, int dx) {
-        const int c = col[dx + 2];
-        return T(2) * __ldg(n_r[dy + 2] + c) - __ldg(m_r[dy + 2] + c);
-      };
-      auto nl = [&](int dy, int dx) {
-        const T v = __ldg(n_r[dy + 2] + col[dx + 2]);
-        return v * v * v - v;
-      };
-      const T dx2 = b(0, -2) - T(4) * b(0, -1) + T(6) * b(0, 0) -
-                    T(4) * b(0, 1) + b(0, 2);
-      const T dy2 = b(-2, 0) - T(4) * b(-1, 0) + T(6) * b(0, 0) -
-                    T(4) * b(1, 0) + b(2, 0);
-      const T dxdy = b(-1, -1) - T(2) * b(-1, 0) + b(-1, 1) -
-                     T(2) * (b(0, -1) - T(2) * b(0, 0) + b(0, 1)) +
-                     b(1, -1) - T(2) * b(1, 0) + b(1, 1);
-      const T bih = dx2 + dy2 + T(2) * dxdy;
-      const T lap =
-          nl(-1, 0) + nl(1, 0) + nl(0, -1) + nl(0, 1) - T(4) * nl(0, 0);
-      const T lin = __ldg(n_r[2] + i) - __ldg(m_r[2] + i);
-      s[r * ld + i] = k_lin * lin + k_bih * bih + k_lap * lap;
+      s[r * ld + i] = ch_rhs_at(n_r, m_r, col, k_lin, k_bih, k_lap);
     }
   }
   __syncthreads();
@@ -115,7 +157,30 @@ int launch(const void* cn, const void* cm, void* const* f, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_rhs(const void* cn, const void* cm, void* out, int ny, int nx,
+               double k_lin, double k_bih, double k_lap,
+               cudaStream_t stream) {
+  const dim3 block(32, 8);
+  const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
+  ch_rhs_kernel<T><<<grid, block, 0, stream>>>(
+      static_cast<const T*>(cn), static_cast<const T*>(cm),
+      static_cast<T*>(out), ny, nx, static_cast<T>(k_lin),
+      static_cast<T>(k_bih), static_cast<T>(k_lap));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// dtype: 0 float32, 1 float64.  Any extent (periodic wrap per index).
+RT_EXPORT int ch_rhs(int dtype, void* cn, void* cm, void* out, int ny,
+                     int nx, double k_lin, double k_bih, double k_lap,
+                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 1
+             ? launch_rhs<double>(cn, cm, out, ny, nx, k_lin, k_bih, k_lap, s)
+             : launch_rhs<float>(cn, cm, out, ny, nx, k_lin, k_bih, k_lap, s);
+}
 
 // dtype: 0 float32, 1 float64.  w is the (nx, 4) Woodbury matrix (cyclic).
 RT_EXPORT int ch_rhs_xsweep(int dtype, void* cn, void* cm, void* sub,

@@ -1,5 +1,5 @@
 // Batched pentadiagonal substitution with the Create-time LU factors, in
-// the two layouts of the 2D ADI step.
+// the three layouts of the 2D and 3D ADI steps.
 //
 // penta_cols replaces the TPU kernel repro/kernels/penta.py:
 // _substitute_pallas (body _substitute_kernel): column layout, an (M, N)
@@ -25,21 +25,32 @@
 // the Woodbury closure (rows_woodbury_correct) on the way out.  R is chosen
 // by the wrapper from M, the opt-in shared memory and the SM count; it is
 // also latency-bound for the same reason as penta_cols.
+//
+// penta_mid replaces repro/kernels/penta.py:_substitute_mid_pallas (body
+// _substitute_mid_kernel) and its closure mid_woodbury_correct: plane
+// layout, a (P, M, N) right-hand side whose recurrence runs over the middle
+// axis (the y-sweep of a 3D field, transpose-free).  The TPU kernel walks
+// one plane's (M, tn) block per grid step; here one thread owns one (p, n)
+// line, so each step's loads are coalesced across the warp along n, and
+// the P N lines (65536 at 256^3) all run at once.  It is penta_cols with a
+// plane offset: both run substitute_line, with the cyclic rank-4 closure
+// as the epilogue when w is given.  Latency-bound like penta_cols, but
+// with P times as many threads.
 #include "common.cuh"
 
 namespace {
 
+// Forward/backward substitution of one strided line (element i at r[i * ld]
+// and o[i * ld]) with the factors of a length-M band, then, when w is not
+// null, the cyclic rank-4 Woodbury closure x_i = y_i - (W[i,0] y[M-2] +
+// W[i,1] y[M-1] + W[i,2] y[0] + W[i,3] y[1]) as the epilogue: the thread
+// already holds the four entries of y it needs.
 template <typename T>
-__global__ void __launch_bounds__(32) penta_cols_kernel(
+__device__ __forceinline__ void substitute_line(
     const T* __restrict__ sub, const T* __restrict__ low,
     const T* __restrict__ imu, const T* __restrict__ al,
     const T* __restrict__ be, const T* __restrict__ w,
-    const T* __restrict__ rhs, T* __restrict__ out, int M, int N) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const size_t ld = static_cast<size_t>(N);
-  const T* r = rhs + n;
-  T* o = out + n;
+    const T* __restrict__ r, T* __restrict__ o, size_t ld, int M) {
   T z1 = T(0), z2 = T(0);
 #pragma unroll 4
   for (int i = 0; i < M; ++i) {
@@ -70,6 +81,33 @@ __global__ void __launch_bounds__(32) penta_cols_kernel(
                                __ldg(wi + 1) * y_last + __ldg(wi + 2) * y0 +
                                __ldg(wi + 3) * y1);
     }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32) penta_cols_kernel(
+    const T* __restrict__ sub, const T* __restrict__ low,
+    const T* __restrict__ imu, const T* __restrict__ al,
+    const T* __restrict__ be, const T* __restrict__ w,
+    const T* __restrict__ rhs, T* __restrict__ out, int M, int N) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  substitute_line(sub, low, imu, al, be, w, rhs + n, out + n,
+                  static_cast<size_t>(N), M);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(64) penta_mid_kernel(
+    const T* __restrict__ sub, const T* __restrict__ low,
+    const T* __restrict__ imu, const T* __restrict__ al,
+    const T* __restrict__ be, const T* __restrict__ w,
+    const T* __restrict__ rhs, T* __restrict__ out, int P, int M, int N) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  for (int p = blockIdx.y; p < P; p += gridDim.y) {
+    const size_t base = static_cast<size_t>(p) * M * N + n;
+    substitute_line(sub, low, imu, al, be, w, rhs + base, out + base,
+                    static_cast<size_t>(N), M);
   }
 }
 
@@ -113,6 +151,19 @@ int launch_cols(void* const* f, const void* w, const void* rhs, void* out,
 }
 
 template <typename T>
+int launch_mid(void* const* f, const void* w, const void* rhs, void* out,
+               int P, int M, int N, cudaStream_t stream) {
+  const int threads = 64;
+  const dim3 grid((N + threads - 1) / threads, P < 65535 ? P : 65535);
+  penta_mid_kernel<T><<<grid, threads, 0, stream>>>(
+      static_cast<const T*>(f[0]), static_cast<const T*>(f[1]),
+      static_cast<const T*>(f[2]), static_cast<const T*>(f[3]),
+      static_cast<const T*>(f[4]), static_cast<const T*>(w),
+      static_cast<const T*>(rhs), static_cast<T*>(out), P, M, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int launch_rows(void* const* f, const void* w, const void* rhs, void* out,
                 int B, int M, int R, cudaStream_t stream) {
   static int smem_set = 0;
@@ -146,4 +197,13 @@ RT_EXPORT int penta_rows(int dtype, void* sub, void* low, void* imu, void* al,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 1 ? launch_rows<double>(f, w, rhs, out, B, M, R, s)
                     : launch_rows<float>(f, w, rhs, out, B, M, R, s);
+}
+
+RT_EXPORT int penta_mid(int dtype, void* sub, void* low, void* imu, void* al,
+                        void* be, void* w, void* rhs, void* out, int P, int M,
+                        int N, void* stream) {
+  void* f[5] = {sub, low, imu, al, be};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 1 ? launch_mid<double>(f, w, rhs, out, P, M, N, s)
+                    : launch_mid<float>(f, w, rhs, out, P, M, N, s);
 }

@@ -4,11 +4,9 @@
 // (body _stencil_kernel).  Halos (left, right, top, bottom); bc periodic
 // (wrapped indices) or np (interior cells computed, the others copied from
 // out_init, or zero when it is null); weighted mode or function-pointer
-// mode.  The TPU's Python point_fn, traced into the kernel body, becomes a
-// small compile-time set of device point functions, which is cuSten's own
-// function-pointer design:
-//   WeightedPoint  sum_k c_k w_k              (repro weighted_point_fn)
-//   CubePoint      sum_k c_k (w_k^3 - w_k)    (cahn_hilliard.py:83-90)
+// mode.  The TPU's Python point_fn, traced into the kernel body, becomes
+// one of the compile-time device point functions of common.cuh
+// (WeightedPoint, CubePoint), which is cuSten's own function-pointer design.
 // Windows are enumerated row-major from the top-left of the stencil; the
 // coefficient of window (a, b) is coeffs[a * (left + right + 1) + b].
 //
@@ -21,20 +19,6 @@
 #include "common.cuh"
 
 namespace {
-
-struct WeightedPoint {
-  template <typename T>
-  static __device__ __forceinline__ T term(T c, T w) {
-    return c * w;
-  }
-};
-
-struct CubePoint {
-  template <typename T>
-  static __device__ __forceinline__ T term(T c, T w) {
-    return c * (w * w * w - w);
-  }
-};
 
 template <typename T, typename P, bool PERIODIC>
 __global__ void __launch_bounds__(256) stencil2d_kernel(
@@ -86,23 +70,6 @@ int launch(int periodic, const void* data, const void* coeffs,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_point(int point_fn, int periodic, const void* data,
-                   const void* coeffs, const void* out_init, void* out,
-                   int ny, int nx, int left, int right, int top, int bottom,
-                   cudaStream_t s) {
-  switch (point_fn) {
-    case 0:
-      return launch<T, WeightedPoint>(periodic, data, coeffs, out_init, out,
-                                      ny, nx, left, right, top, bottom, s);
-    case 1:
-      return launch<T, CubePoint>(periodic, data, coeffs, out_init, out, ny,
-                                  nx, left, right, top, bottom, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 }  // namespace
 
 // dtype: 0 float32, 1 float64.  point_fn: 0 weighted, 1 cube (C^3 - C).
@@ -112,11 +79,12 @@ RT_EXPORT int stencil2d(int dtype, int point_fn, int periodic, void* data,
                         int nx, int left, int right, int top, int bottom,
                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1
-             ? dispatch_point<double>(point_fn, periodic, data, coeffs,
-                                      out_init, out, ny, nx, left, right,
-                                      top, bottom, s)
-             : dispatch_point<float>(point_fn, periodic, data, coeffs,
-                                     out_init, out, ny, nx, left, right, top,
-                                     bottom, s);
+  return with_point_fn(point_fn, [&](auto p) {
+    using P = decltype(p);
+    return dtype == 1
+               ? launch<double, P>(periodic, data, coeffs, out_init, out, ny,
+                                   nx, left, right, top, bottom, s)
+               : launch<float, P>(periodic, data, coeffs, out_init, out, ny,
+                                  nx, left, right, top, bottom, s);
+  });
 }

@@ -1,12 +1,15 @@
-"""Fused Cahn–Hilliard explicit RHS + cyclic x-sweep (counterpart of
-``repro.kernels.fused_ch``).
+"""Fused Cahn–Hilliard explicit-RHS kernels (counterpart of
+``repro.kernels.fused_ch``), both in ``csrc/fused_ch.cu`` and both built on
+one device function for the eq. 2a RHS at a point:
 
-:func:`ch_rhs_xsweep_cuda` launches ``csrc/fused_ch.cu``, which computes
-``L_x^{-1} rhs(c_n, c_nm1)`` in one pass: the eq. 2a RHS is assembled into
-shared memory, substituted in place and closed with the Woodbury
-correction, so the RHS never reaches device memory.  The plain version
-composes the windowed RHS (:func:`repro_torch.kernels.ref.ch_rhs_win`)
-with the row-layout solve, as the reference's jnp path does.
+- :func:`ch_rhs_cuda` — the RHS alone, one output per thread, any extent
+  (periodic wrap per index).  Its plain version is the windowed RHS
+  :func:`repro_torch.kernels.ref.ch_rhs_win`.
+- :func:`ch_rhs_xsweep_cuda` — ``L_x^{-1} rhs(c_n, c_nm1)`` in one pass: the
+  RHS is assembled into shared memory, substituted in place and closed
+  with the Woodbury correction, so it never reaches device memory.  The
+  plain version composes the windowed RHS with the row-layout solve, as
+  the reference's jnp path does.
 """
 
 from __future__ import annotations
@@ -31,6 +34,33 @@ def ch_rhs_xsweep_torch(
         c_n, c_nm1, dt=dt, D=D, gamma=gamma, inv_h2=inv_h2, inv_h4=inv_h4
     )
     return rows_woodbury_correct(substitute_rows_torch(fac_x.band, rhs), fac_x.w)
+
+
+def ch_rhs_cuda(
+    c_n: torch.Tensor,
+    c_nm1: torch.Tensor,
+    *,
+    dt: float,
+    D: float,
+    gamma: float,
+    inv_h2: float,
+    inv_h4: float,
+) -> torch.Tensor:
+    """Launch the standalone RHS kernel on two contiguous (ny, nx) CUDA
+    fields."""
+    ny, nx = c_n.shape
+    _build.check_cuda(c_n, "c_n", like=c_n, shape=(ny, nx))
+    _build.check_cuda(c_nm1, "c_nm1", like=c_n, shape=(ny, nx))
+    k_lin, k_bih, k_lap = ch_coefficients(
+        dt=dt, D=D, gamma=gamma, inv_h2=inv_h2, inv_h4=inv_h4
+    )
+    out = torch.empty_like(c_n)
+    _build.launch(
+        "ch_rhs", c_n.device, _build.dtype_code(c_n), _build.ptr(c_n),
+        _build.ptr(c_nm1), _build.ptr(out), ny, nx, float(k_lin),
+        float(k_bih), float(k_lap),
+    )
+    return out
 
 
 def ch_rhs_xsweep_cuda(

@@ -21,8 +21,17 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._build import LAUNCHES, reset_launches, resolve_backend
-from repro_torch.kernels.fused_ch import ch_rhs_xsweep_cuda, ch_rhs_xsweep_torch
+from repro_torch.kernels.fused_ch import (
+    ch_rhs_cuda,
+    ch_rhs_xsweep_cuda,
+    ch_rhs_xsweep_torch,
+)
+from repro_torch.kernels.stencil1d_batch import (
+    stencil1d_batch_cuda,
+    stencil1d_batch_torch,
+)
 from repro_torch.kernels.stencil2d import stencil2d_cuda, stencil2d_torch
+from repro_torch.kernels.stencil3d import stencil3d_cuda, stencil3d_torch
 
 __all__ = [
     "LAUNCHES",
@@ -30,6 +39,8 @@ __all__ = [
     "ch_rhs_xsweep",
     "reset_launches",
     "stencil_apply",
+    "stencil_apply_3d",
+    "stencil_apply_batch1d",
 ]
 
 
@@ -54,19 +65,52 @@ def stencil_apply(
     return stencil2d_torch(data, coeffs=coeffs, out_init=out_init, **kw)
 
 
+def stencil_apply_batch1d(
+    data: torch.Tensor,
+    coeffs: torch.Tensor,
+    out_init: torch.Tensor | None = None,
+    *,
+    point_fn: Callable = _ref.weighted_point_fn,
+    left: int = 0,
+    right: int = 0,
+    bc: str = "periodic",
+    backend: str = "auto",
+) -> torch.Tensor:
+    """Apply a 1D stencil along axis 1 of a ``(B, M)`` stack — the
+    batched-1D Compute primitive (cuSten's 1DBatch family).  The stack may
+    be the transpose of a contiguous field (its columns as lines)."""
+    kw = dict(point_fn=point_fn, left=left, right=right, bc=bc)
+    if resolve_backend(backend, data) == "cuda":
+        return stencil1d_batch_cuda(data, coeffs, out_init, **kw)
+    return stencil1d_batch_torch(data, coeffs=coeffs, out_init=out_init, **kw)
+
+
+def stencil_apply_3d(
+    data: torch.Tensor,
+    coeffs: torch.Tensor,
+    out_init: torch.Tensor | None = None,
+    *,
+    point_fn: Callable = _ref.weighted_point_fn,
+    halos=(0, 0, 0, 0, 0, 0),  # (front, back, top, bottom, left, right)
+    bc: str = "periodic",
+    backend: str = "auto",
+) -> torch.Tensor:
+    """Apply a 3D stencil on an ``(nz, ny, nx)`` field — the 3D Compute
+    primitive."""
+    kw = dict(point_fn=point_fn, halos=tuple(int(h) for h in halos), bc=bc)
+    if resolve_backend(backend, data) == "cuda":
+        return stencil3d_cuda(data, coeffs, out_init, **kw)
+    return stencil3d_torch(data, coeffs=coeffs, out_init=out_init, **kw)
+
+
 def ch_rhs(c_n, c_nm1, *, dt, D, gamma, inv_h2, inv_h4, backend: str = "auto"):
-    """The eq. 2a explicit RHS alone.  Its CUDA kernel (the port of
-    ``fused_ch.ch_rhs_pallas``) is not written yet, so a CUDA tensor raises
-    unless the plain version is asked for with ``backend='torch'``."""
+    """The eq. 2a explicit RHS alone (``CahnHilliardADI.rhs`` in fused
+    mode)."""
+    kw = dict(dt=float(dt), D=float(D), gamma=float(gamma),
+              inv_h2=float(inv_h2), inv_h4=float(inv_h4))
     if resolve_backend(backend, c_n) == "cuda":
-        raise NotImplementedError(
-            "the standalone CH RHS kernel (fused_ch.ch_rhs_pallas) is not "
-            "ported yet (ROADMAP.md queue 2, item 5); the solver's step uses "
-            "the fused RHS + x-sweep kernel instead"
-        )
-    return _ref.ch_rhs_win(
-        c_n, c_nm1, dt=dt, D=D, gamma=gamma, inv_h2=inv_h2, inv_h4=inv_h4
-    )
+        return ch_rhs_cuda(c_n, c_nm1, **kw)
+    return _ref.ch_rhs_win(c_n, c_nm1, **kw)
 
 
 def ch_rhs_xsweep(

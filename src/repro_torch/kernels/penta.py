@@ -8,12 +8,15 @@ cuSten's Create/Compute:
 - :func:`penta_factor` / :func:`cyclic_penta_factor` (Create, once): LU
   factorisation on the host in the plan's dtype, exactly as the reference
   scans it, then the factors move to the device.
-- The substitutions (Compute, every step), in two layouts:
-  *column layout* (:func:`penta_solve_factored`, the y-sweep; systems along
-  axis 0, batch on the contiguous axis) and *row layout*
-  (:func:`penta_solve_factored_rows`, the x-sweep; recurrence along the
-  contiguous axis).  On a CUDA tensor each launches its CUDA kernel
-  (``csrc/penta.cu``); on a CPU tensor it runs the plain version below.
+- The substitutions (Compute, every step), in three layouts:
+  *column layout* (:func:`penta_solve_factored`, the 2D y-sweep and the 3D
+  z-sweep; systems along axis 0, batch on the contiguous axis), *row
+  layout* (:func:`penta_solve_factored_rows`, the x-sweep; recurrence along
+  the contiguous axis) and *plane layout*
+  (:func:`penta_solve_factored_mid`, the 3D y-sweep; recurrence along the
+  middle axis of a (P, M, N) field).  On a CUDA tensor each launches its
+  CUDA kernel (``csrc/penta.cu``); on a CPU tensor it runs the plain
+  version below.
 - Periodic bands close with a rank-4 Woodbury correction
   ``x = y - W (V^T y)`` whose ``W = Z S^{-1}`` is precomputed at Create.
   The CUDA kernels apply it as their epilogue; the plain path applies it
@@ -185,6 +188,24 @@ def substitute_rows_torch(fac: PentaFactors, rhs: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def substitute_mid_torch(fac: PentaFactors, rhs: torch.Tensor) -> torch.Tensor:
+    """Plane-layout substitution on a (P, M, N) rhs, recurrence along the
+    middle axis: each (p, :, n) line is one system (reference
+    ``_substitute_mid_jnp``)."""
+    M = rhs.shape[1]
+    z = torch.empty_like(rhs)
+    z1 = z2 = torch.zeros_like(rhs[:, 0])
+    for i in range(M):
+        z[:, i] = (rhs[:, i] - fac.sub[i] * z2 - fac.low[i] * z1) * fac.inv_mu[i]
+        z1, z2 = z[:, i], z1
+    x = torch.empty_like(rhs)
+    x1 = x2 = torch.zeros_like(rhs[:, 0])
+    for i in range(M - 1, -1, -1):
+        x[:, i] = z[:, i] - fac.al[i] * x1 - fac.be[i] * x2
+        x1, x2 = x[:, i], x1
+    return x
+
+
 def woodbury_correct(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Column-layout Woodbury closure ``x = y - W (V^T y)`` on an (M, N)
     band solution (reference ``:604-609``)."""
@@ -206,6 +227,18 @@ def rows_woodbury_correct(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         + y[:, M - 1][:, None] * w[None, :, 1]
         + y[:, 0][:, None] * w[None, :, 2]
         + y[:, 1][:, None] * w[None, :, 3]
+    )
+
+
+def mid_woodbury_correct(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plane-layout Woodbury closure on a (P, M, N) band solution, as four
+    broadcast products (reference ``mid_woodbury_correct``)."""
+    M = y.shape[1]
+    return y - (
+        y[:, M - 2][:, None, :] * w[None, :, 0, None]
+        + y[:, M - 1][:, None, :] * w[None, :, 1, None]
+        + y[:, 0][:, None, :] * w[None, :, 2, None]
+        + y[:, 1][:, None, :] * w[None, :, 3, None]
     )
 
 
@@ -274,6 +307,23 @@ def penta_rows_cuda(
     return out
 
 
+def penta_mid_cuda(
+    band: PentaFactors, rhs: torch.Tensor, w: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Launch the plane-layout kernel on a (P, M, N) CUDA rhs; with ``w``
+    the cyclic closure runs as its epilogue."""
+    P, M, N = rhs.shape
+    _build.check_cuda(rhs, "rhs", like=rhs, shape=(P, M, N))
+    _check_factors(band, w, rhs, M)
+    out = torch.empty_like(rhs)
+    _build.launch(
+        "penta_mid", rhs.device, _build.dtype_code(rhs),
+        *(_build.ptr(f) for f in band), _build.ptr(w), _build.ptr(rhs),
+        _build.ptr(out), P, M, N,
+    )
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Dispatch (backend 'auto' | 'cuda' | 'torch')
 # ---------------------------------------------------------------------------
@@ -305,6 +355,15 @@ def _solve_rows(band, w, rhs, backend):
     return out[0] if squeeze else out
 
 
+def _solve_mid(band, w, rhs, backend):
+    if rhs.ndim != 3:
+        raise ValueError(f"plane layout takes a (P, M, N) rhs, got {tuple(rhs.shape)}")
+    if _build.resolve_backend(backend, rhs) == "cuda":
+        return penta_mid_cuda(band, rhs, w)
+    out = substitute_mid_torch(band, rhs)
+    return out if w is None else mid_woodbury_correct(out, w)
+
+
 def penta_solve_factored(fac: PentaFactors, rhs, *, backend: str = "auto"):
     """Solve ``A x = rhs`` given Create-time factors.  rhs: (M,) or (M, N)."""
     return _solve_cols(fac, None, rhs, backend)
@@ -313,6 +372,12 @@ def penta_solve_factored(fac: PentaFactors, rhs, *, backend: str = "auto"):
 def penta_solve_factored_rows(fac: PentaFactors, rhs, *, backend: str = "auto"):
     """Row-layout solve: ``rhs`` is (B, M) (or (M,)), each row one system."""
     return _solve_rows(fac, None, rhs, backend)
+
+
+def penta_solve_factored_mid(fac: PentaFactors, rhs, *, backend: str = "auto"):
+    """Plane-layout solve: ``rhs`` is (P, M, N), every (p, :, n) line one
+    system — the transpose-free y-sweep of a 3D ADI step."""
+    return _solve_mid(fac, None, rhs, backend)
 
 
 def cyclic_penta_solve_factored(
@@ -328,3 +393,11 @@ def cyclic_penta_solve_factored_rows(
     """Cyclic row-layout solve on a (B, M) rhs (each row one system): the
     transpose-free x-sweep of a periodic ADI step."""
     return _solve_rows(fac.band, fac.w, rhs, backend)
+
+
+def cyclic_penta_solve_factored_mid(
+    fac: CyclicPentaFactors, rhs, *, backend: str = "auto"
+):
+    """Cyclic plane-layout solve on a (P, M, N) rhs (each (p, :, n) line one
+    cyclic system): the y-sweep of a periodic 3D ADI step."""
+    return _solve_mid(fac.band, fac.w, rhs, backend)

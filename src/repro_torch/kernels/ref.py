@@ -74,13 +74,87 @@ def stencil2d_ref(
     wins = shifted_windows(data, left=left, right=right, top=top, bottom=bottom)
     out = point_fn(wins, coeffs)
     if bc == "np":
-        mask = torch.as_tensor(
-            interior_mask(data.shape, left=left, right=right, top=top,
-                          bottom=bottom),
-            device=data.device,
-        )
-        base = torch.zeros_like(out) if out_init is None else out_init
-        out = torch.where(mask, out, base.to(out.dtype))
+        out = _np_mask(out, interior_mask(data.shape, left=left, right=right,
+                                          top=top, bottom=bottom), out_init)
+    return out
+
+
+def _np_mask(out, mask, out_init):
+    """``out`` on the cells of the numpy ``mask``, ``out_init`` (zeros when
+    ``None``) elsewhere: the ``bc='np'`` pass-through."""
+    mask = torch.as_tensor(mask, device=out.device)
+    base = torch.zeros_like(out) if out_init is None else out_init
+    return torch.where(mask, out, base.to(out.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Batched-1D stencils (cuSten's 1DBatch family)
+# ---------------------------------------------------------------------------
+
+
+def stencil1d_batch_ref(
+    data: torch.Tensor,
+    *,
+    bc: str,
+    left: int = 0,
+    right: int = 0,
+    point_fn: Callable = weighted_point_fn,
+    coeffs: torch.Tensor | None = None,
+    out_init: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain version of the batched-1D stencil apply on a ``(B, M)`` stack.
+
+    The same 1D stencil is applied along axis 1 of every row; rows never
+    couple.  Windows sweep left to right:
+    ``window[b][r, i] == data[r, (i - left + b) % M]``.  ``bc='np'``
+    computes the columns ``left <= i < M - right`` and passes ``out_init``
+    (zeros when ``None``) through on the others.  Any strides: a
+    transposed view applies the stencil along the columns of its base."""
+    if bc not in ("periodic", "np"):
+        raise ValueError(f"bc must be 'periodic' or 'np', got {bc!r}")
+    wins = [torch.roll(data, shifts=left - b, dims=1)
+            for b in range(left + right + 1)]
+    out = point_fn(wins, coeffs)
+    if bc == "np":
+        ii = np.arange(data.shape[1])
+        out = _np_mask(out, ((ii >= left) & (ii < data.shape[1] - right))[None, :],
+                       out_init)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 3D stencils (paper §VI.A)
+# ---------------------------------------------------------------------------
+
+
+def stencil3d_ref(
+    data: torch.Tensor,
+    *,
+    bc: str,
+    halos,  # (front, back, top, bottom, left, right) along (z, y, x)
+    point_fn: Callable = weighted_point_fn,
+    coeffs: torch.Tensor | None = None,
+    out_init: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain version of the 3D box stencil on an ``(nz, ny, nx)`` field.
+    Windows are enumerated z-major, then row-major over (y, x)."""
+    if bc not in ("periodic", "np"):
+        raise ValueError(f"bc must be 'periodic' or 'np', got {bc!r}")
+    fr, bk, tp, bt, lf, rt = halos
+    wins = [
+        torch.roll(data, shifts=(fr - c, tp - a, lf - b), dims=(0, 1, 2))
+        for c in range(fr + bk + 1)
+        for a in range(tp + bt + 1)
+        for b in range(lf + rt + 1)
+    ]
+    out = point_fn(wins, coeffs)
+    if bc == "np":
+        nz, ny, nx = data.shape
+        kk, jj, ii = np.meshgrid(np.arange(nz), np.arange(ny), np.arange(nx),
+                                 indexing="ij")
+        mask = ((kk >= fr) & (kk < nz - bk) & (jj >= tp) & (jj < ny - bt)
+                & (ii >= lf) & (ii < nx - rt))
+        out = _np_mask(out, mask, out_init)
     return out
 
 

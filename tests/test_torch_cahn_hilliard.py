@@ -3,7 +3,7 @@ held against the JAX reference on the CPU, plus the port's guards.
 
 The same numpy initial condition goes through ``repro`` (``backend='jnp'``)
 and ``repro_torch`` (``device='cpu'``): the bootstrap and 10 steps at 64^2
-and 60^2 in both ``rhs_mode``s.  Tolerance ``tolerance_for(float64,
+and 60^2 in all three ``rhs_mode``s.  Tolerance ``tolerance_for(float64,
 scale=100)``: 11 steps, each a few banded recurrences whose rounding the two
 packages order differently, with no amplification at these sizes (the
 implicit operators are near the identity).
@@ -38,7 +38,7 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
-@pytest.mark.parametrize("rhs_mode", ["fused", "stencil"])
+@pytest.mark.parametrize("rhs_mode", ["fused", "stencil", "batch1d"])
 @pytest.mark.parametrize("n", [64, 60])
 def test_evolve_matches_reference(n, rhs_mode):
     c0 = np.array(RCH.deep_quench_ic(n, n, seed=7))
@@ -61,6 +61,25 @@ def test_evolve_matches_reference(n, rhs_mode):
     x, y = port.make_evolve(1)(c1.clone(), c0_t.clone())
     np.testing.assert_array_equal(_np(a), _np(x))
     np.testing.assert_array_equal(_np(b), _np(y))
+    # the explicit RHS alone, in the mode under test
+    np.testing.assert_allclose(
+        _np(port.rhs(c1, c0_t)),
+        np.asarray(ref.rhs(jnp.asarray(_np(c1)), jnp.asarray(c0))), **TOL,
+    )
+
+
+def test_rhs_modes_agree():
+    """The three RHS paths compute the same eq. 2a RHS: the batched-1D
+    assembly (six directional applies) and the fused RHS against the 2D
+    stencil plans."""
+    n = 40
+    c1, c0 = (rt.deep_quench_ic(n, n, seed=s, device="cpu") for s in (1, 2))
+    want = TCH.CahnHilliardADI(TCH.CHConfig(nx=n, ny=n, rhs_mode="stencil",
+                                            device="cpu")).rhs(c1, c0)
+    for mode in ("batch1d", "fused"):
+        got = TCH.CahnHilliardADI(TCH.CHConfig(nx=n, ny=n, rhs_mode=mode,
+                                               device="cpu")).rhs(c1, c0)
+        np.testing.assert_allclose(_np(got), _np(want), **TOL, err_msg=mode)
 
 
 def test_bootstrap_grows_grid_noise_like_reference():
@@ -226,11 +245,14 @@ def test_facade_validation():
     (lambda: rt.create("laplacian", (8, 8), max_tile_bytes=64, device="cpu"), "item 6"),
     (lambda: rt.create("laplacian", (8, 8), tune="cached", device="cpu"), "item 10"),
     (lambda: rt.create("laplacian", (8, 8), backend="fft", device="cpu"), "item 8"),
-    (lambda: rt.create("laplacian", (8, 8), mode="batch", device="cpu"), "item 5"),
-    (lambda: rt.create("laplacian", (4, 8, 8), device="cpu"), "item 7"),
+    (lambda: rt.create("laplacian", (8, 8), mode="batch", streams=2,
+                       device="cpu"), "item 6"),
+    (lambda: rt.create("laplacian", (4, 8, 8), max_tile_bytes=64,
+                       device="cpu"), "item 6"),
     (lambda: rt.create("laplacian", (8, 8), lint="warn", device="cpu"), "item 14"),
     (lambda: TCH.CahnHilliardADI(TCH.CHConfig(nx=8, ny=8, rhs_mode="batch1d",
-                                              device="cpu")), "item 5"),
+                                              tune="cached", device="cpu")),
+     "item 10"),
     (lambda: TCH.CahnHilliardADI(TCH.CHConfig(nx=8, ny=8, streams=2,
                                               device="cpu")), "item 6"),
     (lambda: TCH.CahnHilliardADI(TCH.CHConfig(nx=8, ny=8, tune="force",
@@ -270,7 +292,9 @@ def _imports(path):
 def test_port_never_imports_jax_or_repro():
     sources = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     sources.append(ROOT / "chip_smoke.py")
-    assert len(sources) > 10
+    names = {p.name for p in sources}
+    assert {"stencil1d_batch.py", "stencil3d.py", "adi.py", "penta.py",
+            "fused_ch.py", "convert.py"} <= names
     bad = [(p.name, m) for p in sources for m in _imports(p) if _FORBIDDEN.match(m)]
     assert not bad, bad
     code = (
@@ -279,6 +303,8 @@ def test_port_never_imports_jax_or_repro():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
+        "need = {'repro_torch.kernels.stencil1d_batch', 'repro_torch.kernels.stencil3d'}\n"
+        "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print('clean')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -1,10 +1,11 @@
-"""repro_torch's fused Cahn–Hilliard RHS + x-sweep held against the JAX
+"""repro_torch's fused Cahn–Hilliard RHS kernels held against the JAX
 reference on the CPU.
 
 ``repro_torch.kernels.ops.ch_rhs_xsweep`` (the plain version, as a CPU
 tensor selects it) against ``repro.kernels.ops.ch_rhs_xsweep(backend='jnp')``
-(its Pallas kernel needs ``pl.load``, which the installed jax lacks), and
-the plain RHS pieces against ``repro.kernels.ref``.  Tolerance
+(its Pallas kernel needs ``pl.load``, which the installed jax lacks);
+``ops.ch_rhs`` against the reference's ``ch_rhs_pallas`` in interpret mode
+and its jnp path; and the plain RHS pieces against ``repro.kernels.ref``.  Tolerance
 ``tolerance_for(dtype, scale=100)``: the RHS weights the biharmonic by
 ``(2/3) dt gamma D / h^4`` (about 11 at 64^2), so its rounding is an order
 above the fields', and the recurrence carries it over ``nx`` steps.
@@ -126,10 +127,32 @@ def test_rhs_win_wraps_extents_below_the_halo(shape):
         )
 
 
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("shape, tile", [((16, 16), (8, 8)), ((13, 11), (13, 11)),
+                                         ((64, 64), (16, 16))],
+                         ids=["16x16", "13x11", "64x64"])
+def test_standalone_rhs_matches_pallas(shape, tile, dtype):
+    """``ops.ch_rhs`` (the RHS alone, whose CUDA kernel is the port of
+    ``ch_rhs_pallas``) against that Pallas kernel run in interpret mode on
+    (ty, tx) tiles, and against the reference's jnp path."""
+    p = _params(shape[1])
+    cn, cm = _fields(shape, dtype, seed=3)
+    got = ops.ch_rhs(torch.as_tensor(cn), torch.as_tensor(cm), **p)
+    assert got.dtype == getattr(torch, dtype)
+    tol = tolerance_for(dtype, scale=100)
+    jn, jm = jnp.asarray(cn), jnp.asarray(cm)
+    for backend, extra in (("pallas", dict(interpret=True, tile=tile)), ("jnp", {})):
+        want = RO.ch_rhs(jn, jm, backend=backend, **p, **extra)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol,
+                                   err_msg=backend)
+
+
 def test_standalone_rhs_kernel_is_refused_on_cuda_backend():
+    """``backend='cuda'`` launches the RHS kernel or raises: a CPU tensor is
+    refused, never run on the plain path."""
     p = _params(16)
     c = torch.zeros((16, 16), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="queue 2, item 5"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         ops.ch_rhs(c, c, backend="cuda", **p)
     fac = TP.cyclic_penta_factor(*TP.hyperdiffusion_diagonals(16, 0.1), device="cpu")
     with pytest.raises(ValueError, match="CUDA tensor"):

@@ -11,7 +11,8 @@ need not have.)
 
 ``chip_smoke.py`` runs the same comparisons at the main path's sizes.
 Tolerances as in ``chip_smoke.py`` (norm-wise ``tolerance_for`` scales):
-10 for the stencil, 100 for the recurrences, 10 for the fused RHS.
+10 for the 2D, batched-1D and 3D stencils and the two RHS kernels, 100 for
+the recurrences.
 """
 
 import numpy as np
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from repro_torch import create
+from repro_torch.core.adi import apply_along_x, apply_along_y
 from repro_torch.core.cahn_hilliard import cube_laplacian_point_fn
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import penta as P
@@ -89,3 +91,75 @@ def test_ch_rhs_xsweep(cuda, shape, dtype):
     got = ops.ch_rhs_xsweep(cn, cm, fac_x, **p)
     want = ops.ch_rhs_xsweep(cn, cm, fac_x, backend="torch", **p)
     _assert_close(got, want, dtype, 10)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("shape", [(64, 64), (37, 29), (1, 8)])
+def test_ch_rhs(cuda, shape, dtype):
+    h = 2 * np.pi / shape[1]
+    p = dict(dt=1e-3, D=0.6, gamma=0.01, inv_h2=h**-2, inv_h4=h**-4)
+    cn = _field(shape, getattr(torch, dtype), cuda, 6)
+    cm = _field(shape, getattr(torch, dtype), cuda, 7)
+    before = _build.LAUNCHES["ch_rhs"]
+    got = ops.ch_rhs(cn, cm, **p)
+    assert _build.LAUNCHES["ch_rhs"] == before + 1
+    _assert_close(got, ops.ch_rhs(cn, cm, backend="torch", **p), dtype, 10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(64, 64), (37, 29)])
+@pytest.mark.parametrize("bc", ["periodic", "np"])
+@pytest.mark.parametrize("point_fn", [weighted_point_fn, cube_laplacian_point_fn])
+def test_stencil1d_batch(cuda, point_fn, bc, shape, dtype):
+    """Along x (contiguous lines) and along y (the transposed view, read in
+    place through the kernel's strides)."""
+    data = _field(shape, dtype, cuda, 8)
+    w = _field((5,), dtype, cuda, 9).cpu().numpy()
+    init = _field(shape, dtype, cuda, 10) if bc == "np" else None
+    kw = dict(coeffs=w, extents=dict(left=3, right=1)) \
+        if point_fn is cube_laplacian_point_fn else dict(extents=dict(left=3, right=1))
+    fn = point_fn if point_fn is cube_laplacian_point_fn else w
+    plan = create(fn, shape, mode="batch", bc=bc, dtype=dtype, **kw)
+    plain = create(fn, shape, mode="batch", bc=bc, dtype=dtype, backend="torch", **kw)
+    for along in (apply_along_x, apply_along_y):
+        before = _build.LAUNCHES["stencil1d_batch"]
+        got = along(plan, data, init)
+        assert _build.LAUNCHES["stencil1d_batch"] == before + 1
+        assert got.is_contiguous()
+        _assert_close(got, along(plain, data, init), dtype, 10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(16, 16, 32), (7, 11, 13)])
+@pytest.mark.parametrize("bc", ["periodic", "np"])
+@pytest.mark.parametrize("halos", [(1, 1, 1, 1, 1, 1), (0, 2, 1, 0, 2, 1)])
+def test_stencil3d(cuda, halos, bc, shape, dtype):
+    fr, bk, tp, bt, lf, rt = halos
+    data = _field(shape, dtype, cuda, 11)
+    coeffs = _field(((fr + bk + 1) * (tp + bt + 1) * (lf + rt + 1),), dtype, cuda, 12)
+    init = _field(shape, dtype, cuda, 13) if bc == "np" else None
+    for point_fn in (weighted_point_fn, cube_laplacian_point_fn):
+        kw = dict(point_fn=point_fn, halos=halos, bc=bc)
+        before = _build.LAUNCHES["stencil3d"]
+        got = ops.stencil_apply_3d(data, coeffs, init, **kw)
+        assert _build.LAUNCHES["stencil3d"] == before + 1
+        _assert_close(got, ops.stencil_apply_3d(data, coeffs, init,
+                                                backend="torch", **kw), dtype, 10)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("shape", [(8, 16, 32), (6, 9, 7)])
+@pytest.mark.parametrize("bc", ["periodic", "np"])
+def test_penta_mid_and_3d_sweeps(cuda, bc, shape, dtype):
+    """Every extent >= 6: the cyclic bands need it."""
+    op = create("hyperdiffusion", shape, mode="adi", bc=bc, alpha=2.0,
+                alpha_y=3.0, alpha_z=0.5, dtype=dtype)
+    plain = create("hyperdiffusion", shape, mode="adi", bc=bc, alpha=2.0,
+                   alpha_y=3.0, alpha_z=0.5, dtype=dtype, backend="torch")
+    rhs = _field(shape, getattr(torch, dtype), cuda, 14)
+    before = _build.LAUNCHES["penta_mid"]
+    got = op.solve_y(rhs)
+    assert _build.LAUNCHES["penta_mid"] == before + 1
+    _assert_close(got, plain.solve_y(rhs), dtype, 100)
+    for sweep in ("solve_x", "solve_z"):
+        _assert_close(getattr(op, sweep)(rhs), getattr(plain, sweep)(rhs), dtype, 100)
