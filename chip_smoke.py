@@ -22,7 +22,10 @@ printing a result:
    RHS at the same shapes (yardstick: circular pad + ``F.conv1d``; none
    for the RHS); the 3D stencil and the plane-layout sweep at 256^3
    float64, a ragged 61x67x71 and float32 (yardsticks: circular pad +
-   ``F.conv3d``; ``lu_solve`` broadcast over the planes).
+   ``F.conv3d``; ``lu_solve`` broadcast over the planes); the WENO5
+   advection RHS at 1024x1024 float64, 1021x1019 and float32, on the
+   rotating blob and on a random field (no yardstick: no single PyTorch
+   call computes it).
 4. Paths, each run with the launch counts set to 0 just before it and
    read just after:
    a. Main path: the 1024x1024 float64 Cahn–Hilliard solver, bootstrap
@@ -42,9 +45,22 @@ printing a result:
       z-sweeps), 20 steps, each held to the exact discrete decay of the
       separable mode; the Laplacian plan's residual as a diagnostic;
       against the ``backend='torch'`` run.
+   d. WENO: the experiment of ``examples/weno_advection.py`` at
+      ``AdvectionConfig``'s default 512^2 float64 through
+      ``WenoAdvection2D.run`` (the Gaussian blob, one revolution of
+      solid-body rotation at CFL 0.4: 8043 RK3 steps, 24129 launches
+      asserted), its L2 error within 1e-3 relative of the reference's and
+      its extrema bounded; then 100 RK3 steps at 1024^2 on the kernel
+      against ``backend='torch'``.
+   e. Streaming: the 1024^2 float64 solver in ``rhs_mode='fused'`` and
+      ``'batch1d'`` with ``streams=4`` and a ``max_tile_bytes`` that cuts
+      every sweep into 8 chunks, bootstrap plus 20 steps, equal bit for bit
+      to the monolithic runs of 4a and 4b, launch counts asserted (chunks
+      times launches per step).
 5. Timing: ms/step of the fused step over 200 steps after 20 of warm-up,
-   of the batched-1D step and of the 3D LOD step (host clock, CUDA
-   events, and the host's enqueue time per step).
+   of the batched-1D step, of the 3D LOD step, of the WENO RK3 step at
+   1024^2 and of the streamed fused and batched-1D steps (host clock,
+   CUDA events, and the host's enqueue time per step).
 6. The ``kernels`` JSON line, the card line, and the result line.
 
 A full record goes to ``chiprun_out/chip_smoke.json`` and the nvcc log to
@@ -70,6 +86,18 @@ N_STEPS = 20
 N_TIMED = 200
 N_TIMED_B1D = 50
 N3 = 256  # the 3D path's box: 134 MB per float64 field
+N_WENO_CHECK = 100  # RK3 steps of the 1024^2 kernel-vs-plain WENO run
+# The reference's L2 error after one revolution at 512^2:
+# examples/weno_advection.py --n 512 (backend='jnp', jax 0.9.0, float64,
+# CPU), which prints 5.720e-08.
+WENO_L2_REF = 5.720e-08
+WENO_L2_RTOL = 1e-3
+WENO_BOUND = 5e-3  # tests/test_weno.py: min >= -5e-3, max <= 1 + 5e-3
+# Streaming (phase 4e): four streams and a budget that cuts every sweep of
+# the 1024^2 float64 step into 8 chunks (128 rows, lines or columns).
+STREAMS = 4
+TILE_BYTES = 1_100_000
+N_CHUNKS = 8
 RAGGED_3D = (61, 67, 71)
 N_TIMED_3D = 20
 LOD = dict(D=0.5, dt=2e-3)  # examples/diffusion3d_adi.py defaults
@@ -102,20 +130,30 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 #   limit, so a kernel that dropped it would fail.
 # penta_mid: the recurrence of penta_cols over M = 256 steps and its
 #   closure -> scale 100, as penta_*.
+# weno5_advect: the same expressions in both versions, about 170 flops a
+#   point; nvcc contracts products into FMAs and torch computes c / x for a
+#   Python scalar c as c * (1 / x) (and x / c on the card as x * (1 / c)),
+#   so an output moves by a few ulp of the largest term -> scale 10.  The
+#   smoothness indicators square differences of nearly equal values, which
+#   the ulp-level moves reach only through weights that they change by
+#   parts in 1e12 (float64) -> no extra margin.
 # Main path: 21 steps each within the fused tolerance -> scale 21 * 10;
 #   the batched-1D run is held to the same limit, against its plain run
 #   and against the fused run (its RHS differs from the fused one by
 #   summation order only).
 # 3D path: 20 steps of three sweeps, each within the recurrence tolerance
-#   -> scale 20 * 100 against the plain run.  Against the exact decay of
+#   -> scale 20 * 100 against the plain run.
+# WENO path: 100 RK3 steps, each within the RHS tolerance -> scale 100 * 10
+#   against the plain run.  Against the exact decay of
 #   the separable mode: |amp / (amp0 g^k) - 1| <= 1e-10 (the cyclic sweeps
 #   keep the mode to rounding; 20 steps of 3 sweeps at cond ~ 1 + 4 r,
 #   r ~ 1.7, leave it near 1e-14).
 SCALE = {"stencil2d": 10, "penta_rows": 100, "penta_cols": 100,
          "ch_rhs_xsweep": 10, "ch_rhs": 10, "stencil1d_batch": 10,
-         "stencil3d": 10, "penta_mid": 100}
+         "stencil3d": 10, "penta_mid": 100, "weno5_advect": 10}
 SCALE_MAIN = (N_STEPS + 1) * SCALE["ch_rhs_xsweep"]
 SCALE_3D = N_STEPS * SCALE["penta_mid"]
+SCALE_WENO = N_WENO_CHECK * SCALE["weno5_advect"]
 MASS_DRIFT_MAX = 1e-10
 DECAY_MAX = 1e-10
 
@@ -136,6 +174,8 @@ KERNEL_INFO = {
                   "src/repro/kernels/stencil3d.py:111"),
     "penta_mid": ("src/repro_torch/kernels/csrc/penta.cu",
                   "src/repro/kernels/penta.py:427"),
+    "weno5_advect": ("src/repro_torch/kernels/csrc/weno.cu",
+                     "src/repro/kernels/weno.py:65"),
 }
 
 
@@ -210,6 +250,10 @@ def main() -> int:
     from repro_torch.kernels.ref import (
         ch_coefficients, laplacian_ref, penta_dense_cyclic,
     )
+    from repro_torch.core.weno import (
+        AdvectionConfig, WenoAdvection2D, gaussian_blob, solid_body_rotation,
+    )
+    from repro_torch.launch import stream as S
     from repro_torch.util import tolerance_for
 
     torch.backends.cudnn.allow_tf32 = False
@@ -378,6 +422,34 @@ def main() -> int:
                           dtype, lambda b, s=solve, f=op3.fac_y, u=u: s(
                               f, u, backend=b)))
 
+    # the WENO5 RHS: the path's inputs (the Gaussian blob of
+    # examples/weno_advection.py under solid-body rotation) and a random
+    # field with velocities of both signs, some exactly 0
+    blob = dict(x0=math.pi + 1.0, y0=math.pi, sigma=0.4)
+
+    def weno_inputs(ny, nx, dtype, kind):
+        acfg = AdvectionConfig(nx=nx, ny=ny)
+        if kind == "blob":
+            u, v = solid_body_rotation(acfg, dtype=dtype)
+            return acfg, (gaussian_blob(acfg, dtype=dtype, **blob), u, v)
+        g = torch.Generator(device=dev).manual_seed(7)
+        q, u, v = (torch.rand((3, ny, nx), generator=g, device=dev,
+                              dtype=torch.float64) * 2 - 1).to(getattr(torch, dtype))
+        u[::3] = 0.0
+        return acfg, (q.contiguous(), (2 * u).contiguous(), (2 * v).contiguous())
+
+    def weno_call(acfg, q, u, v):
+        return lambda b: ops.weno_advect(q, u, v, dx=acfg.dx, dy=acfg.dy,
+                                         backend=b)
+
+    for dtype, (ny, nx), tag in (("float64", (N_MAIN, N_MAIN), "main"),
+                                 ("float64", RAGGED, "ragged"),
+                                 ("float32", (N_MAIN, N_MAIN), "f32")):
+        for kind in ("blob", "random"):
+            acfg, qs = weno_inputs(ny, nx, dtype, kind)
+            cases.append(("weno5_advect", f"{kind} {tag}", dtype,
+                          weno_call(acfg, *qs)))
+
     checks, failures = [], []
     for kernel, label, dtype, run in cases:
         got = run("cuda")
@@ -453,6 +525,11 @@ def main() -> int:
             lambda b: P.cyclic_penta_solve_factored_mid(op3.fac_y, u3, backend=b),
             2 * N3c * isz + 9 * N3 * isz, 17 * N3c),
     })
+    # the WENO5 RHS on the blob at 1024^2: q, u, v read and the output
+    # written; about 170 flops a point on the upwind-only design (two phi of
+    # ~71 operations, 12 differences, the products and selects)
+    acfg_w, qs_w = weno_inputs(N_MAIN, N_MAIN, "float64", "blob")
+    timed["weno5_advect"] = (weno_call(acfg_w, *qs_w), 4 * N * isz, 170 * N)
     timings = {}
     for kernel, (run, nbytes, flops) in timed.items():
         ms = time_ms(lambda run=run: run("cuda"))
@@ -706,6 +783,104 @@ def main() -> int:
                            diagnostics=rows3, **lod_checks)
     del c3_plain, op3_plain, lap3_plain
 
+    # -- 4d. WENO: the experiment of examples/weno_advection.py --------------
+    acfg = AdvectionConfig()  # 512^2, CFL 0.4
+    weno = WenoAdvection2D(acfg)
+    q0 = gaussian_blob(acfg, **blob)
+    u0, v0 = solid_body_rotation(acfg)
+    t0 = time.perf_counter()
+    (qT, n_rev), weno_launches = counts_of(
+        lambda: weno.run(q0, u0, v0, 2 * math.pi))
+    weno_s = time.perf_counter() - t0
+    expect(weno_launches, dict(weno5_advect=3 * 8043), "WENO revolution")
+    if n_rev != 8043:
+        raise PhaseError(f"WENO revolution took {n_rev} steps, expected 8043")
+    l2 = float(torch.sqrt(torch.mean((qT - q0) ** 2)))
+    q_min, q_max = float(qT.min()), float(qT.max())
+    l2_dev = abs(l2 / WENO_L2_REF - 1.0)
+    print(f"[weno] {acfg.nx}^2 float64, one revolution: {n_rev} RK3 steps in "
+          f"{weno_s:.3f} s, launches {weno_launches}", flush=True)
+    print(f"[weno] L2 error {l2:.6e} (reference {WENO_L2_REF:.3e}, relative "
+          f"{l2_dev:.2e} <= {WENO_L2_RTOL:.0e}); min {q_min:+.3e}, max "
+          f"{q_max:.6f}")
+    if not (bool(torch.isfinite(qT).all()) and l2_dev <= WENO_L2_RTOL):
+        raise PhaseError(f"WENO L2 error {l2:.6e} vs reference {WENO_L2_REF}")
+    if not (q_min >= -WENO_BOUND and q_max <= 1.0 + WENO_BOUND):
+        raise PhaseError(f"WENO extrema {q_min}, {q_max} out of bounds")
+    weno_checks = dict(l2=l2, l2_ref=WENO_L2_REF, l2_rel_dev=l2_dev,
+                       min=q_min, max=q_max)
+    # kernel against plain: 100 RK3 steps at 1024^2 (99.5 CFL steps, so
+    # that ceil gives exactly 100)
+    acfg_w = AdvectionConfig(nx=N_MAIN, ny=N_MAIN)
+    q1 = gaussian_blob(acfg_w, **blob)
+    u1, v1 = solid_body_rotation(acfg_w)
+    w_k = WenoAdvection2D(acfg_w)
+    w_p = WenoAdvection2D(AdvectionConfig(nx=N_MAIN, ny=N_MAIN, backend="torch"))
+    dt_w = w_k.dt_cfl(u1, v1)
+    t_w = (N_WENO_CHECK - 0.5) * dt_w
+    (q_k, n_k), n_wk = counts_of(lambda: w_k.run(q1, u1, v1, t_w, dt=dt_w))
+    expect(n_wk, dict(weno5_advect=3 * N_WENO_CHECK), "WENO 1024^2 run")
+    (q_p, n_p), n_wp = counts_of(lambda: w_p.run(q1, u1, v1, t_w, dt=dt_w))
+    expect(n_wp, {}, "WENO backend='torch' run")
+    if not n_k == n_p == N_WENO_CHECK:
+        raise PhaseError(f"WENO 1024^2 runs took {n_k} and {n_p} steps")
+    compare("WENO kernels vs plain (1024^2, 100 steps)", q_k, q_p,
+            tolerance_for("float64", scale=SCALE_WENO), weno_checks)
+    record["weno"] = dict(launches=weno_launches, seconds=weno_s,
+                          steps=n_rev, **weno_checks)
+    del q_p, w_p
+
+    # -- 4e. streaming: the 1024^2 solver in row and column chunks ------------
+    isz8 = 8
+    geometry = {
+        "rows, halo 2 (fused RHS + x-sweep, 5x5 plans)": S.n_chunks_for(
+            N_MAIN, N_MAIN, isz8, halos=(2, 2, 2, 2), max_tile_bytes=TILE_BYTES,
+            streams=STREAMS),
+        "rows, no halo (x-sweep)": S.n_chunks_for(
+            N_MAIN, N_MAIN, isz8, max_tile_bytes=TILE_BYTES, streams=STREAMS),
+        "lines, halo 2 (batched-1D _D4)": S.n_chunks_for(
+            N_MAIN, N_MAIN, isz8, halos=(0, 0, 2, 2), max_tile_bytes=TILE_BYTES,
+            streams=STREAMS),
+        "columns (y-sweep)": N_MAIN // S.choose_chunk_cols(
+            N_MAIN, N_MAIN, isz8, max_tile_bytes=TILE_BYTES),
+    }
+    if set(geometry.values()) != {N_CHUNKS}:
+        raise PhaseError(f"streaming geometry {geometry}, expected {N_CHUNKS} "
+                         "chunks per sweep")
+    K = N_CHUNKS
+    stream_cfg = dict(nx=N_MAIN, ny=N_MAIN, streams=STREAMS,
+                      max_tile_bytes=TILE_BYTES)
+    s_fused = CahnHilliardADI(CHConfig(**stream_cfg))
+    t0 = time.perf_counter()
+    (c_sf, _), sf_launches = counts_of(lambda: ch_evolve(s_fused, c0, N_STEPS))
+    sf_s = time.perf_counter() - t0
+    expect(sf_launches, dict(stencil2d=4 * K, penta_rows=K,
+                             penta_cols=K * (1 + N_STEPS),
+                             ch_rhs_xsweep=K * N_STEPS), "streamed fused run")
+    s_b1d = CahnHilliardADI(CHConfig(rhs_mode="batch1d", **stream_cfg))
+    t0 = time.perf_counter()
+    (c_sb, _), sb_launches = counts_of(lambda: ch_evolve(s_b1d, c0, N_STEPS))
+    sb_s = time.perf_counter() - t0
+    expect(sb_launches, dict(stencil1d_batch=K * (10 + 6 * N_STEPS),
+                             penta_rows=K * (1 + N_STEPS),
+                             penta_cols=K * (1 + N_STEPS)),
+           "streamed batch1d run")
+    stream_checks = {}
+    for name, got, want in (("fused", c_sf, c_fused), ("batch1d", c_sb, c_b1d)):
+        same = bool(torch.equal(got, want))
+        stream_checks[f"{name} equal to monolithic"] = same
+        print(f"[stream] {name}: streams {STREAMS}, {K} chunks a sweep, "
+              f"bootstrap + {N_STEPS} steps equal to the monolithic run bit "
+              f"for bit: {same}", flush=True)
+        if not same:
+            raise PhaseError(f"streamed {name} run differs from the monolithic "
+                             f"run by {float((got - want).abs().max()):.3e}")
+    print(f"[stream] launches fused {sf_launches}; batch1d {sb_launches}")
+    record["stream"] = dict(geometry=geometry, streams=STREAMS,
+                            max_tile_bytes=TILE_BYTES, fused_launches=sf_launches,
+                            batch1d_launches=sb_launches, fused_seconds=sf_s,
+                            batch1d_seconds=sb_s, **stream_checks)
+
     # -- 5. timing -----------------------------------------------------------
     def per_step(run, carry, steps):
         """ms/step of ``carry = run(carry)`` (one call does ``steps`` steps):
@@ -729,7 +904,9 @@ def main() -> int:
 
     step_times = {}
     for name, s_, steps in (("fused", solver, N_TIMED),
-                            ("batch1d", b1d, N_TIMED_B1D)):
+                            ("batch1d", b1d, N_TIMED_B1D),
+                            ("fused streamed", s_fused, N_TIMED),
+                            ("batch1d streamed", s_b1d, N_TIMED_B1D)):
         evolve = s_.make_evolve(steps)
         pair, step_times[name] = per_step(lambda p, e=evolve: e(*p), pair_of(s_),
                                           steps)
@@ -746,8 +923,32 @@ def main() -> int:
     c3, step_times["lod3d"] = per_step(lod_steps, c3, N_TIMED_3D)
     if not bool(torch.isfinite(c3).all()):
         raise PhaseError("timed 3D run produced non-finite values")
-    # where the batched-1D and 3D steps go: each piece timed alone at the
-    # step's shapes (CUDA events, median of 20)
+
+    def weno_steps(steps):
+        def run(q):
+            q, n = w_k.run(q, u1, v1, (steps - 0.5) * dt_w, dt=dt_w)
+            assert n == steps
+            return q
+        return run
+
+    q_w = weno_steps(N_STEPS)(q1)  # warm-up
+    q_w, step_times["weno"] = per_step(weno_steps(N_TIMED), q_w, N_TIMED)
+    if not bool(torch.isfinite(q_w).all()):
+        raise PhaseError("timed WENO run produced non-finite values")
+    # where the batched-1D, 3D, WENO and streamed steps go: each piece timed
+    # alone at the step's shapes (CUDA events, median of 20)
+    wbuf = [q1.clone() for _ in range(6)]
+
+    def weno_glue():
+        """The Runge–Kutta glue of WenoAdvection2D.run, the RHS results
+        given (scaled by 1.0 so repeated calls stay bounded)."""
+        r0, r1, r2, q, qa, qb = wbuf
+        torch.add(q, r0.mul_(1.0), out=qa)
+        r1.mul_(1.0).add_(qa).mul_(0.25)
+        torch.mul(q, 0.75, out=qb).add_(r1)
+        r2.mul_(1.0).add_(qb).mul_(2.0 / 3.0)
+        q.div_(3.0).add_(r2)
+
     b1d_rhs = b1d.rhs(c1, c0)
     pieces = {
         "batch1d rhs: 6 stencil1d_batch + elementwise": lambda: b1d.rhs(c1, c0),
@@ -758,6 +959,13 @@ def main() -> int:
         f"3D x-sweep: penta_rows ({N3 * N3}, {N3})": lambda: op3.solve_x(u3),
         f"3D y-sweep: penta_mid ({N3}, {N3}, {N3})": lambda: op3.solve_y(u3),
         f"3D z-sweep: penta_cols ({N3}, {N3 * N3})": lambda: op3.solve_z(u3),
+        f"WENO RHS: weno5_advect ({N_MAIN}, {N_MAIN})":
+            lambda: w_k.rhs(q1, u1, v1),
+        "WENO RK3 glue (12 torch ops, as in run)": weno_glue,
+        f"streamed fused: stream_ch_rhs_xsweep, {K} chunks":
+            lambda: s_fused._fused_xsweep(c1, c0),
+        f"streamed y-sweep: penta_cols, {K} column chunks":
+            lambda: s_fused.op_full.solve_y(c1),
     }
     breakdown = {name: time_ms(fn) for name, fn in pieces.items()}
     record["step_breakdown_ms"] = breakdown
@@ -766,9 +974,17 @@ def main() -> int:
     record["ms_per_step"] = step_times["fused"]
     record["ms_per_step_batch1d"] = step_times["batch1d"]
     record["ms_per_step_lod3d"] = step_times["lod3d"]
+    record["ms_per_step_weno"] = step_times["weno"]
+    record["ms_per_step_streamed"] = {k: step_times[f"{k} streamed"]
+                                      for k in ("fused", "batch1d")}
     for name, what in (("fused", f"fused step at {N_MAIN}^2 float64"),
                        ("batch1d", f"batch1d step at {N_MAIN}^2 float64"),
-                       ("lod3d", f"3D LOD step at {N3}^3 float64")):
+                       ("lod3d", f"3D LOD step at {N3}^3 float64"),
+                       ("weno", f"WENO RK3 step at {N_MAIN}^2 float64"),
+                       ("fused streamed", f"fused step at {N_MAIN}^2 float64, "
+                        f"streams {STREAMS}, {K} chunks"),
+                       ("batch1d streamed", f"batch1d step at {N_MAIN}^2 "
+                        f"float64, streams {STREAMS}, {K} chunks")):
         t = step_times[name]
         print(f"[time] {what}: {t['host']:.4f} ms/step (host clock), "
               f"{t['events']:.4f} ms/step (CUDA events), host enqueue "
@@ -782,6 +998,7 @@ def main() -> int:
         penta_rows=main_launches, stencil2d=main_launches,
         stencil1d_batch=b1d_launches, ch_rhs=rhs_launches,
         stencil3d=lod_launches, penta_mid=lod_launches,
+        weno5_advect=weno_launches,
     )
     kernels = []
     for name, counts in path_launches.items():

@@ -229,11 +229,10 @@ def create(
     ========================  =========================================
 
     ``backend`` is ``'auto'|'cuda'|'torch'``; ``device`` defaults to the
-    card.
+    card.  ``streams``/``max_tile_bytes`` (cuSten's ``nStreams``) stream a
+    rank-2 plan's Compute in chunks on CUDA streams when the field exceeds
+    one tile (:mod:`repro_torch.launch.stream`); rank-3 plans refuse them.
     """
-    refuse_unported(
-        streams=streams, max_tile_bytes=max_tile_bytes, tune=tune, lint=lint
-    )
     shape = tuple(int(s) for s in shape)
     rank = len(shape)
     if rank not in (2, 3):
@@ -241,6 +240,10 @@ def create(
             f"shape must be rank 2 or 3, got {shape!r} "
             "(batched-1D stacks are rank-2 (B, M) with mode='batch')"
         )
+    refuse_unported(
+        streams=streams, max_tile_bytes=max_tile_bytes, tune=tune, lint=lint,
+        rank=rank,
+    )
     opdef = get_operator(weights_or_fn) if isinstance(weights_or_fn, str) else None
 
     if mode == "adi":
@@ -266,6 +269,7 @@ def create(
         common = dict(
             cyclic=cyclic, dtype=torch.float64 if dtype is None else dtype,
             backend=backend, operator=opdef.name, device=device,
+            streams=streams, max_tile_bytes=max_tile_bytes,
         )
         if rank == 2:
             if alpha_z is not None:
@@ -323,7 +327,8 @@ def create(
         raise ValueError(f"unknown extents keys {bad}; allowed: {list(allowed)}")
     common = dict(
         weights=weights, func=func, coeffs=coeffs, backend=backend,
-        dtype=dtype, device=device,
+        dtype=dtype, device=device, streams=streams,
+        max_tile_bytes=max_tile_bytes,
         op_name=None if opdef is None else opdef.name,
         **{f"num_sten_{k}": v for k, v in ext.items()},
     )

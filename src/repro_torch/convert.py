@@ -6,7 +6,9 @@ The reference's factor sets, ADI operators (2D and 3D) and stencil plans
 pass ``np.asarray`` of each and these functions build the port's
 counterpart on ``device``.  Feeding the reference's own factors to the
 port separates differences in the substitution from differences in the
-factorisation.
+factorisation.  The 2D and batched-1D builders also carry a reference
+plan's ``streams`` and ``max_tile_bytes`` across (the 3D ones have no
+streaming yet).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from repro_torch.core.adi import ADIOperator, ADIOperator3D
 from repro_torch.core.stencil import Stencil2D, Stencil3D, StencilBatch1D
 from repro_torch.kernels.penta import CyclicPentaFactors, PentaFactors
 from repro_torch.kernels.ref import weighted_point_fn
+from repro_torch.launch.stream import stream_fields
 from repro_torch.util import resolve_device
 
 
@@ -51,15 +54,18 @@ def adi_operator(
     *,
     backend: str = "auto",
     operator: str = "hyperdiffusion",
+    streams: int | None = None,
+    max_tile_bytes: int | None = None,
 ) -> ADIOperator:
     """A 2D :class:`ADIOperator` from two converted factor sets (cyclic when
-    both are cyclic)."""
+    both are cyclic), with the reference operator's streaming knobs."""
     cyclic = isinstance(fac_x, CyclicPentaFactors)
     if cyclic != isinstance(fac_y, CyclicPentaFactors):
         raise ValueError("fac_x and fac_y must both be cyclic or both plain")
+    device = (fac_x.band if cyclic else fac_x).sub.device
     return ADIOperator(
         fac_x=fac_x, fac_y=fac_y, cyclic=cyclic, backend=backend,
-        operator=operator,
+        operator=operator, **stream_fields(streams, max_tile_bytes, device),
     )
 
 
@@ -95,15 +101,18 @@ def stencil_batch1d(
     bc: str = "periodic",
     point_fn: Callable = weighted_point_fn,
     backend: str = "auto",
+    streams: int | None = None,
+    max_tile_bytes: int | None = None,
     device="cuda",
 ) -> StencilBatch1D:
-    """A :class:`StencilBatch1D` from its ``coeffs`` (left to right) and
-    extents."""
-    coeffs_t = _tensor(coeffs, resolve_device(device)).reshape(-1)
+    """A :class:`StencilBatch1D` from its ``coeffs`` (left to right),
+    extents and streaming knobs."""
+    dev = resolve_device(device)
+    coeffs_t = _tensor(coeffs, dev).reshape(-1)
     _check_weighted(coeffs_t, point_fn, left + right + 1)
     return StencilBatch1D(
         bc=bc, left=left, right=right, coeffs=coeffs_t, point_fn=point_fn,
-        backend=backend,
+        backend=backend, **stream_fields(streams, max_tile_bytes, dev),
     )
 
 
@@ -139,11 +148,14 @@ def stencil2d(
     bc: str = "periodic",
     point_fn: Callable = weighted_point_fn,
     backend: str = "auto",
+    streams: int | None = None,
+    max_tile_bytes: int | None = None,
     device="cuda",
 ) -> Stencil2D:
     """A :class:`Stencil2D` from flat ``coeffs`` (row-major from the
-    stencil's top-left) and its extents."""
-    coeffs_t = _tensor(coeffs, resolve_device(device)).reshape(-1)
+    stencil's top-left), its extents and its streaming knobs."""
+    dev = resolve_device(device)
+    coeffs_t = _tensor(coeffs, dev).reshape(-1)
     _check_weighted(coeffs_t, point_fn, (left + right + 1) * (top + bottom + 1))
     direction = "xy" if (left or right) and (top or bottom) else (
         "y" if (top or bottom) else "x"
@@ -151,4 +163,5 @@ def stencil2d(
     return Stencil2D(
         direction=direction, bc=bc, left=left, right=right, top=top,
         bottom=bottom, coeffs=coeffs_t, point_fn=point_fn, backend=backend,
+        **stream_fields(streams, max_tile_bytes, dev),
     )

@@ -9,7 +9,9 @@ grid direction.  The factorisation happens once at Create
 is a batched banded substitution, transpose-free in every sweep:
 
 - 2D :class:`ADIOperator`: the x-sweep runs the row-layout solve on the
-  ``(ny, nx)`` field as it lies, the y-sweep the column-layout solve;
+  ``(ny, nx)`` field as it lies, the y-sweep the column-layout solve; with
+  ``streams``/``max_tile_bytes`` each sweep is streamed in row or column
+  chunks (:mod:`repro_torch.launch.stream`);
 - 3D :class:`ADIOperator3D`: the x-sweep runs the row layout on the
   ``(nz*ny, nx)`` view, the y-sweep the plane layout on the field itself,
   the z-sweep the column layout on the ``(nz, ny*nx)`` view.
@@ -23,6 +25,7 @@ import torch
 
 from repro_torch.kernels._build import check_backend
 from repro_torch.core.stencil import StencilBatch1D
+from repro_torch.launch import stream as _stream
 from repro_torch.kernels.penta import (
     CyclicPentaFactors,
     PentaFactors,
@@ -79,22 +82,44 @@ def apply_along_y(
 @dataclasses.dataclass(frozen=True)
 class ADIOperator:
     """Factored per-direction operators ``L = I + alpha delta^4`` (or the
-    registry operator's band), on the factors' device."""
+    registry operator's band), on the factors' device.
+
+    ``streams``/``max_tile_bytes`` route the substitutions through the
+    streamed executor: the x-sweep in row chunks
+    (:func:`~repro_torch.launch.stream.stream_penta_solve_rows`), the
+    y-sweep in column chunks
+    (:func:`~repro_torch.launch.stream.stream_penta_solve`), each chunk one
+    kernel launch on a stream of ``stream_pool``."""
 
     fac_x: CyclicPentaFactors | PentaFactors  # along x (length nx)
     fac_y: CyclicPentaFactors | PentaFactors  # along y (length ny)
     cyclic: bool
     backend: str = "auto"
     operator: str = "hyperdiffusion"
+    streams: int | None = None
+    max_tile_bytes: int | None = None
+    stream_pool: tuple = dataclasses.field(default=(), compare=False, repr=False)
 
     @property
     def destroyed(self) -> bool:
         """True once ``repro_torch.destroy`` ran on this operator."""
         return getattr(self, "_destroyed", False)
 
+    def _streamed(self, rhs: torch.Tensor) -> bool:
+        return rhs.ndim == 2 and _stream.should_stream(
+            rhs.shape, rhs.element_size(), streams=self.streams,
+            max_tile_bytes=self.max_tile_bytes,
+        )
+
     def solve_x(self, rhs: torch.Tensor) -> torch.Tensor:
         """Solve ``L_x w = rhs`` along the x (last) axis of an (ny, nx)
         field — row layout, transpose-free."""
+        if self._streamed(rhs):
+            return _stream.stream_penta_solve_rows(
+                self.fac_x, rhs, cyclic=self.cyclic, streams=self.streams,
+                max_tile_bytes=self.max_tile_bytes, backend=self.backend,
+                pool=self.stream_pool,
+            )
         solve = (
             cyclic_penta_solve_factored_rows if self.cyclic
             else penta_solve_factored_rows
@@ -104,6 +129,12 @@ class ADIOperator:
     def solve_y(self, rhs: torch.Tensor) -> torch.Tensor:
         """Solve ``L_y v = rhs`` along the y (first) axis of an (ny, nx)
         field — column layout."""
+        if self._streamed(rhs):
+            return _stream.stream_penta_solve(
+                self.fac_y, rhs, cyclic=self.cyclic, streams=self.streams,
+                max_tile_bytes=self.max_tile_bytes, backend=self.backend,
+                pool=self.stream_pool,
+            )
         solve = cyclic_penta_solve_factored if self.cyclic else penta_solve_factored
         return solve(self.fac_y, rhs, backend=self.backend)
 
@@ -129,8 +160,8 @@ def _make_adi_operator(
     ``(2/3) D gamma dt / h**4`` for the paper's full scheme);
     ``operator='diffusion'`` factors ``I - alpha delta^2`` instead.  The
     bands are factored on the host in ``dtype`` and the factors moved to
-    ``device``."""
-    refuse_unported(streams=streams, max_tile_bytes=max_tile_bytes, tune=tune)
+    ``device``; ``streams``/``max_tile_bytes`` stream the sweeps."""
+    refuse_unported(tune=tune)
     check_backend(backend)
     dev = resolve_device(device)
     diagonals = _band_builder(operator)
@@ -142,6 +173,7 @@ def _make_adi_operator(
         cyclic=cyclic,
         backend=backend,
         operator=operator,
+        **_stream.stream_fields(streams, max_tile_bytes, dev),
     )
 
 
@@ -220,7 +252,8 @@ def _make_adi_operator_3d(
     ``I - alpha delta^2`` for ``operator='diffusion'`` (backward-Euler heat
     sweeps, ``alpha = D dt / h^2``).  ``alpha_y``/``alpha_z`` override the
     x coefficient per direction on anisotropic grids."""
-    refuse_unported(streams=streams, max_tile_bytes=max_tile_bytes, tune=tune)
+    refuse_unported(streams=streams, max_tile_bytes=max_tile_bytes, tune=tune,
+                    rank=3)
     check_backend(backend)
     dev = resolve_device(device)
     diagonals = _band_builder(operator)

@@ -26,6 +26,12 @@ Three RHS paths:
   factors for grad^4 and a 3-point function-pointer plan for the
   Laplacian of (C^3 - C), six directional applies per step.
 
+``CHConfig.streams``/``max_tile_bytes`` (cuSten's ``nStreams``) stream
+every piece of a step in row or column chunks on CUDA streams
+(:mod:`repro_torch.launch.stream`): the fused RHS + x-sweep, the RHS alone,
+the stencil plans and the sweeps.  The geometry is the untuned
+``choose_chunk_rows``, as the reference's with ``tune='off'``.
+
 Everything runs on ``CHConfig.device`` (the card unless the caller asks for
 the CPU).
 """
@@ -43,6 +49,7 @@ from repro_torch import api as _api
 from repro_torch.core import metrics as _metrics
 from repro_torch.core.adi import apply_along_x, apply_along_y
 from repro_torch.kernels import ops as _ops
+from repro_torch.launch import stream as _stream
 from repro_torch.util import refuse_unported, resolve_device, torch_dtype
 
 # Stencil weight tables (paper eq. 4; §V.B stencil shapes), from the registry
@@ -116,10 +123,7 @@ class CHConfig:
     def validate(self):
         if abs(self.dx - self.dy) > 1e-12:
             raise ValueError("paper scheme assumes a uniform grid dx == dy")
-        refuse_unported(
-            streams=self.streams, max_tile_bytes=self.max_tile_bytes,
-            tune=self.tune,
-        )
+        refuse_unported(tune=self.tune)
         if self.rhs_mode not in _RHS_MODES:
             raise ValueError(f"unknown rhs_mode {self.rhs_mode!r}")
 
@@ -139,10 +143,11 @@ class CahnHilliardADI:
         # Create: factor the implicit operators once (cuPentBatch pattern)
         beta_full = (2.0 / 3.0) * cfg.D * cfg.gamma * cfg.dt / h4
         beta_half = 0.5 * cfg.D * cfg.gamma * cfg.dt / h4
+        knobs = dict(streams=cfg.streams, max_tile_bytes=cfg.max_tile_bytes)
         mk_op = functools.partial(
             _api.create, "hyperdiffusion", (cfg.ny, cfg.nx), mode="adi",
             cyclic=True, dtype=self.dtype, backend=cfg.backend,
-            device=self.device,
+            device=self.device, **knobs,
         )
         self.op_full = mk_op(alpha=beta_full)
         self.op_half = mk_op(alpha=beta_half)
@@ -150,7 +155,7 @@ class CahnHilliardADI:
         # Create: the stencil plans (bootstrap and paper-faithful RHS path)
         mk = functools.partial(
             _api.create, shape=(cfg.ny, cfg.nx), mode="xy", bc="periodic",
-            dtype=self.dtype, backend=cfg.backend, device=self.device,
+            dtype=self.dtype, backend=cfg.backend, device=self.device, **knobs,
         )
         self.plan_bih = mk("biharmonic")
         self.plan_lap_cube = mk(
@@ -165,13 +170,31 @@ class CahnHilliardADI:
         # directional factor; apply_along_{x,y} runs it over all grid lines.
         mk1d = functools.partial(
             _api.create, shape=(cfg.ny, cfg.nx), mode="batch", bc="periodic",
-            dtype=self.dtype, backend=cfg.backend, device=self.device,
+            dtype=self.dtype, backend=cfg.backend, device=self.device, **knobs,
         )
         self.plan_d4_1d = mk1d(_D4)
         self.plan_d2_1d = mk1d(_D2)
         self.plan_lap_cube_1d = mk1d(
             cube_laplacian_point_fn, coeffs=_D2, extents=dict(left=1, right=1),
         )
+        # the fused kernels' own streams (rhs_mode='fused')
+        self._pool = _stream.make_stream_pool(cfg.streams, self.device)
+
+    def _streamed(self, c: torch.Tensor) -> bool:
+        return _stream.should_stream(
+            c.shape, c.element_size(), streams=self.cfg.streams,
+            max_tile_bytes=self.cfg.max_tile_bytes,
+        )
+
+    def _fused_kw(self) -> dict:
+        cfg = self.cfg
+        return dict(dt=cfg.dt, D=cfg.D, gamma=cfg.gamma, inv_h2=self.inv_h2,
+                    inv_h4=self.inv_h4, backend=cfg.backend)
+
+    def _stream_kw(self) -> dict:
+        cfg = self.cfg
+        return dict(streams=cfg.streams, max_tile_bytes=cfg.max_tile_bytes,
+                    pool=self._pool)
 
     # -- batched-1D directional assembly (rhs_mode='batch1d') ----------------
     def _cross_batch1d(self, c: torch.Tensor) -> torch.Tensor:
@@ -197,10 +220,10 @@ class CahnHilliardADI:
     def rhs(self, c_n: torch.Tensor, c_nm1: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         if cfg.rhs_mode == "fused":
-            return _ops.ch_rhs(
-                c_n, c_nm1, dt=cfg.dt, D=cfg.D, gamma=cfg.gamma,
-                inv_h2=self.inv_h2, inv_h4=self.inv_h4, backend=cfg.backend,
-            )
+            if self._streamed(c_n):
+                return _stream.stream_ch_rhs(
+                    c_n, c_nm1, **self._fused_kw(), **self._stream_kw())
+            return _ops.ch_rhs(c_n, c_nm1, **self._fused_kw())
         batch1d = cfg.rhs_mode == "batch1d"
         bih = self._bih_batch1d if batch1d else self.plan_bih.apply
         lap_cube = self._lap_cube_batch1d if batch1d else self.plan_lap_cube.apply
@@ -214,18 +237,23 @@ class CahnHilliardADI:
 
     def _increment(self, c_n: torch.Tensor, c_nm1: torch.Tensor) -> torch.Tensor:
         """``v = L_y^{-1} L_x^{-1} rhs(c_n, c_nm1)``: the fused path
-        assembles the RHS straight into the x-sweep (one kernel); both
-        sweeps consume their Create-time factors in their native layout."""
-        cfg = self.cfg
-        if cfg.rhs_mode == "fused":
-            w = _ops.ch_rhs_xsweep(
-                c_n, c_nm1, self.op_full.fac_x, dt=cfg.dt, D=cfg.D,
-                gamma=cfg.gamma, inv_h2=self.inv_h2, inv_h4=self.inv_h4,
-                backend=cfg.backend,
-            )
+        assembles the RHS straight into the x-sweep (one kernel, or one per
+        row chunk when streamed); both sweeps consume their Create-time
+        factors in their native layout."""
+        if self.cfg.rhs_mode == "fused":
+            w = self._fused_xsweep(c_n, c_nm1)
         else:
             w = self.op_full.solve_x(self.rhs(c_n, c_nm1))
         return self.op_full.solve_y(w)
+
+    def _fused_xsweep(self, c_n: torch.Tensor, c_nm1: torch.Tensor) -> torch.Tensor:
+        """``L_x^{-1} rhs(c_n, c_nm1)`` in one fused pass, streamed in row
+        chunks when the domain exceeds one tile."""
+        fac_x = self.op_full.fac_x
+        if self._streamed(c_n):
+            return _stream.stream_ch_rhs_xsweep(
+                c_n, c_nm1, fac_x, **self._fused_kw(), **self._stream_kw())
+        return _ops.ch_rhs_xsweep(c_n, c_nm1, fac_x, **self._fused_kw())
 
     # -- one full scheme step (eq. 2) ---------------------------------------
     def step(

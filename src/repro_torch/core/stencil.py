@@ -1,5 +1,5 @@
-"""The plan-based stencil engine (counterpart of ``repro.core.stencil``,
-reduced to the monolithic apply), for the three plan families: 2D
+"""The plan-based stencil engine (counterpart of ``repro.core.stencil``),
+for the three plan families: 2D
 (:class:`Stencil2D`), batched-1D (:class:`StencilBatch1D`, cuSten's
 1DBatch) and 3D (:class:`Stencil3D`, paper §VI.A).
 
@@ -8,7 +8,10 @@ reduced to the monolithic apply), for the three plan families: 2D
   boundary mode and the backend, return an immutable plan whose
   coefficients already live on the plan's device.
 - ``plan.apply`` — Compute, through the family's op in
-  :mod:`repro_torch.kernels.ops`.
+  :mod:`repro_torch.kernels.ops`, or, when ``streams``/``max_tile_bytes``
+  ask for it and the field exceeds one tile, through the family's streamed
+  executor in :mod:`repro_torch.launch.stream` (2D and batched-1D; a 3D
+  plan refuses the knobs).
 - :class:`DoubleBuffer` — Swap.
 - :func:`plan_destroy` — Destroy (an idempotent mark; tensors are freed by
   reference counting).
@@ -30,6 +33,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels._build import check_backend
 from repro_torch.kernels.ref import weighted_point_fn
+from repro_torch.launch import stream as _stream
 from repro_torch.util import refuse_unported, resolve_device, torch_dtype
 
 _DIRECTIONS = ("x", "y", "xy")
@@ -54,13 +58,18 @@ def _split_extents(n_points: int, lo: int | None, hi: int | None):
 class PlanCore:
     """What a Compute needs besides geometry: the boundary mode, the
     coefficients (weights or function-pointer coefficients, on the plan's
-    device), the point function and the backend request."""
+    device), the point function, the backend request and the streaming
+    knobs (``streams`` / ``max_tile_bytes`` mirror cuSten's ``nStreams``;
+    ``stream_pool`` holds the plan's CUDA streams, made at Create)."""
 
     bc: str
     coeffs: torch.Tensor
     point_fn: Callable = weighted_point_fn
     backend: str = "auto"
     op_name: str | None = None
+    streams: int | None = None
+    max_tile_bytes: int | None = None
+    stream_pool: tuple = dataclasses.field(default=(), compare=False, repr=False)
 
     @property
     def destroyed(self) -> bool:
@@ -74,12 +83,30 @@ class PlanCore:
         """The family's Compute op in :mod:`repro_torch.kernels.ops`."""
         raise NotImplementedError
 
+    def _stream_apply(self, *args, **kwargs) -> torch.Tensor:
+        """The family's streamed executor in :mod:`repro_torch.launch.stream`
+        (the 3D family has none yet: Create refuses its knobs)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no streamed executor (ROADMAP.md "
+            "queue 1, item 6)"
+        )
+
     def apply(
         self, data: torch.Tensor, out_init: torch.Tensor | None = None
     ) -> torch.Tensor:
         """Apply the stencil to ``data`` (the Compute call).  For
         ``bc='np'`` the cells within the halo of the domain edge are copied
         from ``out_init`` (zeros if not given)."""
+        if _stream.should_stream(
+            data.shape, data.element_size(), streams=self.streams,
+            max_tile_bytes=self.max_tile_bytes,
+        ):
+            return self._stream_apply(
+                data, self.coeffs, out_init, point_fn=self.point_fn,
+                bc=self.bc, streams=self.streams,
+                max_tile_bytes=self.max_tile_bytes, compute=self.backend,
+                pool=self.stream_pool, **self._halo_kwargs(),
+            )
         return self._mono_apply(
             data, self.coeffs, out_init, point_fn=self.point_fn, bc=self.bc,
             backend=self.backend, **self._halo_kwargs(),
@@ -118,6 +145,9 @@ class Stencil2D(PlanCore):
     def _mono_apply(self, *args, **kwargs):
         return ops.stencil_apply(*args, **kwargs)
 
+    def _stream_apply(self, *args, **kwargs):
+        return _stream.stream_stencil_apply(*args, **kwargs)
+
     @property
     def num_sten(self) -> int:
         return (self.left + self.right + 1) * (self.top + self.bottom + 1)
@@ -153,8 +183,10 @@ def _create_2d(
     variants): ``func(windows, coeffs)`` plus ``coeffs`` and the extents;
     ``windows`` is the row-major list of shifted views from the top-left of
     the stencil.  ``dtype`` defaults to the weights' own (float64 for
-    Python or numpy float64 weights)."""
-    refuse_unported(streams=streams, max_tile_bytes=max_tile_bytes, tune=tune)
+    Python or numpy float64 weights).  ``streams``/``max_tile_bytes`` route
+    Compute through the streamed executor for fields larger than one tile
+    (cuSten ``nStreams``; see :mod:`repro_torch.launch.stream`)."""
+    refuse_unported(tune=tune)
     if direction not in _DIRECTIONS:
         raise ValueError(f"direction must be one of {_DIRECTIONS}")
     if bc not in _BCS:
@@ -198,6 +230,7 @@ def _create_2d(
         direction=direction, bc=bc, left=left, right=right, top=top,
         bottom=bottom, coeffs=coeffs_t, point_fn=point_fn,
         backend=backend, op_name=op_name,
+        **_stream.stream_fields(streams, max_tile_bytes, resolve_device(device)),
     )
 
 
@@ -215,6 +248,9 @@ class StencilBatch1D(PlanCore):
 
     def _mono_apply(self, *args, **kwargs):
         return ops.stencil_apply_batch1d(*args, **kwargs)
+
+    def _stream_apply(self, *args, **kwargs):
+        return _stream.stream_batch1d_apply(*args, **kwargs)
 
     @property
     def num_sten(self) -> int:
@@ -246,8 +282,9 @@ def _create_1d_batch(
     Weighted mode: 1D ``weights`` of length ``numSten`` (symmetric split
     inferred for odd lengths, or give ``num_sten_left/right``).  Function
     mode (``Fun`` variants): ``func(windows, coeffs)`` plus ``coeffs`` and
-    the explicit extents; ``windows`` sweep left to right."""
-    refuse_unported(streams=streams, max_tile_bytes=max_tile_bytes, tune=tune)
+    the explicit extents; ``windows`` sweep left to right.  The streaming
+    knobs are those of :func:`_create_2d`."""
+    refuse_unported(tune=tune)
     if bc not in _BCS:
         raise ValueError(f"bc must be one of {_BCS}")
     check_backend(backend)
@@ -269,6 +306,7 @@ def _create_1d_batch(
     return StencilBatch1D(
         bc=bc, left=left, right=right, coeffs=coeffs_t, point_fn=point_fn,
         backend=backend, op_name=op_name,
+        **_stream.stream_fields(streams, max_tile_bytes, resolve_device(device)),
     )
 
 
@@ -335,7 +373,8 @@ def _create_3d(
     ``(sz, sy, sx)`` box for ``'xyz'``.  Function mode: ``func(windows,
     coeffs)`` plus the explicit extents; windows are enumerated z-major,
     then row-major over (y, x)."""
-    refuse_unported(streams=streams, max_tile_bytes=max_tile_bytes, tune=tune)
+    refuse_unported(streams=streams, max_tile_bytes=max_tile_bytes, tune=tune,
+                    rank=3)
     if direction not in _DIRECTIONS_3D:
         raise ValueError(f"direction must be one of {_DIRECTIONS_3D}")
     if bc not in _BCS:

@@ -10,7 +10,11 @@ The libraries go to ``build/repro_torch/<hash of sources and flags>/`` at
 the root of the checkout and are loaded with :mod:`ctypes`.  Every C entry
 point launches on the stream it is given (PyTorch's current stream),
 allocates nothing, and returns the ``cudaError_t`` of the launch; the
-wrapper raises on a non-zero code.  A missing ``nvcc`` or a failed build
+wrapper raises on a non-zero code.  The entry points of the 2D and
+batched-1D kernels also take a window (rows, lines or columns of the
+output), which the streamed executors of ``repro_torch.launch.stream``
+issue one chunk at a time; a monolithic call is one window covering
+everything.  A missing ``nvcc`` or a failed build
 raises too: there is no fallback to the plain versions.
 
 This module also holds the launch counters (one plain integer per kernel,
@@ -48,6 +52,7 @@ LAUNCHES: dict[str, int] = {
     "stencil1d_batch": 0,
     "stencil3d": 0,
     "penta_mid": 0,
+    "weno5_advect": 0,
 }
 
 BACKENDS = ("auto", "cuda", "torch")
@@ -58,24 +63,27 @@ _L = ctypes.c_longlong
 # c_void_p, so ctypes does not cut them to 32 bits.
 _ENTRY_POINTS = {
     "penta.cu": (
-        ("penta_cols", [_I] + [_P] * 5 + [_P, _P, _P, _I, _I, _P]),
-        ("penta_rows", [_I] + [_P] * 5 + [_P, _P, _P, _I, _I, _I, _P]),
+        ("penta_cols", [_I] + [_P] * 5 + [_P, _P, _P] + [_I] * 4 + [_P]),
+        ("penta_rows", [_I] + [_P] * 5 + [_P, _P, _P] + [_I] * 5 + [_P]),
         ("penta_mid", [_I] + [_P] * 5 + [_P, _P, _P, _I, _I, _I, _P]),
     ),
     "stencil2d.cu": (
-        ("stencil2d", [_I, _I, _I, _P, _P, _P, _P] + [_I] * 6 + [_P]),
+        ("stencil2d", [_I, _I, _I, _P, _P, _P, _P] + [_I] * 8 + [_P]),
     ),
     "stencil1d_batch.cu": (
         ("stencil1d_batch",
-         [_I, _I, _I, _P, _P, _P, _P, _I, _I, _L, _L, _I, _I, _P]),
+         [_I, _I, _I, _P, _P, _P, _P, _I, _I, _L, _L] + [_I] * 4 + [_P]),
     ),
     "stencil3d.cu": (
         ("stencil3d", [_I, _I, _I, _P, _P, _P, _P] + [_I] * 9 + [_P]),
     ),
     "fused_ch.cu": (
         ("ch_rhs_xsweep",
-         [_I, _P, _P] + [_P] * 5 + [_P, _P, _I, _I, _I, _D, _D, _D, _P]),
-        ("ch_rhs", [_I, _P, _P, _P, _I, _I, _D, _D, _D, _P]),
+         [_I, _P, _P] + [_P] * 5 + [_P, _P] + [_I] * 5 + [_D, _D, _D, _P]),
+        ("ch_rhs", [_I, _P, _P, _P] + [_I] * 4 + [_D, _D, _D, _P]),
+    ),
+    "weno.cu": (
+        ("weno5_advect", [_I, _P, _P, _P, _P, _I, _I, _D, _D, _P]),
     ),
 }
 SOURCES = tuple(_ENTRY_POINTS)
@@ -245,6 +253,29 @@ def check_cuda(t: torch.Tensor, name: str, *, like: torch.Tensor, shape) -> None
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def window(win, n: int, what: str, out) -> tuple[int, int]:
+    """``(start, stop)`` of a launch's window over ``n`` rows, lines or
+    columns: the whole extent when ``win`` is None.  A window writes its
+    part of a whole output, so it needs the caller's ``out``."""
+    if win is None:
+        return 0, n
+    if out is None:
+        raise ValueError(f"a {what} window writes into a given out")
+    a, b = int(win[0]), int(win[1])
+    if not 0 <= a < b <= n:
+        raise ValueError(f"{what} window {win!r} is not within [0, {n}]")
+    return a, b
+
+
+def out_like(out: torch.Tensor | None, like: torch.Tensor) -> torch.Tensor:
+    """The output buffer of a launch: ``out`` after the checks of
+    :func:`check_cuda` against ``like``, or a new contiguous tensor."""
+    if out is None:
+        return torch.empty_like(like, memory_format=torch.contiguous_format)
+    check_cuda(out, "out", like=like, shape=like.shape)
+    return out
 
 
 def launch(name: str, device: torch.device, *args) -> None:

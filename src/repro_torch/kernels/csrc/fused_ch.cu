@@ -38,6 +38,11 @@
 // card: not bandwidth (24 MB of traffic at 1024^2 float64) but the serial
 // recurrence of phase 2, which has only R threads per block and ny threads
 // in all; it is latency-bound, like penta_rows.
+//
+// Both compute the output rows [row0, row1) (the whole field is [0, ny)):
+// a streamed step (repro_torch/launch/stream.py) issues one launch per row
+// chunk, each reading its halo rows from the whole field with the wrap, so
+// every point is computed by the same code whatever the chunk.
 #include "common.cuh"
 
 namespace {
@@ -79,10 +84,10 @@ __device__ __forceinline__ T ch_rhs_at(const T* const n_r[5],
 template <typename T>
 __global__ void __launch_bounds__(256) ch_rhs_kernel(
     const T* __restrict__ cn, const T* __restrict__ cm, T* __restrict__ out,
-    int ny, int nx, T k_lin, T k_bih, T k_lap) {
+    int ny, int nx, int row0, int row1, T k_lin, T k_bih, T k_lap) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= nx || j >= ny) return;
+  const int j = row0 + blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= nx || j >= row1) return;
   const T* n_r[5];
   const T* m_r[5];
   int col[5];
@@ -103,15 +108,15 @@ __global__ void __launch_bounds__(256) ch_rhs_xsweep_kernel(
     const T* __restrict__ sub, const T* __restrict__ low,
     const T* __restrict__ imu, const T* __restrict__ al,
     const T* __restrict__ be, const T* __restrict__ w, T* __restrict__ out,
-    int ny, int nx, int R, T k_lin, T k_bih, T k_lap) {
+    int ny, int nx, int row0, int row1, int R, T k_lin, T k_bih, T k_lap) {
   extern __shared__ unsigned char smem_raw[];
   T* s = reinterpret_cast<T*>(smem_raw);
   const int ld = nx + 1;
-  const int row0 = blockIdx.x * R;
-  const int nrows = min(R, ny - row0);
+  const int first = row0 + blockIdx.x * R;
+  const int nrows = min(R, row1 - first);
 
   for (int r = 0; r < nrows; ++r) {
-    const int j = row0 + r;
+    const int j = first + r;
     const T* n_r[5];
     const T* m_r[5];
 #pragma unroll
@@ -133,7 +138,7 @@ __global__ void __launch_bounds__(256) ch_rhs_xsweep_kernel(
   __syncthreads();
   for (int r = 0; r < nrows; ++r) {
     const T* row = s + r * ld;
-    T* dst = out + static_cast<size_t>(row0 + r) * nx;
+    T* dst = out + static_cast<size_t>(first + r) * nx;
     for (int i = threadIdx.x; i < nx; i += blockDim.x)
       dst[i] = woodbury_row(row, w, i, nx);
   }
@@ -141,31 +146,32 @@ __global__ void __launch_bounds__(256) ch_rhs_xsweep_kernel(
 
 template <typename T>
 int launch(const void* cn, const void* cm, void* const* f, const void* w,
-           void* out, int ny, int nx, int R, double k_lin, double k_bih,
-           double k_lap, cudaStream_t stream) {
+           void* out, int ny, int nx, int row0, int row1, int R,
+           double k_lin, double k_bih, double k_lap, cudaStream_t stream) {
   static int smem_set = 0;
   const int bytes = R * (nx + 1) * static_cast<int>(sizeof(T));
   cudaError_t e = allow_smem(ch_rhs_xsweep_kernel<T>, bytes, &smem_set);
   if (e != cudaSuccess) return static_cast<int>(e);
-  ch_rhs_xsweep_kernel<T><<<(ny + R - 1) / R, 256, bytes, stream>>>(
+  ch_rhs_xsweep_kernel<T><<<(row1 - row0 + R - 1) / R, 256, bytes, stream>>>(
       static_cast<const T*>(cn), static_cast<const T*>(cm),
       static_cast<const T*>(f[0]), static_cast<const T*>(f[1]),
       static_cast<const T*>(f[2]), static_cast<const T*>(f[3]),
       static_cast<const T*>(f[4]), static_cast<const T*>(w),
-      static_cast<T*>(out), ny, nx, R, static_cast<T>(k_lin),
+      static_cast<T*>(out), ny, nx, row0, row1, R, static_cast<T>(k_lin),
       static_cast<T>(k_bih), static_cast<T>(k_lap));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_rhs(const void* cn, const void* cm, void* out, int ny, int nx,
-               double k_lin, double k_bih, double k_lap,
+               int row0, int row1, double k_lin, double k_bih, double k_lap,
                cudaStream_t stream) {
   const dim3 block(32, 8);
-  const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
+  const dim3 grid((nx + block.x - 1) / block.x,
+                  (row1 - row0 + block.y - 1) / block.y);
   ch_rhs_kernel<T><<<grid, block, 0, stream>>>(
       static_cast<const T*>(cn), static_cast<const T*>(cm),
-      static_cast<T*>(out), ny, nx, static_cast<T>(k_lin),
+      static_cast<T*>(out), ny, nx, row0, row1, static_cast<T>(k_lin),
       static_cast<T>(k_bih), static_cast<T>(k_lap));
   return static_cast<int>(cudaGetLastError());
 }
@@ -173,24 +179,32 @@ int launch_rhs(const void* cn, const void* cm, void* out, int ny, int nx,
 }  // namespace
 
 // dtype: 0 float32, 1 float64.  Any extent (periodic wrap per index).
+// Computes the output rows [row0, row1), 0 <= row0 < row1 <= ny.
 RT_EXPORT int ch_rhs(int dtype, void* cn, void* cm, void* out, int ny,
-                     int nx, double k_lin, double k_bih, double k_lap,
-                     void* stream) {
+                     int nx, int row0, int row1, double k_lin, double k_bih,
+                     double k_lap, void* stream) {
+  if (row0 < 0 || row1 > ny || row0 >= row1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1
-             ? launch_rhs<double>(cn, cm, out, ny, nx, k_lin, k_bih, k_lap, s)
-             : launch_rhs<float>(cn, cm, out, ny, nx, k_lin, k_bih, k_lap, s);
+  return dtype == 1 ? launch_rhs<double>(cn, cm, out, ny, nx, row0, row1,
+                                         k_lin, k_bih, k_lap, s)
+                    : launch_rhs<float>(cn, cm, out, ny, nx, row0, row1,
+                                        k_lin, k_bih, k_lap, s);
 }
 
 // dtype: 0 float32, 1 float64.  w is the (nx, 4) Woodbury matrix (cyclic).
+// Computes the output rows [row0, row1), 0 <= row0 < row1 <= ny.
 RT_EXPORT int ch_rhs_xsweep(int dtype, void* cn, void* cm, void* sub,
                             void* low, void* imu, void* al, void* be, void* w,
-                            void* out, int ny, int nx, int R, double k_lin,
-                            double k_bih, double k_lap, void* stream) {
+                            void* out, int ny, int nx, int row0, int row1,
+                            int R, double k_lin, double k_bih, double k_lap,
+                            void* stream) {
+  if (row0 < 0 || row1 > ny || row0 >= row1)
+    return static_cast<int>(cudaErrorInvalidValue);
   void* f[5] = {sub, low, imu, al, be};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? launch<double>(cn, cm, f, w, out, ny, nx, R, k_lin,
-                                     k_bih, k_lap, s)
-                    : launch<float>(cn, cm, f, w, out, ny, nx, R, k_lin,
-                                    k_bih, k_lap, s);
+  return dtype == 1 ? launch<double>(cn, cm, f, w, out, ny, nx, row0, row1,
+                                     R, k_lin, k_bih, k_lap, s)
+                    : launch<float>(cn, cm, f, w, out, ny, nx, row0, row1, R,
+                                    k_lin, k_bih, k_lap, s);
 }

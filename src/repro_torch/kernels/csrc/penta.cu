@@ -36,6 +36,12 @@
 // plane offset: both run substitute_line, with the cyclic rank-4 closure
 // as the epilogue when w is given.  Latency-bound like penta_cols, but
 // with P times as many threads.
+//
+// penta_cols computes the columns [col0, col1) and penta_rows the rows
+// [row0, row1) of their output (the whole rhs is [0, N) and [0, B)): the
+// systems are independent, so a streamed sweep (repro_torch/launch/
+// stream.py) issues one launch per chunk of systems and each system is
+// solved by the same code whatever the chunk.
 #include "common.cuh"
 
 namespace {
@@ -89,11 +95,11 @@ __global__ void __launch_bounds__(32) penta_cols_kernel(
     const T* __restrict__ sub, const T* __restrict__ low,
     const T* __restrict__ imu, const T* __restrict__ al,
     const T* __restrict__ be, const T* __restrict__ w,
-    const T* __restrict__ rhs, T* __restrict__ out, int M, int N) {
+    const T* __restrict__ rhs, T* __restrict__ out, int M, int N,
+    size_t ld) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
-  substitute_line(sub, low, imu, al, be, w, rhs + n, out + n,
-                  static_cast<size_t>(N), M);
+  substitute_line(sub, low, imu, al, be, w, rhs + n, out + n, ld, M);
 }
 
 template <typename T>
@@ -138,15 +144,18 @@ __global__ void __launch_bounds__(256) penta_rows_kernel(
   }
 }
 
+// The columns [col0, col1) of an (M, N) rhs.
 template <typename T>
 int launch_cols(void* const* f, const void* w, const void* rhs, void* out,
-                int M, int N, cudaStream_t stream) {
+                int M, int N, int col0, int col1, cudaStream_t stream) {
   const int threads = 32;
-  penta_cols_kernel<T><<<(N + threads - 1) / threads, threads, 0, stream>>>(
+  const int n = col1 - col0;
+  penta_cols_kernel<T><<<(n + threads - 1) / threads, threads, 0, stream>>>(
       static_cast<const T*>(f[0]), static_cast<const T*>(f[1]),
       static_cast<const T*>(f[2]), static_cast<const T*>(f[3]),
       static_cast<const T*>(f[4]), static_cast<const T*>(w),
-      static_cast<const T*>(rhs), static_cast<T*>(out), M, N);
+      static_cast<const T*>(rhs) + col0, static_cast<T*>(out) + col0, M, n,
+      static_cast<size_t>(N));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -163,40 +172,49 @@ int launch_mid(void* const* f, const void* w, const void* rhs, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The rows [row0, row1) of a (B, M) rhs.
 template <typename T>
 int launch_rows(void* const* f, const void* w, const void* rhs, void* out,
-                int B, int M, int R, cudaStream_t stream) {
+                int M, int row0, int row1, int R, cudaStream_t stream) {
   static int smem_set = 0;
   const int bytes = R * (M + 1) * static_cast<int>(sizeof(T));
   cudaError_t e = allow_smem(penta_rows_kernel<T>, bytes, &smem_set);
   if (e != cudaSuccess) return static_cast<int>(e);
+  const int B = row1 - row0;
+  const size_t off = static_cast<size_t>(row0) * M;
   penta_rows_kernel<T><<<(B + R - 1) / R, 256, bytes, stream>>>(
       static_cast<const T*>(f[0]), static_cast<const T*>(f[1]),
       static_cast<const T*>(f[2]), static_cast<const T*>(f[3]),
       static_cast<const T*>(f[4]), static_cast<const T*>(w),
-      static_cast<const T*>(rhs), static_cast<T*>(out), B, M, R);
+      static_cast<const T*>(rhs) + off, static_cast<T*>(out) + off, B, M, R);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 float64.  w may be null (non-cyclic band).
+// dtype: 0 float32, 1 float64.  w may be null (non-cyclic band).  Solves
+// the columns [col0, col1), 0 <= col0 < col1 <= N.
 RT_EXPORT int penta_cols(int dtype, void* sub, void* low, void* imu, void* al,
                          void* be, void* w, void* rhs, void* out, int M,
-                         int N, void* stream) {
+                         int N, int col0, int col1, void* stream) {
+  if (col0 < 0 || col1 > N || col0 >= col1)
+    return static_cast<int>(cudaErrorInvalidValue);
   void* f[5] = {sub, low, imu, al, be};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? launch_cols<double>(f, w, rhs, out, M, N, s)
-                    : launch_cols<float>(f, w, rhs, out, M, N, s);
+  return dtype == 1 ? launch_cols<double>(f, w, rhs, out, M, N, col0, col1, s)
+                    : launch_cols<float>(f, w, rhs, out, M, N, col0, col1, s);
 }
 
+// Solves the rows [row0, row1), 0 <= row0 < row1 <= B.
 RT_EXPORT int penta_rows(int dtype, void* sub, void* low, void* imu, void* al,
                          void* be, void* w, void* rhs, void* out, int B,
-                         int M, int R, void* stream) {
+                         int M, int row0, int row1, int R, void* stream) {
+  if (row0 < 0 || row1 > B || row0 >= row1)
+    return static_cast<int>(cudaErrorInvalidValue);
   void* f[5] = {sub, low, imu, al, be};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? launch_rows<double>(f, w, rhs, out, B, M, R, s)
-                    : launch_rows<float>(f, w, rhs, out, B, M, R, s);
+  return dtype == 1 ? launch_rows<double>(f, w, rhs, out, M, row0, row1, R, s)
+                    : launch_rows<float>(f, w, rhs, out, M, row0, row1, R, s);
 }
 
 RT_EXPORT int penta_mid(int dtype, void* sub, void* low, void* imu, void* al,

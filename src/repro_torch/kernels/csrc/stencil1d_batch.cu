@@ -22,6 +22,11 @@
 // L1/L2.  Design: one thread per output element, each wrapping or masking
 // its own index, so any B and M work with no tile rule and no padding; the
 // second grid axis loops, so any number of lines fits the grid.
+//
+// A launch computes the lines [line0, line1) (the whole stack is [0, B)):
+// lines never couple, so the entry point offsets the pointers by line0
+// line strides and runs the kernel on line1 - line0 lines.  A streamed
+// apply (repro_torch/launch/stream.py) issues one launch per line chunk.
 #include "common.cuh"
 
 namespace {
@@ -89,20 +94,32 @@ int launch(int periodic, const void* data, const void* coeffs,
 
 // dtype: 0 float32, 1 float64.  point_fn: 0 weighted, 1 cube (C^3 - C).
 // periodic: 1 periodic, 0 np.  out_init may be null (np zeros).  Strides
-// in elements; out and out_init share data's.
+// in elements; out and out_init share data's.  Computes the lines
+// [line0, line1), 0 <= line0 < line1 <= B.
 RT_EXPORT int stencil1d_batch(int dtype, int point_fn, int periodic,
                               void* data, void* coeffs, void* out_init,
                               void* out, int B, int M, long long line_stride,
-                              long long elem_stride, int left, int right,
-                              void* stream) {
+                              long long elem_stride, int line0, int line1,
+                              int left, int right, void* stream) {
+  if (line0 < 0 || line1 > B || line0 >= line1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t bytes = dtype == 1 ? sizeof(double) : sizeof(float);
+  const long long off = static_cast<long long>(line0) * line_stride;
+  auto at = [&](void* p) {
+    return p == nullptr ? p : static_cast<void*>(static_cast<char*>(p) +
+                                                 off * bytes);
+  };
+  void* d = at(data);
+  void* init = at(out_init);
+  void* o = at(out);
+  const int nb = line1 - line0;
   return with_point_fn(point_fn, [&](auto p) {
     using P = decltype(p);
     return dtype == 1
-               ? launch<double, P>(periodic, data, coeffs, out_init, out, B,
-                                   M, line_stride, elem_stride, left, right,
-                                   s)
-               : launch<float, P>(periodic, data, coeffs, out_init, out, B, M,
+               ? launch<double, P>(periodic, d, coeffs, init, o, nb, M,
+                                   line_stride, elem_stride, left, right, s)
+               : launch<float, P>(periodic, d, coeffs, init, o, nb, M,
                                   line_stride, elem_stride, left, right, s);
   });
 }

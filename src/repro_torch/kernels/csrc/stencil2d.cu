@@ -16,6 +16,12 @@
 // masked indices, so any extent (odd, prime) works with no tiling rule and
 // no padding; a warp covers 32 consecutive x so every tap's load is
 // coalesced.  Staging a halo tile in shared memory is left to a later pass.
+//
+// A launch computes the rows [row0, row1) of the output (the whole field
+// is [0, ny)): a streamed apply (repro_torch/launch/stream.py) issues one
+// launch per row chunk, each reading its halo rows from the whole field
+// with the same wrap or mask, so every point is computed by the same code
+// from the same inputs whatever the chunk.
 #include "common.cuh"
 
 namespace {
@@ -24,10 +30,10 @@ template <typename T, typename P, bool PERIODIC>
 __global__ void __launch_bounds__(256) stencil2d_kernel(
     const T* __restrict__ data, const T* __restrict__ coeffs,
     const T* __restrict__ out_init, T* __restrict__ out, int ny, int nx,
-    int left, int right, int top, int bottom) {
+    int row0, int row1, int left, int right, int top, int bottom) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= nx || j >= ny) return;
+  const int j = row0 + blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= nx || j >= row1) return;
   const size_t idx = static_cast<size_t>(j) * nx + i;
   if (!PERIODIC &&
       (i < left || i >= nx - right || j < top || j >= ny - bottom)) {
@@ -53,38 +59,45 @@ __global__ void __launch_bounds__(256) stencil2d_kernel(
 
 template <typename T, typename P>
 int launch(int periodic, const void* data, const void* coeffs,
-           const void* out_init, void* out, int ny, int nx, int left,
-           int right, int top, int bottom, cudaStream_t stream) {
+           const void* out_init, void* out, int ny, int nx, int row0,
+           int row1, int left, int right, int top, int bottom,
+           cudaStream_t stream) {
   const dim3 block(32, 8);
-  const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
+  const dim3 grid((nx + block.x - 1) / block.x,
+                  (row1 - row0 + block.y - 1) / block.y);
   const T* d = static_cast<const T*>(data);
   const T* c = static_cast<const T*>(coeffs);
   const T* init = static_cast<const T*>(out_init);
   T* o = static_cast<T*>(out);
   if (periodic)
     stencil2d_kernel<T, P, true><<<grid, block, 0, stream>>>(
-        d, c, init, o, ny, nx, left, right, top, bottom);
+        d, c, init, o, ny, nx, row0, row1, left, right, top, bottom);
   else
     stencil2d_kernel<T, P, false><<<grid, block, 0, stream>>>(
-        d, c, init, o, ny, nx, left, right, top, bottom);
+        d, c, init, o, ny, nx, row0, row1, left, right, top, bottom);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 float64.  point_fn: 0 weighted, 1 cube (C^3 - C).
-// periodic: 1 periodic, 0 np.  out_init may be null (np zeros).
+// periodic: 1 periodic, 0 np.  out_init may be null (np zeros).  Computes
+// the output rows [row0, row1), 0 <= row0 < row1 <= ny.
 RT_EXPORT int stencil2d(int dtype, int point_fn, int periodic, void* data,
                         void* coeffs, void* out_init, void* out, int ny,
-                        int nx, int left, int right, int top, int bottom,
-                        void* stream) {
+                        int nx, int row0, int row1, int left, int right,
+                        int top, int bottom, void* stream) {
+  if (row0 < 0 || row1 > ny || row0 >= row1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_point_fn(point_fn, [&](auto p) {
     using P = decltype(p);
     return dtype == 1
                ? launch<double, P>(periodic, data, coeffs, out_init, out, ny,
-                                   nx, left, right, top, bottom, s)
+                                   nx, row0, row1, left, right, top, bottom,
+                                   s)
                : launch<float, P>(periodic, data, coeffs, out_init, out, ny,
-                                  nx, left, right, top, bottom, s);
+                                  nx, row0, row1, left, right, top, bottom,
+                                  s);
   });
 }

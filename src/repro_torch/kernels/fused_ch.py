@@ -45,19 +45,22 @@ def ch_rhs_cuda(
     gamma: float,
     inv_h2: float,
     inv_h4: float,
+    rows: tuple[int, int] | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch the standalone RHS kernel on two contiguous (ny, nx) CUDA
-    fields."""
+    fields; ``rows=(r0, r1)`` computes only those rows into ``out``."""
     ny, nx = c_n.shape
     _build.check_cuda(c_n, "c_n", like=c_n, shape=(ny, nx))
     _build.check_cuda(c_nm1, "c_nm1", like=c_n, shape=(ny, nx))
     k_lin, k_bih, k_lap = ch_coefficients(
         dt=dt, D=D, gamma=gamma, inv_h2=inv_h2, inv_h4=inv_h4
     )
-    out = torch.empty_like(c_n)
+    r0, r1 = _build.window(rows, ny, "row", out)
+    out = _build.out_like(out, c_n)
     _build.launch(
         "ch_rhs", c_n.device, _build.dtype_code(c_n), _build.ptr(c_n),
-        _build.ptr(c_nm1), _build.ptr(out), ny, nx, float(k_lin),
+        _build.ptr(c_nm1), _build.ptr(out), ny, nx, r0, r1, float(k_lin),
         float(k_bih), float(k_lap),
     )
     return out
@@ -73,25 +76,30 @@ def ch_rhs_xsweep_cuda(
     gamma: float,
     inv_h2: float,
     inv_h4: float,
+    rows: tuple[int, int] | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch the fused kernel on two contiguous (ny, nx) CUDA fields.
-    ``fac_x`` is the cyclic factor set of length ``nx``."""
+    ``fac_x`` is the cyclic factor set of length ``nx``; ``rows=(r0, r1)``
+    computes only those rows into ``out``."""
     ny, nx = c_n.shape
     _build.check_cuda(c_n, "c_n", like=c_n, shape=(ny, nx))
     _build.check_cuda(c_nm1, "c_nm1", like=c_n, shape=(ny, nx))
     for name, f in zip(fac_x.band._fields, fac_x.band, strict=True):
         _build.check_cuda(f, f"factor {name}", like=c_n, shape=(nx,))
     _build.check_cuda(fac_x.w, "Woodbury w", like=c_n, shape=(nx, 4))
+    r0, r1 = _build.window(rows, ny, "row", out)
     smem, sms = _build.device_info(c_n.device)
-    R = rows_per_block(nx, c_n.element_size(), ny, smem, sms)
+    R = rows_per_block(nx, c_n.element_size(), r1 - r0, smem, sms)
     k_lin, k_bih, k_lap = ch_coefficients(
         dt=dt, D=D, gamma=gamma, inv_h2=inv_h2, inv_h4=inv_h4
     )
-    out = torch.empty_like(c_n)
+    out = _build.out_like(out, c_n)
     _build.launch(
         "ch_rhs_xsweep", c_n.device, _build.dtype_code(c_n),
         _build.ptr(c_n), _build.ptr(c_nm1),
         *(_build.ptr(f) for f in fac_x.band), _build.ptr(fac_x.w),
-        _build.ptr(out), ny, nx, R, float(k_lin), float(k_bih), float(k_lap),
+        _build.ptr(out), ny, nx, r0, r1, R, float(k_lin), float(k_bih),
+        float(k_lap),
     )
     return out

@@ -32,6 +32,7 @@ from repro_torch.kernels.stencil1d_batch import (
 )
 from repro_torch.kernels.stencil2d import stencil2d_cuda, stencil2d_torch
 from repro_torch.kernels.stencil3d import stencil3d_cuda, stencil3d_torch
+from repro_torch.kernels.weno import weno5_advect_cuda, weno5_advect_torch
 
 __all__ = [
     "LAUNCHES",
@@ -41,6 +42,7 @@ __all__ = [
     "stencil_apply",
     "stencil_apply_3d",
     "stencil_apply_batch1d",
+    "weno_advect",
 ]
 
 
@@ -124,3 +126,11 @@ def ch_rhs_xsweep(
     if resolve_backend(backend, c_n) == "cuda":
         return ch_rhs_xsweep_cuda(c_n, c_nm1, fac_x, **kw)
     return ch_rhs_xsweep_torch(c_n, c_nm1, fac_x, **kw)
+
+
+def weno_advect(q, u, v, *, dx: float, dy: float, backend: str = "auto"):
+    """RHS of periodic 2D advection ``-(u q_x + v q_y)`` with upwinded WENO5
+    derivatives.  The kernel takes any extent, so there is no tile."""
+    if resolve_backend(backend, q) == "cuda":
+        return weno5_advect_cuda(q, u, v, dx=dx, dy=dy)
+    return weno5_advect_torch(q, u, v, dx=dx, dy=dy)

@@ -272,37 +272,51 @@ def rows_per_block(M: int, itemsize: int, n_rows: int, smem_optin: int,
 
 
 def penta_cols_cuda(
-    band: PentaFactors, rhs: torch.Tensor, w: torch.Tensor | None = None
+    band: PentaFactors,
+    rhs: torch.Tensor,
+    w: torch.Tensor | None = None,
+    *,
+    cols: tuple[int, int] | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch the column-layout kernel on an (M, N) CUDA rhs; with ``w``
-    (the cyclic Woodbury matrix) the closure runs as its epilogue."""
+    (the cyclic Woodbury matrix) the closure runs as its epilogue.
+    ``cols=(c0, c1)`` solves only those columns into ``out``."""
     M, N = rhs.shape
     _build.check_cuda(rhs, "rhs", like=rhs, shape=(M, N))
     _check_factors(band, w, rhs, M)
-    out = torch.empty_like(rhs)
+    c0, c1 = _build.window(cols, N, "column", out)
+    out = _build.out_like(out, rhs)
     _build.launch(
         "penta_cols", rhs.device, _build.dtype_code(rhs),
         *(_build.ptr(f) for f in band), _build.ptr(w), _build.ptr(rhs),
-        _build.ptr(out), M, N,
+        _build.ptr(out), M, N, c0, c1,
     )
     return out
 
 
 def penta_rows_cuda(
-    band: PentaFactors, rhs: torch.Tensor, w: torch.Tensor | None = None
+    band: PentaFactors,
+    rhs: torch.Tensor,
+    w: torch.Tensor | None = None,
+    *,
+    rows: tuple[int, int] | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch the row-layout kernel on a (B, M) CUDA rhs; with ``w`` the
-    Woodbury closure runs on the kernel's write-out."""
+    Woodbury closure runs on the kernel's write-out.  ``rows=(r0, r1)``
+    solves only those rows into ``out``."""
     B, M = rhs.shape
     _build.check_cuda(rhs, "rhs", like=rhs, shape=(B, M))
     _check_factors(band, w, rhs, M)
+    r0, r1 = _build.window(rows, B, "row", out)
     smem, sms = _build.device_info(rhs.device)
-    R = rows_per_block(M, rhs.element_size(), B, smem, sms)
-    out = torch.empty_like(rhs)
+    R = rows_per_block(M, rhs.element_size(), r1 - r0, smem, sms)
+    out = _build.out_like(out, rhs)
     _build.launch(
         "penta_rows", rhs.device, _build.dtype_code(rhs),
         *(_build.ptr(f) for f in band), _build.ptr(w), _build.ptr(rhs),
-        _build.ptr(out), B, M, R,
+        _build.ptr(out), B, M, r0, r1, R,
     )
     return out
 

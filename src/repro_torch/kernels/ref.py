@@ -294,3 +294,63 @@ def ch_coefficients(*, dt, D, gamma, inv_h2, inv_h4) -> tuple[float, float, floa
         -(2.0 / 3.0) * dt * gamma * D * inv_h4,
         (2.0 / 3.0) * D * dt * inv_h2,
     )
+
+
+# ---------------------------------------------------------------------------
+# WENO5 Hamilton–Jacobi advection (paper §IV.C, ref Osher & Fedkiw)
+# ---------------------------------------------------------------------------
+
+_W_EPS = 1e-6
+
+
+def _weno5_phi(v1, v2, v3, v4, v5):
+    """Classic WENO5 combination of the five divided differences.
+
+    Returns the left-biased approximation of the derivative given
+    one-sided differences v1..v5 (Osher & Fedkiw, ch. 3.4).  The
+    expression order is the reference's, operation for operation; the CUDA
+    kernel (``csrc/weno.cu``) repeats it."""
+    s1 = (13.0 / 12.0) * (v1 - 2 * v2 + v3) ** 2 + 0.25 * (v1 - 4 * v2 + 3 * v3) ** 2
+    s2 = (13.0 / 12.0) * (v2 - 2 * v3 + v4) ** 2 + 0.25 * (v2 - v4) ** 2
+    s3 = (13.0 / 12.0) * (v3 - 2 * v4 + v5) ** 2 + 0.25 * (3 * v3 - 4 * v4 + v5) ** 2
+    a1 = 0.1 / (_W_EPS + s1) ** 2
+    a2 = 0.6 / (_W_EPS + s2) ** 2
+    a3 = 0.3 / (_W_EPS + s3) ** 2
+    w = a1 + a2 + a3
+    p1 = v1 / 3.0 - 7.0 * v2 / 6.0 + 11.0 * v3 / 6.0
+    p2 = -v2 / 6.0 + 5.0 * v3 / 6.0 + v4 / 3.0
+    p3 = v3 / 3.0 + 5.0 * v4 / 6.0 - v5 / 6.0
+    return (a1 * p1 + a2 * p2 + a3 * p3) / w
+
+
+def weno5_derivs_ref(q: torch.Tensor, dx: float, dy: float):
+    """Periodic upwind WENO5 one-sided derivatives of ``q``.
+
+    Returns (dqdx_minus, dqdx_plus, dqdy_minus, dqdy_plus): the left- and
+    right-biased derivative approximations in each direction."""
+
+    def one_axis(q, h, axis):
+        # d[k] = (q_{i+k+1} - q_{i+k}) / h  for k in -3..2   (6 differences)
+        diffs = [
+            (torch.roll(q, -(k + 1), dims=axis) - torch.roll(q, -k, dims=axis)) / h
+            for k in range(-3, 3)
+        ]
+        # minus (left-biased): v1..v5 = d[-3],d[-2],d[-1],d[0],d[1]
+        dm = _weno5_phi(diffs[0], diffs[1], diffs[2], diffs[3], diffs[4])
+        # plus (right-biased): v1..v5 = d[2],d[1],d[0],d[-1],d[-2]
+        dp = _weno5_phi(diffs[5], diffs[4], diffs[3], diffs[2], diffs[1])
+        return dm, dp
+
+    dxm, dxp = one_axis(q, dx, axis=1)
+    dym, dyp = one_axis(q, dy, axis=0)
+    return dxm, dxp, dym, dyp
+
+
+def weno5_advect_ref(q, u, v, dx, dy):
+    """RHS of dq/dt = -(u q_x + v q_y) with upwinded WENO5 derivatives
+    (periodic).  ``u == 0`` takes the right-biased (plus) branch, as in the
+    reference."""
+    dxm, dxp, dym, dyp = weno5_derivs_ref(q, dx, dy)
+    qx = torch.where(u > 0, dxm, dxp)
+    qy = torch.where(v > 0, dym, dyp)
+    return -(u * qx + v * qy)

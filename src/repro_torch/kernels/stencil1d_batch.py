@@ -34,6 +34,15 @@ def _like(data: torch.Tensor, lines_contiguous: bool) -> torch.Tensor:
     return torch.empty((M, B), dtype=data.dtype, device=data.device).T
 
 
+def in_layout(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` in ``like``'s layout (contiguous, or the transpose of a
+    contiguous tensor), copied only when it is not."""
+    rows = like.is_contiguous()
+    if t.is_contiguous() if rows else t.T.is_contiguous():
+        return t
+    return _like(t, rows).copy_(t)
+
+
 def stencil1d_batch_cuda(
     data: torch.Tensor,
     coeffs: torch.Tensor,
@@ -43,10 +52,16 @@ def stencil1d_batch_cuda(
     left: int = 0,
     right: int = 0,
     bc: str = "periodic",
+    lines: tuple[int, int] | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch the batched-1D stencil kernel on a (B, M) CUDA stack that is
     contiguous or the transpose of a contiguous tensor; the result has the
-    same layout."""
+    same layout.
+
+    ``lines=(b0, b1)`` computes only those lines into ``out`` (in data's
+    layout), which is then required; the streamed apply issues one such
+    launch per line chunk."""
     if bc not in ("periodic", "np"):
         raise ValueError(f"bc must be 'periodic' or 'np', got {bc!r}")
     if min(left, right) < 0:
@@ -61,16 +76,20 @@ def stencil1d_batch_cuda(
     if bc == "periodic":
         out_init = None  # every element is computed, as in the plain version
     elif out_init is not None:
-        if not (out_init.is_contiguous() if rows else out_init.T.is_contiguous()):
-            out_init = _like(out_init, rows).copy_(out_init)  # data's layout
+        out_init = in_layout(out_init, data)
         _build.check_cuda(out_init if rows else out_init.T, "out_init",
                           like=data, shape=base.shape)
-    out = _like(data, rows)
+    b0, b1 = _build.window(lines, B, "line", out)
+    if out is None:
+        out = _like(data, rows)
+    else:
+        _build.check_cuda(out if rows else out.T, "out (or its transpose)",
+                          like=data, shape=base.shape)
     line_stride, elem_stride = (M, 1) if rows else (1, B)
     _build.launch(
         "stencil1d_batch", data.device, _build.dtype_code(data), fn_id,
         int(bc == "periodic"), _build.ptr(data), _build.ptr(coeffs),
         _build.ptr(out_init), _build.ptr(out), B, M, line_stride,
-        elem_stride, left, right,
+        elem_stride, b0, b1, left, right,
     )
     return out

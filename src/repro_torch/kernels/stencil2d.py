@@ -48,8 +48,14 @@ def stencil2d_cuda(
     top: int = 0,
     bottom: int = 0,
     bc: str = "periodic",
+    rows: tuple[int, int] | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Launch the 2D stencil kernel on a contiguous (ny, nx) CUDA field."""
+    """Launch the 2D stencil kernel on a contiguous (ny, nx) CUDA field.
+
+    ``rows=(r0, r1)`` computes only those output rows (their halo comes
+    from the whole field) into ``out``, which is then required; the
+    streamed apply issues one such launch per row chunk."""
     if bc not in ("periodic", "np"):
         raise ValueError(f"bc must be 'periodic' or 'np', got {bc!r}")
     if min(left, right, top, bottom) < 0:
@@ -63,11 +69,12 @@ def stencil2d_cuda(
         out_init = None  # every cell is computed, as in the plain version
     elif out_init is not None:
         _build.check_cuda(out_init, "out_init", like=data, shape=(ny, nx))
-    out = torch.empty_like(data)
+    r0, r1 = _build.window(rows, ny, "row", out)
+    out = _build.out_like(out, data)
     _build.launch(
         "stencil2d", data.device, _build.dtype_code(data), fn_id,
         int(bc == "periodic"), _build.ptr(data), _build.ptr(coeffs),
-        _build.ptr(out_init), _build.ptr(out), ny, nx, left, right, top,
-        bottom,
+        _build.ptr(out_init), _build.ptr(out), ny, nx, r0, r1, left, right,
+        top, bottom,
     )
     return out

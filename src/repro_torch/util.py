@@ -59,14 +59,18 @@ def resolve_device(device) -> torch.device:
 
 
 def refuse_unported(
-    *, streams=None, max_tile_bytes=None, tune="off", lint=None
+    *, streams=None, max_tile_bytes=None, tune="off", lint=None, rank=2
 ) -> None:
     """Raise for a reference knob this port does not have yet, naming the
-    ROADMAP.md item that ports it (never silently ignored)."""
-    if streams is not None or max_tile_bytes is not None:
+    ROADMAP.md item that ports it (never silently ignored).  Streaming is
+    ported for rank-2 plans (2D, batched-1D, the 2D ADI operator); a rank-3
+    plan or operator with ``streams``/``max_tile_bytes`` raises."""
+    if rank == 3 and (streams is not None or max_tile_bytes is not None):
         raise NotImplementedError(
-            "streams= / max_tile_bytes= (streamed execution) are not ported "
-            "yet (ROADMAP.md queue 1, item 6)"
+            "streams= / max_tile_bytes= on a rank-3 plan or ADIOperator3D: "
+            "the 3D streamed executors (stream_stencil3d_apply, "
+            "stream_penta_solve_mid) are not ported yet (ROADMAP.md queue 1, "
+            "item 6); rank-2 plans stream"
         )
     if tune != "off":
         raise NotImplementedError(

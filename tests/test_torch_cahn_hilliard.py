@@ -241,12 +241,14 @@ def test_facade_validation():
 
 
 @pytest.mark.parametrize("call, item", [
-    (lambda: rt.create("laplacian", (8, 8), streams=2, device="cpu"), "item 6"),
-    (lambda: rt.create("laplacian", (8, 8), max_tile_bytes=64, device="cpu"), "item 6"),
+    # streaming is ported for rank-2 plans; rank 3 and tuning still refuse
+    (lambda: rt.create("laplacian", (4, 8, 8), streams=2, device="cpu"), "item 6"),
+    (lambda: rt.create("diffusion", (6, 6, 6), mode="adi", alpha=0.1,
+                       max_tile_bytes=64, device="cpu"), "item 6"),
     (lambda: rt.create("laplacian", (8, 8), tune="cached", device="cpu"), "item 10"),
     (lambda: rt.create("laplacian", (8, 8), backend="fft", device="cpu"), "item 8"),
     (lambda: rt.create("laplacian", (8, 8), mode="batch", streams=2,
-                       device="cpu"), "item 6"),
+                       tune="cached", device="cpu"), "item 10"),
     (lambda: rt.create("laplacian", (4, 8, 8), max_tile_bytes=64,
                        device="cpu"), "item 6"),
     (lambda: rt.create("laplacian", (8, 8), lint="warn", device="cpu"), "item 14"),
@@ -254,7 +256,8 @@ def test_facade_validation():
                                               tune="cached", device="cpu")),
      "item 10"),
     (lambda: TCH.CahnHilliardADI(TCH.CHConfig(nx=8, ny=8, streams=2,
-                                              device="cpu")), "item 6"),
+                                              tune="cached", device="cpu")),
+     "item 10"),
     (lambda: TCH.CahnHilliardADI(TCH.CHConfig(nx=8, ny=8, tune="force",
                                               device="cpu")), "item 10"),
 ], ids=["streams", "max_tile_bytes", "tune", "fft", "batch", "rank3", "lint",
@@ -294,7 +297,10 @@ def test_port_never_imports_jax_or_repro():
     sources.append(ROOT / "chip_smoke.py")
     names = {p.name for p in sources}
     assert {"stencil1d_batch.py", "stencil3d.py", "adi.py", "penta.py",
-            "fused_ch.py", "convert.py"} <= names
+            "fused_ch.py", "convert.py", "weno.py", "stream.py"} <= names
+    rel = {str(p.relative_to(ROOT)) for p in sources}
+    assert {"src/repro_torch/core/weno.py", "src/repro_torch/kernels/weno.py",
+            "src/repro_torch/launch/stream.py"} <= rel
     bad = [(p.name, m) for p in sources for m in _imports(p) if _FORBIDDEN.match(m)]
     assert not bad, bad
     code = (
@@ -303,7 +309,9 @@ def test_port_never_imports_jax_or_repro():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
-        "need = {'repro_torch.kernels.stencil1d_batch', 'repro_torch.kernels.stencil3d'}\n"
+        "need = {'repro_torch.kernels.stencil1d_batch', 'repro_torch.kernels.stencil3d',\n"
+        "        'repro_torch.core.weno', 'repro_torch.kernels.weno',\n"
+        "        'repro_torch.launch.stream'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print('clean')\n"
     )

@@ -163,3 +163,62 @@ def test_penta_mid_and_3d_sweeps(cuda, bc, shape, dtype):
     _assert_close(got, plain.solve_y(rhs), dtype, 100)
     for sweep in ("solve_x", "solve_z"):
         _assert_close(getattr(op, sweep)(rhs), getattr(plain, sweep)(rhs), dtype, 100)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(1024, 1024), (1021, 1019), (6, 5), (2, 3)])
+def test_weno5_advect(cuda, shape, dtype):
+    """1024^2, ragged, and extents below the 7-point support (the +-3
+    offsets wrap more than half a line; below 3 the general modulo)."""
+    ny, nx = shape
+    q, u, v = (_field(shape, dtype, cuda, s) for s in (15, 16, 17))
+    u[::3] = 0.0  # u == 0 takes the right-biased branch in both versions
+    kw = dict(dx=2 * np.pi / nx, dy=2 * np.pi / ny)
+    before = _build.LAUNCHES["weno5_advect"]
+    got = ops.weno_advect(q, u, v, **kw)
+    assert _build.LAUNCHES["weno5_advect"] == before + 1
+    _assert_close(got, ops.weno_advect(q, u, v, backend="torch", **kw), dtype, 10)
+
+
+def test_streamed_equals_monolithic_bit_for_bit(cuda):
+    """Every streamed executor at 1024^2 float64 with streams=4 and a
+    budget of 8 chunks: the result equals the monolithic launch bit for bit
+    and each chunk is one launch of the kernel."""
+    from repro_torch.core.cahn_hilliard import CahnHilliardADI, CHConfig
+    from repro_torch.launch.stream import n_chunks_for
+
+    n, budget = 1024, 1_100_000
+    knobs = dict(streams=4, max_tile_bytes=budget)
+    assert n_chunks_for(n, n, 8, halos=(2, 2, 2, 2), max_tile_bytes=budget,
+                        streams=4) == 8
+    data = _field((n, n), torch.float64, cuda, 18)
+    data2 = _field((n, n), torch.float64, cuda, 19)
+    init = _field((n, n), torch.float64, cuda, 20)
+    d4 = np.array([1.0, -4.0, 6.0, -4.0, 1.0])
+    cases = []  # (name, kernel, run(plan-or-solver))
+    for bc in ("periodic", "np"):
+        cases.append((f"stencil2d {bc}", "stencil2d",
+                      lambda k, bc=bc: create("biharmonic", (n, n), bc=bc, **k),
+                      lambda p: p.apply(data, init)))
+        for along in (apply_along_x, apply_along_y):
+            cases.append((f"batch {along.__name__} {bc}", "stencil1d_batch",
+                          lambda k, bc=bc: create(d4, (n, n), mode="batch",
+                                                  bc=bc, **k),
+                          lambda p, a=along: a(p, data, init)))
+    adi = lambda k: create("hyperdiffusion", (n, n), mode="adi", alpha=3.0, **k)
+    cases.append(("x-sweep", "penta_rows", adi, lambda op: op.solve_x(data)))
+    cases.append(("y-sweep", "penta_cols", adi, lambda op: op.solve_y(data)))
+    ch = lambda k: CahnHilliardADI(CHConfig(nx=n, ny=n, **k))
+    cases.append(("ch_rhs", "ch_rhs", ch, lambda s: s.rhs(data, data2)))
+    cases.append(("ch_rhs_xsweep", "ch_rhs_xsweep", ch,
+                  lambda s: s._fused_xsweep(data, data2)))
+    for name, kernel, make, run in cases:
+        want = run(make({}))
+        streamed = make(knobs)
+        before = dict(_build.LAUNCHES)
+        got = run(streamed)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()
+                    if v != before[k]}
+        assert launched == {kernel: 8}, (name, launched)
+        assert torch.equal(got, want), name
