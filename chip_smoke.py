@@ -10,7 +10,9 @@ printing a result:
 
 1. Card: name and power limit (``nvidia-smi``), torch and CUDA versions.
 2. Build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-   one process per source, started together); build seconds.
+   one process per source, started together); build seconds.  The
+   segmented sweeps' geometry at each shape they run (segment length L,
+   segments S, columns C or rows R a block) goes to the record.
 3. Kernels against their plain PyTorch versions on the card, each with its
    max abs error against the stated tolerance, its time (CUDA events,
    median of 20 launches), its bound and a library call as a yardstick
@@ -25,7 +27,9 @@ printing a result:
    ``F.conv3d``; ``lu_solve`` broadcast over the planes); the WENO5
    advection RHS at 1024x1024 float64, 1021x1019 and float32, on the
    rotating blob and on a random field (no yardstick: no single PyTorch
-   call computes it).
+   call computes it).  The column sweep also at a long M (40000 rows of
+   64 columns, no shared-memory tile fits: the kernel's device-memory
+   route), checked and timed.
 4. Paths, each run with the launch counts set to 0 just before it and
    read just after:
    a. Main path: the 1024x1024 float64 Cahn–Hilliard solver, bootstrap
@@ -60,7 +64,10 @@ printing a result:
 5. Timing: ms/step of the fused step over 200 steps after 20 of warm-up,
    of the batched-1D step, of the 3D LOD step, of the WENO RK3 step at
    1024^2 and of the streamed fused and batched-1D steps (host clock,
-   CUDA events, and the host's enqueue time per step).
+   CUDA events, and the host's enqueue time per step); each piece of the
+   steps timed alone; and one ``torch.profiler`` window over 20 fused
+   steps: device time by kernel name, the device-busy share and the gaps
+   between kernels (trace in ``chiprun_out/fused_trace.json``).
 6. The ``kernels`` JSON line, the card line, and the result line.
 
 A full record goes to ``chiprun_out/chip_smoke.json`` and the nvcc log to
@@ -99,6 +106,7 @@ STREAMS = 4
 TILE_BYTES = 1_100_000
 N_CHUNKS = 8
 RAGGED_3D = (61, 67, 71)
+LONG_M = (40000, 64)  # a column sweep whose (M, C) tile fits no block
 N_TIMED_3D = 20
 LOD = dict(D=0.5, dt=2e-3)  # examples/diffusion3d_adi.py defaults
 
@@ -214,6 +222,31 @@ def band_limited_quench(n: int, *, seed: int, modes: int = 64):
     return torch.fft.irfft2(big, s=(n, n)) * (n * n) / (modes * modes)
 
 
+def device_ms(fn, n: int = 20, warmup: int = 3) -> float | None:
+    """Mean device time of the kernels ``fn`` launches, per call, in ms:
+    their durations as ``torch.profiler`` (CUPTI) records them over ``n``
+    calls.  Unlike CUDA events around a call, it leaves out the time the
+    card waits for the host to enqueue the launch.  None when the trace
+    holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    for _ in range(2):  # a window whose activity records went missing: once more
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if str(e.device_type).endswith("CUDA"))
+        if us > 0:
+            return us / n / 1e3
+    return None
+
+
 def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
     """Median device time of ``fn`` in ms (CUDA events around each call)."""
     import torch
@@ -230,6 +263,78 @@ def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def profile_fused(solver, pair) -> dict:
+    """One ``torch.profiler`` window over N_STEPS fused steps: device time
+    by kernel name (``key_averages``), and from the exported trace the
+    device-busy share of the span from the first kernel's start to the
+    last one's end and the gaps between kernels, by the kernel before the
+    gap.  An observation: nothing here fails the run, and a trace without
+    device activity is reported as such."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def short(name):
+        name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+        return name.split("(")[0][:70]
+
+    evolve = solver.make_evolve(N_STEPS)
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            evolve(*pair)
+            torch.cuda.synchronize()
+        trace_path = OUT / "fused_trace.json"
+        prof.export_chrome_trace(str(trace_path))
+        averages = prof.key_averages()
+    except Exception as exc:  # noqa: BLE001 - an observation, not a gate
+        print(f"[prof] torch.profiler failed: {exc!r}")
+        return dict(error=repr(exc))
+    by_name = {}
+    for e in averages:
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0 and str(e.device_type).endswith("CUDA"):
+            k = short(e.key)
+            got = by_name.setdefault(k, dict(count=0, device_us=0.0))
+            got["count"] += e.count
+            got["device_us"] += us
+    events = json.loads(trace_path.read_text()).get("traceEvents", [])
+    spans = sorted((float(ev["ts"]), float(ev["ts"]) + float(ev["dur"]),
+                    short(ev.get("name", "")))
+                   for ev in events
+                   if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and "dur" in ev)
+    out = dict(steps=N_STEPS, by_kernel=by_name)
+    if not spans:
+        print("[prof] key_averages and the trace show no device activity; "
+              "phase 5's CUDA events stand")
+        return dict(out, device_activity=False)
+    busy, gaps, end = 0.0, {}, spans[0][0]
+    prev = None
+    for t0, t1, name in spans:
+        if prev is not None and t0 > end:
+            gaps[prev] = gaps.get(prev, 0.0) + (t0 - end)
+        busy += max(0.0, t1 - max(t0, end))
+        if t1 > end:
+            end, prev = t1, name
+    span = end - spans[0][0]
+    out.update(device_activity=True, kernels_in_trace=len(spans), span_us=span,
+               busy_us=busy, busy_share=busy / span,
+               gap_us_by_previous_kernel=gaps, device_us_per_step=busy / N_STEPS,
+               span_us_per_step=span / N_STEPS)
+    print(f"[prof] {N_STEPS} fused steps ({len(spans)} kernels in the trace): "
+          f"device busy {busy:.1f} of {span:.1f} us from the first kernel's "
+          f"start to the last one's end (busy share {busy / span:.3f}; "
+          f"{span / N_STEPS:.2f} us a step; the profiler slows the host, so "
+          f"the share without it is higher)")
+    for k, v in sorted(by_name.items(), key=lambda kv: -kv[1]["device_us"]):
+        print(f"[prof]   {v['device_us']:9.1f} us in {v['count']:4d} launches "
+              f"({v['device_us'] / v['count']:.2f} us each)  {k}")
+    for k, v in sorted(gaps.items(), key=lambda kv: -kv[1]):
+        print(f"[prof]   gap after {k}: {v:.1f} us in all")
+    return out
 
 
 def main() -> int:
@@ -253,8 +358,9 @@ def main() -> int:
     from repro_torch.core.weno import (
         AdvectionConfig, WenoAdvection2D, gaussian_blob, solid_body_rotation,
     )
+    from repro_torch.kernels.fused_ch import xsweep_rows_per_block
     from repro_torch.launch import stream as S
-    from repro_torch.util import tolerance_for
+    from repro_torch.util import ceil_div, tolerance_for
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -281,6 +387,35 @@ def main() -> int:
             print(f"[build]   {line.strip()}")
     smem, sms = _build.device_info(torch.device("cuda"))
     print(f"[build] opt-in shared memory {smem} B per block, {sms} SMs")
+
+    def cols_geometry(M, isz):
+        L = P.segment_length(M)
+        return dict(M=M, L=L, S=ceil_div(M, L),
+                    C=P.cols_per_block(M, isz, smem))
+
+    def rows_geometry(nx, isz, n_rows):
+        L = P.segment_length(nx)
+        R, stage = xsweep_rows_per_block(nx, isz, n_rows, smem, sms)
+        return dict(nx=nx, L=L, S=ceil_div(nx, L), R=R, factors_staged=stage)
+
+    seg_geometry = {
+        "penta_cols (1024, 1024) float64": cols_geometry(N_MAIN, 8),
+        "penta_cols (1021, 1019) float64": cols_geometry(RAGGED[0], 8),
+        "penta_cols (1024, 1024) float32": cols_geometry(N_MAIN, 4),
+        f"penta_cols ({N3}, {N3 * N3}) float64, 3D z-sweep":
+            cols_geometry(N3, 8),
+        f"penta_cols {LONG_M} float64, long M": cols_geometry(LONG_M[0], 8),
+        "ch_rhs_xsweep 1024^2 float64": rows_geometry(N_MAIN, 8, N_MAIN),
+        "ch_rhs_xsweep 1021x1019 float64": rows_geometry(RAGGED[1], 8,
+                                                         RAGGED[0]),
+        "ch_rhs_xsweep 1024^2 float32": rows_geometry(N_MAIN, 4, N_MAIN),
+        f"ch_rhs_xsweep 1024^2 float64, a streamed chunk of "
+        f"{N_MAIN // N_CHUNKS} rows": rows_geometry(N_MAIN, 8,
+                                                    N_MAIN // N_CHUNKS),
+    }
+    record["segment_geometry"] = seg_geometry
+    for name, geo in seg_geometry.items():
+        print(f"[build] geometry {name}: {geo}")
 
     # -- 3. kernels against their plain versions -----------------------------
     dev = torch.device("cuda")
@@ -450,6 +585,19 @@ def main() -> int:
             cases.append(("weno5_advect", f"{kind} {tag}", dtype,
                           weno_call(acfg, *qs)))
 
+    # the column sweep at a long M: no (M, C) tile fits a block, so the
+    # kernel runs each column in device memory
+    fac_long = P.cyclic_penta_factor(
+        *P.hyperdiffusion_diagonals(LONG_M[0], beta_full), device=dev)
+    rhs_long = (torch.rand(LONG_M, generator=torch.Generator().manual_seed(4),
+                           dtype=torch.float64) * 2 - 1).to(dev)
+
+    def long_cols(b):
+        return P.cyclic_penta_solve_factored(fac_long, rhs_long, backend=b)
+
+    cases.append(("penta_cols", f"cyclic cols long M {LONG_M[0]}x{LONG_M[1]}",
+                  "float64", long_cols))
+
     checks, failures = [], []
     for kernel, label, dtype, run in cases:
         got = run("cuda")
@@ -532,12 +680,18 @@ def main() -> int:
     timed["weno5_advect"] = (weno_call(acfg_w, *qs_w), 4 * N * isz, 170 * N)
     timings = {}
     for kernel, (run, nbytes, flops) in timed.items():
-        ms = time_ms(lambda run=run: run("cuda"))
+        # ms: the kernel's device time (profiler); event_ms: CUDA events
+        # around one call, which include the card's wait for the host's
+        # enqueue once the kernel is shorter than the wrapper's host time
+        event_ms = time_ms(lambda run=run: run("cuda"))
+        dev_ms = device_ms(lambda run=run: run("cuda"))
+        ms = event_ms if dev_ms is None else dev_ms
         plain_ms = time_ms(lambda run=run: run("torch"), n=5, warmup=1)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS["float64"] * 1e3
         timings[kernel] = dict(
-            ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+            ms=ms, event_ms=event_ms, device_ms=dev_ms, plain_ms=plain_ms,
+            bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             bytes=nbytes, flops=flops, library_ms=None,
         )
@@ -582,8 +736,11 @@ def main() -> int:
         lib_err[kernel] = float((fn() - timed[kernel][0]("cuda")).abs().max())
         timings[kernel]["library_ms"] = time_ms(fn)
     # the batched-1D kernel along y: the transposed view, read in place
-    timings["stencil1d_batch along y"] = dict(
+    timings["stencil1d_batch d4 along y (transposed view)"] = dict(
         ms=time_ms(lambda: batch_call(d4, cn.T)("cuda")))
+    timings[f"penta_cols long M {LONG_M} (device-memory route)"] = dict(
+        ms=time_ms(lambda: long_cols("cuda"), n=5, warmup=1),
+        device_ms=device_ms(lambda: long_cols("cuda"), n=5, warmup=1))
     # the step's elementwise glue, c_{n+1} = 2 c_n - c_{n-1} + v, in place
     buf = cm.clone()
     timings["glue"] = dict(ms=time_ms(
@@ -595,13 +752,17 @@ def main() -> int:
         if kernel == "glue":
             print(f"[time] step glue (3 in-place torch ops) {t['ms']:.4f} ms")
             continue
-        if kernel == "stencil1d_batch along y":
-            print(f"[time] stencil1d_batch d4 along y (transposed view) "
-                  f"{t['ms']:.4f} ms")
+        if "plain_ms" not in t:
+            d_ms = t.get("device_ms")
+            how = "" if d_ms is None else f", device {d_ms:.4f} ms"
+            print(f"[time] {kernel} {t['ms']:.4f} ms (events){how}")
             continue
         lib = "" if t["library_ms"] is None else f" library {t['library_ms']:.4f} ms"
-        print(f"[time] {kernel:14s} {t['ms']:.4f} ms (plain {t['plain_ms']:.3f} ms, "
-              f"bound {t['bound_ms']:.4f} ms by {t['bound_by']}){lib}")
+        how = ("device time not in the profiler trace: ms is CUDA events"
+               if t["device_ms"] is None else f"events {t['event_ms']:.4f} ms")
+        print(f"[time] {kernel:14s} {t['ms']:.4f} ms ({how}; plain "
+              f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms by "
+              f"{t['bound_by']}){lib}")
     print(f"[time] conv2d yardstick agrees with stencil2d to {conv_err:.2e}")
     for kernel, e in lib_err.items():
         print(f"[time] library yardstick agrees with {kernel} to {e:.2e}")
@@ -967,10 +1128,13 @@ def main() -> int:
         f"streamed y-sweep: penta_cols, {K} column chunks":
             lambda: s_fused.op_full.solve_y(c1),
     }
-    breakdown = {name: time_ms(fn) for name, fn in pieces.items()}
+    breakdown = {name: dict(events=time_ms(fn), device=device_ms(fn))
+                 for name, fn in pieces.items()}
     record["step_breakdown_ms"] = breakdown
-    for name, ms in breakdown.items():
-        print(f"[time] {name}: {ms:.4f} ms")
+    for name, t in breakdown.items():
+        how = "not in the trace" if t["device"] is None else f"{t['device']:.4f} ms"
+        print(f"[time] {name}: {t['events']:.4f} ms (events), device {how}")
+    record["fused_profile"] = profile_fused(solver, pair_of(solver))
     record["ms_per_step"] = step_times["fused"]
     record["ms_per_step_batch1d"] = step_times["batch1d"]
     record["ms_per_step_lod3d"] = step_times["lod3d"]

@@ -63,7 +63,7 @@ _L = ctypes.c_longlong
 # c_void_p, so ctypes does not cut them to 32 bits.
 _ENTRY_POINTS = {
     "penta.cu": (
-        ("penta_cols", [_I] + [_P] * 5 + [_P, _P, _P] + [_I] * 4 + [_P]),
+        ("penta_cols", [_I] + [_P] * 5 + [_P, _P, _P] + [_I] * 7 + [_P]),
         ("penta_rows", [_I] + [_P] * 5 + [_P, _P, _P] + [_I] * 5 + [_P]),
         ("penta_mid", [_I] + [_P] * 5 + [_P, _P, _P, _I, _I, _I, _P]),
     ),
@@ -79,7 +79,7 @@ _ENTRY_POINTS = {
     ),
     "fused_ch.cu": (
         ("ch_rhs_xsweep",
-         [_I, _P, _P] + [_P] * 5 + [_P, _P] + [_I] * 5 + [_D, _D, _D, _P]),
+         [_I, _P, _P] + [_P] * 5 + [_P, _P] + [_I] * 7 + [_D, _D, _D, _P]),
         ("ch_rhs", [_I, _P, _P, _P] + [_I] * 4 + [_D, _D, _D, _P]),
     ),
     "weno.cu": (

@@ -1,11 +1,19 @@
 // Shared pieces of the repro_torch CUDA kernels: the C export macro, the
 // error-string and device-query entry points every library carries, the
 // periodic index wrap, the device point functions of the stencil kernels
-// (stencil2d.cu, stencil1d_batch.cu, stencil3d.cu), and the
-// in-shared-memory row-layout pentadiagonal substitution used by both
-// penta.cu (standalone x-sweep) and fused_ch.cu (fused RHS + x-sweep), so
-// the two stay in lockstep as they do in the reference
-// (repro/kernels/penta.py:rows_substitute_refs).
+// (stencil2d.cu, stencil1d_batch.cu, stencil3d.cu), and the two row-layout
+// pentadiagonal substitutions of a line held in memory:
+//
+// - substitute_row: one thread walks the whole line (penta.cu:penta_rows,
+//   the standalone x-sweep).
+// - substitute_segmented: one warp splits the line into 32 segments and
+//   runs it as a segmented recurrence (fused_ch.cu:ch_rhs_xsweep, the fused
+//   RHS + x-sweep, and penta.cu:penta_cols, the column sweep).
+//
+// Both compute the reference's substitution
+// (repro/kernels/penta.py:rows_substitute_refs); they agree to rounding,
+// not bit for bit, since the segmented one combines carries across
+// segments.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -93,6 +101,148 @@ __device__ __forceinline__ void substitute_row(
     row[i] = x;
     x2 = x1;
     x1 = x;
+  }
+}
+
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kWarp = 32;
+
+// Affine map of a two-term recurrence over one segment: the state after the
+// segment is A s + p for the state s before it.  A depends only on the
+// factors; p is the segment's end state from a zero start.
+template <typename T>
+struct SegmentMap {
+  T a00, a01, a10, a11, p0, p1;
+};
+
+// Inclusive scan of the 32 lanes' segment maps, lane order (kReverse:
+// from lane 31 down), Hillis-Steele with warp shuffles: after it, each
+// lane holds the composition of its own map after those of all the lanes
+// before it.  Returns, in (s0, s1), the state entering the lane's segment:
+// the previous lane's composed end state, zero for the first lane.
+template <typename T, bool kReverse>
+__device__ __forceinline__ void segment_carry(SegmentMap<T> m, int lane,
+                                              T& s0, T& s1) {
+#pragma unroll
+  for (int d = 1; d < kWarp; d <<= 1) {
+    T b00, b01, b10, b11, q0, q1;
+    if (kReverse) {
+      b00 = __shfl_down_sync(kFullMask, m.a00, d);
+      b01 = __shfl_down_sync(kFullMask, m.a01, d);
+      b10 = __shfl_down_sync(kFullMask, m.a10, d);
+      b11 = __shfl_down_sync(kFullMask, m.a11, d);
+      q0 = __shfl_down_sync(kFullMask, m.p0, d);
+      q1 = __shfl_down_sync(kFullMask, m.p1, d);
+    } else {
+      b00 = __shfl_up_sync(kFullMask, m.a00, d);
+      b01 = __shfl_up_sync(kFullMask, m.a01, d);
+      b10 = __shfl_up_sync(kFullMask, m.a10, d);
+      b11 = __shfl_up_sync(kFullMask, m.a11, d);
+      q0 = __shfl_up_sync(kFullMask, m.p0, d);
+      q1 = __shfl_up_sync(kFullMask, m.p1, d);
+    }
+    if (kReverse ? lane + d < kWarp : lane >= d) {
+      // this map after that one: A <- A B, p <- A q + p
+      const T p0 = m.a00 * q0 + m.a01 * q1 + m.p0;
+      const T p1 = m.a10 * q0 + m.a11 * q1 + m.p1;
+      const T a00 = m.a00 * b00 + m.a01 * b10;
+      const T a01 = m.a00 * b01 + m.a01 * b11;
+      const T a10 = m.a10 * b00 + m.a11 * b10;
+      const T a11 = m.a10 * b01 + m.a11 * b11;
+      m = SegmentMap<T>{a00, a01, a10, a11, p0, p1};
+    }
+  }
+  s0 = kReverse ? __shfl_down_sync(kFullMask, m.p0, 1)
+                : __shfl_up_sync(kFullMask, m.p0, 1);
+  s1 = kReverse ? __shfl_down_sync(kFullMask, m.p1, 1)
+                : __shfl_up_sync(kFullMask, m.p1, 1);
+  if (lane == (kReverse ? kWarp - 1 : 0)) s0 = s1 = T(0);
+}
+
+// The substitution of substitute_row as a segmented recurrence, run by all
+// 32 lanes of one warp (lane = threadIdx.x % 32, the warp converged) on a
+// line of length M: element i is read at in[i * ld] and the result
+// written at v[i * ld] (in may equal v: each lane touches only its own
+// segment).  Lane k owns the segment [k L, min((k + 1) L, M)); L is odd
+// and 32 L >= M (kernels/penta.py:segment_length), so the lanes of a warp
+// touch 32 different shared-memory banks.  For each direction:
+//
+//   A. each lane runs its segment from a zero state (the map's p) and, in
+//      the same loop, from the unit states (1, 0) and (0, 1) with a zero
+//      right-hand side (the columns of A): three independent chains;
+//   B. segment_carry combines the 32 maps into each segment's true
+//      incoming state (5 shuffle rounds);
+//   C. each lane reruns its segment from that state and writes it.
+//
+// Forward z_i = (r_i - e_i z_{i-2} - l_i z_{i-1}) / mu_i over the state
+// (z_{i-1}, z_{i-2}); backward x_i = z_i - alpha_i x_{i+1} - beta_i x_{i+2}
+// over (x_{i+1}, x_{i+2}).  Pass C is the true recurrence, so the result
+// differs from substitute_row only through the rounding of the 32 carries.
+// The caller syncs the warp (or block) before reading other lanes' output.
+template <typename T>
+__device__ __forceinline__ void substitute_segmented(
+    const T* in, T* v, long long ld, const T* __restrict__ sub,
+    const T* __restrict__ low, const T* __restrict__ imu,
+    const T* __restrict__ al, const T* __restrict__ be, int M, int L,
+    int lane) {
+  const int a = min(lane * L, M);
+  const int b = min(a + L, M);
+  T s0, s1;
+  {  // forward, pass A
+    T p1 = T(0), p2 = T(0), u1 = T(1), u2 = T(0), w1 = T(0), w2 = T(1);
+#pragma unroll 4
+    for (int i = a; i < b; ++i) {
+      const T e = sub[i], l = low[i], m = imu[i];
+      const T pz = (in[i * ld] - e * p2 - l * p1) * m;
+      const T uz = -(e * u2 + l * u1) * m;
+      const T wz = -(e * w2 + l * w1) * m;
+      p2 = p1;
+      p1 = pz;
+      u2 = u1;
+      u1 = uz;
+      w2 = w1;
+      w1 = wz;
+    }
+    segment_carry<T, false>(SegmentMap<T>{u1, w1, u2, w2, p1, p2}, lane, s0,
+                            s1);
+  }
+  {  // forward, pass C
+    T z1 = s0, z2 = s1;
+#pragma unroll 4
+    for (int i = a; i < b; ++i) {
+      const T z = (in[i * ld] - sub[i] * z2 - low[i] * z1) * imu[i];
+      v[i * ld] = z;
+      z2 = z1;
+      z1 = z;
+    }
+  }
+  {  // backward, pass A
+    T p1 = T(0), p2 = T(0), u1 = T(1), u2 = T(0), w1 = T(0), w2 = T(1);
+#pragma unroll 4
+    for (int i = b - 1; i >= a; --i) {
+      const T f = al[i], g = be[i];
+      const T px = v[i * ld] - f * p1 - g * p2;
+      const T ux = -(f * u1 + g * u2);
+      const T wx = -(f * w1 + g * w2);
+      p2 = p1;
+      p1 = px;
+      u2 = u1;
+      u1 = ux;
+      w2 = w1;
+      w1 = wx;
+    }
+    segment_carry<T, true>(SegmentMap<T>{u1, w1, u2, w2, p1, p2}, lane, s0,
+                           s1);
+  }
+  {  // backward, pass C
+    T x1 = s0, x2 = s1;
+#pragma unroll 4
+    for (int i = b - 1; i >= a; --i) {
+      const T x = v[i * ld] - al[i] * x1 - be[i] * x2;
+      v[i * ld] = x;
+      x2 = x1;
+      x1 = x;
+    }
   }
 }
 

@@ -20,24 +20,33 @@
 //
 // ch_rhs_xsweep replaces repro/kernels/fused_ch.py:ch_rhs_xsweep_pallas
 // (body _ch_xsweep_kernel), the first half of every fused ADI step.  A
-// block owns R consecutive rows (R chosen by the wrapper from nx, the
-// opt-in shared memory and the SM count) and works in three phases:
+// block of 256 threads owns R consecutive rows (R chosen by the wrapper
+// from nx, the opt-in shared memory and the SM count) and works in three
+// phases:
 //
 // 1. RHS assembly (ch_rhs_at), straight into a dynamic shared-memory
-//    buffer of R rows (row stride nx+1).  The halo (2 rows above and below
+//    buffer of R rows (row stride nx+1), and, when they fit beside the
+//    rows, the five factors of the band.  The halo (2 rows above and below
 //    the block, 2 columns left and right) is read with periodic wrap
 //    directly from global memory; neighbouring threads read neighbouring
 //    x, so every tap is a coalesced load and the re-reads hit L1/L2.
-// 2. The row-layout substitution in place in shared memory, one thread per
-//    row (common.cuh:substitute_row, shared with penta.cu).
+// 2. The row substitution in place in shared memory as a segmented
+//    recurrence (common.cuh:substitute_segmented): each of the 8 warps
+//    takes a row at a time, each lane a segment of
+//    L = max(ceil(nx / 32), 8) | 1 elements.  L depends only on nx (kernels/penta.py:segment_length),
+//    never on R, so a row is computed by the same code whatever the
+//    launch.
 // 3. The rank-4 Woodbury closure on the coalesced write-out.
 //
 // The RHS never reaches device memory, as on the TPU.  Unlike the TPU
 // kernel, no tile has to divide ny and a block may hold a single row: the
-// halo rows come from wherever they lie, with wrap.  What bounds it on the
-// card: not bandwidth (24 MB of traffic at 1024^2 float64) but the serial
-// recurrence of phase 2, which has only R threads per block and ny threads
-// in all; it is latency-bound, like penta_rows.
+// halo rows come from wherever they lie, with wrap.  What bounded the
+// first design on the card was phase 2: one thread per row walked 2 nx
+// dependent steps while the other 248 threads of the block waited (20x the
+// byte bound).  Now a warp runs each row (all 256 threads when R >= 8), each
+// lane about 4 L + 10 dependent steps, and what is left is phase 1's RHS
+// assembly (about ch_rhs's time) and the block's serial phases (24 MB of
+// traffic at 1024^2 float64).
 //
 // Both compute the output rows [row0, row1) (the whole field is [0, ny)):
 // a streamed step (repro_torch/launch/stream.py) issues one launch per row
@@ -102,18 +111,31 @@ __global__ void __launch_bounds__(256) ch_rhs_kernel(
       ch_rhs_at(n_r, m_r, col, k_lin, k_bih, k_lap);
 }
 
+// stage: the five factors go to shared memory after the R rows (else they
+// are read from device memory through L1).  blockDim.x is 256.
 template <typename T>
 __global__ void __launch_bounds__(256) ch_rhs_xsweep_kernel(
     const T* __restrict__ cn, const T* __restrict__ cm,
     const T* __restrict__ sub, const T* __restrict__ low,
     const T* __restrict__ imu, const T* __restrict__ al,
     const T* __restrict__ be, const T* __restrict__ w, T* __restrict__ out,
-    int ny, int nx, int row0, int row1, int R, T k_lin, T k_bih, T k_lap) {
+    int ny, int nx, int row0, int row1, int R, int L, int stage, T k_lin,
+    T k_bih, T k_lap) {
   extern __shared__ unsigned char smem_raw[];
   T* s = reinterpret_cast<T*>(smem_raw);
   const int ld = nx + 1;
   const int first = row0 + blockIdx.x * R;
   const int nrows = min(R, row1 - first);
+  const T* f[5] = {sub, low, imu, al, be};
+  if (stage) {
+    T* fs = s + R * ld;
+    for (int i = threadIdx.x; i < nx; i += blockDim.x) {
+#pragma unroll
+      for (int k = 0; k < 5; ++k) fs[k * nx + i] = __ldg(f[k] + i);
+    }
+#pragma unroll
+    for (int k = 0; k < 5; ++k) f[k] = fs + k * nx;
+  }
 
   for (int r = 0; r < nrows; ++r) {
     const int j = first + r;
@@ -133,8 +155,12 @@ __global__ void __launch_bounds__(256) ch_rhs_xsweep_kernel(
     }
   }
   __syncthreads();
-  if (threadIdx.x < nrows)
-    substitute_row(s + threadIdx.x * ld, sub, low, imu, al, be, nx);
+  const int warps = blockDim.x / kWarp;
+  for (int r = threadIdx.x / kWarp; r < nrows; r += warps) {
+    T* row = s + r * ld;
+    substitute_segmented(row, row, 1, f[0], f[1], f[2], f[3], f[4], nx, L,
+                         threadIdx.x % kWarp);
+  }
   __syncthreads();
   for (int r = 0; r < nrows; ++r) {
     const T* row = s + r * ld;
@@ -146,10 +172,12 @@ __global__ void __launch_bounds__(256) ch_rhs_xsweep_kernel(
 
 template <typename T>
 int launch(const void* cn, const void* cm, void* const* f, const void* w,
-           void* out, int ny, int nx, int row0, int row1, int R,
-           double k_lin, double k_bih, double k_lap, cudaStream_t stream) {
+           void* out, int ny, int nx, int row0, int row1, int R, int L,
+           int stage, double k_lin, double k_bih, double k_lap,
+           cudaStream_t stream) {
   static int smem_set = 0;
-  const int bytes = R * (nx + 1) * static_cast<int>(sizeof(T));
+  const int bytes =
+      (R * (nx + 1) + (stage ? 5 * nx : 0)) * static_cast<int>(sizeof(T));
   cudaError_t e = allow_smem(ch_rhs_xsweep_kernel<T>, bytes, &smem_set);
   if (e != cudaSuccess) return static_cast<int>(e);
   ch_rhs_xsweep_kernel<T><<<(row1 - row0 + R - 1) / R, 256, bytes, stream>>>(
@@ -157,8 +185,8 @@ int launch(const void* cn, const void* cm, void* const* f, const void* w,
       static_cast<const T*>(f[0]), static_cast<const T*>(f[1]),
       static_cast<const T*>(f[2]), static_cast<const T*>(f[3]),
       static_cast<const T*>(f[4]), static_cast<const T*>(w),
-      static_cast<T*>(out), ny, nx, row0, row1, R, static_cast<T>(k_lin),
-      static_cast<T>(k_bih), static_cast<T>(k_lap));
+      static_cast<T*>(out), ny, nx, row0, row1, R, L, stage,
+      static_cast<T>(k_lin), static_cast<T>(k_bih), static_cast<T>(k_lap));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -193,18 +221,21 @@ RT_EXPORT int ch_rhs(int dtype, void* cn, void* cm, void* out, int ny,
 }
 
 // dtype: 0 float32, 1 float64.  w is the (nx, 4) Woodbury matrix (cyclic).
-// Computes the output rows [row0, row1), 0 <= row0 < row1 <= ny.
+// Computes the output rows [row0, row1), 0 <= row0 < row1 <= ny, R rows a
+// block, in segments of L elements (32 L >= nx); stage != 0 puts the
+// factors in shared memory beside the rows.
 RT_EXPORT int ch_rhs_xsweep(int dtype, void* cn, void* cm, void* sub,
                             void* low, void* imu, void* al, void* be, void* w,
                             void* out, int ny, int nx, int row0, int row1,
-                            int R, double k_lin, double k_bih, double k_lap,
-                            void* stream) {
-  if (row0 < 0 || row1 > ny || row0 >= row1)
+                            int R, int L, int stage, double k_lin,
+                            double k_bih, double k_lap, void* stream) {
+  if (row0 < 0 || row1 > ny || row0 >= row1 || R < 1 || L < 1 ||
+      kWarp * L < nx)
     return static_cast<int>(cudaErrorInvalidValue);
   void* f[5] = {sub, low, imu, al, be};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 1 ? launch<double>(cn, cm, f, w, out, ny, nx, row0, row1,
-                                     R, k_lin, k_bih, k_lap, s)
+                                     R, L, stage, k_lin, k_bih, k_lap, s)
                     : launch<float>(cn, cm, f, w, out, ny, nx, row0, row1, R,
-                                    k_lin, k_bih, k_lap, s);
+                                    L, stage, k_lin, k_bih, k_lap, s);
 }

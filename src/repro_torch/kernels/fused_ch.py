@@ -6,10 +6,11 @@ one device function for the eq. 2a RHS at a point:
   (periodic wrap per index).  Its plain version is the windowed RHS
   :func:`repro_torch.kernels.ref.ch_rhs_win`.
 - :func:`ch_rhs_xsweep_cuda` — ``L_x^{-1} rhs(c_n, c_nm1)`` in one pass: the
-  RHS is assembled into shared memory, substituted in place and closed
-  with the Woodbury correction, so it never reaches device memory.  The
-  plain version composes the windowed RHS with the row-layout solve, as
-  the reference's jnp path does.
+  RHS is assembled into shared memory, substituted in place (one warp per
+  row, as a segmented recurrence) and closed with the Woodbury correction,
+  so it never reaches device memory.  The plain version composes the
+  windowed RHS with the row-layout solve, as the reference's jnp path
+  does.
 """
 
 from __future__ import annotations
@@ -21,9 +22,22 @@ from repro_torch.kernels.penta import (
     CyclicPentaFactors,
     rows_per_block,
     rows_woodbury_correct,
+    segment_length,
     substitute_rows_torch,
 )
 from repro_torch.kernels.ref import ch_coefficients, ch_rhs_win
+
+
+def xsweep_rows_per_block(nx: int, itemsize: int, n_rows: int,
+                          smem_optin: int, n_sms: int) -> tuple[int, bool]:
+    """``(R, stage)`` of the fused kernel: rows a block holds and whether
+    the five factors of the band are staged in shared memory beside them
+    (when a row and the factors fit; otherwise the factors are read from
+    device memory and the rows get the whole of it)."""
+    fac_bytes = 5 * nx * itemsize
+    stage = (nx + 1) * itemsize + fac_bytes <= smem_optin
+    avail = smem_optin - fac_bytes if stage else smem_optin
+    return rows_per_block(nx, itemsize, n_rows, avail, n_sms), stage
 
 
 def ch_rhs_xsweep_torch(
@@ -90,7 +104,7 @@ def ch_rhs_xsweep_cuda(
     _build.check_cuda(fac_x.w, "Woodbury w", like=c_n, shape=(nx, 4))
     r0, r1 = _build.window(rows, ny, "row", out)
     smem, sms = _build.device_info(c_n.device)
-    R = rows_per_block(nx, c_n.element_size(), r1 - r0, smem, sms)
+    R, stage = xsweep_rows_per_block(nx, c_n.element_size(), r1 - r0, smem, sms)
     k_lin, k_bih, k_lap = ch_coefficients(
         dt=dt, D=D, gamma=gamma, inv_h2=inv_h2, inv_h4=inv_h4
     )
@@ -99,7 +113,7 @@ def ch_rhs_xsweep_cuda(
         "ch_rhs_xsweep", c_n.device, _build.dtype_code(c_n),
         _build.ptr(c_n), _build.ptr(c_nm1),
         *(_build.ptr(f) for f in fac_x.band), _build.ptr(fac_x.w),
-        _build.ptr(out), ny, nx, r0, r1, R, float(k_lin), float(k_bih),
-        float(k_lap),
+        _build.ptr(out), ny, nx, r0, r1, R, segment_length(nx), int(stage),
+        float(k_lin), float(k_bih), float(k_lap),
     )
     return out

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.util import ceil_div, numpy_dtype, resolve_device
+from repro_torch.util import ceil_div, next_multiple, numpy_dtype, resolve_device
 
 
 class PentaFactors(NamedTuple):
@@ -271,6 +271,39 @@ def rows_per_block(M: int, itemsize: int, n_rows: int, smem_optin: int,
     return max(1, min(fit, 32, ceil_div(n_rows, n_sms)))
 
 
+# The segmented substitution (csrc/common.cuh:substitute_segmented): one
+# warp per line, each of its 32 lanes one segment of the recurrence.
+WARP = 32
+MIN_SEGMENT = 8
+COLS_PER_BLOCK = 8
+
+
+def segment_length(M: int) -> int:
+    """Elements of a line that one lane of the segmented substitution
+    walks: odd, so that the 32 lanes of a warp hit 32 different
+    shared-memory banks, at least 9, so that a short line takes few
+    carries, and ``32 L >= M``.  It depends on the line length alone,
+    never on the batch or a launch's window, so every line is solved by
+    the same arithmetic whatever the launch."""
+    return max(ceil_div(M, WARP), MIN_SEGMENT) | 1
+
+
+def tile_stride(M: int, itemsize: int) -> int:
+    """Line stride (elements) of the column sweep's shared-memory tile: M
+    rounded up to 128 bytes plus 16, so that the load and store phases of
+    8 columns a block touch 32 different banks."""
+    return next_multiple(M, 128 // itemsize) + 16 // itemsize
+
+
+def cols_per_block(M: int, itemsize: int, smem_optin: int) -> int:
+    """Columns a block of the column sweep stages in shared memory beside
+    the five factors: at most 8 (one warp each), fewer when M is long, and
+    0 when not even one fits (the kernel then runs each column in device
+    memory)."""
+    free = smem_optin // itemsize - 5 * M
+    return max(0, min(COLS_PER_BLOCK, free // tile_stride(M, itemsize)))
+
+
 def penta_cols_cuda(
     band: PentaFactors,
     rhs: torch.Tensor,
@@ -286,11 +319,14 @@ def penta_cols_cuda(
     _build.check_cuda(rhs, "rhs", like=rhs, shape=(M, N))
     _check_factors(band, w, rhs, M)
     c0, c1 = _build.window(cols, N, "column", out)
+    smem, _ = _build.device_info(rhs.device)
+    C = cols_per_block(M, rhs.element_size(), smem)
     out = _build.out_like(out, rhs)
     _build.launch(
         "penta_cols", rhs.device, _build.dtype_code(rhs),
         *(_build.ptr(f) for f in band), _build.ptr(w), _build.ptr(rhs),
-        _build.ptr(out), M, N, c0, c1,
+        _build.ptr(out), M, N, c0, c1, segment_length(M), C,
+        tile_stride(M, rhs.element_size()),
     )
     return out
 

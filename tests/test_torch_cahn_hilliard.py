@@ -294,7 +294,7 @@ def _imports(path):
 
 def test_port_never_imports_jax_or_repro():
     sources = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    sources.append(ROOT / "chip_smoke.py")
+    sources += [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
     names = {p.name for p in sources}
     assert {"stencil1d_batch.py", "stencil3d.py", "adi.py", "penta.py",
             "fused_ch.py", "convert.py", "weno.py", "stream.py"} <= names

@@ -65,30 +65,63 @@ def test_stencil2d(cuda, point_fn, bc, shape, dtype):
                   dtype, 10)
 
 
+# (ny, nx): the column sweep solves lines of ny, the row sweep lines of nx
+# (each where the line holds the cyclic band's 6 points).  Past the first
+# two, the segmented recurrence's edges: lines of 6 (shorter than one
+# segment), 31, 33 and 1021 (ragged last segments) and 1024 (32 segments of
+# 33 but the last), 1 or 7 lines; 4000 rows (fewer than 8 columns in a
+# float64 tile) and 40000 (no tile fits: the column sweep in device memory).
+PENTA_SHAPES = [(64, 64), (37, 29), (6, 7), (31, 1), (33, 7), (1021, 1),
+                (1024, 7), (7, 6), (1, 31), (7, 33), (1, 1021), (7, 1024),
+                (4000, 7), (40000, 4)]
+
+
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("shape", [(64, 64), (37, 29)])
+@pytest.mark.parametrize("shape", PENTA_SHAPES)
 def test_penta_sweeps(cuda, shape, dtype):
-    op = create("hyperdiffusion", shape, mode="adi", alpha=3.0, dtype=dtype)
+    ny, nx = shape
     rhs = _field(shape, getattr(torch, dtype), cuda, 3)
-    for solve, fac in ((P.cyclic_penta_solve_factored_rows, op.fac_x),
-                       (P.cyclic_penta_solve_factored, op.fac_y),
-                       (P.penta_solve_factored_rows, op.fac_x.band),
-                       (P.penta_solve_factored, op.fac_y.band)):
-        _assert_close(solve(fac, rhs), solve(fac, rhs, backend="torch"), dtype, 100)
+    runs = []  # (kernel, solve, factors)
+    for n, kernel, cyclic_solve, band_solve in (
+            (nx, "penta_rows", P.cyclic_penta_solve_factored_rows,
+             P.penta_solve_factored_rows),
+            (ny, "penta_cols", P.cyclic_penta_solve_factored,
+             P.penta_solve_factored)):
+        if n >= 6:
+            fac = P.cyclic_penta_factor(
+                *P.hyperdiffusion_diagonals(n, 3.0, dtype), device=cuda)
+            runs += [(kernel, cyclic_solve, fac), (kernel, band_solve, fac.band)]
+    assert runs
+    for kernel, solve, fac in runs:
+        before = _build.LAUNCHES[kernel]
+        got = solve(fac, rhs)
+        assert _build.LAUNCHES[kernel] == before + 1
+        _assert_close(got, solve(fac, rhs, backend="torch"), dtype, 100)
 
 
+# Past the first three, the segmented row recurrence's edges (rows of 6,
+# 31, 33, 1021 and 1024; 1 or 7 of them) and rows of 8000, whose factors do
+# not fit in shared memory beside a float64 row.  Long rows come 7 at a
+# time: a single noise row of ~1024 has no y-terms, so its solve divides
+# the RHS by up to 1 + 16 beta (~4.5e4) and even the plain float32 result is
+# about the scale-10 limit away from the float64 answer on its inputs.
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("shape", [(64, 64), (37, 29), (1, 8)])
+@pytest.mark.parametrize("shape", [(64, 64), (37, 29), (1, 8), (7, 6), (1, 31),
+                                   (7, 33), (7, 1021), (7, 1024), (3, 8000)])
 def test_ch_rhs_xsweep(cuda, shape, dtype):
     ny, nx = shape
-    h = 2 * np.pi / nx
+    # a row longer than the main path's is a longer box at its spacing (at
+    # h = 2 pi / 8000, beta ~ 1e7 and float32 cannot solve the band)
+    h = 2 * np.pi / min(nx, 1024)
     p = dict(dt=1e-3, D=0.6, gamma=0.01, inv_h2=h**-2, inv_h4=h**-4)
     beta = (2 / 3) * 0.6 * 0.01 * 1e-3 * h**-4
     fac_x = P.cyclic_penta_factor(
         *P.hyperdiffusion_diagonals(nx, beta, dtype), device=cuda)
     cn = _field(shape, getattr(torch, dtype), cuda, 4)
     cm = _field(shape, getattr(torch, dtype), cuda, 5)
+    before = _build.LAUNCHES["ch_rhs_xsweep"]
     got = ops.ch_rhs_xsweep(cn, cm, fac_x, **p)
+    assert _build.LAUNCHES["ch_rhs_xsweep"] == before + 1
     want = ops.ch_rhs_xsweep(cn, cm, fac_x, backend="torch", **p)
     _assert_close(got, want, dtype, 10)
 

@@ -188,6 +188,153 @@ def test_rows_per_block():
         TP.rows_per_block(40000, 8, 10, 232448, 132)
 
 
+# ---------------------------------------------------------------------------
+# The segmented substitution of the CUDA column and fused row sweeps
+# (csrc/common.cuh:substitute_segmented), modelled in numpy: the kernels
+# run only on the card, so the algorithm itself is held here against the
+# reference's jnp substitution and the dense oracle.
+# ---------------------------------------------------------------------------
+
+SEG_MS = (6, 31, 32, 33, 64, 1021)
+# beta of the main path's y-sweep at 1024^2: the LU recurrences decay
+# slowly (about 0.87 a step), so a segment's carry reaches far into the
+# next segment and a wrong carry shows.
+SEG_BETA = 2.8e3
+
+
+def _seg_scan(A, p, reverse):
+    """Hillis-Steele inclusive scan of the 32 lanes' affine maps (axis 0),
+    as ``segment_carry``: lane k composes its map after lane k - d's
+    (k + d when ``reverse``), for d = 1, 2, 4, 8, 16.  Returns the state
+    entering each lane's segment."""
+    K = TP.WARP
+    d = 1
+    while d < K:
+        if reverse:
+            Ab, pb = np.concatenate([A[d:], A[-d:]]), np.concatenate([p[d:], p[-d:]])
+            valid = np.arange(K) + d < K
+        else:
+            Ab, pb = np.concatenate([A[:d], A[:-d]]), np.concatenate([p[:d], p[:-d]])
+            valid = np.arange(K) >= d
+        p_new = np.einsum("kbij,kbj->kbi", A, pb) + p
+        A_new = np.einsum("kbij,kbjl->kbil", A, Ab)
+        A = np.where(valid[:, None, None, None], A_new, A)
+        p = np.where(valid[:, None, None], p_new, p)
+        d *= 2
+    zero = np.zeros_like(p[:1])
+    return np.concatenate([p[1:], zero]) if reverse else np.concatenate([zero, p[:-1]])
+
+
+def _seg_direction(step, r, L, M, reverse):
+    """One direction of the segmented recurrence over an (M, B) array:
+    ``step(i, r_i, s1, s2)`` is the recurrence's new value at row i from
+    the state (s1, s2).  Pass A: every lane runs its segment from a zero
+    state and from the unit states with a zero right-hand side; the carry
+    scan; pass C: every lane reruns its segment from its true state."""
+    K, B = TP.WARP, r.shape[1]
+    dt = r.dtype.type
+    rows = np.arange(K)[:, None] * L + np.arange(L)[None, :]  # (lane, step)
+    order = range(L - 1, -1, -1) if reverse else range(L)
+
+    def run(s1, s2, rhs_on, out=None):
+        for j in order:
+            live = (rows[:, j] < M)[:, None]
+            i = np.minimum(rows[:, j], M - 1)
+            v = step(i, r[i] if rhs_on else np.zeros_like(s1), s1, s2)
+            if out is not None:
+                out[i[live[:, 0]]] = v[live[:, 0]]
+            s1, s2 = np.where(live, v, s1), np.where(live, s1, s2)
+        return s1, s2
+
+    zero, one = np.zeros((K, B), r.dtype), np.ones((K, B), r.dtype)
+    p1, p2 = run(zero, zero, True)
+    u1, u2 = run(one, zero, False)
+    w1, w2 = run(zero, one, False)
+    A = np.stack([np.stack([u1, w1], -1), np.stack([u2, w2], -1)], -2)
+    s = _seg_scan(A, np.stack([p1, p2], -1), reverse)
+    out = np.empty_like(r)
+    run(s[..., 0], s[..., 1], True, out)
+    assert dt == out.dtype.type
+    return out
+
+
+def _segmented_substitute(fac, rhs, L, w=None):
+    """numpy model of the segmented substitution of an (M, B) rhs with
+    segments of L rows, then the Woodbury closure when ``w`` is given."""
+    sub, low, imu, al, be = (_np(f) for f in fac)
+    M = rhs.shape[0]
+    z = _seg_direction(
+        lambda i, r, z1, z2: (r - sub[i, None] * z2 - low[i, None] * z1)
+        * imu[i, None], rhs, L, M, reverse=False)
+    x = _seg_direction(
+        lambda i, r, x1, x2: r - al[i, None] * x1 - be[i, None] * x2,
+        z, L, M, reverse=True)
+    if w is not None:
+        x = _np(TP.woodbury_correct(torch.as_tensor(x), torch.as_tensor(_np(w))))
+    return x
+
+
+@pytest.mark.parametrize("L", ["port", 32])
+@pytest.mark.parametrize("M", SEG_MS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cyclic", [False, True], ids=["band", "cyclic"])
+def test_segmented_substitution_model(cyclic, dtype, M, L):
+    """The segmented algorithm against the reference's jnp substitution and
+    the dense oracle.  L = 'port' is the kernels' segment length (9 for
+    these M but 1021, where it is 33: a line shorter than one segment and
+    ragged last segments); L = 32 adds lines shorter than one segment (6,
+    31), one segment or two exactly (32, 64) and ragged ones (33, 1021)."""
+    L = TP.segment_length(M) if L == "port" else L
+    bands = TP.hyperdiffusion_diagonals(M, SEG_BETA, dtype)
+    jb = [jnp.asarray(b) for b in bands]
+    rhs = np.asarray(np.random.default_rng(M).standard_normal((M, BATCH)), dtype)
+    if cyclic:
+        ref_fac = RP.cyclic_penta_factor(*jb)
+        fac = TP.cyclic_penta_factor(*bands, device="cpu")
+        want = RP.cyclic_penta_solve_factored(ref_fac, jnp.asarray(rhs),
+                                              backend="jnp")
+        got = _segmented_substitute(fac.band, rhs, L, fac.w)
+    else:
+        ref_fac = RP.penta_factor(*jb)
+        fac = TP.penta_factor(*bands, device="cpu")
+        want = RP._substitute_jnp(ref_fac, jnp.asarray(rhs))
+        got = _segmented_substitute(fac, rhs, L)
+    assert got.dtype == np.dtype(dtype)
+    _close(got, want, dtype)
+    dense = RR.penta_solve_ref(*(jnp.asarray(b, jnp.float64) for b in bands),
+                               rhs.astype(np.float64), cyclic=cyclic)
+    _close(got, dense, dtype, scale=100.0)
+
+
+def test_segment_geometry():
+    """Segment length: odd, at least 9, 32 of them cover the line, and a
+    function of M alone; the column sweep's tile stride and columns a
+    block (H100: 232448 B opt-in shared memory a block)."""
+    for M in (1, 6, 31, 32, 33, 64, 256, 1021, 1024, 1056, 1057, 40000):
+        L = TP.segment_length(M)
+        assert L % 2 == 1 and L >= 9 and 32 * L >= M
+    assert [TP.segment_length(M) for M in (6, 256, 1021, 1024, 40000)] == [
+        9, 9, 33, 33, 1251]
+    assert TP.tile_stride(1024, 8) == 1026
+    assert TP.tile_stride(1021, 4) == 1028
+    assert TP.cols_per_block(1024, 8, 232448) == 8
+    assert TP.cols_per_block(256, 8, 232448) == 8
+    assert TP.cols_per_block(4000, 8, 232448) == 2
+    assert TP.cols_per_block(40000, 8, 232448) == 0
+
+
+def test_xsweep_rows_per_block():
+    from repro_torch.kernels.fused_ch import xsweep_rows_per_block
+
+    # 1024-wide float64 rows and their factors on an H100
+    assert xsweep_rows_per_block(1024, 8, 1024, 232448, 132) == (8, True)
+    assert xsweep_rows_per_block(1024, 8, 128, 232448, 132) == (1, True)
+    # a float64 row of 8000 fits, its factors do not
+    assert xsweep_rows_per_block(8000, 8, 3, 232448, 132) == (1, False)
+    with pytest.raises(ValueError, match="does not fit"):
+        xsweep_rows_per_block(40000, 8, 3, 232448, 132)
+
+
 def test_backend_dispatch_on_cpu():
     fac = TP.penta_factor(*_bands(8, "float64"), device="cpu")
     rhs = torch.ones((8, 3), dtype=torch.float64)
