@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's column sweep, fused x-sweep and 2D steps in one checkout.
+"""Time the port's penta sweeps, fused x-sweep and steps in one checkout.
 
 Run from the root of a checkout, on one CUDA card::
 
@@ -13,15 +13,30 @@ float64, on the main path's inputs:
 
 - ``penta_cols`` at (1024, 1024), the 2D y-sweep of the fused step, and at
   (256, 65536), the 3D z-sweep (cyclic hyperdiffusion and diffusion bands);
+- ``penta_rows`` at (1024, 1024), the batch1d and bootstrap x-sweep, and
+  at (65536, 256), the 3D x-sweep; ``penta_mid`` at (256, 256, 256), the
+  3D y-sweep;
 - ``ch_rhs_xsweep`` at 1024^2;
 - each a median of 20 calls (CUDA events around a call) and the mean
   device time of its kernel over 20 calls (``torch.profiler``), after 3
   of warm-up;
+- the host time of one wrapper call, ``penta_rows`` and ``penta_cols`` at
+  1024^2 (the batch1d step's two sweeps): 200 calls enqueued back to back,
+  the host clock over them;
+- where the checkout's ``kernels/penta.py`` has the knobs, the row sweep
+  with a ring of 1 and of 2 row groups (``ROWS_RING``) at both shapes and
+  the plane sweep with at most 8, 16 and 32 columns a block
+  (``MID_MAX_COLS``);
 - ms/step of the fused and batched-1D Cahn–Hilliard steps at 1024^2 (CUDA
-  events around 200 and 50 steps after a 20-step warm-up).
+  events around 200 and 50 steps after a 20-step warm-up) and of the 3D
+  LOD diffusion step at 256^3 (20 steps after 20), with the host's
+  enqueue time per step.  The steps run first, before any profiler
+  session, so that every checkout's steps see the same process state.
 
-Prints one JSON line with the tree, the card (name and power limit) and
-the times.  Exits non-zero without a card.
+Prints one JSON line with the tree, the card (name and power limit), the
+times and, for each design choice, whether its output equals the
+default's bit for bit.  Exits non-zero without a card or when a choice's
+output differs.
 """
 
 from __future__ import annotations
@@ -31,27 +46,64 @@ import json
 import math
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 from chip_smoke import band_limited_quench, device_ms, time_ms
 
 
-def step_ms(solver, c0, steps: int) -> float:
-    """ms/step of ``solver``'s multi-step driver (CUDA events)."""
+def timed(run, carry, steps: int) -> tuple[float, float]:
+    """(ms/step by CUDA events, host enqueue ms/step) of ``run(carry)``,
+    one call doing ``steps`` steps; raises on a non-finite result."""
     import torch
 
-    pair = solver.make_evolve(20)(solver.initial_step(c0), c0.clone())
-    evolve = solver.make_evolve(steps)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     start.record()
-    pair = evolve(*pair)
+    carry = run(carry)
     end.record()
+    enqueue = (time.perf_counter() - t0) * 1e3 / steps
     torch.cuda.synchronize()
-    if not bool(torch.isfinite(pair[0]).all()):
+    field = carry[0] if isinstance(carry, tuple) else carry
+    if not bool(torch.isfinite(field).all()):
         raise RuntimeError("timed run produced non-finite values")
-    return start.elapsed_time(end) / steps
+    return start.elapsed_time(end) / steps, enqueue
+
+
+def step_ms(solver, c0, steps: int) -> tuple[float, float]:
+    """:func:`timed` of ``solver``'s multi-step evolve after 20 steps."""
+    pair = solver.make_evolve(20)(solver.initial_step(c0), c0.clone())
+    evolve = solver.make_evolve(steps)
+    return timed(lambda p: evolve(*p), pair, steps)
+
+
+def lod_ms(rt, op, c, steps: int) -> tuple[float, float]:
+    """:func:`timed` of the 3D LOD step ``c = compute(op, c)`` over
+    ``steps`` steps after as many of warm-up."""
+    def run(c):
+        for _ in range(steps):
+            c = rt.compute(op, c)
+        return c
+
+    return timed(run, run(c), steps)
+
+
+def host_ms(fn, n: int = 200) -> float:
+    """Host time of one call of ``fn`` in ms: ``n`` calls enqueued back to
+    back (after 3 of warm-up), the host clock over them."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    return ms
 
 
 def main() -> int:
@@ -69,6 +121,7 @@ def main() -> int:
     from repro_torch.core.cahn_hilliard import (
         CahnHilliardADI, CHConfig, deep_quench_ic,
     )
+    import repro_torch as rt
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import penta as P
 
@@ -90,26 +143,63 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(6)
     u3 = torch.rand((n3, n3 * n3), generator=g, device="cuda",
                     dtype=torch.float64) * 2 - 1
+    rows3 = u3.reshape(n3 * n3, n3)
+    mid3 = u3.reshape(n3, n3, n3)
     kernels = {
         "penta_cols (1024, 1024)":
             lambda: P.cyclic_penta_solve_factored(solver.op_full.fac_y, rhs),
         "penta_cols (256, 65536)":
             lambda: P.cyclic_penta_solve_factored(fac3, u3),
+        "penta_rows (1024, 1024)":
+            lambda: P.cyclic_penta_solve_factored_rows(solver.op_half.fac_x, rhs),
+        "penta_rows (65536, 256)":
+            lambda: P.cyclic_penta_solve_factored_rows(fac3, rows3),
+        "penta_mid (256, 256, 256)":
+            lambda: P.cyclic_penta_solve_factored_mid(fac3, mid3),
         "ch_rhs_xsweep 1024^2":
             lambda: ops.ch_rhs_xsweep(cn, cm, solver.op_full.fac_x, **ch_kw),
     }
+    rows_shapes = ("penta_rows (1024, 1024)", "penta_rows (65536, 256)")
+    mid = "penta_mid (256, 256, 256)"
+    # (label, module knob, value, kernel): the design choices timed in turn
+    variants = []
+    if hasattr(P, "ROWS_RING"):
+        variants += [(f"ring {d}", "ROWS_RING", d, k) for d in (1, 2)
+                     for k in rows_shapes]
+    if hasattr(P, "MID_MAX_COLS"):
+        variants += [(f"cols {c}", "MID_MAX_COLS", c, mid) for c in (8, 16, 32)]
     times = {}
+    c0 = band_limited_quench(n, seed=0)
+    for name, s_, steps in (("fused", solver, 200),
+                            ("batch1d", CahnHilliardADI(CHConfig(
+                                nx=n, ny=n, rhs_mode="batch1d")), 50)):
+        ms, enq = step_ms(s_, c0, steps)
+        times[f"{name} step 1024^2 (ms/step)"] = ms
+        times[f"{name} step 1024^2 (host enqueue ms/step)"] = enq
+    op3 = rt.create("diffusion", (n3,) * 3, mode="adi", alpha=r3, cyclic=True)
+    ms, enq = lod_ms(rt, op3, mid3.clone(), 20)
+    times["3D LOD step 256^3 (ms/step)"] = ms
+    times["3D LOD step 256^3 (host enqueue ms/step)"] = enq
+    for name in ("penta_rows (1024, 1024)", "penta_cols (1024, 1024)"):
+        times[f"{name}, host"] = host_ms(kernels[name])
     for name, fn in kernels.items():
         times[f"{name}, events"] = time_ms(fn)
         times[f"{name}, device"] = device_ms(fn)
-    c0 = band_limited_quench(n, seed=0)
-    times["fused step 1024^2 (ms/step)"] = step_ms(solver, c0, 200)
-    b1d = CahnHilliardADI(CHConfig(nx=n, ny=n, rhs_mode="batch1d"))
-    times["batch1d step 1024^2 (ms/step)"] = step_ms(b1d, c0, 50)
+    same = {}
+    for label, knob, value, name in variants:
+        kept = getattr(P, knob)
+        want = kernels[name]()
+        setattr(P, knob, value)
+        try:
+            times[f"{name} {label}, device"] = device_ms(kernels[name])
+            same[f"{name} {label}"] = bool(torch.equal(kernels[name](), want))
+        finally:
+            setattr(P, knob, kept)
     print(json.dumps(dict(tree=str(tree), label=args.label, card=card,
                           device=torch.cuda.get_device_name(0),
-                          torch=torch.__version__, ms=times)))
-    return 0
+                          torch=torch.__version__, ms=times,
+                          variant_equal_to_default=same)))
+    return 0 if all(same.values()) else 1
 
 
 if __name__ == "__main__":

@@ -12,7 +12,9 @@ printing a result:
 2. Build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
    one process per source, started together); build seconds.  The
    segmented sweeps' geometry at each shape they run (segment length L,
-   segments S, columns C or rows R a block) goes to the record.
+   segments S, columns C or rows R a block; for the row and plane sweeps
+   the route, rows a group, ring depth, columns a block and the grid, as
+   the wrappers launch them on this card) goes to the record.
 3. Kernels against their plain PyTorch versions on the card, each with its
    max abs error against the stated tolerance, its time (CUDA events,
    median of 20 launches), its bound and a library call as a yardstick
@@ -29,7 +31,11 @@ printing a result:
    rotating blob and on a random field (no yardstick: no single PyTorch
    call computes it).  The column sweep also at a long M (40000 rows of
    64 columns, no shared-memory tile fits: the kernel's device-memory
-   route), checked and timed.
+   route), checked and timed, and so the row sweep (3 rows of 40000) and
+   the plane sweep ((2, 6000, 16)).  The row sweep is also checked on the
+   3D x-sweep's (65536, 256) rows (256^3, ragged, float32) and timed
+   there beside 1024^2, with its bound, plain version and ``lu_solve``
+   yardstick.
 4. Paths, each run with the launch counts set to 0 just before it and
    read just after:
    a. Main path: the 1024x1024 float64 Cahn–Hilliard solver, bootstrap
@@ -107,6 +113,8 @@ TILE_BYTES = 1_100_000
 N_CHUNKS = 8
 RAGGED_3D = (61, 67, 71)
 LONG_M = (40000, 64)  # a column sweep whose (M, C) tile fits no block
+LONG_ROWS = (3, 40000)  # a row sweep whose row fits no block beside the factors
+LONG_MID = (2, 6000, 16)  # a plane sweep whose one-column tile fits no block
 N_TIMED_3D = 20
 LOD = dict(D=0.5, dt=2e-3)  # examples/diffusion3d_adi.py defaults
 
@@ -398,7 +406,38 @@ def main() -> int:
         R, stage = xsweep_rows_per_block(nx, isz, n_rows, smem, sms)
         return dict(nx=nx, L=L, S=ceil_div(nx, L), R=R, factors_staged=stage)
 
+    def penta_rows_geometry(B, M, dtype, cyclic=True):
+        L = P.segment_length(M)
+        geo = P.rows_geometry_on(torch.device("cuda"), getattr(torch, dtype),
+                                 M, B, cyclic=cyclic)
+        return dict(B=B, M=M, L=L, S=ceil_div(M, L), **geo._asdict())
+
+    def penta_mid_geometry(shape, dtype):
+        L = P.segment_length(shape[1])
+        geo = P.mid_geometry_on(torch.device("cuda"), getattr(torch, dtype),
+                                *shape)
+        return dict(shape=shape, L=L, S=ceil_div(shape[1], L), **geo._asdict())
+
     seg_geometry = {
+        f"penta_rows ({N_MAIN}, {N_MAIN}) float64":
+            penta_rows_geometry(N_MAIN, N_MAIN, "float64"),
+        f"penta_rows {RAGGED} float64": penta_rows_geometry(*RAGGED, "float64"),
+        f"penta_rows ({N_MAIN}, {N_MAIN}) float32":
+            penta_rows_geometry(N_MAIN, N_MAIN, "float32"),
+        f"penta_rows ({N3 * N3}, {N3}) float64, 3D x-sweep":
+            penta_rows_geometry(N3 * N3, N3, "float64"),
+        f"penta_rows ({N_MAIN // N_CHUNKS}, {N_MAIN}) float64, a streamed "
+        "chunk": penta_rows_geometry(N_MAIN // N_CHUNKS, N_MAIN, "float64"),
+        f"penta_rows {LONG_ROWS} float64, long M":
+            penta_rows_geometry(*LONG_ROWS, "float64"),
+        f"penta_mid ({N3}, {N3}, {N3}) float64":
+            penta_mid_geometry((N3,) * 3, "float64"),
+        f"penta_mid {RAGGED_3D} float64": penta_mid_geometry(RAGGED_3D,
+                                                             "float64"),
+        f"penta_mid ({N3}, {N3}, {N3}) float32":
+            penta_mid_geometry((N3,) * 3, "float32"),
+        f"penta_mid {LONG_MID} float64, long M":
+            penta_mid_geometry(LONG_MID, "float64"),
         "penta_cols (1024, 1024) float64": cols_geometry(N_MAIN, 8),
         "penta_cols (1021, 1019) float64": cols_geometry(RAGGED[0], 8),
         "penta_cols (1024, 1024) float32": cols_geometry(N_MAIN, 4),
@@ -556,6 +595,14 @@ def main() -> int:
                           f"{'cyclic' if cyclic else 'plain-band'} mid {tag}",
                           dtype, lambda b, s=solve, f=op3.fac_y, u=u: s(
                               f, u, backend=b)))
+            # the 3D x-sweep: rows of nx, nz * ny of them
+            rows_solve = (P.cyclic_penta_solve_factored_rows if cyclic
+                          else P.penta_solve_factored_rows)
+            cases.append(("penta_rows",
+                          f"{'cyclic' if cyclic else 'plain-band'} rows 3D "
+                          f"{tag}", dtype,
+                          lambda b, s=rows_solve, f=op3.fac_x,
+                          u=u.reshape(-1, shape[2]): s(f, u, backend=b)))
 
     # the WENO5 RHS: the path's inputs (the Gaussian blob of
     # examples/weno_advection.py under solid-body rotation) and a random
@@ -597,6 +644,35 @@ def main() -> int:
 
     cases.append(("penta_cols", f"cyclic cols long M {LONG_M[0]}x{LONG_M[1]}",
                   "float64", long_cols))
+
+    # the row and plane sweeps at a long M: neither a row nor a one-column
+    # tile fits a block beside the factors, so each line is solved in
+    # device memory
+    rhs_long_rows = (torch.rand(LONG_ROWS, generator=torch.Generator()
+                                .manual_seed(8), dtype=torch.float64)
+                     * 2 - 1).to(dev)
+    fac_long_mid = P.cyclic_penta_factor(
+        *P.hyperdiffusion_diagonals(LONG_MID[1], beta_full), device=dev)
+    rhs_long_mid = (torch.rand(LONG_MID, generator=torch.Generator()
+                               .manual_seed(9), dtype=torch.float64)
+                    * 2 - 1).to(dev)
+
+    def long_rows(b):
+        return P.cyclic_penta_solve_factored_rows(fac_long, rhs_long_rows,
+                                                  backend=b)
+
+    def long_mid(b):
+        return P.cyclic_penta_solve_factored_mid(fac_long_mid, rhs_long_mid,
+                                                 backend=b)
+
+    cases.append(("penta_rows", f"cyclic rows long M {LONG_ROWS[0]}x"
+                  f"{LONG_ROWS[1]}", "float64", long_rows))
+    cases.append(("penta_rows", f"plain-band rows long M {LONG_ROWS[0]}x"
+                  f"{LONG_ROWS[1]}", "float64",
+                  lambda b: P.penta_solve_factored_rows(
+                      fac_long.band, rhs_long_rows, backend=b)))
+    cases.append(("penta_mid", "cyclic mid long M "
+                  + "x".join(map(str, LONG_MID)), "float64", long_mid))
 
     checks, failures = [], []
     for kernel, label, dtype, run in cases:
@@ -658,6 +734,7 @@ def main() -> int:
     # x and the RHS at 1024^2, the 3D Laplacian and the cyclic plane-layout
     # sweep at 256^3; all float64
     N3c = N3**3
+    ROWS_3D = f"penta_rows ({N3 * N3}, {N3})"
     r3 = LOD["D"] * LOD["dt"] / h3**2
     u3 = box3((N3,) * 3, "float64", 6)
     op3 = rt.create("diffusion", (N3,) * 3, mode="adi", alpha=r3, cyclic=True)
@@ -671,6 +748,11 @@ def main() -> int:
                       (2 * lap3.num_sten - 1) * N3c),
         "penta_mid": (
             lambda b: P.cyclic_penta_solve_factored_mid(op3.fac_y, u3, backend=b),
+            2 * N3c * isz + 9 * N3 * isz, 17 * N3c),
+        # the row sweep on the 3D x-sweep's rows, beside its 1024^2 entry
+        ROWS_3D: (
+            lambda b: P.cyclic_penta_solve_factored_rows(
+                op3.fac_x, u3.reshape(-1, N3), backend=b),
             2 * N3c * isz + 9 * N3 * isz, 17 * N3c),
     })
     # the WENO5 RHS on the blob at 1024^2: q, u, v read and the output
@@ -715,8 +797,10 @@ def main() -> int:
     lu_rows = dense_lu(beta_half, transpose=True)
     # the plane layout: the dense LU of the cyclic y band, broadcast over
     # the z planes (lu_solve broadcasts LU (M, M) against rhs (P, M, N))
-    lu_mid = torch.linalg.lu_factor(penta_dense_cyclic(
-        *(torch.as_tensor(d, device=dev) for d in P.diffusion_diagonals(N3, r3))))
+    dense3 = penta_dense_cyclic(
+        *(torch.as_tensor(d, device=dev) for d in P.diffusion_diagonals(N3, r3)))
+    lu_mid = torch.linalg.lu_factor(dense3)
+    lu_rows3 = torch.linalg.lu_factor(dense3.mT)
     F = torch.nn.functional
     w_d4 = d4.coeffs.view(1, 1, -1)
     w_lap3 = lap3.coeffs.view(1, 1, 3, 3, 3)
@@ -724,6 +808,8 @@ def main() -> int:
         "penta_cols": lambda: torch.linalg.lu_solve(*lu_cols, rhs),
         "penta_rows": lambda: torch.linalg.lu_solve(*lu_rows, rhs, left=False),
         "penta_mid": lambda: torch.linalg.lu_solve(*lu_mid, u3),
+        ROWS_3D: lambda: torch.linalg.lu_solve(*lu_rows3, u3.reshape(-1, N3),
+                                               left=False),
         # circular pad + conv1d over the rows as a batch of 1-channel lines
         "stencil1d_batch": lambda: F.conv1d(
             F.pad(cn[:, None, :], (d4.left, d4.right), mode="circular"),
@@ -738,9 +824,12 @@ def main() -> int:
     # the batched-1D kernel along y: the transposed view, read in place
     timings["stencil1d_batch d4 along y (transposed view)"] = dict(
         ms=time_ms(lambda: batch_call(d4, cn.T)("cuda")))
-    timings[f"penta_cols long M {LONG_M} (device-memory route)"] = dict(
-        ms=time_ms(lambda: long_cols("cuda"), n=5, warmup=1),
-        device_ms=device_ms(lambda: long_cols("cuda"), n=5, warmup=1))
+    for name, fn in ((f"penta_cols long M {LONG_M}", long_cols),
+                     (f"penta_rows long M {LONG_ROWS}", long_rows),
+                     (f"penta_mid long M {LONG_MID}", long_mid)):
+        timings[f"{name} (device-memory route)"] = dict(
+            ms=time_ms(lambda fn=fn: fn("cuda"), n=5, warmup=1),
+            device_ms=device_ms(lambda fn=fn: fn("cuda"), n=5, warmup=1))
     # the step's elementwise glue, c_{n+1} = 2 c_n - c_{n-1} + v, in place
     buf = cm.clone()
     timings["glue"] = dict(ms=time_ms(

@@ -64,8 +64,9 @@ _L = ctypes.c_longlong
 _ENTRY_POINTS = {
     "penta.cu": (
         ("penta_cols", [_I] + [_P] * 5 + [_P, _P, _P] + [_I] * 7 + [_P]),
-        ("penta_rows", [_I] + [_P] * 5 + [_P, _P, _P] + [_I] * 5 + [_P]),
-        ("penta_mid", [_I] + [_P] * 5 + [_P, _P, _P, _I, _I, _I, _P]),
+        ("penta_rows", [_I] + [_P] * 5 + [_P, _P, _P] + [_I] * 8 + [_P]),
+        ("penta_mid", [_I] + [_P] * 5 + [_P, _P, _P] + [_I] * 6 + [_P]),
+        ("penta_rows_occupancy", [_I, _I, _P]),
     ),
     "stencil2d.cu": (
         ("stencil2d", [_I, _I, _I, _P, _P, _P, _P] + [_I] * 8 + [_P]),
@@ -229,6 +230,16 @@ def device_info(device: torch.device) -> tuple[int, int]:
         )
         info = state["devices"][idx] = (smem.value, sms.value)
     return info
+
+
+def occupancy(name: str, device: torch.device, *args) -> int:
+    """Resident blocks an SM of ``device`` holds, from the C entry point
+    ``name`` (its ``args`` and then the int it writes); no launch."""
+    lib, fn = build()["libs"][name]
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _check(lib, fn(*args, ctypes.byref(blocks)), f"{name} query")
+    return blocks.value
 
 
 def dtype_code(t: torch.Tensor) -> int:

@@ -1,19 +1,14 @@
 // Shared pieces of the repro_torch CUDA kernels: the C export macro, the
 // error-string and device-query entry points every library carries, the
 // periodic index wrap, the device point functions of the stencil kernels
-// (stencil2d.cu, stencil1d_batch.cu, stencil3d.cu), and the two row-layout
-// pentadiagonal substitutions of a line held in memory:
-//
-// - substitute_row: one thread walks the whole line (penta.cu:penta_rows,
-//   the standalone x-sweep).
-// - substitute_segmented: one warp splits the line into 32 segments and
-//   runs it as a segmented recurrence (fused_ch.cu:ch_rhs_xsweep, the fused
-//   RHS + x-sweep, and penta.cu:penta_cols, the column sweep).
-//
-// Both compute the reference's substitution
-// (repro/kernels/penta.py:rows_substitute_refs); they agree to rounding,
-// not bit for bit, since the segmented one combines carries across
-// segments.
+// (stencil2d.cu, stencil1d_batch.cu, stencil3d.cu), and the pentadiagonal
+// substitution of a line held in memory, substitute_segmented: one warp
+// splits the line into 32 segments and runs it as a segmented recurrence.
+// Every sweep runs it (fused_ch.cu:ch_rhs_xsweep, the fused RHS + x-sweep;
+// penta.cu:penta_cols, penta_rows and penta_mid, the column, row and plane
+// sweeps).  It computes the reference's substitution
+// (repro/kernels/penta.py:rows_substitute_refs) to rounding, not bit for
+// bit, since it combines carries across segments.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -75,35 +70,6 @@ inline int with_point_fn(int point_fn, F&& f) {
   }
 }
 
-// In-place forward/backward substitution of one row of length M held in
-// shared memory, with the Create-time LU factors of the band
-// (sub = e_i, low = l_i, imu = 1/mu_i, al = alpha_i, be = beta_i):
-//   z_i = (r_i - e_i z_{i-2} - l_i z_{i-1}) / mu_i,
-//   x_i = z_i - alpha_i x_{i+1} - beta_i x_{i+2}.
-template <typename T>
-__device__ __forceinline__ void substitute_row(
-    T* row, const T* __restrict__ sub, const T* __restrict__ low,
-    const T* __restrict__ imu, const T* __restrict__ al,
-    const T* __restrict__ be, int M) {
-  T z1 = T(0), z2 = T(0);
-#pragma unroll 4
-  for (int i = 0; i < M; ++i) {
-    const T z = (row[i] - __ldg(sub + i) * z2 - __ldg(low + i) * z1) *
-                __ldg(imu + i);
-    row[i] = z;
-    z2 = z1;
-    z1 = z;
-  }
-  T x1 = T(0), x2 = T(0);
-#pragma unroll 4
-  for (int i = M - 1; i >= 0; --i) {
-    const T x = row[i] - __ldg(al + i) * x1 - __ldg(be + i) * x2;
-    row[i] = x;
-    x2 = x1;
-    x1 = x;
-  }
-}
-
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kWarp = 32;
 
@@ -159,8 +125,12 @@ __device__ __forceinline__ void segment_carry(SegmentMap<T> m, int lane,
   if (lane == (kReverse ? kWarp - 1 : 0)) s0 = s1 = T(0);
 }
 
-// The substitution of substitute_row as a segmented recurrence, run by all
-// 32 lanes of one warp (lane = threadIdx.x % 32, the warp converged) on a
+// The in-place forward/backward substitution of a line of length M with
+// the Create-time LU factors of the band (sub = e_i, low = l_i,
+// imu = 1/mu_i, al = alpha_i, be = beta_i),
+//   z_i = (r_i - e_i z_{i-2} - l_i z_{i-1}) / mu_i,
+//   x_i = z_i - alpha_i x_{i+1} - beta_i x_{i+2},
+// as a segmented recurrence, run by all 32 lanes of one warp (lane = threadIdx.x % 32, the warp converged) on a
 // line of length M: element i is read at in[i * ld] and the result
 // written at v[i * ld] (in may equal v: each lane touches only its own
 // segment).  Lane k owns the segment [k L, min((k + 1) L, M)); L is odd
@@ -177,7 +147,8 @@ __device__ __forceinline__ void segment_carry(SegmentMap<T> m, int lane,
 // Forward z_i = (r_i - e_i z_{i-2} - l_i z_{i-1}) / mu_i over the state
 // (z_{i-1}, z_{i-2}); backward x_i = z_i - alpha_i x_{i+1} - beta_i x_{i+2}
 // over (x_{i+1}, x_{i+2}).  Pass C is the true recurrence, so the result
-// differs from substitute_row only through the rounding of the 32 carries.
+// differs from one thread walking the whole line only through the rounding
+// of the 32 carries.
 // The caller syncs the warp (or block) before reading other lanes' output.
 template <typename T>
 __device__ __forceinline__ void substitute_segmented(

@@ -1,21 +1,21 @@
 // Batched pentadiagonal substitution with the Create-time LU factors, in
-// the three layouts of the 2D and 3D ADI steps.
+// the three layouts of the 2D and 3D ADI steps.  Every line of every
+// layout is a segmented recurrence (common.cuh:substitute_segmented): one
+// warp a line, each lane a segment of L = max(ceil(M / 32), 8) | 1
+// elements, so 32 threads work on a line and each walks about 4 L + 10
+// dependent steps instead of 3 M.  L depends only on the line length M
+// (kernels/penta.py:segment_length), and the route (shared-memory tile or
+// device memory) only on M, the dtype and whether the band is cyclic, never
+// on the batch or a launch's window, so a line is computed by the same code
+// whatever the launch, and a streamed sweep (repro_torch/launch/stream.py,
+// one launch per chunk of lines) equals the monolithic launch bit for bit.
 //
 // penta_cols replaces the TPU kernel repro/kernels/penta.py:
 // _substitute_pallas (body _substitute_kernel): column layout, an (M, N)
 // right-hand side whose N systems lie along the contiguous axis and whose
 // recurrence runs over the M rows (the y-sweep of the 2D step, the z-sweep
-// of the 3D step).  The recurrence is serial in M, so one thread per
-// column (the first design) leaves only N threads, 1024 at the main size:
-// 32 of the 132 SMs busy, one load in flight per warp, latency-bound at
-// 74x the byte bound.  Here each column is a segmented recurrence
-// (common.cuh:substitute_segmented): one warp per column, each lane a
-// segment of L = max(ceil(M / 32), 8) | 1 rows, so 32 N threads work and
-// each walks about 4 L + 10 dependent steps instead of 3 M.  The segment
-// length depends only on M (kernels/penta.py:segment_length), never on N
-// or the window, so a column is computed by the same code whatever the
-// launch.  Two routes, chosen by the wrapper from M and the shared memory
-// a block can hold (kernels/penta.py:cols_per_block):
+// of the 3D step).  Two routes, chosen by the wrapper from M and the shared
+// memory a block can hold (kernels/penta.py:cols_per_block):
 //
 // - tile (penta_cols_tile_kernel): a block stages the five factors and an
 //   (M, C) tile of C <= 8 columns in dynamic shared memory with coalesced
@@ -33,80 +33,287 @@
 //
 // penta_rows replaces repro/kernels/penta.py:_substitute_rows_pallas (body
 // rows_substitute_refs): row layout, a (B, M) right-hand side whose
-// recurrence runs along the contiguous axis (the x-sweep).  One thread per
-// row reading global memory would put the 32 lanes of a warp M elements
-// apart, so no load would coalesce.  Instead a block stages R rows in
-// dynamic shared memory with coalesced loads (row stride M+1 so that the R
-// recurrence threads hit different banks), R threads run the recurrences
-// in shared memory, and the block writes the rows back coalesced, applying
-// the Woodbury closure (rows_woodbury_correct) on the way out.  R is chosen
-// by the wrapper from M, the opt-in shared memory and the SM count; it is
-// latency-bound: only R threads a block and B in all walk the serial
-// recurrence.
+// recurrence runs along the contiguous axis (the x-sweep).  The first
+// design had one thread walk each row (R <= 32 rows a block, 8 of 256
+// threads busy at 1024^2, the factors read from device memory at every
+// step: 36x its byte bound).  Now (kernels/penta.py:rows_geometry):
+//
+// - tile (penta_rows_tile_kernel): about one grid of resident blocks walks
+//   the groups of G <= 8 rows; each block stages the five factors, and W
+//   when the band is cyclic, once in shared memory, then keeps a ring of
+//   `depth` (1 or 2) row groups there.  A group is contiguous in device
+//   memory, so where its address and the row's bytes are multiples of 16
+//   one thread loads it with one bulk copy (cp.async.bulk, the 1D TMA)
+//   that completes on an mbarrier; otherwise (odd M in float64, float32
+//   rows of M not a multiple of 4, a window that starts off 16 bytes) every
+//   thread issues cp.async of one element.  With depth 2 the load of the
+//   next group is in flight while the warps solve the current one.  At the
+//   3D x-sweep's (65536, 256) on an H100 the element copies took 13% and
+//   plain loads on a grid of all groups 36% longer than the bulk copies
+//   (chip_ab.py; PERF.md).  Each
+//   warp solves its rows one at a time, syncs, and writes the row out with
+//   coalesced stores, applying the rank-4 closure (rows_woodbury_correct)
+//   on the way.  Device memory sees the rhs read once and the output
+//   written once, so it is bound by those bytes, by the shared-memory
+//   traffic of the recurrence (about 18 accesses an element) and, for
+//   short rows, by the carries' shuffles.
+// - global (penta_rows_global_kernel), for a row whose tile does not fit
+//   beside the factors (M above ~4800 in float64, ~2900 when cyclic): the
+//   same warp-a-row recurrence on the row in device memory, the closure as
+//   the epilogue.
 //
 // penta_mid replaces repro/kernels/penta.py:_substitute_mid_pallas (body
 // _substitute_mid_kernel) and its closure mid_woodbury_correct: plane
 // layout, a (P, M, N) right-hand side whose recurrence runs over the middle
-// axis (the y-sweep of a 3D field, transpose-free).  The TPU kernel walks
-// one plane's (M, tn) block per grid step; here one thread owns one (p, n)
-// line, so each step's loads are coalesced across the warp along n, and
-// the P N lines (65536 at 256^3) all run at once.  It runs substitute_line
-// (one thread walks the whole line), with the cyclic rank-4 closure as the
-// epilogue when w is given: latency-bound like a sweep with one thread a
-// column, but with P times as many threads.
+// axis (the y-sweep of a 3D field, transpose-free).  It is P column-layout
+// sweeps of (M, N), row stride N and plane stride M N, so it takes the
+// column sweep's design (kernels/penta.py:mid_geometry):
+//
+// - tile (penta_mid_tile_kernel): block (x, p) stages the factors, loads
+//   the (M, C) tile of columns [x C, x C + C) of plane p with coalesced
+//   loads (rows of C elements, wider than the column sweep's 8 where
+//   shared memory allows), runs the 8 warps over its C columns as
+//   segmented recurrences and writes the tile back coalesced with the
+//   closure; planes beyond the grid's 65535 in a loop.  The line stride of
+//   the tile makes each half-warp's loads and stores hit different banks
+//   for any C.
+// - global (penta_mid_global_kernel), for an M whose tile of one column
+//   does not fit: one warp a (p, n) line in device memory, as
+//   penta_cols_global_kernel.
 //
 // penta_cols computes the columns [col0, col1) and penta_rows the rows
 // [row0, row1) of their output (the whole rhs is [0, N) and [0, B)): the
-// systems are independent, so a streamed sweep (repro_torch/launch/
-// stream.py) issues one launch per chunk of systems and each system is
-// solved by the same code whatever the chunk.
+// systems are independent, so a streamed sweep issues one launch per chunk
+// of systems.
+#include <stdint.h>
+
 #include "common.cuh"
 
 namespace {
 
-// Forward/backward substitution of one strided line (element i at r[i * ld]
-// and o[i * ld]) with the factors of a length-M band, then, when w is not
-// null, the cyclic rank-4 Woodbury closure x_i = y_i - (W[i,0] y[M-2] +
-// W[i,1] y[M-1] + W[i,2] y[0] + W[i,3] y[1]) as the epilogue: the thread
-// already holds the four entries of y it needs.
+constexpr int kBlock = 256;  // threads a block of the row and plane sweeps
+constexpr int kWarps = kBlock / kWarp;
+
+__host__ __device__ constexpr int round_up(int n, int m) {
+  return (n + m - 1) / m * m;
+}
+
+// Elements of T in 16 bytes, the granule of the bulk copies.
 template <typename T>
-__device__ __forceinline__ void substitute_line(
-    const T* __restrict__ sub, const T* __restrict__ low,
+constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+
+// The row sweep's shared memory: 16 bytes of mbarriers, the five factors
+// (and W after them when cyclic) rounded up to 16 bytes, then `depth` slots
+// of G rows of stride round_up(M, kVec) (kernels/penta.py:rows_tile_bytes).
+template <typename T>
+__host__ __device__ int rows_stage_len(int M, bool cyclic) {
+  return round_up((cyclic ? 9 : 5) * M, kVec<T>);
+}
+
+template <typename T>
+int rows_smem_bytes(int M, bool cyclic, int G, int depth) {
+  return 16 + (rows_stage_len<T>(M, cyclic) + depth * G * round_up(M, kVec<T>)) *
+                  static_cast<int>(sizeof(T));
+}
+
+// -- asynchronous copies into shared memory (PTX) ----------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Expect `bytes` of asynchronous writes on `bar` and arrive once.
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait for the completion of the phase of `bar` of parity `parity`.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  const unsigned a = smem_u32(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(__cvta_generic_to_global(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One element from device to shared memory (cp.async of 4 or 8 bytes).
+template <typename T>
+__device__ __forceinline__ void elem_load(T* dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(smem_u32(dst)),
+               "l"(__cvta_generic_to_global(src)), "n"(sizeof(T))
+               : "memory");
+}
+
+__device__ __forceinline__ void elem_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void elem_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
+// -- the segmented substitution of a line in shared memory -----------------
+
+// substitute_segmented (in place, ld = 1) with L = kL, each lane keeping
+// its segment's values in registers between its four passes: the same
+// arithmetic in the same order (the result is bit for bit the same), with
+// 12 shared-memory accesses an element instead of 16.  The shared-memory
+// and shuffle instructions of the recurrence are what bound the sweeps of
+// short lines (L = 9, M <= 288: the 3D sweeps at 256); this takes a
+// quarter of the former at the cost of 2 kL registers.
+template <typename T, int kL>
+__device__ __forceinline__ void substitute_segmented_regs(
+    T* v, const T* __restrict__ sub, const T* __restrict__ low,
     const T* __restrict__ imu, const T* __restrict__ al,
-    const T* __restrict__ be, const T* __restrict__ w,
-    const T* __restrict__ r, T* __restrict__ o, size_t ld, int M) {
-  T z1 = T(0), z2 = T(0);
-#pragma unroll 4
-  for (int i = 0; i < M; ++i) {
-    const T z = (r[i * ld] - __ldg(sub + i) * z2 - __ldg(low + i) * z1) *
-                __ldg(imu + i);
-    o[i * ld] = z;
-    z2 = z1;
-    z1 = z;
+    const T* __restrict__ be, int M, int lane) {
+  const int a = min(lane * kL, M);
+  const int n = min(a + kL, M) - a;
+  T r[kL];
+#pragma unroll
+  for (int j = 0; j < kL; ++j) r[j] = j < n ? v[a + j] : T(0);
+  T s0, s1;
+  {  // forward, pass A
+    T p1 = T(0), p2 = T(0), u1 = T(1), u2 = T(0), w1 = T(0), w2 = T(1);
+#pragma unroll
+    for (int j = 0; j < kL; ++j) {
+      if (j < n) {
+        const int i = a + j;
+        const T e = sub[i], l = low[i], m = imu[i];
+        const T pz = (r[j] - e * p2 - l * p1) * m;
+        const T uz = -(e * u2 + l * u1) * m;
+        const T wz = -(e * w2 + l * w1) * m;
+        p2 = p1;
+        p1 = pz;
+        u2 = u1;
+        u1 = uz;
+        w2 = w1;
+        w1 = wz;
+      }
+    }
+    segment_carry<T, false>(SegmentMap<T>{u1, w1, u2, w2, p1, p2}, lane, s0,
+                            s1);
   }
-  T x1 = T(0), x2 = T(0);
-  T y_last = T(0), y_before_last = T(0);
-#pragma unroll 4
-  for (int i = M - 1; i >= 0; --i) {
-    const T x = o[i * ld] - __ldg(al + i) * x1 - __ldg(be + i) * x2;
-    o[i * ld] = x;
-    if (i == M - 1) y_last = x;
-    if (i == M - 2) y_before_last = x;
-    x2 = x1;
-    x1 = x;
+  {  // forward, pass C
+    T z1 = s0, z2 = s1;
+#pragma unroll
+    for (int j = 0; j < kL; ++j) {
+      if (j < n) {
+        const int i = a + j;
+        const T z = (r[j] - sub[i] * z2 - low[i] * z1) * imu[i];
+        r[j] = z;
+        z2 = z1;
+        z1 = z;
+      }
+    }
   }
-  if (w != nullptr) {
-    // x1 = y[0], x2 = y[1] after the backward pass
-    const T y0 = x1, y1 = x2;
-#pragma unroll 4
-    for (int i = 0; i < M; ++i) {
-      const T* wi = w + 4 * i;
-      o[i * ld] = o[i * ld] - (__ldg(wi) * y_before_last +
-                               __ldg(wi + 1) * y_last + __ldg(wi + 2) * y0 +
-                               __ldg(wi + 3) * y1);
+  {  // backward, pass A
+    T p1 = T(0), p2 = T(0), u1 = T(1), u2 = T(0), w1 = T(0), w2 = T(1);
+#pragma unroll
+    for (int j = kL - 1; j >= 0; --j) {
+      if (j < n) {
+        const int i = a + j;
+        const T f = al[i], g = be[i];
+        const T px = r[j] - f * p1 - g * p2;
+        const T ux = -(f * u1 + g * u2);
+        const T wx = -(f * w1 + g * w2);
+        p2 = p1;
+        p1 = px;
+        u2 = u1;
+        u1 = ux;
+        w2 = w1;
+        w1 = wx;
+      }
+    }
+    segment_carry<T, true>(SegmentMap<T>{u1, w1, u2, w2, p1, p2}, lane, s0,
+                           s1);
+  }
+  {  // backward, pass C
+    T x1 = s0, x2 = s1;
+#pragma unroll
+    for (int j = kL - 1; j >= 0; --j) {
+      if (j < n) {
+        const int i = a + j;
+        const T x = r[j] - al[i] * x1 - be[i] * x2;
+        v[i] = x;
+        x2 = x1;
+        x1 = x;
+      }
     }
   }
 }
+
+// One line of length M in shared memory, solved in place by the calling
+// warp with the staged factors f (sub, low, imu, al, be at strides of M);
+// a segment of L = 9 (lines of at most 288) is kept in registers.
+template <typename T>
+__device__ __forceinline__ void solve_line_smem(T* line, const T* f, int M,
+                                                int L, int lane) {
+  if (L == 9)
+    substitute_segmented_regs<T, 9>(line, f, f + M, f + 2 * M, f + 3 * M,
+                                    f + 4 * M, M, lane);
+  else
+    substitute_segmented(line, line, 1, f, f + M, f + 2 * M, f + 3 * M,
+                         f + 4 * M, M, L, lane);
+}
+
+// -- device-memory routes ----------------------------------------------------
+
+// One line of length M in device memory (element i at r[i * ld], result
+// at o[i * ld]) solved by the calling warp, then, when w is not null, the
+// cyclic rank-4 closure x_i = y_i - (W[i,0] y[M-2] + W[i,1] y[M-1] +
+// W[i,2] y[0] + W[i,3] y[1]), each lane on its own segment.
+template <typename T>
+__device__ __forceinline__ void solve_line_global(
+    const T* __restrict__ sub, const T* __restrict__ low,
+    const T* __restrict__ imu, const T* __restrict__ al,
+    const T* __restrict__ be, const T* __restrict__ w, const T* r, T* o,
+    long long ld, int M, int L, int lane) {
+  substitute_segmented(r, o, ld, sub, low, imu, al, be, M, L, lane);
+  if (w == nullptr) return;
+  __syncwarp();
+  const T ym2 = o[(M - 2) * ld], ym1 = o[(M - 1) * ld], y0 = o[0], y1 = o[ld];
+  __syncwarp();
+  const int a = min(lane * L, M), b = min(a + L, M);
+  for (int i = a; i < b; ++i) {
+    const T* wi = w + 4 * i;
+    o[i * ld] -= __ldg(wi) * ym2 + __ldg(wi + 1) * ym1 + __ldg(wi + 2) * y0 +
+                 __ldg(wi + 3) * y1;
+  }
+}
+
+// -- column layout ------------------------------------------------------------
 
 // Column sweep, tile route: block b solves the columns [b C, b C + C) of
 // an (M, n) window of row stride N; blockDim.x = 32 C.
@@ -165,63 +372,238 @@ __global__ void __launch_bounds__(256) penta_cols_global_kernel(
     const T* __restrict__ be, const T* __restrict__ w, const T* rhs, T* out,
     int M, int n, size_t N, int L) {
   const int col = (blockIdx.x * blockDim.x + threadIdx.x) / kWarp;
-  const int lane = threadIdx.x % kWarp;
   if (col >= n) return;  // whole warps
-  T* o = out + col;
-  substitute_segmented(rhs + col, o, static_cast<long long>(N), sub, low,
-                       imu, al, be, M, L, lane);
-  if (w == nullptr) return;
-  __syncwarp();
-  const T ym2 = o[(M - 2) * N], ym1 = o[(M - 1) * N], y0 = o[0], y1 = o[N];
-  __syncwarp();
-  const int a = min(lane * L, M), b = min(a + L, M);
-  for (int i = a; i < b; ++i) {
-    const T* wi = w + 4 * i;
-    o[i * N] -= __ldg(wi) * ym2 + __ldg(wi + 1) * ym1 + __ldg(wi + 2) * y0 +
-                __ldg(wi + 3) * y1;
-  }
+  solve_line_global(sub, low, imu, al, be, w, rhs + col, out + col,
+                    static_cast<long long>(N), M, L, threadIdx.x % kWarp);
 }
 
+// -- row layout ---------------------------------------------------------------
+
+// Row sweep, tile route: the groups g = blockIdx.x, blockIdx.x + gridDim.x,
+// ... of G rows of an (n, M) window (row stride M), through a ring of
+// `depth` (1 or 2) slots in shared memory; blockDim.x = 256.  The bound of
+// 3 blocks an SM lets ptxas take the registers the ring and the segment in
+// registers need (80 in float64); left to itself it took 64 and spilled.
 template <typename T>
-__global__ void __launch_bounds__(64) penta_mid_kernel(
+__global__ void __launch_bounds__(kBlock, 3) penta_rows_tile_kernel(
     const T* __restrict__ sub, const T* __restrict__ low,
     const T* __restrict__ imu, const T* __restrict__ al,
     const T* __restrict__ be, const T* __restrict__ w,
-    const T* __restrict__ rhs, T* __restrict__ out, int P, int M, int N) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  for (int p = blockIdx.y; p < P; p += gridDim.y) {
-    const size_t base = static_cast<size_t>(p) * M * N + n;
-    substitute_line(sub, low, imu, al, be, w, rhs + base, out + base,
-                    static_cast<size_t>(N), M);
+    const T* __restrict__ rhs, T* __restrict__ out, int n, int M, int L,
+    int G, int depth) {
+  extern __shared__ __align__(16) unsigned char smem16[];
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem16);
+  T* f = reinterpret_cast<T*>(smem16 + 16);  // sub, low, imu, al, be, W
+  T* fw = f + 5 * M;
+  const int ldr = round_up(M, kVec<T>);
+  T* ring = f + rows_stage_len<T>(M, w != nullptr);
+  const int groups = (n + G - 1) / G;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  // the group's rows are one contiguous, 16-byte aligned run of bytes
+  const bool bulk =
+      reinterpret_cast<uintptr_t>(rhs) % 16 == 0 && M % kVec<T> == 0;
+  if (bulk && threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int i = threadIdx.x; i < M; i += kBlock) {
+    f[i] = __ldg(sub + i);
+    f[M + i] = __ldg(low + i);
+    f[2 * M + i] = __ldg(imu + i);
+    f[3 * M + i] = __ldg(al + i);
+    f[4 * M + i] = __ldg(be + i);
+  }
+  if (w != nullptr) {
+    for (int i = threadIdx.x; i < 4 * M; i += kBlock) fw[i] = __ldg(w + i);
+  }
+  __syncthreads();
+
+  // load group g into slot s
+  auto issue = [&](int g, int s) {
+    const int r0 = g * G, nr = min(G, n - r0);
+    T* dst = ring + s * G * ldr;
+    const T* src = rhs + static_cast<size_t>(r0) * M;
+    if (bulk) {
+      if (threadIdx.x == 0) {
+        const unsigned bytes = static_cast<unsigned>(nr) * M * sizeof(T);
+        // the slot's earlier generic accesses come before the async write
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        mbar_expect_tx(bar + s, bytes);
+        bulk_load(dst, src, bytes, bar + s);
+      }
+    } else {
+      for (int r = 0; r < nr; ++r)
+        for (int i = threadIdx.x; i < M; i += kBlock)
+          elem_load(dst + r * ldr + i, src + static_cast<size_t>(r) * M + i);
+      elem_commit();
+    }
+  };
+
+  int g = blockIdx.x;
+  if (g < groups) issue(g, 0);
+  for (int j = 0; g < groups; ++j, g += gridDim.x) {
+    const int s = depth == 2 ? (j & 1) : 0;
+    const int uses = depth == 2 ? (j >> 1) : j;  // earlier fills of slot s
+    const int next = g + gridDim.x;
+    if (depth == 2) {
+      if (next < groups)
+        issue(next, s ^ 1);
+      else if (!bulk)
+        elem_commit();  // an empty group keeps wait_group 1 exact
+    }
+    if (bulk) {
+      mbar_wait(bar + s, uses & 1);
+    } else {
+      if (depth == 2)
+        elem_wait<1>();
+      else
+        elem_wait<0>();
+      __syncthreads();
+    }
+    const int r0 = g * G, nr = min(G, n - r0);
+    T* slot = ring + s * G * ldr;
+    for (int r = warp; r < nr; r += kWarps) {
+      T* row = slot + r * ldr;
+      solve_line_smem(row, f, M, L, lane);
+      __syncwarp();
+      T* dst = out + static_cast<size_t>(r0 + r) * M;
+      if (w == nullptr) {
+        for (int i = lane; i < M; i += kWarp) dst[i] = row[i];
+      } else {
+        const T ym2 = row[M - 2], ym1 = row[M - 1], y0 = row[0], y1 = row[1];
+        for (int i = lane; i < M; i += kWarp) {
+          const T* wi = fw + 4 * i;
+          dst[i] = row[i] - (wi[0] * ym2 + wi[1] * ym1 + wi[2] * y0 +
+                             wi[3] * y1);
+        }
+      }
+    }
+    __syncthreads();  // slot s is read out: free for the group after next
+    if (depth == 1 && next < groups) issue(next, 0);
   }
 }
 
+// Row sweep, global route: warp g solves row g of an (n, M) window in
+// device memory; blockDim.x = 256.
 template <typename T>
-__global__ void __launch_bounds__(256) penta_rows_kernel(
+__global__ void __launch_bounds__(kBlock) penta_rows_global_kernel(
+    const T* __restrict__ sub, const T* __restrict__ low,
+    const T* __restrict__ imu, const T* __restrict__ al,
+    const T* __restrict__ be, const T* __restrict__ w, const T* rhs, T* out,
+    int n, int M, int L) {
+  const long long row =
+      (static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x) / kWarp;
+  if (row >= n) return;  // whole warps
+  const size_t off = static_cast<size_t>(row) * M;
+  solve_line_global(sub, low, imu, al, be, w, rhs + off, out + off, 1, M, L,
+                    threadIdx.x % kWarp);
+}
+
+// -- plane layout ---------------------------------------------------------
+
+// Plane sweep, tile route: block (x, y) solves the columns [x C, x C + C)
+// of the planes y, y + gridDim.y, ... (gridDim.y = min(P, 65535)) of a
+// (P, M, N) rhs, the tile's line stride ldt; blockDim.x = 256 and C
+// divides it.
+template <typename T>
+__global__ void __launch_bounds__(kBlock) penta_mid_tile_kernel(
     const T* __restrict__ sub, const T* __restrict__ low,
     const T* __restrict__ imu, const T* __restrict__ al,
     const T* __restrict__ be, const T* __restrict__ w,
-    const T* __restrict__ rhs, T* __restrict__ out, int B, int M, int R) {
+    const T* __restrict__ rhs, T* __restrict__ out, int P, int M, int N,
+    int L, int C, int ldt) {
   extern __shared__ unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);
-  const int ld = M + 1;
-  const int row0 = blockIdx.x * R;
-  const int nrows = min(R, B - row0);
-  for (int r = 0; r < nrows; ++r) {
-    const T* src = rhs + static_cast<size_t>(row0 + r) * M;
-    for (int i = threadIdx.x; i < M; i += blockDim.x) s[r * ld + i] = src[i];
+  T* f = reinterpret_cast<T*>(smem_raw);  // sub, low, imu, al, be
+  T* tile = f + 5 * M;                    // C lines of stride ldt
+  for (int i = threadIdx.x; i < M; i += kBlock) {
+    f[i] = __ldg(sub + i);
+    f[M + i] = __ldg(low + i);
+    f[2 * M + i] = __ldg(imu + i);
+    f[3 * M + i] = __ldg(al + i);
+    f[4 * M + i] = __ldg(be + i);
   }
-  __syncthreads();
-  if (threadIdx.x < nrows)
-    substitute_row(s + threadIdx.x * ld, sub, low, imu, al, be, M);
-  __syncthreads();
-  for (int r = 0; r < nrows; ++r) {
-    const T* row = s + r * ld;
-    T* dst = out + static_cast<size_t>(row0 + r) * M;
-    for (int i = threadIdx.x; i < M; i += blockDim.x)
-      dst[i] = (w != nullptr) ? woodbury_row(row, w, i, M) : row[i];
+  // thread (row r0 + j step, column c) in the load and store phases
+  const int c = threadIdx.x % C;
+  const int r0 = threadIdx.x / C, step = kBlock / C;
+  const int ncols = min(C, N - static_cast<int>(blockIdx.x) * C);
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const size_t Ns = static_cast<size_t>(N);
+  const size_t col = static_cast<size_t>(blockIdx.x) * C + c;
+  T* y = tile + c * ldt;
+  for (int p = blockIdx.y; p < P; p += gridDim.y) {
+    const T* src = rhs + static_cast<size_t>(p) * M * Ns + col;
+    T* dst = out + static_cast<size_t>(p) * M * Ns + col;
+    __syncthreads();  // factors staged; the previous plane's tile written
+    if (c < ncols) {
+      for (int i = r0; i < M; i += step) y[i] = src[i * Ns];
+    }
+    __syncthreads();
+    for (int k = warp; k < ncols; k += kWarps) {
+      T* line = tile + k * ldt;
+      solve_line_smem(line, f, M, L, lane);
+    }
+    __syncthreads();
+    if (c >= ncols) continue;
+    if (w == nullptr) {
+      for (int i = r0; i < M; i += step) dst[i * Ns] = y[i];
+      continue;
+    }
+    const T ym2 = y[M - 2], ym1 = y[M - 1], y0 = y[0], y1 = y[1];
+    for (int i = r0; i < M; i += step) {
+      const T* wi = w + 4 * i;
+      dst[i * Ns] = y[i] - (__ldg(wi) * ym2 + __ldg(wi + 1) * ym1 +
+                            __ldg(wi + 2) * y0 + __ldg(wi + 3) * y1);
+    }
   }
+}
+
+// Plane sweep, global route: warp g solves the line (g / N, :, g % N) of a
+// (P, M, N) rhs in device memory; blockDim.x = 256.
+template <typename T>
+__global__ void __launch_bounds__(kBlock) penta_mid_global_kernel(
+    const T* __restrict__ sub, const T* __restrict__ low,
+    const T* __restrict__ imu, const T* __restrict__ al,
+    const T* __restrict__ be, const T* __restrict__ w, const T* rhs, T* out,
+    int P, int M, int N, int L) {
+  const long long line =
+      (static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x) / kWarp;
+  if (line >= static_cast<long long>(P) * N) return;  // whole warps
+  const long long p = line / N, col = line % N;
+  const size_t off = static_cast<size_t>(p) * M * N + col;
+  solve_line_global(sub, low, imu, al, be, w, rhs + off, out + off,
+                    static_cast<long long>(N), M, L, threadIdx.x % kWarp);
+}
+
+// -- launchers ------------------------------------------------------------
+
+// Let `kernel` take `bytes` of dynamic shared memory, and prefer the
+// largest shared-memory carveout (the tile kernels keep all they reuse
+// there), once per kernel.
+template <typename K>
+cudaError_t ready_tile(K kernel, int bytes, int* current, bool* carveout) {
+  if (!*carveout) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        static_cast<int>(cudaSharedmemCarveoutMaxShared));
+    if (e != cudaSuccess) return e;
+    *carveout = true;
+  }
+  return allow_smem(kernel, bytes, current);
+}
+
+template <typename T>
+cudaError_t ready_rows(int bytes) {
+  static int smem_set = 0;
+  static bool carveout = false;
+  return ready_tile(penta_rows_tile_kernel<T>, bytes, &smem_set, &carveout);
+}
+
+template <typename T>
+cudaError_t ready_mid(int bytes) {
+  static int smem_set = 0;
+  static bool carveout = false;
+  return ready_tile(penta_mid_tile_kernel<T>, bytes, &smem_set, &carveout);
 }
 
 // The columns [col0, col1) of an (M, N) rhs: segments of L rows; C columns
@@ -255,35 +637,68 @@ int launch_cols(void* const* f, const void* w, const void* rhs, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The rows [row0, row1) of a (B, M) rhs: segments of L elements; groups of
+// G rows through a ring of `depth` slots on `blocks` blocks, or G = 0 for
+// the global route.
 template <typename T>
-int launch_mid(void* const* f, const void* w, const void* rhs, void* out,
-               int P, int M, int N, cudaStream_t stream) {
-  const int threads = 64;
-  const dim3 grid((N + threads - 1) / threads, P < 65535 ? P : 65535);
-  penta_mid_kernel<T><<<grid, threads, 0, stream>>>(
-      static_cast<const T*>(f[0]), static_cast<const T*>(f[1]),
-      static_cast<const T*>(f[2]), static_cast<const T*>(f[3]),
-      static_cast<const T*>(f[4]), static_cast<const T*>(w),
-      static_cast<const T*>(rhs), static_cast<T*>(out), P, M, N);
+int launch_rows(void* const* f, const void* w, const void* rhs, void* out,
+                int M, int row0, int row1, int L, int G, int depth,
+                int blocks, cudaStream_t stream) {
+  const int n = row1 - row0;
+  const size_t off = static_cast<size_t>(row0) * M;
+  const T* F[5];
+  for (int k = 0; k < 5; ++k) F[k] = static_cast<const T*>(f[k]);
+  const T* r = static_cast<const T*>(rhs) + off;
+  T* o = static_cast<T*>(out) + off;
+  const T* wp = static_cast<const T*>(w);
+  if (G > 0) {
+    const int bytes = rows_smem_bytes<T>(M, w != nullptr, G, depth);
+    cudaError_t e = ready_rows<T>(bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    penta_rows_tile_kernel<T><<<blocks, kBlock, bytes, stream>>>(
+        F[0], F[1], F[2], F[3], F[4], wp, r, o, n, M, L, G, depth);
+  } else {
+    penta_rows_global_kernel<T><<<(n + kWarps - 1) / kWarps, kBlock, 0,
+                                  stream>>>(F[0], F[1], F[2], F[3], F[4], wp,
+                                            r, o, n, M, L);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The rows [row0, row1) of a (B, M) rhs.
+// A (P, M, N) rhs: segments of L rows; C columns a block through shared
+// memory (line stride ldt), a block a (column group, plane) and the planes
+// beyond the grid's 65535 in a loop, or C = 0 for the global route.
 template <typename T>
-int launch_rows(void* const* f, const void* w, const void* rhs, void* out,
-                int M, int row0, int row1, int R, cudaStream_t stream) {
-  static int smem_set = 0;
-  const int bytes = R * (M + 1) * static_cast<int>(sizeof(T));
-  cudaError_t e = allow_smem(penta_rows_kernel<T>, bytes, &smem_set);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int B = row1 - row0;
-  const size_t off = static_cast<size_t>(row0) * M;
-  penta_rows_kernel<T><<<(B + R - 1) / R, 256, bytes, stream>>>(
-      static_cast<const T*>(f[0]), static_cast<const T*>(f[1]),
-      static_cast<const T*>(f[2]), static_cast<const T*>(f[3]),
-      static_cast<const T*>(f[4]), static_cast<const T*>(w),
-      static_cast<const T*>(rhs) + off, static_cast<T*>(out) + off, B, M, R);
+int launch_mid(void* const* f, const void* w, const void* rhs, void* out,
+               int P, int M, int N, int L, int C, int ldt,
+               cudaStream_t stream) {
+  const T* F[5];
+  for (int k = 0; k < 5; ++k) F[k] = static_cast<const T*>(f[k]);
+  const T* r = static_cast<const T*>(rhs);
+  T* o = static_cast<T*>(out);
+  const T* wp = static_cast<const T*>(w);
+  if (C > 0) {
+    const int bytes = (5 * M + C * ldt) * static_cast<int>(sizeof(T));
+    cudaError_t e = ready_mid<T>(bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid((N + C - 1) / C, min(P, 65535));
+    penta_mid_tile_kernel<T><<<grid, kBlock, bytes, stream>>>(
+        F[0], F[1], F[2], F[3], F[4], wp, r, o, P, M, N, L, C, ldt);
+  } else {
+    const long long lines = static_cast<long long>(P) * N;
+    penta_mid_global_kernel<T>
+        <<<static_cast<unsigned>((lines + kWarps - 1) / kWarps), kBlock, 0,
+           stream>>>(F[0], F[1], F[2], F[3], F[4], wp, r, o, P, M, N, L);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int rows_occupancy(int bytes, int* blocks) {
+  cudaError_t e = ready_rows<T>(bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, penta_rows_tile_kernel<T>, kBlock, bytes));
 }
 
 }  // namespace
@@ -307,23 +722,46 @@ RT_EXPORT int penta_cols(int dtype, void* sub, void* low, void* imu, void* al,
                                          C, ldt, s);
 }
 
-// Solves the rows [row0, row1), 0 <= row0 < row1 <= B.
+// Solves the rows [row0, row1), 0 <= row0 < row1 <= B, in segments of L
+// elements (32 L >= M): groups of G rows through a ring of depth 1 or 2 in
+// shared memory on `blocks` blocks, or from device memory when G is 0.
 RT_EXPORT int penta_rows(int dtype, void* sub, void* low, void* imu, void* al,
                          void* be, void* w, void* rhs, void* out, int B,
-                         int M, int row0, int row1, int R, void* stream) {
-  if (row0 < 0 || row1 > B || row0 >= row1)
+                         int M, int row0, int row1, int L, int G, int depth,
+                         int blocks, void* stream) {
+  if (row0 < 0 || row1 > B || row0 >= row1 || L < 1 || kWarp * L < M ||
+      G < 0 || (G > 0 && (depth < 1 || depth > 2 || blocks < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   void* f[5] = {sub, low, imu, al, be};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? launch_rows<double>(f, w, rhs, out, M, row0, row1, R, s)
-                    : launch_rows<float>(f, w, rhs, out, M, row0, row1, R, s);
+  return dtype == 1 ? launch_rows<double>(f, w, rhs, out, M, row0, row1, L, G,
+                                          depth, blocks, s)
+                    : launch_rows<float>(f, w, rhs, out, M, row0, row1, L, G,
+                                         depth, blocks, s);
 }
 
+// Solves a (P, M, N) rhs along its middle axis in segments of L rows
+// (32 L >= M): C columns a block (C divides 256) in shared memory with
+// line stride ldt >= M, or from device memory when C is 0.
 RT_EXPORT int penta_mid(int dtype, void* sub, void* low, void* imu, void* al,
                         void* be, void* w, void* rhs, void* out, int P, int M,
-                        int N, void* stream) {
+                        int N, int L, int C, int ldt, void* stream) {
+  if (P < 1 || M < 1 || N < 1 || L < 1 || kWarp * L < M || C < 0 ||
+      (C > 0 && (kBlock % C != 0 || ldt < M)))
+    return static_cast<int>(cudaErrorInvalidValue);
   void* f[5] = {sub, low, imu, al, be};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? launch_mid<double>(f, w, rhs, out, P, M, N, s)
-                    : launch_mid<float>(f, w, rhs, out, P, M, N, s);
+  return dtype == 1 ? launch_mid<double>(f, w, rhs, out, P, M, N, L, C, ldt,
+                                         s)
+                    : launch_mid<float>(f, w, rhs, out, P, M, N, L, C, ldt,
+                                        s);
+}
+
+// Resident blocks an SM of the current device holds of the row sweep's
+// tile kernel with `bytes` of dynamic shared memory: what the registers
+// and shared memory allow (the persistent grid's size).
+RT_EXPORT int penta_rows_occupancy(int dtype, int bytes, int* blocks) {
+  if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return dtype == 1 ? rows_occupancy<double>(bytes, blocks)
+                    : rows_occupancy<float>(bytes, blocks);
 }

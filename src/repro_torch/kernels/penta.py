@@ -304,6 +304,121 @@ def cols_per_block(M: int, itemsize: int, smem_optin: int) -> int:
     return max(0, min(COLS_PER_BLOCK, free // tile_stride(M, itemsize)))
 
 
+# The row and plane sweeps (csrc/penta.cu:penta_rows, penta_mid): blocks of
+# 256 threads, 8 warps, each warp one line at a time.
+BLOCK_WARPS = 8
+MAX_BLOCKS_PER_SM = 8  # 2048 resident threads an SM
+SM_RESERVED_SMEM = 1024  # bytes the runtime keeps of an SM's shared memory per block
+# Ring depth of the row sweep: 2 overlaps the load of the next row group
+# with the recurrences of the current one; 1 loads, solves and stores in
+# turn (and is what a long row leaves room for).  The times of both are in
+# PERF.md (chip_ab.py on an H100).
+ROWS_RING = 2
+# Most columns a block of the plane sweep stages; 8, 16 and 32 timed at
+# 256^3 in PERF.md (chip_ab.py on an H100).
+MID_MAX_COLS = 16
+
+
+class RowsGeometry(NamedTuple):
+    """Launch geometry of the row sweep (``penta_rows``)."""
+
+    route: str  # "tile" (rows staged in shared memory) or "global"
+    rows: int  # G, rows a group (one warp each); 0 on the global route
+    depth: int  # ring depth, 1 or 2; 0 on the global route
+    blocks: int  # grid size
+    smem: int  # dynamic shared memory a block, bytes
+    blocks_per_sm: int  # resident blocks an SM the grid was sized for
+
+
+class MidGeometry(NamedTuple):
+    """Launch geometry of the plane sweep (``penta_mid``)."""
+
+    route: str  # "tile" or "global"
+    cols: int  # C, columns a block; 0 on the global route
+    ldt: int  # line stride of the tile (elements)
+    grid: tuple[int, int]  # (column groups, planes) as launched
+    smem: int  # dynamic shared memory a block, bytes
+
+
+def _blocks_per_sm(smem: int, smem_optin: int) -> int:
+    """Blocks of ``smem`` bytes an SM holds, as shared memory and its
+    thread count allow (the wrapper lowers it to what the registers allow,
+    from the card's occupancy calculator)."""
+    per_sm = (smem_optin + SM_RESERVED_SMEM) // (smem + SM_RESERVED_SMEM)
+    return max(1, min(MAX_BLOCKS_PER_SM, per_sm))
+
+
+def rows_tile_bytes(M: int, itemsize: int, cyclic: bool, rows: int,
+                    depth: int) -> int:
+    """Shared memory of a row-sweep block: 16 bytes of mbarriers, the five
+    factors (and the (M, 4) Woodbury matrix when cyclic) rounded up to 16
+    bytes, and ``depth`` slots of ``rows`` rows whose stride is M rounded
+    up to 16 bytes (``csrc/penta.cu:rows_smem_bytes``)."""
+    vec = 16 // itemsize
+    stage = next_multiple((9 if cyclic else 5) * M, vec)
+    return 16 + (stage + depth * rows * next_multiple(M, vec)) * itemsize
+
+
+def rows_geometry(M: int, itemsize: int, n_rows: int, smem_optin: int,
+                  n_sms: int, *, cyclic: bool, depth: int | None = None,
+                  blocks_per_sm: int | None = None) -> RowsGeometry:
+    """Geometry of a row sweep over ``n_rows`` rows of length M.
+
+    The route depends on M, the dtype and ``cyclic`` alone: the tile route
+    when one row fits in shared memory beside the factors (and W), else
+    the row is solved in device memory.  A group holds one row a warp, at
+    most 8, fewer when the rows would not spread over all SMs or the ring
+    does not fit; the ring keeps ``depth`` groups (``ROWS_RING`` by
+    default, 1 when two groups do not fit).  The grid is the groups or one
+    grid of resident blocks, whichever is smaller, and each block walks
+    the groups ``blockIdx.x + k * blocks``."""
+    depth = ROWS_RING if depth is None else depth
+    row_bytes = next_multiple(M, 16 // itemsize) * itemsize
+    fit = (smem_optin - rows_tile_bytes(M, itemsize, cyclic, 0, 0)) // row_bytes
+    if fit < 1:
+        return RowsGeometry("global", 0, 0, ceil_div(n_rows, BLOCK_WARPS), 0, 0)
+    rows = max(1, min(BLOCK_WARPS, ceil_div(n_rows, n_sms), fit // depth))
+    depth = max(1, min(depth, fit // rows))
+    smem = rows_tile_bytes(M, itemsize, cyclic, rows, depth)
+    per_sm = blocks_per_sm or _blocks_per_sm(smem, smem_optin)
+    blocks = min(ceil_div(n_rows, rows), per_sm * n_sms)
+    return RowsGeometry("tile", rows, depth, blocks, smem, per_sm)
+
+
+def mid_tile_stride(M: int, itemsize: int, cols: int) -> int:
+    """Line stride (elements) of the plane sweep's tile: M rounded up to
+    128 bytes plus the smallest step that puts the lanes of a half-warp
+    (float64) or a warp (float32) of the load and store phases, ``cols``
+    columns a row, on different banks.  For 8 columns it is the column
+    sweep's :func:`tile_stride`."""
+    bank_elems = 128 // itemsize
+    return next_multiple(M, bank_elems) + max(1, bank_elems // cols)
+
+
+def mid_geometry(P: int, M: int, N: int, itemsize: int, smem_optin: int, *,
+                 max_cols: int | None = None) -> MidGeometry:
+    """Geometry of a plane sweep over a (P, M, N) rhs.
+
+    C columns a block: a power of two, at most ``max_cols``
+    (``MID_MAX_COLS``) and no more than covers N, as many as fit beside the
+    five factors; the global route when not one fits (it depends on M and
+    the dtype alone).  The grid is (ceil(N / C), min(P, 65535)), a block a
+    column group of a plane (``csrc/penta.cu:launch_mid``)."""
+    max_cols = MID_MAX_COLS if max_cols is None else max_cols
+    free = smem_optin // itemsize - 5 * M
+    cols = 1
+    while cols < min(max_cols, N):
+        cols *= 2
+    cols = min(cols, max_cols)
+    while cols >= 1 and cols * mid_tile_stride(M, itemsize, cols) > free:
+        cols //= 2
+    if cols < 1:
+        return MidGeometry("global", 0, 0, (ceil_div(P * N, BLOCK_WARPS), 1), 0)
+    ldt = mid_tile_stride(M, itemsize, cols)
+    return MidGeometry("tile", cols, ldt, (ceil_div(N, cols), min(P, 65535)),
+                       (5 * M + cols * ldt) * itemsize)
+
+
 def penta_cols_cuda(
     band: PentaFactors,
     rhs: torch.Tensor,
@@ -331,6 +446,41 @@ def penta_cols_cuda(
     return out
 
 
+_OCCUPANCY: dict = {}
+
+
+def _rows_occupancy(device: torch.device, dtype: torch.dtype, smem: int) -> int:
+    """Resident blocks an SM of ``device`` holds of the row sweep's tile
+    kernel with ``smem`` bytes, from the card."""
+    key = (device.index, dtype, smem)
+    if key not in _OCCUPANCY:
+        _OCCUPANCY[key] = max(1, _build.occupancy(
+            "penta_rows_occupancy", device,
+            _build.dtype_code(torch.empty(0, dtype=dtype)), smem))
+    return _OCCUPANCY[key]
+
+
+def rows_geometry_on(device: torch.device, dtype: torch.dtype, M: int,
+                     n_rows: int, *, cyclic: bool) -> RowsGeometry:
+    """:func:`rows_geometry` on a card, the blocks an SM holds lowered to
+    what its registers allow."""
+    smem, sms = _build.device_info(device)
+    isz = dtype.itemsize
+    geo = rows_geometry(M, isz, n_rows, smem, sms, cyclic=cyclic)
+    if geo.route == "tile":
+        occ = _rows_occupancy(device, dtype, geo.smem)
+        if occ < geo.blocks_per_sm:
+            geo = rows_geometry(M, isz, n_rows, smem, sms, cyclic=cyclic,
+                                depth=geo.depth, blocks_per_sm=occ)
+    return geo
+
+
+def mid_geometry_on(device: torch.device, dtype: torch.dtype, P: int, M: int,
+                    N: int) -> MidGeometry:
+    """:func:`mid_geometry` on a card."""
+    return mid_geometry(P, M, N, dtype.itemsize, _build.device_info(device)[0])
+
+
 def penta_rows_cuda(
     band: PentaFactors,
     rhs: torch.Tensor,
@@ -341,18 +491,19 @@ def penta_rows_cuda(
 ) -> torch.Tensor:
     """Launch the row-layout kernel on a (B, M) CUDA rhs; with ``w`` the
     Woodbury closure runs on the kernel's write-out.  ``rows=(r0, r1)``
-    solves only those rows into ``out``."""
+    solves only those rows into ``out``.  Any M: rows whose tile does not
+    fit in shared memory are solved in device memory."""
     B, M = rhs.shape
     _build.check_cuda(rhs, "rhs", like=rhs, shape=(B, M))
     _check_factors(band, w, rhs, M)
     r0, r1 = _build.window(rows, B, "row", out)
-    smem, sms = _build.device_info(rhs.device)
-    R = rows_per_block(M, rhs.element_size(), r1 - r0, smem, sms)
+    geo = rows_geometry_on(rhs.device, rhs.dtype, M, r1 - r0, cyclic=w is not None)
     out = _build.out_like(out, rhs)
     _build.launch(
         "penta_rows", rhs.device, _build.dtype_code(rhs),
         *(_build.ptr(f) for f in band), _build.ptr(w), _build.ptr(rhs),
-        _build.ptr(out), B, M, r0, r1, R,
+        _build.ptr(out), B, M, r0, r1, segment_length(M), geo.rows,
+        geo.depth, geo.blocks,
     )
     return out
 
@@ -361,15 +512,18 @@ def penta_mid_cuda(
     band: PentaFactors, rhs: torch.Tensor, w: torch.Tensor | None = None
 ) -> torch.Tensor:
     """Launch the plane-layout kernel on a (P, M, N) CUDA rhs; with ``w``
-    the cyclic closure runs as its epilogue."""
+    the cyclic closure runs on the kernel's write-out.  Any M: lines whose
+    one-column tile does not fit in shared memory are solved in device
+    memory."""
     P, M, N = rhs.shape
     _build.check_cuda(rhs, "rhs", like=rhs, shape=(P, M, N))
     _check_factors(band, w, rhs, M)
+    geo = mid_geometry_on(rhs.device, rhs.dtype, P, M, N)
     out = torch.empty_like(rhs)
     _build.launch(
         "penta_mid", rhs.device, _build.dtype_code(rhs),
         *(_build.ptr(f) for f in band), _build.ptr(w), _build.ptr(rhs),
-        _build.ptr(out), P, M, N,
+        _build.ptr(out), P, M, N, segment_length(M), geo.cols, geo.ldt,
     )
     return out
 

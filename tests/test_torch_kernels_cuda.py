@@ -71,9 +71,17 @@ def test_stencil2d(cuda, point_fn, bc, shape, dtype):
 # segment), 31, 33 and 1021 (ragged last segments) and 1024 (32 segments of
 # 33 but the last), 1 or 7 lines; 4000 rows (fewer than 8 columns in a
 # float64 tile) and 40000 (no tile fits: the column sweep in device memory).
+# Then the row sweep's: rows of 256 (1, 7 and the 3D x-sweep's 65536: many
+# groups a block through the ring), 1 or 7 rows of 1021 and 1024 (float64
+# 1021 and float32 1021 take cp.async of one element, 1024 the bulk copy),
+# 4000 (float64 cyclic in device memory, the plain band in a tile of one
+# row a group) and 40000 (no tile fits: the row in device memory; 1 and 3
+# rows).
 PENTA_SHAPES = [(64, 64), (37, 29), (6, 7), (31, 1), (33, 7), (1021, 1),
                 (1024, 7), (7, 6), (1, 31), (7, 33), (1, 1021), (7, 1024),
-                (4000, 7), (40000, 4)]
+                (4000, 7), (40000, 4),
+                (1, 6), (1, 33), (1, 256), (7, 256), (65536, 256), (7, 1021),
+                (1, 1024), (1, 4000), (7, 4000), (1, 40000), (3, 40000)]
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -180,11 +188,32 @@ def test_stencil3d(cuda, halos, bc, shape, dtype):
                                                 backend="torch", **kw), dtype, 10)
 
 
+# (P, M, N).  The first two through a rank-3 ADI plan (every extent >= 6:
+# the cyclic bands need it), also its x- and z-sweeps; the rest through the
+# plane-layout solve alone: three 256^2 planes, ragged columns (1021, a
+# column group of fewer than C), 7 columns of 1021 and 6000 rows (no tile
+# of one column fits in float64: the plane sweep in device memory; four
+# columns a block in float32).
+MID_SHAPES = [(8, 16, 32), (6, 9, 7), (3, 256, 256), (2, 33, 1021),
+              (1, 1021, 7), (2, 6000, 16)]
+
+
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("shape", [(8, 16, 32), (6, 9, 7)])
+@pytest.mark.parametrize("shape", MID_SHAPES)
 @pytest.mark.parametrize("bc", ["periodic", "np"])
 def test_penta_mid_and_3d_sweeps(cuda, bc, shape, dtype):
-    """Every extent >= 6: the cyclic bands need it."""
+    if min(shape) < 6:
+        M = shape[1]
+        fac = P.cyclic_penta_factor(
+            *P.hyperdiffusion_diagonals(M, 3.0, dtype), device=cuda)
+        solve, fac = ((P.cyclic_penta_solve_factored_mid, fac) if bc == "periodic"
+                      else (P.penta_solve_factored_mid, fac.band))
+        rhs = _field(shape, getattr(torch, dtype), cuda, 14)
+        before = _build.LAUNCHES["penta_mid"]
+        got = solve(fac, rhs)
+        assert _build.LAUNCHES["penta_mid"] == before + 1
+        _assert_close(got, solve(fac, rhs, backend="torch"), dtype, 100)
+        return
     op = create("hyperdiffusion", shape, mode="adi", bc=bc, alpha=2.0,
                 alpha_y=3.0, alpha_z=0.5, dtype=dtype)
     plain = create("hyperdiffusion", shape, mode="adi", bc=bc, alpha=2.0,

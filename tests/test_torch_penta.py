@@ -19,7 +19,7 @@ from repro.kernels import ref as RR
 from repro_torch import convert
 from repro_torch.kernels import _build
 from repro_torch.kernels import penta as TP
-from repro_torch.util import tolerance_for
+from repro_torch.util import next_multiple, tolerance_for
 
 MS = (6, 37, 64)
 DTYPES = ("float64", "float32")
@@ -306,6 +306,46 @@ def test_segmented_substitution_model(cyclic, dtype, M, L):
     _close(got, dense, dtype, scale=100.0)
 
 
+@pytest.mark.parametrize("M", (6, 33, 256, 1021))
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cyclic", [False, True], ids=["band", "cyclic"])
+def test_segmented_substitution_model_planes(cyclic, dtype, M):
+    """The plane sweep's decomposition (csrc/penta.cu:penta_mid_tile_kernel)
+    modelled in numpy: P = 3 planes of a (P, M, N) rhs, each cut into
+    column groups of C = 4 (the last ragged, N = 7), every group's (M, C)
+    tile run through the segmented model with the port's L and closed with
+    the Woodbury correction, against the reference's plane-layout jnp
+    substitution and ``mid_woodbury_correct`` and the dense oracle."""
+    P, N, C = 3, 7, 4
+    L = TP.segment_length(M)
+    bands = TP.hyperdiffusion_diagonals(M, SEG_BETA, dtype)
+    jb = [jnp.asarray(b) for b in bands]
+    rhs = np.asarray(np.random.default_rng(M).standard_normal((P, M, N)), dtype)
+    if cyclic:
+        ref_fac = RP.cyclic_penta_factor(*jb)
+        fac = TP.cyclic_penta_factor(*bands, device="cpu")
+        want = RP.mid_woodbury_correct(
+            RP._substitute_mid_jnp(ref_fac.band, jnp.asarray(rhs)), ref_fac.w)
+        band, w = fac.band, fac.w
+    else:
+        ref_fac = RP.penta_factor(*jb)
+        fac = TP.penta_factor(*bands, device="cpu")
+        want = RP._substitute_mid_jnp(ref_fac, jnp.asarray(rhs))
+        band, w = fac, None
+    got = np.empty_like(rhs)
+    for p in range(P):
+        for c0 in range(0, N, C):
+            got[p, :, c0:c0 + C] = _segmented_substitute(
+                band, rhs[p, :, c0:c0 + C], L, w)
+    assert got.dtype == np.dtype(dtype)
+    _close(got, want, dtype)
+    dense = RR.penta_solve_ref(*(jnp.asarray(b, jnp.float64) for b in bands),
+                               rhs.transpose(1, 0, 2).reshape(M, P * N)
+                               .astype(np.float64), cyclic=cyclic)
+    dense = np.asarray(dense).reshape(M, P, N).transpose(1, 0, 2)
+    _close(got, dense, dtype, scale=100.0)
+
+
 def test_segment_geometry():
     """Segment length: odd, at least 9, 32 of them cover the line, and a
     function of M alone; the column sweep's tile stride and columns a
@@ -321,6 +361,81 @@ def test_segment_geometry():
     assert TP.cols_per_block(256, 8, 232448) == 8
     assert TP.cols_per_block(4000, 8, 232448) == 2
     assert TP.cols_per_block(40000, 8, 232448) == 0
+
+
+def test_rows_geometry():
+    """The row sweep's geometry on an H100 (232448 B opt-in shared memory a
+    block, 132 SMs): route, rows a group, ring depth, blocks, and the
+    long-row switch to device memory, which depends on M, the dtype and
+    the closure alone."""
+    H100 = (232448, 132)
+    g = TP.rows_geometry(1024, 8, 1024, *H100, cyclic=True, depth=2)
+    # factors and W (72 KB) and two groups of 8 rows of 8 KB: one block an SM
+    assert g == TP.RowsGeometry("tile", 8, 2, 128, 204816, 1)
+    assert g.smem == TP.rows_tile_bytes(1024, 8, True, 8, 2) == 16 + (9 * 1024 + 16 * 1024) * 8
+    g = TP.rows_geometry(1024, 8, 1024, *H100, cyclic=True, depth=1)
+    assert (g.route, g.rows, g.depth, g.blocks, g.smem) == ("tile", 8, 1, 128, 139280)
+    # the 3D x-sweep: 8192 groups over one grid of resident blocks
+    g = TP.rows_geometry(256, 8, 65536, *H100, cyclic=True, depth=2)
+    assert g == TP.RowsGeometry("tile", 8, 2, 4 * 132, 51216, 4)
+    g = TP.rows_geometry(256, 8, 65536, *H100, cyclic=True, depth=1)
+    assert (g.depth, g.blocks, g.blocks_per_sm) == (1, 6 * 132, 6)
+    # the card's occupancy (registers) lowers the grid, not the group
+    g = TP.rows_geometry(256, 8, 65536, *H100, cyclic=True, depth=2,
+                         blocks_per_sm=3)
+    assert (g.rows, g.depth, g.blocks) == (8, 2, 3 * 132)
+    # few rows spread one a block; a ragged row stride rounds up to 16 B
+    assert TP.rows_geometry(1024, 8, 7, *H100, cyclic=True, depth=2)[:4] == (
+        "tile", 1, 2, 7)
+    assert TP.rows_geometry(1021, 4, 128, *H100, cyclic=False, depth=2).smem \
+        == 16 + (next_multiple(5 * 1021, 4) + 2 * 1024) * 4
+    # two rows fit beside the factors: one a slot; one row: one slot
+    g = TP.rows_geometry(4000, 8, 7, *H100, cyclic=False, depth=2)
+    assert (g.route, g.rows, g.depth) == ("tile", 1, 2)
+    g = TP.rows_geometry(4400, 8, 7, *H100, cyclic=False, depth=2)
+    assert (g.route, g.rows, g.depth) == ("tile", 1, 1)
+    # the long-row switch: a row beside the factors (and W when cyclic)
+    for M, cyclic, isz in ((2905, True, 8), (4842, False, 8), (5810, True, 4),
+                           (9684, False, 4)):
+        assert TP.rows_geometry(M, isz, 3, *H100, cyclic=cyclic).route == "tile"
+        g = TP.rows_geometry(M + 1, isz, 3, *H100, cyclic=cyclic)
+        assert g == TP.RowsGeometry("global", 0, 0, 1, 0, 0)
+    assert TP.rows_geometry(40000, 8, 65536, *H100, cyclic=True) == \
+        TP.RowsGeometry("global", 0, 0, 8192, 0, 0)
+    # the route never depends on the window
+    for n in (1, 7, 128, 1024, 65536):
+        assert TP.rows_geometry(1024, 8, n, *H100, cyclic=True).route == "tile"
+
+
+def test_mid_geometry():
+    """The plane sweep's geometry on an H100 (232448 B opt-in shared memory
+    a block): columns a block (a power of two, at most max_cols, as many as
+    fit), the tile's line stride, the (column groups, planes) grid, and the
+    long-M switch to device memory."""
+    smem = 232448
+    g = TP.mid_geometry(256, 256, 256, 8, smem, max_cols=8)
+    assert g == TP.MidGeometry("tile", 8, 258, (32, 256), 26752)
+    assert TP.mid_tile_stride(256, 8, 8) == TP.tile_stride(256, 8)
+    assert TP.mid_tile_stride(1024, 4, 8) == TP.tile_stride(1024, 4)
+    # rows of 32 columns (256 B)
+    g = TP.mid_geometry(256, 256, 256, 8, smem, max_cols=32)
+    assert g == TP.MidGeometry("tile", 32, 257, (8, 256), 76032)
+    assert TP.mid_geometry(256, 256, 256, 8, smem, max_cols=16).grid == (16, 256)
+    # planes beyond the grid's y limit are walked in a loop
+    assert TP.mid_geometry(70000, 16, 8, 8, smem).grid == (1, 65535)
+    # narrow N takes the power of two that covers it
+    assert TP.mid_geometry(1, 1021, 7, 8, smem, max_cols=32)[:3] == (
+        "tile", 8, 1026)
+    assert TP.mid_geometry(2, 33, 1021, 4, smem, max_cols=16).grid == (64, 2)
+    # float32 at M = 6000: four columns fit; float64: not one (device memory)
+    assert TP.mid_geometry(2, 6000, 16, 4, smem, max_cols=8)[:2] == ("tile", 4)
+    assert TP.mid_geometry(2, 6000, 16, 8, smem, max_cols=8) == \
+        TP.MidGeometry("global", 0, 0, (4, 1), 0)
+    # the long-M switch depends on M and the dtype alone
+    for isz, M in ((8, 4838), (4, 9676)):
+        for N in (1, 16, 1024):
+            assert TP.mid_geometry(2, M, N, isz, smem).route == "tile"
+            assert TP.mid_geometry(2, M + 1, N, isz, smem).route == "global"
 
 
 def test_xsweep_rows_per_block():
