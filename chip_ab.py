@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's penta sweeps, fused x-sweep and steps in one checkout.
+"""Time the port's kernels and steps in one checkout.
 
 Run from the root of a checkout, on one CUDA card::
 
@@ -17,6 +17,11 @@ float64, on the main path's inputs:
   at (65536, 256), the 3D x-sweep; ``penta_mid`` at (256, 256, 256), the
   3D y-sweep;
 - ``ch_rhs_xsweep`` at 1024^2;
+- ``weno5_advect`` at 1024^2 (the rotating blob of
+  ``examples/weno_advection.py``) and ``stencil3d`` at 256^3 (the 3D run's
+  7-point Laplacian plan, through ``compute``);
+- ``stencil2d`` (the solver's 5x3 weighted plan and its 3x3 cube plan)
+  and ``stencil1d_batch`` (the ``_D4`` plan along x) at 1024^2;
 - each a median of 20 calls (CUDA events around a call) and the mean
   device time of its kernel over 20 calls (``torch.profiler``), after 3
   of warm-up;
@@ -26,17 +31,21 @@ float64, on the main path's inputs:
 - where the checkout's ``kernels/penta.py`` has the knobs, the row sweep
   with a ring of 1 and of 2 row groups (``ROWS_RING``) at both shapes and
   the plane sweep with at most 8, 16 and 32 columns a block
-  (``MID_MAX_COLS``);
+  (``MID_MAX_COLS``), and the 3D stencil's z chunks for 1, 2 and 4
+  resident grids (``WAVES`` in ``kernels/stencil3d.py``);
 - ms/step of the fused and batched-1D Cahn–Hilliard steps at 1024^2 (CUDA
-  events around 200 and 50 steps after a 20-step warm-up) and of the 3D
-  LOD diffusion step at 256^3 (20 steps after 20), with the host's
-  enqueue time per step.  The steps run first, before any profiler
-  session, so that every checkout's steps see the same process state.
+  events around 200 and 50 steps after a 20-step warm-up), of the 3D LOD
+  diffusion step at 256^3 (20 steps after 20) and of the WENO RK3 step at
+  1024^2 (200 steps after 20), with the host's enqueue time per step.
+  The steps run first, before any profiler session, so that every
+  checkout's steps see the same process state.
 
 Prints one JSON line with the tree, the card (name and power limit), the
 times and, for each design choice, whether its output equals the
-default's bit for bit.  Exits non-zero without a card or when a choice's
-output differs.
+default's bit for bit.  With ``--sass NAME ...`` it prints instead the
+SASS instruction counts, by opcode, of the checkout's built kernels whose
+names hold one of the NAMEs (``cuobjdump -sass``).  Exits non-zero
+without a card or when a choice's output differs.
 """
 
 from __future__ import annotations
@@ -44,6 +53,8 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -106,10 +117,41 @@ def host_ms(fn, n: int = 200) -> float:
     return ms
 
 
+SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def sass_counts(lib_dir: Path, names: tuple[str, ...]) -> dict:
+    """Instruction counts by opcode (its first dotted part) of each kernel
+    of the built libraries in ``lib_dir`` whose mangled name holds one of
+    ``names``, from ``cuobjdump -sass``: ``{kernel: {opcode: n, ...,
+    'total': n}}``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts: dict = {}
+    for lib in sorted(lib_dir.glob("lib*.so")):
+        text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        kernel = None
+        for line in text.splitlines():
+            if "Function :" in line:
+                name = line.split("Function :")[1].strip()
+                kernel = name if any(n in name for n in names) else None
+                if kernel:
+                    counts[kernel] = {"total": 0}
+            elif kernel and (m := SASS_OP.search(line)):
+                op = m.group(1).split(".")[0]
+                c = counts[kernel]
+                c[op] = c.get(op, 0) + 1
+                c["total"] += 1
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--label", default=None)
+    ap.add_argument("--sass", metavar="NAME", nargs="+", default=None,
+                    help="build, print the SASS instruction counts of the "
+                    "kernels whose names hold NAME, and exit")
     args = ap.parse_args()
     import torch
 
@@ -124,12 +166,21 @@ def main() -> int:
     import repro_torch as rt
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import penta as P
+    from repro_torch.kernels import stencil3d as S3
+    from repro_torch.core.weno import (
+        AdvectionConfig, WenoAdvection2D, gaussian_blob, solid_body_rotation,
+    )
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    _build.build()
+    built = _build.build()
+    if args.sass:
+        print(json.dumps(dict(tree=str(tree), label=args.label, card=card,
+                              sass=sass_counts(Path(built["dir"]),
+                                               tuple(args.sass)))))
+        return 0
     n = 1024
     cfg = CHConfig(nx=n, ny=n, dtype="float64")
     solver = CahnHilliardADI(cfg)
@@ -145,6 +196,10 @@ def main() -> int:
                     dtype=torch.float64) * 2 - 1
     rows3 = u3.reshape(n3 * n3, n3)
     mid3 = u3.reshape(n3, n3, n3)
+    lap3 = rt.create("laplacian", (n3,) * 3, bc="periodic", h=2 * math.pi / n3)
+    acfg = AdvectionConfig(nx=n, ny=n)
+    blob = (gaussian_blob(acfg, x0=math.pi + 1.0, y0=math.pi, sigma=0.4),
+            *solid_body_rotation(acfg))
     kernels = {
         "penta_cols (1024, 1024)":
             lambda: P.cyclic_penta_solve_factored(solver.op_full.fac_y, rhs),
@@ -158,16 +213,28 @@ def main() -> int:
             lambda: P.cyclic_penta_solve_factored_mid(fac3, mid3),
         "ch_rhs_xsweep 1024^2":
             lambda: ops.ch_rhs_xsweep(cn, cm, solver.op_full.fac_x, **ch_kw),
+        "weno5_advect 1024^2":
+            lambda: ops.weno_advect(*blob, dx=acfg.dx, dy=acfg.dy),
+        "stencil3d 256^3 (7-point)": lambda: rt.compute(lap3, mid3),
+        "stencil2d 1024^2 (5x3 weighted)": lambda: solver.plan_init_a.apply(cn),
+        "stencil2d 1024^2 (3x3 cube)": lambda: solver.plan_lap_cube.apply(cn),
+        "stencil1d_batch 1024^2 (_D4 along x)":
+            lambda: solver.plan_d4_1d.apply(cn),
     }
     rows_shapes = ("penta_rows (1024, 1024)", "penta_rows (65536, 256)")
     mid = "penta_mid (256, 256, 256)"
-    # (label, module knob, value, kernel): the design choices timed in turn
+    # (label, module, knob, value, kernel): the design choices timed in
+    # turn, each output checked bit for bit against the default's
     variants = []
     if hasattr(P, "ROWS_RING"):
-        variants += [(f"ring {d}", "ROWS_RING", d, k) for d in (1, 2)
+        variants += [(f"ring {d}", P, "ROWS_RING", d, k) for d in (1, 2)
                      for k in rows_shapes]
     if hasattr(P, "MID_MAX_COLS"):
-        variants += [(f"cols {c}", "MID_MAX_COLS", c, mid) for c in (8, 16, 32)]
+        variants += [(f"cols {c}", P, "MID_MAX_COLS", c, mid)
+                     for c in (8, 16, 32)]
+    if hasattr(S3, "WAVES"):
+        variants += [(f"waves {w}", S3, "WAVES", w, "stencil3d 256^3 (7-point)")
+                     for w in (1, 2, 4)]
     times = {}
     c0 = band_limited_quench(n, seed=0)
     for name, s_, steps in (("fused", solver, 200),
@@ -180,21 +247,34 @@ def main() -> int:
     ms, enq = lod_ms(rt, op3, mid3.clone(), 20)
     times["3D LOD step 256^3 (ms/step)"] = ms
     times["3D LOD step 256^3 (host enqueue ms/step)"] = enq
+    weno = WenoAdvection2D(acfg)
+    dt_w = weno.dt_cfl(*blob[1:])
+
+    def weno_steps(steps):
+        def run(q):
+            q, done = weno.run(q, *blob[1:], (steps - 0.5) * dt_w, dt=dt_w)
+            assert done == steps
+            return q
+        return run
+
+    ms, enq = timed(weno_steps(200), weno_steps(20)(blob[0]), 200)
+    times["WENO RK3 step 1024^2 (ms/step)"] = ms
+    times["WENO RK3 step 1024^2 (host enqueue ms/step)"] = enq
     for name in ("penta_rows (1024, 1024)", "penta_cols (1024, 1024)"):
         times[f"{name}, host"] = host_ms(kernels[name])
     for name, fn in kernels.items():
         times[f"{name}, events"] = time_ms(fn)
         times[f"{name}, device"] = device_ms(fn)
     same = {}
-    for label, knob, value, name in variants:
-        kept = getattr(P, knob)
+    for label, module, knob, value, name in variants:
+        kept = getattr(module, knob)
         want = kernels[name]()
-        setattr(P, knob, value)
+        setattr(module, knob, value)
         try:
             times[f"{name} {label}, device"] = device_ms(kernels[name])
             same[f"{name} {label}"] = bool(torch.equal(kernels[name](), want))
         finally:
-            setattr(P, knob, kept)
+            setattr(module, knob, kept)
     print(json.dumps(dict(tree=str(tree), label=args.label, card=card,
                           device=torch.cuda.get_device_name(0),
                           torch=torch.__version__, ms=times,

@@ -31,11 +31,17 @@ printing a result:
    rotating blob and on a random field (no yardstick: no single PyTorch
    call computes it).  The column sweep also at a long M (40000 rows of
    64 columns, no shared-memory tile fits: the kernel's device-memory
-   route), checked and timed, and so the row sweep (3 rows of 40000) and
-   the plane sweep ((2, 6000, 16)).  The row sweep is also checked on the
-   3D x-sweep's (65536, 256) rows (256^3, ragged, float32) and timed
-   there beside 1024^2, with its bound, plain version and ``lu_solve``
-   yardstick.
+   route), checked and timed, and so the row sweep (3 rows of 40000), the
+   plane sweep ((2, 6000, 16)) and the fused RHS + x-sweep (3 rows of
+   40000: the device-memory route in float64, a tile in float32).  The
+   row sweep is also checked on the 3D x-sweep's (65536, 256) rows (256^3,
+   ragged, float32) and timed there beside 1024^2, with its bound, plain
+   version and ``lu_solve`` yardstick.  A user's point function given as
+   CUDA source (``w[0] w[1] - c[0] w[2]``, not a sum of terms) is built
+   at Create into its own copy of the stencil libraries and checked on
+   each stencil kernel (a 2D plan and a batched-1D plan at 1024^2, a 3D
+   plan at 256^3; periodic and np with out_init).  The 3D stencil runs
+   with its plan's Create-time taps.
 4. Paths, each run with the launch counts set to 0 just before it and
    read just after:
    a. Main path: the 1024x1024 float64 Cahn–Hilliard solver, bootstrap
@@ -76,8 +82,8 @@ printing a result:
    between kernels (trace in ``chiprun_out/fused_trace.json``).
 6. The ``kernels`` JSON line, the card line, and the result line.
 
-A full record goes to ``chiprun_out/chip_smoke.json`` and the nvcc log to
-``chiprun_out/nvcc_build.log``.
+A full record goes to ``chiprun_out/chip_smoke.json`` and the nvcc logs to
+``chiprun_out/nvcc_build.log`` and ``chiprun_out/nvcc_build_point_fn.log``.
 """
 
 from __future__ import annotations
@@ -195,6 +201,21 @@ KERNEL_INFO = {
 }
 
 
+# A user's point function, not a sum of per-window terms: the plain
+# version here, the CUDA source that the stencil kernels are built with.
+MIXED_SOURCE = """
+template <typename T>
+__device__ T point_fn(const T* w, const T* c) {
+  return w[0] * w[1] - c[0] * w[2];
+}
+"""
+
+
+def mixed_point_fn(windows, coeffs):
+    return windows[0] * windows[1] - coeffs[0] * windows[2]
+
+
+
 class PhaseError(RuntimeError):
     pass
 
@@ -234,24 +255,27 @@ def device_ms(fn, n: int = 20, warmup: int = 3) -> float | None:
     """Mean device time of the kernels ``fn`` launches, per call, in ms:
     their durations as ``torch.profiler`` (CUPTI) records them over ``n``
     calls.  Unlike CUDA events around a call, it leaves out the time the
-    card waits for the host to enqueue the launch.  None when the trace
-    holds no device time."""
+    card waits for the host to enqueue the launch.  A window counts only
+    when every kernel in it was recorded a multiple of ``n`` times (a
+    window that lost activity records reads short: once a kernel at 0.7
+    of its byte bound); None when three windows in a row do not."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    for _ in range(2):  # a window whose activity records went missing: once more
+    for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if str(e.device_type).endswith("CUDA"))
-        if us > 0:
-            return us / n / 1e3
+        kernels = [e for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")
+                   and e.self_device_time_total > 0]
+        if kernels and all(e.count % n == 0 for e in kernels):
+            return sum(e.self_device_time_total for e in kernels) / n / 1e3
     return None
 
 
@@ -367,6 +391,8 @@ def main() -> int:
         AdvectionConfig, WenoAdvection2D, gaussian_blob, solid_body_rotation,
     )
     from repro_torch.kernels.fused_ch import xsweep_rows_per_block
+    from repro_torch.kernels import stencil3d as S3
+    from repro_torch.kernels.stencil2d import cuda_point_fn
     from repro_torch.launch import stream as S
     from repro_torch.util import ceil_div, tolerance_for
 
@@ -403,8 +429,8 @@ def main() -> int:
 
     def rows_geometry(nx, isz, n_rows):
         L = P.segment_length(nx)
-        R, stage = xsweep_rows_per_block(nx, isz, n_rows, smem, sms)
-        return dict(nx=nx, L=L, S=ceil_div(nx, L), R=R, factors_staged=stage)
+        geo = xsweep_rows_per_block(nx, isz, n_rows, smem, sms)
+        return dict(nx=nx, L=L, S=ceil_div(nx, L), **geo._asdict())
 
     def penta_rows_geometry(B, M, dtype, cyclic=True):
         L = P.segment_length(M)
@@ -451,6 +477,14 @@ def main() -> int:
         f"ch_rhs_xsweep 1024^2 float64, a streamed chunk of "
         f"{N_MAIN // N_CHUNKS} rows": rows_geometry(N_MAIN, 8,
                                                     N_MAIN // N_CHUNKS),
+        f"ch_rhs_xsweep {LONG_ROWS} float64, long rows":
+            rows_geometry(LONG_ROWS[1], 8, LONG_ROWS[0]),
+        f"ch_rhs_xsweep {LONG_ROWS} float32, long rows":
+            rows_geometry(LONG_ROWS[1], 4, LONG_ROWS[0]),
+        f"stencil3d ({N3}, {N3}, {N3}) float64, 7-point":
+            S3.stencil3d_geometry((N3,) * 3, (1,) * 6, 8, smem, sms)._asdict(),
+        f"stencil3d {RAGGED_3D} float64, 7-point":
+            S3.stencil3d_geometry(RAGGED_3D, (1,) * 6, 8, smem, sms)._asdict(),
     }
     record["segment_geometry"] = seg_geometry
     for name, geo in seg_geometry.items():
@@ -568,7 +602,7 @@ def main() -> int:
             return ops.stencil_apply_3d(
                 data, plan.coeffs.to(data.dtype), out_init,
                 point_fn=point_fn or plan.point_fn, halos=plan.halos, bc=bc,
-                backend=backend,
+                backend=backend, taps=None if point_fn else plan.taps,
             )
         return run
 
@@ -673,6 +707,56 @@ def main() -> int:
                       fac_long.band, rhs_long_rows, backend=b)))
     cases.append(("penta_mid", "cyclic mid long M "
                   + "x".join(map(str, LONG_MID)), "float64", long_mid))
+
+    # the fused RHS + x-sweep on rows too long for shared memory in float64
+    # (the device-memory route; float32 rows of 40000 still fit a block), at
+    # the main path's spacing
+    for dtype in ("float64", "float32"):
+        cn_l, cm_l = (
+            (torch.rand(LONG_ROWS, generator=torch.Generator().manual_seed(s),
+                        dtype=torch.float64) - 0.5).to(dev, getattr(torch, dtype))
+            for s in (10, 11))
+        fac_l = P.cyclic_penta_factor(
+            *P.hyperdiffusion_diagonals(LONG_ROWS[1], beta_full, dtype),
+            device=dev)
+        cases.append(("ch_rhs_xsweep", f"fused long rows {LONG_ROWS[0]}x"
+                      f"{LONG_ROWS[1]} {dtype}", dtype,
+                      lambda b, cn=cn_l, cm=cm_l, f=fac_l: ops.ch_rhs_xsweep(
+                          cn, cm, f, backend=b, **ch_kw)))
+
+    # a user's point function (CUDA source, built at Create into its own
+    # copy of the stencil libraries) on each stencil kernel, through the
+    # plans at the main paths' shapes, periodic and np with out_init
+    user_fn = cuda_point_fn(MIXED_SOURCE)(mixed_point_fn)
+    t0 = time.perf_counter()
+    user_plans = {
+        "stencil2d": ((N_MAIN, N_MAIN), None,
+                      dict(left=1, right=0, top=2, bottom=1)),
+        "stencil1d_batch": ((N_MAIN, N_MAIN), "batch", dict(left=2, right=1)),
+        "stencil3d": ((N3,) * 3, None,
+                      dict(front=1, back=0, top=0, bottom=1, left=1, right=1)),
+    }
+    nwins = set()
+    for kernel, (shape, mode, extents) in user_plans.items():
+        data_u = box3(shape, "float64", 12)
+        init_u = torch.full_like(data_u, 7.0)
+        for bc in ("periodic", "np"):
+            kw = dict(bc=bc, mode=mode, coeffs=[0.7, -1.3], extents=extents)
+            plan_u = rt.create(user_fn, shape, **kw)
+            plain_u = rt.create(user_fn, shape, backend="torch", **kw)
+            nwins.add(plan_u.num_sten)
+            oi = init_u if bc == "np" else None
+            cases.append((kernel, f"user fn {bc}", "float64",
+                          lambda b, p=plan_u, q=plain_u, d=data_u, o=oi:
+                          (p if b == "cuda" else q).apply(d, o)))
+    record["user_point_fn_build_seconds"] = time.perf_counter() - t0
+    user_builds = [_build.point_fn_build(MIXED_SOURCE, n) for n in sorted(nwins)]
+    (OUT / "nvcc_build_point_fn.log").write_text(
+        "\n".join(b["log"] for b in user_builds))
+    print(f"[build] user point function over {sorted(nwins)} windows: 3 "
+          f"libraries each, built at Create in "
+          f"{record['user_point_fn_build_seconds']:.1f} s -> "
+          f"{[b['dir'] for b in user_builds]}", flush=True)
 
     checks, failures = [], []
     for kernel, label, dtype, run in cases:
@@ -824,9 +908,18 @@ def main() -> int:
     # the batched-1D kernel along y: the transposed view, read in place
     timings["stencil1d_batch d4 along y (transposed view)"] = dict(
         ms=time_ms(lambda: batch_call(d4, cn.T)("cuda")))
+    fac_l = P.cyclic_penta_factor(
+        *P.hyperdiffusion_diagonals(LONG_ROWS[1], beta_full), device=dev)
+    cn_l, cm_l = cn[:LONG_ROWS[0]].repeat(1, 40)[:, :LONG_ROWS[1]].contiguous(), \
+        cm[:LONG_ROWS[0]].repeat(1, 40)[:, :LONG_ROWS[1]].contiguous()
+
+    def long_fused(b):
+        return ops.ch_rhs_xsweep(cn_l, cm_l, fac_l, backend=b, **ch_kw)
+
     for name, fn in ((f"penta_cols long M {LONG_M}", long_cols),
                      (f"penta_rows long M {LONG_ROWS}", long_rows),
-                     (f"penta_mid long M {LONG_MID}", long_mid)):
+                     (f"penta_mid long M {LONG_MID}", long_mid),
+                     (f"ch_rhs_xsweep long rows {LONG_ROWS}", long_fused)):
         timings[f"{name} (device-memory route)"] = dict(
             ms=time_ms(lambda fn=fn: fn("cuda"), n=5, warmup=1),
             device_ms=device_ms(lambda fn=fn: fn("cuda"), n=5, warmup=1))

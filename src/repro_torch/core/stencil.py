@@ -31,8 +31,10 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels._build import check_backend
+from repro_torch.kernels._build import check_backend, point_fn_build
 from repro_torch.kernels.ref import weighted_point_fn
+from repro_torch.kernels.stencil2d import user_point_source
+from repro_torch.kernels.stencil3d import Taps3D, nonzero_taps
 from repro_torch.launch import stream as _stream
 from repro_torch.util import refuse_unported, resolve_device, torch_dtype
 
@@ -114,6 +116,16 @@ class PlanCore:
 
     def __call__(self, data, out_init=None):
         return self.apply(data, out_init)
+
+
+def _build_point_fn(point_fn: Callable, nwin: int, device, backend: str) -> None:
+    """Create's build of a user's point function for a plan on a card: its
+    CUDA source compiled into the stencil libraries for ``nwin`` windows
+    (``_build.point_fn_build``), so a compile error raises here."""
+    source = user_point_source(point_fn)
+    if (source is not None and backend != "torch"
+            and resolve_device(device).type == "cuda"):
+        point_fn_build(source, nwin)
 
 
 def plan_destroy(plan) -> None:
@@ -225,6 +237,8 @@ def _create_2d(
         if coeffs is None:
             coeffs = np.zeros((1,), np.float32)
         coeffs_t, point_fn = tensor(_host(coeffs)), func
+        _build_point_fn(func, (left + right + 1) * (top + bottom + 1), device,
+                        backend)
 
     return Stencil2D(
         direction=direction, bc=bc, left=left, right=right, top=top,
@@ -303,6 +317,7 @@ def _create_1d_batch(
         if coeffs is None:
             coeffs = np.zeros((1,), np.float32)
         coeffs_t, point_fn = tensor(_host(coeffs)), func
+        _build_point_fn(func, left + right + 1, device, backend)
     return StencilBatch1D(
         bc=bc, left=left, right=right, coeffs=coeffs_t, point_fn=point_fn,
         backend=backend, op_name=op_name,
@@ -322,12 +337,16 @@ class Stencil3D(PlanCore):
     bottom: int
     left: int
     right: int
+    # the non-zero taps the kernel sums (weighted and cube modes; None:
+    # every window), reduced at Create from the plan's coefficients
+    taps: Taps3D | None = dataclasses.field(default=None, compare=False,
+                                            repr=False)
 
     def _halo_kwargs(self) -> dict:
         return dict(halos=self.halos)
 
     def _mono_apply(self, *args, **kwargs):
-        return ops.stencil_apply_3d(*args, **kwargs)
+        return ops.stencil_apply_3d(*args, taps=self.taps, **kwargs)
 
     @property
     def num_sten(self) -> int:
@@ -420,10 +439,17 @@ def _create_3d(
         if coeffs is None:
             coeffs = np.zeros((1,), np.float32)
         coeffs_t, point_fn = tensor(_host(coeffs)), func
+    halos = (front, back, top, bottom, left, right)
+    nwin = (front + back + 1) * (top + bottom + 1) * (left + right + 1)
+    taps = None
+    if user_point_source(point_fn) is not None:
+        _build_point_fn(point_fn, nwin, device, backend)
+    elif coeffs_t.numel() == nwin:
+        taps = nonzero_taps(coeffs_t.cpu().numpy(), halos)
     return Stencil3D(
         direction=direction, bc=bc, front=front, back=back, top=top,
         bottom=bottom, left=left, right=right, coeffs=coeffs_t,
-        point_fn=point_fn, backend=backend, op_name=op_name,
+        point_fn=point_fn, backend=backend, op_name=op_name, taps=taps,
     )
 
 

@@ -17,6 +17,16 @@ issue one chunk at a time; a monolithic call is one window covering
 everything.  A missing ``nvcc`` or a failed build
 raises too: there is no fallback to the plain versions.
 
+A user's point function given as CUDA source (see
+:func:`repro_torch.kernels.stencil2d.cuda_point_fn`) gets its own copy of
+the three stencil libraries: :func:`point_fn_build` writes, for each of
+``stencil2d.cu``, ``stencil1d_batch.cu`` and ``stencil3d.cu``, a ``.cu``
+file that defines ``REPRO_NWIN`` (the plan's window count), holds the
+source and includes the kernel (:func:`point_fn_source`), and compiles
+them, in parallel, into ``build/repro_torch/<hash of the kernel sources,
+flags, point source and NWIN>/``.  A plan on a card builds it at Create,
+so a compile error raises there with nvcc's message.
+
 This module also holds the launch counters (one plain integer per kernel,
 raised by one at each launch and nowhere else) and the backend dispatch
 shared by every kernel wrapper.
@@ -76,7 +86,7 @@ _ENTRY_POINTS = {
          [_I, _I, _I, _P, _P, _P, _P, _I, _I, _L, _L] + [_I] * 4 + [_P]),
     ),
     "stencil3d.cu": (
-        ("stencil3d", [_I, _I, _I, _P, _P, _P, _P] + [_I] * 9 + [_P]),
+        ("stencil3d", [_I, _I, _I, _P, _P, _P, _P] + [_I] * 11 + [_P] * 4),
     ),
     "fused_ch.cu": (
         ("ch_rhs_xsweep",
@@ -88,10 +98,14 @@ _ENTRY_POINTS = {
     ),
 }
 SOURCES = tuple(_ENTRY_POINTS)
+# the stencil libraries a user's point function is built into, and its id
+POINT_FN_SOURCES = ("stencil2d.cu", "stencil1d_batch.cu", "stencil3d.cu")
+USER_POINT_FN = 2
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
 _lock = threading.Lock()
 _state: dict = {}
+_point_fn_state: dict = {}  # (point source, NWIN) -> build
 
 
 def reset_launches() -> None:
@@ -135,28 +149,51 @@ def _nvcc() -> str:
     return path
 
 
-def _digest() -> str:
+def _digest(*extra: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(CSRC.iterdir()):
         if p.suffix in (".cu", ".cuh"):
             h.update(p.name.encode())
             h.update(p.read_bytes())
+    for e in extra:
+        h.update(b"\0" + e.encode())
     return h.hexdigest()[:16]
 
 
-def _build_and_load() -> dict:
-    t0 = time.perf_counter()
-    out_dir = BUILD_ROOT / _digest()
+def point_fn_key(source: str, nwin: int) -> str:
+    """The build directory's name for a user point function: a hash of the
+    kernel sources, the flags, the point source and NWIN."""
+    return _digest(source, str(int(nwin)))
+
+
+def point_fn_source(kernel: str, source: str, nwin: int) -> str:
+    """The ``.cu`` text of ``kernel``'s user build: NWIN, the user's
+    source (nvcc's messages point into it as file ``point_fn``), then the
+    kernel with its general path enabled."""
+    return (
+        f"// {kernel} with a user point function over {int(nwin)} windows\n"
+        f"#define REPRO_NWIN {int(nwin)}\n"
+        '#line 1 "point_fn"\n'
+        f"{source}\n"
+        "#define REPRO_USER_POINT_FN 1\n"
+        f'#include "{kernel}"\n'
+    )
+
+
+def _compile(out_dir: Path, sources: dict, flags=()) -> str:
+    """nvcc each ``{library name: .cu path}`` not built yet into
+    ``out_dir/lib<name>.so``, all started together; raise with nvcc's
+    output if any fails.  Returns the log."""
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs, log = {}, []
-    for src in SOURCES:
-        target = out_dir / f"lib{Path(src).stem}.so"
+    for name, src in sources.items():
+        target = out_dir / f"lib{name}.so"
         if target.is_file():
             continue
         tmp = out_dir / f".{target.name}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
-        procs[src] = (
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp), str(src)]
+        procs[name] = (
             subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True,
@@ -165,19 +202,25 @@ def _build_and_load() -> dict:
             target,
         )
     failed = []
-    for src, (proc, tmp, target) in procs.items():
+    for name, (proc, tmp, target) in procs.items():
         out, _ = proc.communicate()
-        log.append(f"== nvcc {src} (rc {proc.returncode})\n{out}")
+        log.append(f"== nvcc {name} (rc {proc.returncode})\n{out}")
         if proc.returncode == 0:
             os.replace(tmp, target)
         else:
-            failed.append(src)
+            failed.append(name)
     if failed:
         raise RuntimeError(
             f"nvcc failed for {failed}:\n" + "\n".join(log)
         )
+    return "\n".join(log)
+
+
+def _load(out_dir: Path, sources) -> dict:
+    """Load ``lib<stem>.so`` of each source and set its entry points'
+    argument types: ``{entry point: (library, function)}``."""
     libs = {}
-    for src in SOURCES:
+    for src in sources:
         lib = ctypes.CDLL(str(out_dir / f"lib{Path(src).stem}.so"))
         lib.rt_error_string.argtypes = [_I]
         lib.rt_error_string.restype = ctypes.c_char_p
@@ -188,13 +231,51 @@ def _build_and_load() -> dict:
             fn.argtypes = argtypes
             fn.restype = _I
             libs[name] = (lib, fn)
+    return libs
+
+
+def _build_and_load() -> dict:
+    t0 = time.perf_counter()
+    out_dir = BUILD_ROOT / _digest()
+    log = _compile(out_dir, {Path(s).stem: CSRC / s for s in SOURCES})
     return {
-        "libs": libs,
+        "libs": _load(out_dir, SOURCES),
         "seconds": time.perf_counter() - t0,
-        "log": "\n".join(log),
+        "log": log,
         "dir": str(out_dir),
         "devices": {},
     }
+
+
+def point_fn_build(source: str, nwin: int) -> dict:
+    """Build (once per process, point source and NWIN) and load the three
+    stencil libraries with a user's point function; returns ``{'libs',
+    'seconds', 'log', 'dir'}`` as :func:`build` does.  Raises
+    ``RuntimeError`` with nvcc's output when the source does not
+    compile."""
+    key = (source, int(nwin))
+    got = _point_fn_state.get(key)
+    if got is not None:
+        return got
+    with _lock:
+        if key not in _point_fn_state:
+            t0 = time.perf_counter()
+            out_dir = BUILD_ROOT / point_fn_key(source, nwin)
+            out_dir.mkdir(parents=True, exist_ok=True)
+            jobs = {}
+            for kernel in POINT_FN_SOURCES:
+                # not the kernel's own name: the include would find itself
+                cu = out_dir / f"point_fn_{kernel}"
+                cu.write_text(point_fn_source(kernel, source, nwin))
+                jobs[Path(kernel).stem] = cu
+            log = _compile(out_dir, jobs, ("-I", str(CSRC)))
+            _point_fn_state[key] = {
+                "libs": _load(out_dir, POINT_FN_SOURCES),
+                "seconds": time.perf_counter() - t0,
+                "log": log,
+                "dir": str(out_dir),
+            }
+    return _point_fn_state[key]
 
 
 def build() -> dict:
@@ -289,11 +370,12 @@ def out_like(out: torch.Tensor | None, like: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def launch(name: str, device: torch.device, *args) -> None:
+def launch(name: str, device: torch.device, *args, libs=None) -> None:
     """Call the C entry point ``name`` on ``device``'s current stream (the
     stream is appended to ``args``), raise if the launch failed, and count
-    the launch."""
-    lib, fn = build()["libs"][name]
+    the launch.  ``libs`` are a user point function's libraries
+    (:func:`point_fn_build`), else the library's own."""
+    lib, fn = (build()["libs"] if libs is None else libs)[name]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         _check(lib, fn(*args, stream), f"CUDA kernel {name}")

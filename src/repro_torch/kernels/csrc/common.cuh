@@ -6,7 +6,9 @@
 // splits the line into 32 segments and runs it as a segmented recurrence.
 // Every sweep runs it (fused_ch.cu:ch_rhs_xsweep, the fused RHS + x-sweep;
 // penta.cu:penta_cols, penta_rows and penta_mid, the column, row and plane
-// sweeps).  It computes the reference's substitution
+// sweeps), and solve_line_global runs it, with the cyclic closure, on a
+// line in device memory (the routes of lines that fit no block).  It
+// computes the reference's substitution
 // (repro/kernels/penta.py:rows_substitute_refs) to rounding, not bit for
 // bit, since it combines carries across segments.
 #pragma once
@@ -35,14 +37,21 @@ __device__ __forceinline__ int wrap_index(int a, int n) {
 }
 
 // The stencil kernels' "function pointer": the reference traces a Python
-// point_fn into the kernel body; here each one the kernels know is a
-// compile-time device point function, named by the Python function's
-// device_point_fn tag (DEVICE_POINT_FNS in kernels/stencil2d.py), and a
-// window's contribution is P::term(coefficient, value):
+// point_fn into the kernel body; here each one is a compile-time device
+// point function P, selected by id (DEVICE_POINT_FNS in
+// kernels/stencil2d.py).  The two the library knows are sums of terms,
+// a window's contribution P::term(coefficient, value), summed in window
+// order as the point functions do:
 //   0 WeightedPoint  c w            (repro weighted_point_fn)
 //   1 CubePoint      c (w^3 - w)    (cahn_hilliard.py cube_laplacian_point_fn)
-// The kernels sum the terms in window order, as the point functions do.
+// A user's point function (id 2) is CUDA C++ source given at Create,
+//   template <typename T> __device__ T point_fn(const T* w, const T* c),
+// that kernels/_build.py compiles into its own copy of the three stencil
+// libraries with REPRO_USER_POINT_FN and REPRO_NWIN (the plan's window
+// count) defined: the general path gathers the NWIN windows, in the
+// reference's window order, into registers and returns point_fn(w, c).
 struct WeightedPoint {
+  static constexpr bool kGeneral = false;
   template <typename T>
   static __device__ __forceinline__ T term(T c, T w) {
     return c * w;
@@ -50,24 +59,41 @@ struct WeightedPoint {
 };
 
 struct CubePoint {
+  static constexpr bool kGeneral = false;
   template <typename T>
   static __device__ __forceinline__ T term(T c, T w) {
     return c * (w * w * w - w);
   }
 };
 
-// Call f(P{}) with the device point function of id `point_fn`; an unknown
-// id is cudaErrorInvalidValue.
+#ifdef REPRO_USER_POINT_FN
+struct UserPoint {
+  static constexpr bool kGeneral = true;
+  static constexpr int kWindows = REPRO_NWIN;
+  template <typename T>
+  static __device__ __forceinline__ T apply(const T (&w)[kWindows],
+                                            const T* c) {
+    return point_fn<T>(w, c);
+  }
+};
+#endif
+
+// Call f(P{}) with the device point function of id `point_fn`: 0 and 1 in
+// the library's own build, 2 (the user's) in a user build; any other id
+// is cudaErrorInvalidValue.
 template <typename F>
 inline int with_point_fn(int point_fn, F&& f) {
+#ifdef REPRO_USER_POINT_FN
+  if (point_fn == 2) return f(UserPoint{});
+#else
   switch (point_fn) {
     case 0:
       return f(WeightedPoint{});
     case 1:
       return f(CubePoint{});
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
   }
+#endif
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -217,6 +243,29 @@ __device__ __forceinline__ void substitute_segmented(
   }
 }
 
+// One line of length M in device memory (element i at r[i * ld], result
+// at o[i * ld]) solved by the calling warp, then, when w is not null, the
+// cyclic rank-4 closure x_i = y_i - (W[i,0] y[M-2] + W[i,1] y[M-1] +
+// W[i,2] y[0] + W[i,3] y[1]), each lane on its own segment.
+template <typename T>
+__device__ __forceinline__ void solve_line_global(
+    const T* __restrict__ sub, const T* __restrict__ low,
+    const T* __restrict__ imu, const T* __restrict__ al,
+    const T* __restrict__ be, const T* __restrict__ w, const T* r, T* o,
+    long long ld, int M, int L, int lane) {
+  substitute_segmented(r, o, ld, sub, low, imu, al, be, M, L, lane);
+  if (w == nullptr) return;
+  __syncwarp();
+  const T ym2 = o[(M - 2) * ld], ym1 = o[(M - 1) * ld], y0 = o[0], y1 = o[ld];
+  __syncwarp();
+  const int a = min(lane * L, M), b = min(a + L, M);
+  for (int i = a; i < b; ++i) {
+    const T* wi = w + 4 * i;
+    o[i * ld] -= __ldg(wi) * ym2 + __ldg(wi + 1) * ym1 + __ldg(wi + 2) * y0 +
+                 __ldg(wi + 3) * y1;
+  }
+}
+
 // Rank-4 Woodbury closure of a cyclic row solve, for element i of a row y
 // of length M: x_i = y_i - (W[i,0] y[M-2] + W[i,1] y[M-1] + W[i,2] y[0] +
 // W[i,3] y[1]), W = Z S^{-1} the Create-time (M, 4) matrix.
@@ -226,6 +275,29 @@ __device__ __forceinline__ T woodbury_row(const T* row, const T* __restrict__ w,
   const T* wi = w + 4 * i;
   return row[i] - (__ldg(wi) * row[M - 2] + __ldg(wi + 1) * row[M - 1] +
                    __ldg(wi + 2) * row[0] + __ldg(wi + 3) * row[1]);
+}
+
+// -- asynchronous copies into shared memory (PTX) ----------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// One element from device to shared memory (cp.async of 4 or 8 bytes).
+template <typename T>
+__device__ __forceinline__ void elem_load(T* dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(smem_u32(dst)),
+               "l"(__cvta_generic_to_global(src)), "n"(sizeof(T))
+               : "memory");
+}
+
+__device__ __forceinline__ void elem_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void elem_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
 }
 
 // Set the dynamic shared memory ceiling of `kernel` once it is needed

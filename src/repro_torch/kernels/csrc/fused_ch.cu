@@ -38,7 +38,15 @@
 //    launch.
 // 3. The rank-4 Woodbury closure on the coalesced write-out.
 //
-// The RHS never reaches device memory, as on the TPU.  Unlike the TPU
+// When one row does not fit a block's shared memory (nx + 1 elements
+// above the opt-in limit: nx > 29055 in float64 on the H100), the
+// device-memory route (ch_rhs_xsweep_global_kernel) takes over: each warp
+// assembles one row's RHS straight into `out` and solves it there in place
+// (common.cuh:solve_line_global, as penta.cu's row sweep does for such
+// rows).  The route depends on nx and the dtype alone, so a streamed chunk
+// computes every row as the monolithic call does.
+//
+// On the tile route the RHS never reaches device memory, as on the TPU.  Unlike the TPU
 // kernel, no tile has to divide ny and a block may hold a single row: the
 // halo rows come from wherever they lie, with wrap.  What bounded the
 // first design on the card was phase 2: one thread per row walked 2 nx
@@ -170,11 +178,56 @@ __global__ void __launch_bounds__(256) ch_rhs_xsweep_kernel(
   }
 }
 
+// Device-memory route: warp g of the grid takes row row0 + g of the
+// window, writes its RHS to out and solves it there, closure included;
+// blockDim.x is 256.
+template <typename T>
+__global__ void __launch_bounds__(256) ch_rhs_xsweep_global_kernel(
+    const T* __restrict__ cn, const T* __restrict__ cm,
+    const T* __restrict__ sub, const T* __restrict__ low,
+    const T* __restrict__ imu, const T* __restrict__ al,
+    const T* __restrict__ be, const T* __restrict__ w, T* out, int ny,
+    int nx, int row0, int row1, int L, T k_lin, T k_bih, T k_lap) {
+  const long long g =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
+  if (g >= row1 - row0) return;  // whole warps
+  const int j = row0 + static_cast<int>(g);
+  const int lane = threadIdx.x % kWarp;
+  const T* n_r[5];
+  const T* m_r[5];
+#pragma unroll
+  for (int d = 0; d < 5; ++d) {
+    const size_t off = static_cast<size_t>(wrap_index(j + d - 2, ny)) * nx;
+    n_r[d] = cn + off;
+    m_r[d] = cm + off;
+  }
+  T* row = out + static_cast<size_t>(j) * nx;
+  for (int i = lane; i < nx; i += kWarp) {
+    int col[5];
+#pragma unroll
+    for (int d = 0; d < 5; ++d) col[d] = wrap_near(i + d - 2, nx);
+    row[i] = ch_rhs_at(n_r, m_r, col, k_lin, k_bih, k_lap);
+  }
+  __syncwarp();  // the row's RHS is written before any lane's segment reads
+  solve_line_global(sub, low, imu, al, be, w, row, row, 1, nx, L, lane);
+}
+
 template <typename T>
 int launch(const void* cn, const void* cm, void* const* f, const void* w,
            void* out, int ny, int nx, int row0, int row1, int R, int L,
            int stage, double k_lin, double k_bih, double k_lap,
            cudaStream_t stream) {
+  if (R == 0) {
+    const long long threads = static_cast<long long>(row1 - row0) * kWarp;
+    ch_rhs_xsweep_global_kernel<T><<<(threads + 255) / 256, 256, 0, stream>>>(
+        static_cast<const T*>(cn), static_cast<const T*>(cm),
+        static_cast<const T*>(f[0]), static_cast<const T*>(f[1]),
+        static_cast<const T*>(f[2]), static_cast<const T*>(f[3]),
+        static_cast<const T*>(f[4]), static_cast<const T*>(w),
+        static_cast<T*>(out), ny, nx, row0, row1, L, static_cast<T>(k_lin),
+        static_cast<T>(k_bih), static_cast<T>(k_lap));
+    return static_cast<int>(cudaGetLastError());
+  }
   static int smem_set = 0;
   const int bytes =
       (R * (nx + 1) + (stage ? 5 * nx : 0)) * static_cast<int>(sizeof(T));
@@ -222,14 +275,15 @@ RT_EXPORT int ch_rhs(int dtype, void* cn, void* cm, void* out, int ny,
 
 // dtype: 0 float32, 1 float64.  w is the (nx, 4) Woodbury matrix (cyclic).
 // Computes the output rows [row0, row1), 0 <= row0 < row1 <= ny, R rows a
-// block, in segments of L elements (32 L >= nx); stage != 0 puts the
-// factors in shared memory beside the rows.
+// block (R = 0: the device-memory route, a warp a row), in segments of L
+// elements (32 L >= nx); stage != 0 puts the factors in shared memory
+// beside the rows.
 RT_EXPORT int ch_rhs_xsweep(int dtype, void* cn, void* cm, void* sub,
                             void* low, void* imu, void* al, void* be, void* w,
                             void* out, int ny, int nx, int row0, int row1,
                             int R, int L, int stage, double k_lin,
                             double k_bih, double k_lap, void* stream) {
-  if (row0 < 0 || row1 > ny || row0 >= row1 || R < 1 || L < 1 ||
+  if (row0 < 0 || row1 > ny || row0 >= row1 || R < 0 || L < 1 ||
       kWarp * L < nx)
     return static_cast<int>(cudaErrorInvalidValue);
   void* f[5] = {sub, low, imu, al, be};

@@ -116,11 +116,7 @@ int rows_smem_bytes(int M, bool cyclic, int G, int depth) {
                   static_cast<int>(sizeof(T));
 }
 
-// -- asynchronous copies into shared memory (PTX) ----------------------------
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
+// -- mbarriers and bulk copies (PTX; element copies are in common.cuh) ------
 
 __device__ __forceinline__ void mbar_init(unsigned long long* bar,
                                           unsigned count) {
@@ -165,23 +161,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
       "l"(__cvta_generic_to_global(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
-}
-
-// One element from device to shared memory (cp.async of 4 or 8 bytes).
-template <typename T>
-__device__ __forceinline__ void elem_load(T* dst, const T* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(smem_u32(dst)),
-               "l"(__cvta_generic_to_global(src)), "n"(sizeof(T))
-               : "memory");
-}
-
-__device__ __forceinline__ void elem_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void elem_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
 }
 
 // -- the segmented substitution of a line in shared memory -----------------
@@ -286,31 +265,6 @@ __device__ __forceinline__ void solve_line_smem(T* line, const T* f, int M,
   else
     substitute_segmented(line, line, 1, f, f + M, f + 2 * M, f + 3 * M,
                          f + 4 * M, M, L, lane);
-}
-
-// -- device-memory routes ----------------------------------------------------
-
-// One line of length M in device memory (element i at r[i * ld], result
-// at o[i * ld]) solved by the calling warp, then, when w is not null, the
-// cyclic rank-4 closure x_i = y_i - (W[i,0] y[M-2] + W[i,1] y[M-1] +
-// W[i,2] y[0] + W[i,3] y[1]), each lane on its own segment.
-template <typename T>
-__device__ __forceinline__ void solve_line_global(
-    const T* __restrict__ sub, const T* __restrict__ low,
-    const T* __restrict__ imu, const T* __restrict__ al,
-    const T* __restrict__ be, const T* __restrict__ w, const T* r, T* o,
-    long long ld, int M, int L, int lane) {
-  substitute_segmented(r, o, ld, sub, low, imu, al, be, M, L, lane);
-  if (w == nullptr) return;
-  __syncwarp();
-  const T ym2 = o[(M - 2) * ld], ym1 = o[(M - 1) * ld], y0 = o[0], y1 = o[ld];
-  __syncwarp();
-  const int a = min(lane * L, M), b = min(a + L, M);
-  for (int i = a; i < b; ++i) {
-    const T* wi = w + 4 * i;
-    o[i * ld] -= __ldg(wi) * ym2 + __ldg(wi + 1) * ym1 + __ldg(wi + 2) * y0 +
-                 __ldg(wi + 3) * y1;
-  }
 }
 
 // -- column layout ------------------------------------------------------------

@@ -6,8 +6,9 @@
 // independent.  bc periodic wraps the element index; bc np computes the
 // elements left <= m < M - right and copies the others from out_init (zero
 // when it is null).  Weighted or function-pointer mode through the device
-// point functions of common.cuh; windows sweep left to right, the
-// coefficient of window k is coeffs[k].
+// point functions of common.cuh (a user's point_fn on the general path, as
+// in stencil2d.cu); windows sweep left to right, the coefficient of window
+// k is coeffs[k].
 //
 // Element m of line b lies at b * line_stride + m * elem_stride, and the
 // output and out_init use the same strides.  A (B, M) stack has strides
@@ -52,14 +53,26 @@ __global__ void __launch_bounds__(256) stencil1d_batch_kernel(
       out[idx] = out_init != nullptr ? out_init[idx] : T(0);
       continue;
     }
-    T acc = T(0);
-    for (int k = 0; k < taps; ++k) {
-      int mm = m - left + k;
-      if (PERIODIC) mm = wrap_index(mm, M);
-      const T t = P::term(__ldg(coeffs + k), __ldg(line + mm * elem_stride));
-      acc = k == 0 ? t : acc + t;
+    if constexpr (P::kGeneral) {
+      // the user's point function on the NWIN windows, left to right
+      T w[P::kWindows];
+#pragma unroll
+      for (int k = 0; k < P::kWindows; ++k) {
+        int mm = m - left + k;
+        if (PERIODIC) mm = wrap_index(mm, M);
+        w[k] = __ldg(line + mm * elem_stride);
+      }
+      out[idx] = P::apply(w, coeffs);
+    } else {
+      T acc = T(0);
+      for (int k = 0; k < taps; ++k) {
+        int mm = m - left + k;
+        if (PERIODIC) mm = wrap_index(mm, M);
+        const T t = P::term(__ldg(coeffs + k), __ldg(line + mm * elem_stride));
+        acc = k == 0 ? t : acc + t;
+      }
+      out[idx] = acc;
     }
-    out[idx] = acc;
   }
 }
 
@@ -68,6 +81,10 @@ int launch(int periodic, const void* data, const void* coeffs,
            const void* out_init, void* out, int B, int M,
            long long line_stride, long long elem_stride, int left, int right,
            cudaStream_t stream) {
+  if constexpr (P::kGeneral) {
+    if (P::kWindows != left + right + 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   const bool lines_fast = line_stride == 1 && elem_stride != 1;
   const int n_u = lines_fast ? B : M;
   const int n_v = lines_fast ? M : B;
@@ -92,7 +109,8 @@ int launch(int periodic, const void* data, const void* coeffs,
 
 }  // namespace
 
-// dtype: 0 float32, 1 float64.  point_fn: 0 weighted, 1 cube (C^3 - C).
+// dtype: 0 float32, 1 float64.  point_fn: 0 weighted, 1 cube (C^3 - C),
+// 2 the user's (in a user build, whose NWIN must be the window count).
 // periodic: 1 periodic, 0 np.  out_init may be null (np zeros).  Strides
 // in elements; out and out_init share data's.  Computes the lines
 // [line0, line1), 0 <= line0 < line1 <= B.

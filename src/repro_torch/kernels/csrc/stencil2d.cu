@@ -5,8 +5,11 @@
 // (wrapped indices) or np (interior cells computed, the others copied from
 // out_init, or zero when it is null); weighted mode or function-pointer
 // mode.  The TPU's Python point_fn, traced into the kernel body, becomes
-// one of the compile-time device point functions of common.cuh
-// (WeightedPoint, CubePoint), which is cuSten's own function-pointer design.
+// a compile-time device point function of common.cuh, which is cuSten's
+// own function-pointer design: WeightedPoint or CubePoint (a sum of
+// per-window terms), or a user's point_fn given as CUDA source, built into
+// a copy of this library (the general path: the NWIN windows gathered into
+// registers, then point_fn(w, coeffs)).
 // Windows are enumerated row-major from the top-left of the stencil; the
 // coefficient of window (a, b) is coeffs[a * (left + right + 1) + b].
 //
@@ -42,19 +45,39 @@ __global__ void __launch_bounds__(256) stencil2d_kernel(
   }
   const int sx = left + right + 1;
   const int sy = top + bottom + 1;
-  T acc = T(0);
-  for (int a = 0; a < sy; ++a) {
-    int jj = j - top + a;
-    if (PERIODIC) jj = wrap_index(jj, ny);
-    const T* row = data + static_cast<size_t>(jj) * nx;
-    for (int b = 0; b < sx; ++b) {
-      int ii = i - left + b;
-      if (PERIODIC) ii = wrap_index(ii, nx);
-      const T t = P::term(__ldg(coeffs + a * sx + b), __ldg(row + ii));
-      acc = (a == 0 && b == 0) ? t : acc + t;
+  if constexpr (P::kGeneral) {
+    // the user's point function on the NWIN windows, row-major
+    T w[P::kWindows];
+    int a = 0, b = 0;
+#pragma unroll
+    for (int t = 0; t < P::kWindows; ++t) {
+      int jj = j - top + a, ii = i - left + b;
+      if (PERIODIC) {
+        jj = wrap_index(jj, ny);
+        ii = wrap_index(ii, nx);
+      }
+      w[t] = __ldg(data + static_cast<size_t>(jj) * nx + ii);
+      if (++b == sx) {
+        b = 0;
+        ++a;
+      }
     }
+    out[idx] = P::apply(w, coeffs);
+  } else {
+    T acc = T(0);
+    for (int a = 0; a < sy; ++a) {
+      int jj = j - top + a;
+      if (PERIODIC) jj = wrap_index(jj, ny);
+      const T* row = data + static_cast<size_t>(jj) * nx;
+      for (int b = 0; b < sx; ++b) {
+        int ii = i - left + b;
+        if (PERIODIC) ii = wrap_index(ii, nx);
+        const T t = P::term(__ldg(coeffs + a * sx + b), __ldg(row + ii));
+        acc = (a == 0 && b == 0) ? t : acc + t;
+      }
+    }
+    out[idx] = acc;
   }
-  out[idx] = acc;
 }
 
 template <typename T, typename P>
@@ -62,6 +85,10 @@ int launch(int periodic, const void* data, const void* coeffs,
            const void* out_init, void* out, int ny, int nx, int row0,
            int row1, int left, int right, int top, int bottom,
            cudaStream_t stream) {
+  if constexpr (P::kGeneral) {
+    if (P::kWindows != (left + right + 1) * (top + bottom + 1))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   const dim3 block(32, 8);
   const dim3 grid((nx + block.x - 1) / block.x,
                   (row1 - row0 + block.y - 1) / block.y);
@@ -80,7 +107,8 @@ int launch(int periodic, const void* data, const void* coeffs,
 
 }  // namespace
 
-// dtype: 0 float32, 1 float64.  point_fn: 0 weighted, 1 cube (C^3 - C).
+// dtype: 0 float32, 1 float64.  point_fn: 0 weighted, 1 cube (C^3 - C),
+// 2 the user's (in a user build, whose NWIN must be the window count).
 // periodic: 1 periodic, 0 np.  out_init may be null (np zeros).  Computes
 // the output rows [row0, row1), 0 <= row0 < row1 <= ny.
 RT_EXPORT int stencil2d(int dtype, int point_fn, int periodic, void* data,

@@ -8,12 +8,15 @@ one device function for the eq. 2a RHS at a point:
 - :func:`ch_rhs_xsweep_cuda` — ``L_x^{-1} rhs(c_n, c_nm1)`` in one pass: the
   RHS is assembled into shared memory, substituted in place (one warp per
   row, as a segmented recurrence) and closed with the Woodbury correction,
-  so it never reaches device memory.  The plain version composes the
-  windowed RHS with the row-layout solve, as the reference's jnp path
-  does.
+  so it never reaches device memory (rows too long for shared memory are
+  assembled and solved in the output instead).  The plain version
+  composes the windowed RHS with the row-layout solve, as the reference's
+  jnp path does.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -28,16 +31,31 @@ from repro_torch.kernels.penta import (
 from repro_torch.kernels.ref import ch_coefficients, ch_rhs_win
 
 
+class XsweepGeometry(NamedTuple):
+    """Launch geometry of the fused kernel (``ch_rhs_xsweep``)."""
+
+    route: str  # "tile" (rows in shared memory) or "global" (a warp a row)
+    rows: int  # R, rows a block; 0 on the global route
+    stage: bool  # the five factors staged in shared memory beside the rows
+
+
 def xsweep_rows_per_block(nx: int, itemsize: int, n_rows: int,
-                          smem_optin: int, n_sms: int) -> tuple[int, bool]:
-    """``(R, stage)`` of the fused kernel: rows a block holds and whether
-    the five factors of the band are staged in shared memory beside them
-    (when a row and the factors fit; otherwise the factors are read from
-    device memory and the rows get the whole of it)."""
+                          smem_optin: int, n_sms: int) -> XsweepGeometry:
+    """Geometry of the fused kernel over ``n_rows`` rows of ``nx``.
+
+    The tile route when one row (stride nx + 1) fits in shared memory:
+    R rows a block, and the five factors of the band staged beside them
+    when a row and the factors fit (otherwise they are read from device
+    memory and the rows get the whole of it).  Else the device-memory
+    route: each row's RHS is written to the output and solved there.  The
+    route depends on nx and the dtype alone."""
+    if (nx + 1) * itemsize > smem_optin:
+        return XsweepGeometry("global", 0, False)
     fac_bytes = 5 * nx * itemsize
     stage = (nx + 1) * itemsize + fac_bytes <= smem_optin
     avail = smem_optin - fac_bytes if stage else smem_optin
-    return rows_per_block(nx, itemsize, n_rows, avail, n_sms), stage
+    return XsweepGeometry(
+        "tile", rows_per_block(nx, itemsize, n_rows, avail, n_sms), stage)
 
 
 def ch_rhs_xsweep_torch(
@@ -95,7 +113,8 @@ def ch_rhs_xsweep_cuda(
 ) -> torch.Tensor:
     """Launch the fused kernel on two contiguous (ny, nx) CUDA fields.
     ``fac_x`` is the cyclic factor set of length ``nx``; ``rows=(r0, r1)``
-    computes only those rows into ``out``."""
+    computes only those rows into ``out``.  Any nx: rows that do not fit
+    in shared memory take the device-memory route."""
     ny, nx = c_n.shape
     _build.check_cuda(c_n, "c_n", like=c_n, shape=(ny, nx))
     _build.check_cuda(c_nm1, "c_nm1", like=c_n, shape=(ny, nx))
@@ -104,7 +123,7 @@ def ch_rhs_xsweep_cuda(
     _build.check_cuda(fac_x.w, "Woodbury w", like=c_n, shape=(nx, 4))
     r0, r1 = _build.window(rows, ny, "row", out)
     smem, sms = _build.device_info(c_n.device)
-    R, stage = xsweep_rows_per_block(nx, c_n.element_size(), r1 - r0, smem, sms)
+    geo = xsweep_rows_per_block(nx, c_n.element_size(), r1 - r0, smem, sms)
     k_lin, k_bih, k_lap = ch_coefficients(
         dt=dt, D=D, gamma=gamma, inv_h2=inv_h2, inv_h4=inv_h4
     )
@@ -113,7 +132,8 @@ def ch_rhs_xsweep_cuda(
         "ch_rhs_xsweep", c_n.device, _build.dtype_code(c_n),
         _build.ptr(c_n), _build.ptr(c_nm1),
         *(_build.ptr(f) for f in fac_x.band), _build.ptr(fac_x.w),
-        _build.ptr(out), ny, nx, r0, r1, R, segment_length(nx), int(stage),
+        _build.ptr(out), ny, nx, r0, r1, geo.rows, segment_length(nx),
+        int(geo.stage),
         float(k_lin), float(k_bih), float(k_lap),
     )
     return out

@@ -96,12 +96,15 @@ def stencil_apply_3d(
     halos=(0, 0, 0, 0, 0, 0),  # (front, back, top, bottom, left, right)
     bc: str = "periodic",
     backend: str = "auto",
+    taps=None,
 ) -> torch.Tensor:
     """Apply a 3D stencil on an ``(nz, ny, nx)`` field — the 3D Compute
-    primitive."""
+    primitive.  ``taps``: the plan's non-zero taps, which the kernel sums
+    (:func:`repro_torch.kernels.stencil3d.nonzero_taps`); without them it
+    sums every window."""
     kw = dict(point_fn=point_fn, halos=tuple(int(h) for h in halos), bc=bc)
     if resolve_backend(backend, data) == "cuda":
-        return stencil3d_cuda(data, coeffs, out_init, **kw)
+        return stencil3d_cuda(data, coeffs, out_init, taps=taps, **kw)
     return stencil3d_torch(data, coeffs=coeffs, out_init=out_init, **kw)
 
 

@@ -340,10 +340,10 @@ class MidGeometry(NamedTuple):
     smem: int  # dynamic shared memory a block, bytes
 
 
-def _blocks_per_sm(smem: int, smem_optin: int) -> int:
+def resident_blocks(smem: int, smem_optin: int) -> int:
     """Blocks of ``smem`` bytes an SM holds, as shared memory and its
-    thread count allow (the wrapper lowers it to what the registers allow,
-    from the card's occupancy calculator)."""
+    thread count allow (the row sweep's wrapper lowers it to what the
+    registers allow, from the card's occupancy calculator)."""
     per_sm = (smem_optin + SM_RESERVED_SMEM) // (smem + SM_RESERVED_SMEM)
     return max(1, min(MAX_BLOCKS_PER_SM, per_sm))
 
@@ -380,7 +380,7 @@ def rows_geometry(M: int, itemsize: int, n_rows: int, smem_optin: int,
     rows = max(1, min(BLOCK_WARPS, ceil_div(n_rows, n_sms), fit // depth))
     depth = max(1, min(depth, fit // rows))
     smem = rows_tile_bytes(M, itemsize, cyclic, rows, depth)
-    per_sm = blocks_per_sm or _blocks_per_sm(smem, smem_optin)
+    per_sm = blocks_per_sm or resident_blocks(smem, smem_optin)
     blocks = min(ceil_div(n_rows, rows), per_sm * n_sms)
     return RowsGeometry("tile", rows, depth, blocks, smem, per_sm)
 

@@ -309,7 +309,7 @@ def _weno5_phi(v1, v2, v3, v4, v5):
     Returns the left-biased approximation of the derivative given
     one-sided differences v1..v5 (Osher & Fedkiw, ch. 3.4).  The
     expression order is the reference's, operation for operation; the CUDA
-    kernel (``csrc/weno.cu``) repeats it."""
+    kernel (``csrc/weno.cu``) computes it to rounding with 4 divisions."""
     s1 = (13.0 / 12.0) * (v1 - 2 * v2 + v3) ** 2 + 0.25 * (v1 - 4 * v2 + 3 * v3) ** 2
     s2 = (13.0 / 12.0) * (v2 - 2 * v3 + v4) ** 2 + 0.25 * (v2 - v4) ** 2
     s3 = (13.0 / 12.0) * (v3 - 2 * v4 + v5) ** 2 + 0.25 * (3 * v3 - 4 * v4 + v5) ** 2

@@ -8,7 +8,8 @@ of a ``(B, M)`` stack, any ``B`` and ``M`` and any halo: each thread wraps
 kernel takes the line and element strides, so the y direction of a 2D
 field (``field.T``) is read in place with no transposed copy, and the
 output has the input's layout.  Point functions are selected by their
-``device_point_fn`` tag, as for the 2D stencil.
+``device_point_fn`` tag or run from their CUDA source, as for the 2D
+stencil.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import stencil1d_batch_ref, weighted_point_fn
-from repro_torch.kernels.stencil2d import device_point_fn_id
+from repro_torch.kernels.stencil2d import coeffs_shape, device_point_fn
 
 # the plain version: the semantic definition in kernels/ref.py
 stencil1d_batch_torch = stencil1d_batch_ref
@@ -67,12 +68,13 @@ def stencil1d_batch_cuda(
     if min(left, right) < 0:
         raise ValueError("stencil extents must be >= 0")
     B, M = data.shape
-    fn_id = device_point_fn_id(point_fn)
+    fn_id, libs = device_point_fn(point_fn, left + right + 1)
     rows = data.is_contiguous()
     base = data if rows else data.T
     _build.check_cuda(base, "data (or its transpose)", like=data,
                       shape=base.shape)
-    _build.check_cuda(coeffs, "coeffs", like=data, shape=(left + right + 1,))
+    _build.check_cuda(coeffs, "coeffs", like=data,
+                      shape=coeffs_shape(fn_id, left + right + 1, coeffs))
     if bc == "periodic":
         out_init = None  # every element is computed, as in the plain version
     elif out_init is not None:
@@ -90,6 +92,6 @@ def stencil1d_batch_cuda(
         "stencil1d_batch", data.device, _build.dtype_code(data), fn_id,
         int(bc == "periodic"), _build.ptr(data), _build.ptr(coeffs),
         _build.ptr(out_init), _build.ptr(out), B, M, line_stride,
-        elem_stride, b0, b1, left, right,
+        elem_stride, b0, b1, left, right, libs=libs,
     )
     return out

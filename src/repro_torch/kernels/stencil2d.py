@@ -4,9 +4,13 @@
 The kernel (``csrc/stencil2d.cu``) takes any extent and any halo: each
 thread wraps (periodic) or masks (``np``) its own indices, so none of the
 reference's tile-divisibility rules or padded dispatch apply.  The
-function-pointer mode is a compile-time set of device point functions; a
+function-pointer mode runs a compile-time device point function.  A
 Python ``point_fn`` names its device counterpart with a
-``device_point_fn`` tag (see :data:`DEVICE_POINT_FNS`).
+``device_point_fn`` tag (see :data:`DEVICE_POINT_FNS`), or carries the
+CUDA C++ source of its own (:func:`cuda_point_fn`), which the stencil
+libraries are built with (``_build.point_fn_build``); the Python function
+stays the plain version.  A point function with neither is refused on the
+card.
 """
 
 from __future__ import annotations
@@ -25,16 +29,67 @@ DEVICE_POINT_FNS = {"weighted": 0, "cube_laplacian": 1}
 stencil2d_torch = stencil2d_ref
 
 
+def cuda_point_fn(source: str) -> Callable:
+    """Decorator: give a Python point function ``fn(windows, coeffs)`` its
+    CUDA counterpart, C++ source that defines::
+
+        template <typename T> __device__ T point_fn(const T* w, const T* c)
+
+    over the plan's NWIN windows ``w`` (in the Python function's window
+    order: left to right in 1D, row-major in 2D, z-major in 3D) and its
+    coefficients ``c``.  The Python function stays the plain version (the
+    CPU path); on the card the stencil kernels run the source."""
+    if not isinstance(source, str) or "point_fn" not in source:
+        raise ValueError("the CUDA source must define point_fn")
+
+    def attach(fn: Callable) -> Callable:
+        fn.device_point_source = source
+        return fn
+
+    return attach
+
+
+def user_point_source(point_fn: Callable) -> str | None:
+    """The CUDA source a point function runs from on the card (one given
+    with :func:`cuda_point_fn` and without a library tag), else None."""
+    if getattr(point_fn, "device_point_fn", None) in DEVICE_POINT_FNS:
+        return None
+    source = getattr(point_fn, "device_point_source", None)
+    return source if isinstance(source, str) else None
+
+
 def device_point_fn_id(point_fn: Callable) -> int:
-    """The CUDA kernel's id for ``point_fn``; raises for an untagged one."""
+    """The CUDA kernel's id for ``point_fn``: its tag's, or
+    ``_build.USER_POINT_FN`` for one with CUDA source; raises for one
+    with neither."""
     tag = getattr(point_fn, "device_point_fn", None)
-    if tag not in DEVICE_POINT_FNS:
-        raise NotImplementedError(
-            f"point_fn {getattr(point_fn, '__name__', point_fn)!r} has no "
-            f"CUDA counterpart (device_point_fn tag {tag!r}; the kernel "
-            f"knows {sorted(DEVICE_POINT_FNS)})"
-        )
-    return DEVICE_POINT_FNS[tag]
+    if tag in DEVICE_POINT_FNS:
+        return DEVICE_POINT_FNS[tag]
+    if user_point_source(point_fn) is not None:
+        return _build.USER_POINT_FN
+    raise NotImplementedError(
+        f"point_fn {getattr(point_fn, '__name__', point_fn)!r} has no "
+        f"CUDA counterpart (device_point_fn tag {tag!r}; the kernel "
+        f"knows {sorted(DEVICE_POINT_FNS)}, or give its CUDA source with "
+        "cuda_point_fn)"
+    )
+
+
+def device_point_fn(point_fn: Callable, nwin: int) -> tuple[int, dict | None]:
+    """``(id, libraries)`` a launch of ``point_fn`` over ``nwin`` windows
+    takes: a user point function's own build (made on first use; a plan
+    makes it at Create), else None for the library's own."""
+    fn_id = device_point_fn_id(point_fn)
+    if fn_id != _build.USER_POINT_FN:
+        return fn_id, None
+    return fn_id, _build.point_fn_build(user_point_source(point_fn),
+                                        nwin)["libs"]
+
+
+def coeffs_shape(fn_id: int, n_sten: int, coeffs: torch.Tensor) -> tuple:
+    """The coefficient vector a launch takes: one a window for the
+    library's point functions, any length for a user's."""
+    return (coeffs.numel(),) if fn_id == _build.USER_POINT_FN else (n_sten,)
 
 
 def stencil2d_cuda(
@@ -61,10 +116,11 @@ def stencil2d_cuda(
     if min(left, right, top, bottom) < 0:
         raise ValueError("stencil extents must be >= 0")
     ny, nx = data.shape
-    fn_id = device_point_fn_id(point_fn)
-    _build.check_cuda(data, "data", like=data, shape=(ny, nx))
     n_sten = (left + right + 1) * (top + bottom + 1)
-    _build.check_cuda(coeffs, "coeffs", like=data, shape=(n_sten,))
+    fn_id, libs = device_point_fn(point_fn, n_sten)
+    _build.check_cuda(data, "data", like=data, shape=(ny, nx))
+    _build.check_cuda(coeffs, "coeffs", like=data,
+                      shape=coeffs_shape(fn_id, n_sten, coeffs))
     if bc == "periodic":
         out_init = None  # every cell is computed, as in the plain version
     elif out_init is not None:
@@ -75,6 +131,6 @@ def stencil2d_cuda(
         "stencil2d", data.device, _build.dtype_code(data), fn_id,
         int(bc == "periodic"), _build.ptr(data), _build.ptr(coeffs),
         _build.ptr(out_init), _build.ptr(out), ny, nx, r0, r1, left, right,
-        top, bottom,
+        top, bottom, libs=libs,
     )
     return out

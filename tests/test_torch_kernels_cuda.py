@@ -11,8 +11,9 @@ need not have.)
 
 ``chip_smoke.py`` runs the same comparisons at the main path's sizes.
 Tolerances as in ``chip_smoke.py`` (norm-wise ``tolerance_for`` scales):
-10 for the 2D, batched-1D and 3D stencils and the two RHS kernels, 100 for
-the recurrences.
+10 for the 2D, batched-1D and 3D stencils, the two RHS kernels and WENO,
+100 for the recurrences.  A user's point function (CUDA source) is built
+at Create into its own copy of the stencil libraries.
 """
 
 import numpy as np
@@ -25,7 +26,23 @@ from repro_torch.core.cahn_hilliard import cube_laplacian_point_fn
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import penta as P
 from repro_torch.kernels.ref import weighted_point_fn
+from repro_torch.kernels.stencil2d import cuda_point_fn
+from repro_torch.kernels.stencil3d import nonzero_taps
 from repro_torch.util import tolerance_for
+
+# a point function that is not a sum of per-window terms, with its CUDA
+# source: the general path of every stencil kernel
+MIXED_SOURCE = """
+template <typename T>
+__device__ T point_fn(const T* w, const T* c) {
+  return w[0] * w[1] - c[0] * w[2];
+}
+"""
+
+
+@cuda_point_fn(MIXED_SOURCE)
+def mixed_point_fn(windows, coeffs):
+    return windows[0] * windows[1] - coeffs[0] * windows[2]
 
 pytestmark = pytest.mark.cuda
 
@@ -63,6 +80,49 @@ def test_stencil2d(cuda, point_fn, bc, shape, dtype):
     assert _build.LAUNCHES["stencil2d"] == before + 1
     _assert_close(got, ops.stencil_apply(data, coeffs, init, backend="torch", **kw),
                   dtype, 10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("bc", ["periodic", "np"])
+def test_user_point_fn_in_every_stencil_kernel(cuda, bc, dtype):
+    """A user's point function (CUDA source) through rank-2, batch and
+    rank-3 plans: built at Create, launched on the card (the counters
+    say so), within the stencil tolerance of the plain path.  The 2D and
+    batched-1D plans also streamed, bit for bit the monolithic result."""
+    coeffs = np.array([0.7, -1.3])
+    cases = [
+        ("stencil2d", (37, 29), None, dict(left=1, right=0, top=2, bottom=1)),
+        ("stencil1d_batch", (37, 29), "batch", dict(left=2, right=1)),
+        ("stencil3d", (11, 13, 35), None,
+         dict(front=1, back=0, top=0, bottom=1, left=1, right=1)),
+    ]
+    for kernel, shape, mode, extents in cases:
+        kw = dict(bc=bc, mode=mode, coeffs=coeffs, extents=extents, dtype=dtype)
+        plan = create(mixed_point_fn, shape, **kw)
+        plain = create(mixed_point_fn, shape, backend="torch", **kw)
+        data = _field(shape, dtype, cuda, 21)
+        init = _field(shape, dtype, cuda, 22) if bc == "np" else None
+        before = _build.LAUNCHES[kernel]
+        got = plan.apply(data, init)
+        assert _build.LAUNCHES[kernel] == before + 1, kernel
+        _assert_close(got, plain.apply(data, init), dtype, 10)
+        if kernel != "stencil3d":
+            streamed = create(mixed_point_fn, shape, streams=2,
+                              max_tile_bytes=4096, **kw)
+            assert torch.equal(streamed.apply(data, init), got), kernel
+    # a plain callable is still refused on the card
+    plan = create(lambda w, c: w[0], (8, 8), coeffs=coeffs,
+                  extents=dict(left=1, right=1), dtype=dtype)
+    with pytest.raises(NotImplementedError, match="no CUDA counterpart"):
+        plan.apply(_field((8, 8), dtype, cuda, 23))
+
+
+def test_user_point_fn_compile_error_raises_at_create(cuda):
+    bad = cuda_point_fn("template <typename T> __device__ T point_fn("
+                        "const T* w, const T* c) { return w[0] +; }")(
+        lambda w, c: w[0])
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        create(bad, (8, 8), coeffs=np.ones(1), extents=dict(left=1, right=1))
 
 
 # (ny, nx): the column sweep solves lines of ny, the row sweep lines of nx
@@ -108,14 +168,17 @@ def test_penta_sweeps(cuda, shape, dtype):
 
 
 # Past the first three, the segmented row recurrence's edges (rows of 6,
-# 31, 33, 1021 and 1024; 1 or 7 of them) and rows of 8000, whose factors do
-# not fit in shared memory beside a float64 row.  Long rows come 7 at a
-# time: a single noise row of ~1024 has no y-terms, so its solve divides
-# the RHS by up to 1 + 16 beta (~4.5e4) and even the plain float32 result is
-# about the scale-10 limit away from the float64 answer on its inputs.
+# 31, 33, 1021 and 1024; 1 or 7 of them), rows of 8000, whose factors do
+# not fit in shared memory beside a float64 row, and rows of 40000 (a
+# float64 row fits no block: the device-memory route; float32 fits).
+# Long rows come 3 or 7 at a time: a single noise row of ~1024 has no
+# y-terms, so its solve divides the RHS by up to 1 + 16 beta (~4.5e4) and
+# even the plain float32 result is about the scale-10 limit away from the
+# float64 answer on its inputs.
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize("shape", [(64, 64), (37, 29), (1, 8), (7, 6), (1, 31),
-                                   (7, 33), (7, 1021), (7, 1024), (3, 8000)])
+                                   (7, 33), (7, 1021), (7, 1024), (3, 8000),
+                                   (3, 40000)])
 def test_ch_rhs_xsweep(cuda, shape, dtype):
     ny, nx = shape
     # a row longer than the main path's is a longer box at its spacing (at
@@ -132,6 +195,34 @@ def test_ch_rhs_xsweep(cuda, shape, dtype):
     assert _build.LAUNCHES["ch_rhs_xsweep"] == before + 1
     want = ops.ch_rhs_xsweep(cn, cm, fac_x, backend="torch", **p)
     _assert_close(got, want, dtype, 10)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_ch_rhs_xsweep_long_rows_streamed(cuda, dtype):
+    """Rows of 40000 in chunks of one row: each chunk is one launch and the
+    result equals the monolithic call bit for bit (the route depends on nx
+    and the dtype alone)."""
+    from repro_torch.kernels.fused_ch import xsweep_rows_per_block
+    from repro_torch.launch.stream import stream_ch_rhs_xsweep
+
+    ny, nx = 3, 40000
+    smem, sms = _build.device_info(cuda)
+    route = xsweep_rows_per_block(nx, getattr(torch, dtype).itemsize, ny, smem,
+                                  sms).route
+    assert route == ("global" if dtype == "float64" else "tile")
+    h = 2 * np.pi / 1024
+    p = dict(dt=1e-3, D=0.6, gamma=0.01, inv_h2=h**-2, inv_h4=h**-4)
+    beta = (2 / 3) * 0.6 * 0.01 * 1e-3 * h**-4
+    fac_x = P.cyclic_penta_factor(
+        *P.hyperdiffusion_diagonals(nx, beta, dtype), device=cuda)
+    cn = _field((ny, nx), getattr(torch, dtype), cuda, 4)
+    cm = _field((ny, nx), getattr(torch, dtype), cuda, 5)
+    want = ops.ch_rhs_xsweep(cn, cm, fac_x, **p)
+    before = _build.LAUNCHES["ch_rhs_xsweep"]
+    got = stream_ch_rhs_xsweep(cn, cm, fac_x, chunk_rows=1, streams=2, **p)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ch_rhs_xsweep"] == before + ny
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -170,22 +261,60 @@ def test_stencil1d_batch(cuda, point_fn, bc, shape, dtype):
         _assert_close(got, along(plain, data, init), dtype, 10)
 
 
+# Shapes: tiles whole and ragged (61 x 67 x 71), small, and extents below
+# the halos.  Halos: the 27-point box, asymmetric ones, halos wider than an
+# extent (the modulo wrap: 5 > 3 along x, 4 > 3 along y on the (2, 3, 3)
+# box), and ones too wide for the shared-memory ring in float64 (the
+# direct route; float32 fits it).  Coefficients: dense, and with most taps
+# zero; each summed over every window and over its non-zero taps.
+S3_CASES = [(shape, halos)
+            for shape in ((16, 16, 32), (7, 11, 13), (61, 67, 71), (2, 3, 3))
+            for halos in ((1, 1, 1, 1, 1, 1), (0, 2, 1, 0, 2, 1),
+                          (2, 0, 4, 1, 0, 5))]
+S3_CASES += [(shape, (12, 12, 12, 12, 0, 0)) for shape in ((7, 11, 13), (2, 3, 3))]
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("shape", [(16, 16, 32), (7, 11, 13)])
 @pytest.mark.parametrize("bc", ["periodic", "np"])
-@pytest.mark.parametrize("halos", [(1, 1, 1, 1, 1, 1), (0, 2, 1, 0, 2, 1)])
-def test_stencil3d(cuda, halos, bc, shape, dtype):
+@pytest.mark.parametrize(("shape", "halos"), S3_CASES)
+def test_stencil3d(cuda, shape, halos, bc, dtype):
     fr, bk, tp, bt, lf, rt = halos
+    n = (fr + bk + 1) * (tp + bt + 1) * (lf + rt + 1)
     data = _field(shape, dtype, cuda, 11)
-    coeffs = _field(((fr + bk + 1) * (tp + bt + 1) * (lf + rt + 1),), dtype, cuda, 12)
+    coeffs = _field((n,), dtype, cuda, 12)
+    sparse = coeffs.clone()
+    sparse[torch.arange(n, device=cuda) % 5 != 0] = 0.0
     init = _field(shape, dtype, cuda, 13) if bc == "np" else None
     for point_fn in (weighted_point_fn, cube_laplacian_point_fn):
-        kw = dict(point_fn=point_fn, halos=halos, bc=bc)
-        before = _build.LAUNCHES["stencil3d"]
-        got = ops.stencil_apply_3d(data, coeffs, init, **kw)
-        assert _build.LAUNCHES["stencil3d"] == before + 1
-        _assert_close(got, ops.stencil_apply_3d(data, coeffs, init,
-                                                backend="torch", **kw), dtype, 10)
+        for c in (coeffs, sparse):
+            kw = dict(point_fn=point_fn, halos=halos, bc=bc)
+            want = ops.stencil_apply_3d(data, c, init, backend="torch", **kw)
+            # every window, then the non-zero taps (None past 32 of them)
+            for taps in (None, nonzero_taps(c.cpu().numpy(), halos)):
+                before = _build.LAUNCHES["stencil3d"]
+                got = ops.stencil_apply_3d(data, c, init, taps=taps, **kw)
+                assert _build.LAUNCHES["stencil3d"] == before + 1
+                _assert_close(got, want, dtype, 10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("bc", ["periodic", "np"])
+def test_stencil3d_laplacian_plan_256(cuda, bc, dtype):
+    """The 3D run's 7-point plan at 256^3 through compute (its Create-time
+    taps), np with out_init."""
+    import repro_torch as rt
+
+    shape = (256, 256, 256)
+    lap = create("laplacian", shape, bc=bc, h=2 * np.pi / 256, dtype=dtype)
+    plain = create("laplacian", shape, bc=bc, h=2 * np.pi / 256, dtype=dtype,
+                   backend="torch")
+    assert len(lap.taps.offsets) == 7
+    data = _field(shape, dtype, cuda, 24)
+    init = _field(shape, dtype, cuda, 25) if bc == "np" else None
+    before = _build.LAUNCHES["stencil3d"]
+    got = rt.compute(lap, data, init)
+    assert _build.LAUNCHES["stencil3d"] == before + 1
+    _assert_close(got, rt.compute(plain, data, init), dtype, 10)
 
 
 # (P, M, N).  The first two through a rank-3 ADI plan (every extent >= 6:
@@ -228,10 +357,13 @@ def test_penta_mid_and_3d_sweeps(cuda, bc, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("shape", [(1024, 1024), (1021, 1019), (6, 5), (2, 3)])
+@pytest.mark.parametrize("shape", [(1024, 1024), (1021, 1019), (6, 5), (2, 3),
+                                   (1, 1), (2, 2), (3, 3), (31, 33), (33, 31),
+                                   (1, 37), (40, 2)])
 def test_weno5_advect(cuda, shape, dtype):
-    """1024^2, ragged, and extents below the 7-point support (the +-3
-    offsets wrap more than half a line; below 3 the general modulo)."""
+    """1024^2, ragged, extents below the 7-point support (the +-3 offsets
+    wrap more than half a line; below 3 the general modulo), and extents
+    around the 32 x 16 tile."""
     ny, nx = shape
     q, u, v = (_field(shape, dtype, cuda, s) for s in (15, 16, 17))
     u[::3] = 0.0  # u == 0 takes the right-biased branch in both versions

@@ -442,12 +442,18 @@ def test_xsweep_rows_per_block():
     from repro_torch.kernels.fused_ch import xsweep_rows_per_block
 
     # 1024-wide float64 rows and their factors on an H100
-    assert xsweep_rows_per_block(1024, 8, 1024, 232448, 132) == (8, True)
-    assert xsweep_rows_per_block(1024, 8, 128, 232448, 132) == (1, True)
+    assert xsweep_rows_per_block(1024, 8, 1024, 232448, 132) == ("tile", 8, True)
+    assert xsweep_rows_per_block(1024, 8, 128, 232448, 132) == ("tile", 1, True)
     # a float64 row of 8000 fits, its factors do not
-    assert xsweep_rows_per_block(8000, 8, 3, 232448, 132) == (1, False)
-    with pytest.raises(ValueError, match="does not fit"):
-        xsweep_rows_per_block(40000, 8, 3, 232448, 132)
+    assert xsweep_rows_per_block(8000, 8, 3, 232448, 132) == ("tile", 1, False)
+    # a float64 row of 40000 does not fit: the device-memory route
+    assert xsweep_rows_per_block(40000, 8, 3, 232448, 132) == ("global", 0, False)
+    # the route depends on nx and the dtype alone, never on the rows
+    for n_rows in (1, 3, 128, 1 << 20):
+        for isz, nx in ((8, 29055), (4, 58111)):
+            assert xsweep_rows_per_block(nx, isz, n_rows, 232448, 132).route == "tile"
+            assert xsweep_rows_per_block(nx + 1, isz, n_rows, 232448,
+                                         132).route == "global"
 
 
 def test_backend_dispatch_on_cpu():
