@@ -20,8 +20,9 @@ float64, on the main path's inputs:
 - ``weno5_advect`` at 1024^2 (the rotating blob of
   ``examples/weno_advection.py``) and ``stencil3d`` at 256^3 (the 3D run's
   7-point Laplacian plan, through ``compute``);
-- ``stencil2d`` (the solver's 5x3 weighted plan and its 3x3 cube plan)
-  and ``stencil1d_batch`` (the ``_D4`` plan along x) at 1024^2;
+- ``stencil2d`` (the solver's 5x3 weighted plan, its 3x3 cube plan and
+  the stencil mode's 5x5 biharmonic plan) and ``stencil1d_batch`` (the
+  ``_D4`` plan along x, and along y on the transposed view) at 1024^2;
 - each a median of 20 calls (CUDA events around a call) and the mean
   device time of its kernel over 20 calls (``torch.profiler``), after 3
   of warm-up;
@@ -33,8 +34,9 @@ float64, on the main path's inputs:
   the plane sweep with at most 8, 16 and 32 columns a block
   (``MID_MAX_COLS``), and the 3D stencil's z chunks for 1, 2 and 4
   resident grids (``WAVES`` in ``kernels/stencil3d.py``);
-- ms/step of the fused and batched-1D Cahn–Hilliard steps at 1024^2 (CUDA
-  events around 200 and 50 steps after a 20-step warm-up), of the 3D LOD
+- ms/step of the fused, stencil-mode and batched-1D Cahn–Hilliard steps at
+  1024^2 (CUDA events around 200, 50 and 50 steps after a 20-step
+  warm-up), of the 3D LOD
   diffusion step at 256^3 (20 steps after 20) and of the WENO RK3 step at
   1024^2 (200 steps after 20), with the host's enqueue time per step.
   The steps run first, before any profiler session, so that every
@@ -165,6 +167,7 @@ def main() -> int:
     )
     import repro_torch as rt
     from repro_torch.kernels import _build, ops
+    from repro_torch.core.adi import apply_along_y
     from repro_torch.kernels import penta as P
     from repro_torch.kernels import stencil3d as S3
     from repro_torch.core.weno import (
@@ -218,8 +221,11 @@ def main() -> int:
         "stencil3d 256^3 (7-point)": lambda: rt.compute(lap3, mid3),
         "stencil2d 1024^2 (5x3 weighted)": lambda: solver.plan_init_a.apply(cn),
         "stencil2d 1024^2 (3x3 cube)": lambda: solver.plan_lap_cube.apply(cn),
+        "stencil2d 1024^2 (5x5 biharmonic)": lambda: solver.plan_bih.apply(cn),
         "stencil1d_batch 1024^2 (_D4 along x)":
             lambda: solver.plan_d4_1d.apply(cn),
+        "stencil1d_batch 1024^2 (_D4 along y)":
+            lambda: apply_along_y(solver.plan_d4_1d, cn),
     }
     rows_shapes = ("penta_rows (1024, 1024)", "penta_rows (65536, 256)")
     mid = "penta_mid (256, 256, 256)"
@@ -238,6 +244,8 @@ def main() -> int:
     times = {}
     c0 = band_limited_quench(n, seed=0)
     for name, s_, steps in (("fused", solver, 200),
+                            ("stencil", CahnHilliardADI(CHConfig(
+                                nx=n, ny=n, rhs_mode="stencil")), 50),
                             ("batch1d", CahnHilliardADI(CHConfig(
                                 nx=n, ny=n, rhs_mode="batch1d")), 50)):
         ms, enq = step_ms(s_, c0, steps)

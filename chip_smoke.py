@@ -40,8 +40,20 @@ printing a result:
    CUDA source (``w[0] w[1] - c[0] w[2]``, not a sum of terms) is built
    at Create into its own copy of the stencil libraries and checked on
    each stencil kernel (a 2D plan and a batched-1D plan at 1024^2, a 3D
-   plan at 256^3; periodic and np with out_init).  The 3D stencil runs
-   with its plan's Create-time taps.
+   plan at 256^3; periodic and np with out_init).  The stencils run with
+   their plans' Create-time taps.  The 2D and batched-1D kernels also at
+   the edges of their geometry, through plans in weighted, cube and user
+   mode, float64 and float32, periodic and np with and without out_init:
+   one row, one column, halos wider than the extent, 1021x1019; the
+   stacks (1, 1), (3, 40000), (65536, 16) and 1024^2 along x and along y;
+   and streamed plans (row and line windows) equal bit for bit to their
+   monolithic launch.  The grid-limit shapes, the smallest ny at which
+   the first launchers asked for more than 65535 blocks in grid.y:
+   ``stencil2d`` and ``ch_rhs`` at 524281x8, ``weno5_advect`` at
+   1048561x8, ``stencil3d`` at (1, 524281, 8) on its direct route and
+   (1, 2097121, 8) on its tile route.  Timed besides: the 5x5 biharmonic
+   plan (yardstick circular pad + ``F.conv2d``) and ``stencil1d_batch``
+   along y (circular pad + ``F.conv2d`` with a (5, 1) kernel).
 4. Paths, each run with the launch counts set to 0 just before it and
    read just after:
    a. Main path: the 1024x1024 float64 Cahn–Hilliard solver, bootstrap
@@ -74,7 +86,8 @@ printing a result:
       to the monolithic runs of 4a and 4b, launch counts asserted (chunks
       times launches per step).
 5. Timing: ms/step of the fused step over 200 steps after 20 of warm-up,
-   of the batched-1D step, of the 3D LOD step, of the WENO RK3 step at
+   of the stencil-mode and batched-1D steps, of the 3D LOD step, of the
+   WENO RK3 step at
    1024^2 and of the streamed fused and batched-1D steps (host clock,
    CUDA events, and the host's enqueue time per step); each piece of the
    steps timed alone; and one ``torch.profiler`` window over 20 fused
@@ -131,8 +144,9 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
 # Tolerances, as tolerance_for(dtype, scale) held norm-wise:
 #   max|kernel - plain| <= atol + rtol * max|plain|.
-# stencil2d: one pass of <= 25 products; FMA contraction and summation
-#   order move each output by a few ulp of the largest term -> scale 10.
+# stencil2d: one pass of <= 25 products on the main path (110 in the
+#   wide-halo edge case); FMA contraction and summation order move each
+#   output by a few ulp of the largest term -> scale 10.
 # penta_*: a serial recurrence over M = 1024 steps forward and back; the
 #   kernel's FMAs round each step differently and the difference is carried
 #   through L^{-1} and U^{-1} (cond(L) <= 1 + 16 beta, about 4.5e4 here)
@@ -143,8 +157,8 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 #   as penta_*) -> scale 10, which keeps the float32 limit (0.26 at 1024^2)
 #   under what the nonlinear term k_lap * lap(c^3 - c) adds after the
 #   x-solve, so a kernel that dropped it fails.
-# stencil1d_batch, stencil3d: one pass of <= 5 (<= 27) products, as
-#   stencil2d -> scale 10.
+# stencil1d_batch, stencil3d: one pass of <= 5 (<= 27; 61 on the 3D
+#   direct route's grid-limit case) products, as stencil2d -> scale 10.
 # ch_rhs: the RHS alone, about 60 operations per point whose terms carry
 #   k_bih ~ 2.8e3 at 1024^2; max|plain| already carries that factor, so
 #   what is left is a few ulp of the summation -> scale 10.  Phase 3 also
@@ -391,6 +405,8 @@ def main() -> int:
         AdvectionConfig, WenoAdvection2D, gaussian_blob, solid_body_rotation,
     )
     from repro_torch.kernels.fused_ch import xsweep_rows_per_block
+    from repro_torch.kernels import stencil1d_batch as S1
+    from repro_torch.kernels import stencil2d as S2
     from repro_torch.kernels import stencil3d as S3
     from repro_torch.kernels.stencil2d import cuda_point_fn
     from repro_torch.launch import stream as S
@@ -485,6 +501,15 @@ def main() -> int:
             S3.stencil3d_geometry((N3,) * 3, (1,) * 6, 8, smem, sms)._asdict(),
         f"stencil3d {RAGGED_3D} float64, 7-point":
             S3.stencil3d_geometry(RAGGED_3D, (1,) * 6, 8, smem, sms)._asdict(),
+        f"stencil2d ({N_MAIN}, {N_MAIN}) float64, 5x5":
+            S2.stencil2d_geometry((N_MAIN, N_MAIN), (2,) * 4, 8, smem,
+                                  sms)._asdict(),
+        f"stencil1d_batch ({N_MAIN}, {N_MAIN}) float64, _D4 along x":
+            S1.stencil1d_batch_geometry(N_MAIN, N_MAIN, (2, 2), False, 8, smem,
+                                        sms)._asdict(),
+        f"stencil1d_batch ({N_MAIN}, {N_MAIN}) float64, _D4 along y":
+            S1.stencil1d_batch_geometry(N_MAIN, N_MAIN, (2, 2), True, 8, smem,
+                                        sms)._asdict(),
     }
     record["segment_geometry"] = seg_geometry
     for name, geo in seg_geometry.items():
@@ -513,7 +538,7 @@ def main() -> int:
             return ops.stencil_apply(
                 data, plan.coeffs.to(data.dtype), out_init,
                 point_fn=plan.point_fn, bc=bc, backend=backend,
-                **plan._halo_kwargs(),
+                taps=plan.taps, **plan._halo_kwargs(),
             )
         return run
 
@@ -563,7 +588,7 @@ def main() -> int:
             return ops.stencil_apply_batch1d(
                 data, plan.coeffs.to(data.dtype), out_init,
                 point_fn=plan.point_fn, bc=bc, backend=backend,
-                **plan._halo_kwargs(),
+                taps=plan.taps, **plan._halo_kwargs(),
             )
         return run
 
@@ -758,6 +783,119 @@ def main() -> int:
           f"{record['user_point_fn_build_seconds']:.1f} s -> "
           f"{[b['dir'] for b in user_builds]}", flush=True)
 
+    # the redesigned 2D and batched-1D kernels at the edges of their
+    # geometry, through plans (Create-time taps, or the user's source): ny
+    # = 1, nx = 1, halos wider than the extent, both dtypes, periodic and
+    # np with and without out_init; the batch stacks along x and along y;
+    # each streamed plan bit for bit its monolithic launch (`streamed`)
+    streamed = []  # (kernel, label, run(): (streamed, monolithic))
+
+    def edge_plans(kind, extents, bc, dtype, batch, **kw):
+        nw = (sum(extents[:2]) + 1) * (1 if batch else sum(extents[2:]) + 1)
+        w = torch.linspace(-1.0, 1.0, nw, dtype=torch.float64).numpy().copy()
+        w[1::3] = 0.0
+        ext = dict(zip(("left", "right", "top", "bottom"), extents))
+        mode = "batch" if batch else None
+        if kind == "weighted":
+            fn, coeffs = (w if batch else w.reshape(ext["top"] + ext["bottom"]
+                                                     + 1, -1)), None
+            mode = mode or "xy"
+        elif kind == "cube":
+            fn, coeffs = cube_laplacian_point_fn, w
+        else:
+            fn, coeffs = user_fn, [0.7, -1.3]
+        return [rt.create(fn, (8, 8), bc=bc, mode=mode, coeffs=coeffs,
+                          extents=ext, dtype=dtype, backend=b, **kw)
+                for b in ("cuda", "torch")]
+
+    def edge_field(shape, dtype, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        u = torch.rand(shape, generator=g, device=dev, dtype=torch.float64)
+        return (u - 0.5).to(getattr(torch, dtype))
+
+    for dtype in ("float64", "float32"):
+        for shape, extents in (((1, 37), (2, 1, 0, 0)), ((29, 1), (0, 0, 1, 2)),
+                               ((3, 5), (7, 2, 4, 6)),
+                               ((1021, 1019), (2, 2, 2, 2))):
+            data_e = edge_field(shape, dtype, 50)
+            # a user build a window count: the 110 windows of the wide
+            # halos are left to the library's point functions
+            kinds = ("weighted", "cube") if shape == (3, 5) else (
+                "weighted", "cube", "user")
+            for kind in kinds:
+                for bc in ("periodic", "np", "np+out_init"):
+                    k_plan, p_plan = edge_plans(kind, extents, bc[:2] if
+                                                bc != "periodic" else bc,
+                                                dtype, False)
+                    oi = edge_field(shape, dtype, 51) if bc == "np+out_init" \
+                        else None
+                    cases.append(("stencil2d", f"{kind} {bc} {shape} {dtype}",
+                                  dtype, lambda b, k=k_plan, q=p_plan, d=data_e,
+                                  o=oi: (k if b == "cuda" else q).apply(d, o)))
+        for shape in ((1, 1), (3, 40000), (65536, 16), (N_MAIN, N_MAIN)):
+            data_e = edge_field(shape, dtype, 52)
+            for kind in ("weighted", "cube", "user"):
+                for bc in ("periodic", "np+out_init"):
+                    k_plan, p_plan = edge_plans(kind, (3, 1), bc[:2] if
+                                                bc != "periodic" else bc,
+                                                dtype, True)
+                    oi = edge_field(shape, dtype, 53) if bc != "periodic" \
+                        else None
+                    for along in (apply_along_x, apply_along_y):
+                        cases.append((
+                            "stencil1d_batch", f"{kind} {bc} {shape} "
+                            f"{along.__name__} {dtype}", dtype,
+                            lambda b, k=k_plan, q=p_plan, d=data_e, o=oi,
+                            a=along: a(k if b == "cuda" else q, d, o)))
+    # streamed windows: row chunks of a ragged 2D field, line chunks of the
+    # many short lines and of 1024^2 along y
+    for kind in ("weighted", "cube", "user"):
+        for batch, shape, extents, along in (
+                (False, (1021, 1019), (2, 2, 2, 2), None),
+                (True, (65536, 16), (3, 1), apply_along_x),
+                (True, (65536, 16), (3, 1), apply_along_y),
+                (True, (N_MAIN, N_MAIN), (3, 1), apply_along_y)):
+            mono = edge_plans(kind, extents, "np", "float64", batch)[0]
+            chunked = edge_plans(kind, extents, "np", "float64", batch,
+                                 streams=STREAMS, max_tile_bytes=TILE_BYTES)[0]
+            d_s = edge_field(shape, "float64", 54)
+            o_s = edge_field(shape, "float64", 55)
+            apply = (lambda p, d, o: p.apply(d, o)) if along is None else along
+            streamed.append((
+                "stencil1d_batch" if batch else "stencil2d",
+                f"{kind} {shape} {'' if along is None else along.__name__}",
+                lambda a=apply, m=mono, c=chunked, d=d_s, o=o_s:
+                (a(c, d, o), a(m, d, o))))
+    # the grid-limit shapes: the smallest ny at which the first launchers
+    # asked for more than 65535 blocks in grid.y (8-row tiles: 524281;
+    # 16 rows: 1048561; 32 rows: 2097121), a narrow nx, float64
+    tall = [edge_field((524281, 8), "float64", s) for s in (56, 57)]
+    bih_tall = rt.create("biharmonic", tall[0].shape)
+    cases.append(("stencil2d", "biharmonic plan 524281x8", "float64",
+                  lambda b: ops.stencil_apply(
+                      tall[0], bih_tall.coeffs, backend=b, taps=bih_tall.taps,
+                      **bih_tall._halo_kwargs())))
+    cases.append(("ch_rhs", "rhs 524281x8", "float64",
+                  lambda b: ops.ch_rhs(*tall, backend=b, **ch_kw)))
+    q_tall = [edge_field((1048561, 8), "float64", s) for s in (58, 59, 60)]
+    cases.append(("weno5_advect", "random 1048561x8", "float64",
+                  lambda b: ops.weno_advect(*q_tall, dx=0.1, dy=0.1,
+                                            backend=b)))
+    for shape, halos, route in (((1, 524281, 8), (30, 30, 0, 0, 0, 0),
+                                 "direct"),
+                                ((1, 2097121, 8), (1,) * 6, "tile")):
+        nwin = (halos[0] + halos[1] + 1) * (halos[2] + halos[3] + 1)
+        plan3 = rt.create(torch.linspace(0.1, 1.0, nwin, dtype=torch.float64)
+                          .reshape(-1, halos[2] + halos[3] + 1, 1).numpy()
+                          if route == "direct" else lap3.coeffs.reshape(
+                              3, 3, 3).cpu().numpy(), shape, mode="xyz")
+        if S3.stencil3d_geometry(shape, halos, 8, smem, sms).route != route:
+            raise PhaseError(f"stencil3d {shape} {halos}: not the {route} route")
+        u_tall = edge_field(shape, "float64", 61)
+        cases.append(("stencil3d", f"{route} route {'x'.join(map(str, shape))}",
+                      "float64", lambda b, p=plan3, u=u_tall: ops.stencil_apply_3d(
+                          u, p.coeffs, halos=p.halos, backend=b, taps=p.taps)))
+
     checks, failures = [], []
     for kernel, label, dtype, run in cases:
         got = run("cuda")
@@ -776,8 +914,20 @@ def main() -> int:
               flush=True)
         if not ok:
             failures.append(f"{kernel} {label}")
+    for kernel, label, run in streamed:
+        got, want = run()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, want))
+        checks.append(dict(kernel=kernel, label=f"streamed {label}",
+                           dtype="float64", bit_for_bit=same, ok=same,
+                           max_abs_err=float((got - want).abs().max())))
+        print(f"[check] {'ok ' if same else 'BAD'} {kernel:14s} streamed "
+              f"{label}: equal to the monolithic launch bit for bit: {same}",
+              flush=True)
+        if not same:
+            failures.append(f"{kernel} streamed {label}")
     for c in checks:
-        if c["kernel"] != "ch_rhs":
+        if c["kernel"] != "ch_rhs" or c["label"] not in nl_term:
             continue
         moved = nl_term[c["label"]]
         c["dropped_nonlinear_term_moves"] = moved
@@ -797,10 +947,17 @@ def main() -> int:
     N = N_MAIN * N_MAIN
     isz = 8
     n_fac = 9 * N_MAIN * isz  # five factors and the (M, 4) Woodbury matrix
+    # the 2D and batched-1D plans sum their Create-time taps: 2 flops a
+    # tap a point, less the first product's add
     a = solver.plan_init_a
-    taps = a.num_sten
+    bih = solver.plan_bih
+    BIH = "stencil2d 5x5 biharmonic"
+    ALONG_Y = "stencil1d_batch d4 along y (transposed view)"
     timed = {
-        "stencil2d": (stencil_call(a, cn), 2 * N * isz, (2 * taps - 1) * N),
+        "stencil2d": (stencil_call(a, cn), 2 * N * isz,
+                      (2 * len(a.taps.weights) - 1) * N),
+        BIH: (stencil_call(bih, cn), 2 * N * isz,
+              (2 * len(bih.taps.weights) - 1) * N),
         "penta_rows": (
             lambda b: P.cyclic_penta_solve_factored_rows(
                 solver.op_half.fac_x, rhs, backend=b),
@@ -825,7 +982,9 @@ def main() -> int:
     d4 = solver.plan_d4_1d
     timed.update({
         "stencil1d_batch": (batch_call(d4, cn), 2 * N * isz,
-                            (2 * d4.num_sten - 1) * N),
+                            (2 * len(d4.taps.weights) - 1) * N),
+        ALONG_Y: (batch_call(d4, cn.T), 2 * N * isz,
+                  (2 * len(d4.taps.weights) - 1) * N),
         "ch_rhs": (lambda b: ops.ch_rhs(cn, cm, backend=b, **ch_kw),
                    3 * N * isz, 88 * N),
         "stencil3d": (stencil3d_call(lap3, u3), 2 * N3c * isz,
@@ -898,6 +1057,14 @@ def main() -> int:
         "stencil1d_batch": lambda: F.conv1d(
             F.pad(cn[:, None, :], (d4.left, d4.right), mode="circular"),
             w_d4)[:, 0],
+        # along y: circular pad of the rows and a (5, 1) kernel
+        ALONG_Y: lambda: F.conv2d(
+            F.pad(cn[None, None], (0, 0, d4.left, d4.right), mode="circular"),
+            d4.coeffs.view(1, 1, -1, 1))[0, 0].T,
+        BIH: lambda: F.conv2d(
+            F.pad(cn[None, None], (bih.left, bih.right, bih.top, bih.bottom),
+                  mode="circular"),
+            bih.coeffs.view(1, 1, bih.top + bih.bottom + 1, -1))[0, 0],
         "stencil3d": lambda: F.conv3d(
             F.pad(u3[None, None], (1,) * 6, mode="circular"), w_lap3)[0, 0],
     }
@@ -905,9 +1072,6 @@ def main() -> int:
     for kernel, fn in lib.items():
         lib_err[kernel] = float((fn() - timed[kernel][0]("cuda")).abs().max())
         timings[kernel]["library_ms"] = time_ms(fn)
-    # the batched-1D kernel along y: the transposed view, read in place
-    timings["stencil1d_batch d4 along y (transposed view)"] = dict(
-        ms=time_ms(lambda: batch_call(d4, cn.T)("cuda")))
     fac_l = P.cyclic_penta_factor(
         *P.hyperdiffusion_diagonals(LONG_ROWS[1], beta_full), device=dev)
     cn_l, cm_l = cn[:LONG_ROWS[0]].repeat(1, 40)[:, :LONG_ROWS[1]].contiguous(), \
@@ -1247,6 +1411,7 @@ def main() -> int:
 
     step_times = {}
     for name, s_, steps in (("fused", solver, N_TIMED),
+                            ("stencil", stencil, N_TIMED_B1D),
                             ("batch1d", b1d, N_TIMED_B1D),
                             ("fused streamed", s_fused, N_TIMED),
                             ("batch1d streamed", s_b1d, N_TIMED_B1D)):
@@ -1318,12 +1483,14 @@ def main() -> int:
         print(f"[time] {name}: {t['events']:.4f} ms (events), device {how}")
     record["fused_profile"] = profile_fused(solver, pair_of(solver))
     record["ms_per_step"] = step_times["fused"]
+    record["ms_per_step_stencil"] = step_times["stencil"]
     record["ms_per_step_batch1d"] = step_times["batch1d"]
     record["ms_per_step_lod3d"] = step_times["lod3d"]
     record["ms_per_step_weno"] = step_times["weno"]
     record["ms_per_step_streamed"] = {k: step_times[f"{k} streamed"]
                                       for k in ("fused", "batch1d")}
     for name, what in (("fused", f"fused step at {N_MAIN}^2 float64"),
+                       ("stencil", f"stencil-mode step at {N_MAIN}^2 float64"),
                        ("batch1d", f"batch1d step at {N_MAIN}^2 float64"),
                        ("lod3d", f"3D LOD step at {N3}^3 float64"),
                        ("weno", f"WENO RK3 step at {N_MAIN}^2 float64"),

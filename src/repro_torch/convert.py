@@ -19,9 +19,15 @@ import numpy as np
 import torch
 
 from repro_torch.core.adi import ADIOperator, ADIOperator3D
-from repro_torch.core.stencil import Stencil2D, Stencil3D, StencilBatch1D
+from repro_torch.core.stencil import (
+    Stencil2D,
+    Stencil3D,
+    StencilBatch1D,
+    plan_taps_of,
+)
 from repro_torch.kernels.penta import CyclicPentaFactors, PentaFactors
 from repro_torch.kernels.ref import weighted_point_fn
+from repro_torch.kernels.taps import halos_1d, halos_2d
 from repro_torch.launch.stream import stream_fields
 from repro_torch.util import resolve_device
 
@@ -112,7 +118,8 @@ def stencil_batch1d(
     _check_weighted(coeffs_t, point_fn, left + right + 1)
     return StencilBatch1D(
         bc=bc, left=left, right=right, coeffs=coeffs_t, point_fn=point_fn,
-        backend=backend, **stream_fields(streams, max_tile_bytes, dev),
+        backend=backend, taps=plan_taps_of(coeffs_t, point_fn, halos_1d(left, right)),
+        **stream_fields(streams, max_tile_bytes, dev),
     )
 
 
@@ -135,6 +142,7 @@ def stencil3d(
         direction=axes if len(axes) == 1 else "xyz", bc=bc, front=fr, back=bk,
         top=tp, bottom=bt, left=lf, right=rt, coeffs=coeffs_t,
         point_fn=point_fn, backend=backend,
+        taps=plan_taps_of(coeffs_t, point_fn, (fr, bk, tp, bt, lf, rt)),
     )
 
 
@@ -163,5 +171,6 @@ def stencil2d(
     return Stencil2D(
         direction=direction, bc=bc, left=left, right=right, top=top,
         bottom=bottom, coeffs=coeffs_t, point_fn=point_fn, backend=backend,
+        taps=plan_taps_of(coeffs_t, point_fn, halos_2d(left, right, top, bottom)),
         **stream_fields(streams, max_tile_bytes, dev),
     )

@@ -34,7 +34,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels._build import check_backend, point_fn_build
 from repro_torch.kernels.ref import weighted_point_fn
 from repro_torch.kernels.stencil2d import user_point_source
-from repro_torch.kernels.stencil3d import Taps3D, nonzero_taps
+from repro_torch.kernels.taps import Taps, halos_1d, halos_2d, plan_taps
 from repro_torch.launch import stream as _stream
 from repro_torch.util import refuse_unported, resolve_device, torch_dtype
 
@@ -62,7 +62,10 @@ class PlanCore:
     coefficients (weights or function-pointer coefficients, on the plan's
     device), the point function, the backend request and the streaming
     knobs (``streams`` / ``max_tile_bytes`` mirror cuSten's ``nStreams``;
-    ``stream_pool`` holds the plan's CUDA streams, made at Create)."""
+    ``stream_pool`` holds the plan's CUDA streams, made at Create), and
+    the non-zero taps the kernel sums (weighted and cube modes; None:
+    every window), reduced at Create from the coefficients
+    (:func:`repro_torch.kernels.taps.plan_taps`)."""
 
     bc: str
     coeffs: torch.Tensor
@@ -72,6 +75,8 @@ class PlanCore:
     streams: int | None = None
     max_tile_bytes: int | None = None
     stream_pool: tuple = dataclasses.field(default=(), compare=False, repr=False)
+    taps: Taps | None = dataclasses.field(default=None, compare=False,
+                                          repr=False)
 
     @property
     def destroyed(self) -> bool:
@@ -107,11 +112,11 @@ class PlanCore:
                 data, self.coeffs, out_init, point_fn=self.point_fn,
                 bc=self.bc, streams=self.streams,
                 max_tile_bytes=self.max_tile_bytes, compute=self.backend,
-                pool=self.stream_pool, **self._halo_kwargs(),
+                pool=self.stream_pool, taps=self.taps, **self._halo_kwargs(),
             )
         return self._mono_apply(
             data, self.coeffs, out_init, point_fn=self.point_fn, bc=self.bc,
-            backend=self.backend, **self._halo_kwargs(),
+            backend=self.backend, taps=self.taps, **self._halo_kwargs(),
         )
 
     def __call__(self, data, out_init=None):
@@ -126,6 +131,14 @@ def _build_point_fn(point_fn: Callable, nwin: int, device, backend: str) -> None
     if (source is not None and backend != "torch"
             and resolve_device(device).type == "cuda"):
         point_fn_build(source, nwin)
+
+
+def plan_taps_of(coeffs_t: torch.Tensor, point_fn: Callable, halos):
+    """Create's reduction of a plan's coefficients to the non-zero taps its
+    kernel sums (:func:`repro_torch.kernels.taps.plan_taps`; halos in the
+    3D order)."""
+    return plan_taps(coeffs_t, halos,
+                     user=user_point_source(point_fn) is not None)
 
 
 def plan_destroy(plan) -> None:
@@ -244,6 +257,8 @@ def _create_2d(
         direction=direction, bc=bc, left=left, right=right, top=top,
         bottom=bottom, coeffs=coeffs_t, point_fn=point_fn,
         backend=backend, op_name=op_name,
+        taps=plan_taps_of(coeffs_t, point_fn, halos_2d(left, right, top,
+                                                        bottom)),
         **_stream.stream_fields(streams, max_tile_bytes, resolve_device(device)),
     )
 
@@ -321,6 +336,7 @@ def _create_1d_batch(
     return StencilBatch1D(
         bc=bc, left=left, right=right, coeffs=coeffs_t, point_fn=point_fn,
         backend=backend, op_name=op_name,
+        taps=plan_taps_of(coeffs_t, point_fn, halos_1d(left, right)),
         **_stream.stream_fields(streams, max_tile_bytes, resolve_device(device)),
     )
 
@@ -337,16 +353,12 @@ class Stencil3D(PlanCore):
     bottom: int
     left: int
     right: int
-    # the non-zero taps the kernel sums (weighted and cube modes; None:
-    # every window), reduced at Create from the plan's coefficients
-    taps: Taps3D | None = dataclasses.field(default=None, compare=False,
-                                            repr=False)
 
     def _halo_kwargs(self) -> dict:
         return dict(halos=self.halos)
 
     def _mono_apply(self, *args, **kwargs):
-        return ops.stencil_apply_3d(*args, taps=self.taps, **kwargs)
+        return ops.stencil_apply_3d(*args, **kwargs)
 
     @property
     def num_sten(self) -> int:
@@ -441,15 +453,12 @@ def _create_3d(
         coeffs_t, point_fn = tensor(_host(coeffs)), func
     halos = (front, back, top, bottom, left, right)
     nwin = (front + back + 1) * (top + bottom + 1) * (left + right + 1)
-    taps = None
-    if user_point_source(point_fn) is not None:
-        _build_point_fn(point_fn, nwin, device, backend)
-    elif coeffs_t.numel() == nwin:
-        taps = nonzero_taps(coeffs_t.cpu().numpy(), halos)
+    _build_point_fn(point_fn, nwin, device, backend)
     return Stencil3D(
         direction=direction, bc=bc, front=front, back=back, top=top,
         bottom=bottom, left=left, right=right, coeffs=coeffs_t,
-        point_fn=point_fn, backend=backend, op_name=op_name, taps=taps,
+        point_fn=point_fn, backend=backend, op_name=op_name,
+        taps=plan_taps_of(coeffs_t, point_fn, halos),
     )
 
 

@@ -79,11 +79,11 @@ _ENTRY_POINTS = {
         ("penta_rows_occupancy", [_I, _I, _P]),
     ),
     "stencil2d.cu": (
-        ("stencil2d", [_I, _I, _I, _P, _P, _P, _P] + [_I] * 8 + [_P]),
+        ("stencil2d", [_I, _I, _I, _P, _P, _P, _P] + [_I] * 9 + [_P] * 4),
     ),
     "stencil1d_batch.cu": (
         ("stencil1d_batch",
-         [_I, _I, _I, _P, _P, _P, _P, _I, _I, _L, _L] + [_I] * 4 + [_P]),
+         [_I, _I, _I, _P, _P, _P, _P, _I, _I, _L, _L] + [_I] * 7 + [_P] * 4),
     ),
     "stencil3d.cu": (
         ("stencil3d", [_I, _I, _I, _P, _P, _P, _P] + [_I] * 11 + [_P] * 4),

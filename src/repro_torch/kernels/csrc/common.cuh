@@ -1,7 +1,8 @@
 // Shared pieces of the repro_torch CUDA kernels: the C export macro, the
 // error-string and device-query entry points every library carries, the
 // periodic index wrap, the device point functions of the stencil kernels
-// (stencil2d.cu, stencil1d_batch.cu, stencil3d.cu), and the pentadiagonal
+// (stencil2d.cu, stencil1d_batch.cu, stencil3d.cu) with their Create-time
+// taps and the evaluation of a point from its windows, and the pentadiagonal
 // substitution of a line held in memory, substitute_segmented: one warp
 // splits the line into 32 segments and runs it as a segmented recurrence.
 // Every sweep runs it (fused_ch.cu:ch_rhs_xsweep, the fused RHS + x-sweep;
@@ -94,6 +95,116 @@ inline int with_point_fn(int point_fn, F&& f) {
   }
 #endif
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Wrap an index in [-n, 2n) onto [0, n) by a compare and an add (NEAR:
+// every halo no wider than its extent), or any index by the modulo.
+template <bool NEAR>
+__device__ __forceinline__ int wrap(int q, int n) {
+  if (NEAR) return q < 0 ? q + n : (q >= n ? q - n : q);
+  return wrap_index(q, n);
+}
+
+// The non-zero taps of a weighted or cube plan, in window order
+// (kernels/taps.py:nonzero_taps, reduced at Create): window (c[t], a[t],
+// b[t]) of the (z, y, x) box and its weight w[t]; a 2D window (a, b) is
+// (0, a, b), a 1D window k is (0, 0, k).  n < 0: not reduced (the dense
+// path).  Kernels take it by value as a __grid_constant__ parameter, read
+// through the constant cache.
+constexpr int kMaxTaps = 32;  // kernels/taps.py:MAX_TAPS
+
+struct Taps {
+  int n;
+  int c[kMaxTaps];
+  int a[kMaxTaps];
+  int b[kMaxTaps];
+  double w[kMaxTaps];
+};
+
+// The taps of a C entry point's arguments (n, then the window coordinates
+// c, a, b and the weights of n taps), or n = -1 when tap_n is null.
+// False when n exceeds kMaxTaps.
+inline bool read_taps(const int* tap_n, const int* tap_cab,
+                      const double* tap_w, Taps* taps) {
+  *taps = Taps{};
+  taps->n = -1;
+  if (tap_n == nullptr) return true;
+  if (*tap_n > kMaxTaps) return false;
+  taps->n = *tap_n;
+  for (int t = 0; t < taps->n; ++t) {
+    taps->c[t] = tap_cab[3 * t];
+    taps->a[t] = tap_cab[3 * t + 1];
+    taps->b[t] = tap_cab[3 * t + 2];
+    taps->w[t] = tap_w[t];
+  }
+  return true;
+}
+
+// The NR outputs of one thread from their windows: get(c, a, b, rr) is the
+// value of window (c, a, b) of output rr, for a box of sy rows of sx
+// windows a plane and nwin windows in all.  Three ways, in the reference's
+// window order (z-major, then row-major over (y, x)):
+// - general: a user's point function on its NWIN windows, gathered into
+//   registers;
+// - taps: the sum of the non-zero taps' terms (skipping an exact-zero term
+//   changes no finite result, only the sign of an all-zero sum);
+// - dense: every window's term, its coefficient read from device memory.
+// Each tap's parameters and coefficient serve the NR outputs.
+template <typename T, typename P, int NR, typename Get>
+__device__ __forceinline__ void point_values(T (&res)[NR], const Get& get,
+                                             const Taps& taps,
+                                             const T* __restrict__ coeffs,
+                                             int nwin, int sy, int sx) {
+  if constexpr (P::kGeneral) {
+#pragma unroll
+    for (int rr = 0; rr < NR; ++rr) {
+      T w[P::kWindows];
+      int c = 0, a = 0, b = 0;
+#pragma unroll
+      for (int t = 0; t < P::kWindows; ++t) {
+        w[t] = get(c, a, b, rr);
+        if (++b == sx) {
+          b = 0;
+          if (++a == sy) {
+            a = 0;
+            ++c;
+          }
+        }
+      }
+      res[rr] = P::apply(w, coeffs);
+    }
+  } else {
+#pragma unroll
+    for (int rr = 0; rr < NR; ++rr) res[rr] = T(0);
+    if (taps.n >= 0) {
+      for (int t = 0; t < taps.n; ++t) {
+        const T wt = static_cast<T>(taps.w[t]);
+        const int c = taps.c[t], a = taps.a[t], b = taps.b[t];
+#pragma unroll
+        for (int rr = 0; rr < NR; ++rr) {
+          const T term = P::term(wt, get(c, a, b, rr));
+          res[rr] = t == 0 ? term : res[rr] + term;
+        }
+      }
+      return;
+    }
+    int c = 0, a = 0, b = 0;
+    for (int t = 0; t < nwin; ++t) {
+      const T wt = __ldg(coeffs + t);
+#pragma unroll
+      for (int rr = 0; rr < NR; ++rr) {
+        const T term = P::term(wt, get(c, a, b, rr));
+        res[rr] = t == 0 ? term : res[rr] + term;
+      }
+      if (++b == sx) {
+        b = 0;
+        if (++a == sy) {
+          a = 0;
+          ++c;
+        }
+      }
+    }
+  }
 }
 
 constexpr unsigned kFullMask = 0xffffffffu;

@@ -102,8 +102,10 @@ template <typename T>
 __global__ void __launch_bounds__(256) ch_rhs_kernel(
     const T* __restrict__ cn, const T* __restrict__ cm, T* __restrict__ out,
     int ny, int nx, int row0, int row1, T k_lin, T k_bih, T k_lap) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = row0 + blockIdx.y * blockDim.y + threadIdx.y;
+  // block x + nbx y of a one-dimensional grid (any number of rows fits)
+  const int nbx = (nx + blockDim.x - 1) / blockDim.x;
+  const int i = blockIdx.x % nbx * blockDim.x + threadIdx.x;
+  const int j = row0 + blockIdx.x / nbx * blockDim.y + threadIdx.y;
   if (i >= nx || j >= row1) return;
   const T* n_r[5];
   const T* m_r[5];
@@ -248,8 +250,8 @@ int launch_rhs(const void* cn, const void* cm, void* out, int ny, int nx,
                int row0, int row1, double k_lin, double k_bih, double k_lap,
                cudaStream_t stream) {
   const dim3 block(32, 8);
-  const dim3 grid((nx + block.x - 1) / block.x,
-                  (row1 - row0 + block.y - 1) / block.y);
+  const dim3 grid((nx + block.x - 1) / block.x *
+                  ((row1 - row0 + block.y - 1) / block.y));
   ch_rhs_kernel<T><<<grid, block, 0, stream>>>(
       static_cast<const T*>(cn), static_cast<const T*>(cm),
       static_cast<T*>(out), ny, nx, row0, row1, static_cast<T>(k_lin),

@@ -10,9 +10,10 @@
 // repro/kernels/ref.py:stencil3d_ref; the coefficient of window (c, a, b)
 // is coeffs[(c * sy + a) * sx + b].
 //
-// Three ways to evaluate a point, one device function (point_values):
+// Three ways to evaluate a point, one device function
+// (common.cuh:point_values):
 // - taps: a weighted or cube plan reduced at Create to its non-zero taps
-//   (kernels/stencil3d.py:nonzero_taps), at most kMaxTaps, passed by value
+//   (kernels/taps.py:nonzero_taps), at most kMaxTaps, passed by value
 //   as a kernel parameter (read through the constant cache).  The terms
 //   are summed in the reference's window order; skipping an exact-zero
 //   term changes no finite result but the sign of an all-zero sum.  The
@@ -49,85 +50,7 @@ constexpr int TX = 32;      // tile width: one warp along x
 constexpr int BY = 8;       // thread rows of a block
 constexpr int R = 4;        // outputs a thread, rows ty + r BY
 constexpr int TY = R * BY;  // tile height
-constexpr int kMaxTaps = 32;  // kernels/stencil3d.py:MAX_TAPS
-constexpr int kAhead = 2;     // planes loaded ahead of the one computed
-
-// The non-zero taps of a weighted or cube plan, in window order: window
-// (c[t], a[t], b[t]) of the box and its weight w[t].  n < 0: not reduced
-// (the dense path).
-struct Taps {
-  int n;
-  int c[kMaxTaps];
-  int a[kMaxTaps];
-  int b[kMaxTaps];
-  double w[kMaxTaps];
-};
-
-// Wrap an index in [-n, 2n) onto [0, n) (NEAR), or any index.
-template <bool NEAR>
-__device__ __forceinline__ int wrap(int q, int n) {
-  if (NEAR) return q < 0 ? q + n : (q >= n ? q - n : q);
-  return wrap_index(q, n);
-}
-
-// The NR outputs of one thread from their windows: get(c, a, b, rr) is
-// the value of window (c, a, b) of output rr.
-template <typename T, typename P, int NR, typename Get>
-__device__ __forceinline__ void point_values(T (&res)[NR], const Get& get,
-                                             const Taps& taps,
-                                             const T* __restrict__ coeffs,
-                                             int nwin, int sy, int sx) {
-  if constexpr (P::kGeneral) {
-#pragma unroll
-    for (int rr = 0; rr < NR; ++rr) {
-      T w[P::kWindows];
-      int c = 0, a = 0, b = 0;
-#pragma unroll
-      for (int t = 0; t < P::kWindows; ++t) {
-        w[t] = get(c, a, b, rr);
-        if (++b == sx) {
-          b = 0;
-          if (++a == sy) {
-            a = 0;
-            ++c;
-          }
-        }
-      }
-      res[rr] = P::apply(w, coeffs);
-    }
-  } else {
-#pragma unroll
-    for (int rr = 0; rr < NR; ++rr) res[rr] = T(0);
-    if (taps.n >= 0) {
-      for (int t = 0; t < taps.n; ++t) {
-        const T wt = static_cast<T>(taps.w[t]);
-        const int c = taps.c[t], a = taps.a[t], b = taps.b[t];
-#pragma unroll
-        for (int rr = 0; rr < NR; ++rr) {
-          const T term = P::term(wt, get(c, a, b, rr));
-          res[rr] = t == 0 ? term : res[rr] + term;
-        }
-      }
-      return;
-    }
-    int c = 0, a = 0, b = 0;
-    for (int t = 0; t < nwin; ++t) {
-      const T wt = __ldg(coeffs + t);
-#pragma unroll
-      for (int rr = 0; rr < NR; ++rr) {
-        const T term = P::term(wt, get(c, a, b, rr));
-        res[rr] = t == 0 ? term : res[rr] + term;
-      }
-      if (++b == sx) {
-        b = 0;
-        if (++a == sy) {
-          a = 0;
-          ++c;
-        }
-      }
-    }
-  }
-}
+constexpr int kAhead = 2;  // planes loaded ahead of the one computed
 
 struct Box {
   int nz, ny, nx, fr, bk, tp, bt, lf, rt;
@@ -137,8 +60,10 @@ struct Box {
   }
 };
 
-// Tile route: block (x, y, z) computes the tile [x TX, x TX + TX) x
-// [y TY, y TY + TY) of the planes [z zc, z zc + zc); blockDim (TX, BY).
+// Tile route: block (x + nbx y, z), nbx = ceil(nx / TX), computes the tile
+// [x TX, x TX + TX) x [y TY, y TY + TY) of the planes [z zc, z zc + zc);
+// blockDim (TX, BY).  The (x, y) tiles share grid.x, whose limit is 2^31 -
+// 1 blocks, not grid.y's 65535.
 template <typename T, typename P, bool PERIODIC, bool NEAR>
 __global__ void __launch_bounds__(TX * BY) stencil3d_tile_kernel(
     const T* __restrict__ data, const T* __restrict__ coeffs,
@@ -150,8 +75,9 @@ __global__ void __launch_bounds__(TX * BY) stencil3d_tile_kernel(
   const int depth = sz + kAhead;
   const int W = TX + g.lf + g.rt;  // a slot's row stride
   const int plane = W * (TY + g.tp + g.bt);
-  const int i0 = blockIdx.x * TX, j0 = blockIdx.y * TY;
-  const int k0 = blockIdx.z * zc, k1 = min(k0 + zc, g.nz);
+  const int nbx = (g.nx + TX - 1) / TX;
+  const int i0 = blockIdx.x % nbx * TX, j0 = blockIdx.x / nbx * TY;
+  const int k0 = blockIdx.y * zc, k1 = min(k0 + zc, g.nz);
   const int vx = min(TX, g.nx - i0), vy = min(TY, g.ny - j0);
   const int rows = vy + g.tp + g.bt, cols = vx + g.lf + g.rt;
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -207,17 +133,19 @@ __global__ void __launch_bounds__(TX * BY) stencil3d_tile_kernel(
 }
 
 // Direct route: one point a thread, its windows read from device memory
-// with each index wrapped on its own; blockDim (TX, BY), planes in a loop.
+// with each index wrapped on its own; blockDim (TX, BY), block x + nbx y
+// of grid.x, planes in a loop over grid.y.
 template <typename T, typename P, bool PERIODIC>
 __global__ void __launch_bounds__(TX * BY) stencil3d_direct_kernel(
     const T* __restrict__ data, const T* __restrict__ coeffs,
     const T* __restrict__ out_init, T* __restrict__ out, const Box g,
     const __grid_constant__ Taps taps) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
+  const int nbx = (g.nx + TX - 1) / TX;
+  const int i = blockIdx.x % nbx * TX + threadIdx.x;
+  const int j = blockIdx.x / nbx * BY + threadIdx.y;
   if (i >= g.nx || j >= g.ny) return;
   const int sz = g.fr + g.bk + 1, sy = g.tp + g.bt + 1, sx = g.lf + g.rt + 1;
-  for (int k = blockIdx.z; k < g.nz; k += gridDim.z) {
+  for (int k = blockIdx.y; k < g.nz; k += gridDim.y) {
     const size_t idx = (static_cast<size_t>(k) * g.ny + j) * g.nx + i;
     if (!PERIODIC && !g.interior(k, j, i)) {
       out[idx] = out_init != nullptr ? out_init[idx] : T(0);
@@ -253,7 +181,7 @@ int launch(int periodic, const void* data, const void* coeffs,
   T* o = static_cast<T*>(out);
   const dim3 block(TX, BY);
   if (zc == 0) {  // the direct route
-    const dim3 grid((g.nx + TX - 1) / TX, (g.ny + BY - 1) / BY,
+    const dim3 grid((g.nx + TX - 1) / TX * ((g.ny + BY - 1) / BY),
                     g.nz < 65535 ? g.nz : 65535);
     if (periodic)
       stencil3d_direct_kernel<T, P, true>
@@ -263,7 +191,7 @@ int launch(int periodic, const void* data, const void* coeffs,
           <<<grid, block, 0, stream>>>(d, c, init, o, g, taps);
     return static_cast<int>(cudaGetLastError());
   }
-  const dim3 grid((g.nx + TX - 1) / TX, (g.ny + TY - 1) / TY,
+  const dim3 grid((g.nx + TX - 1) / TX * ((g.ny + TY - 1) / TY),
                   (g.nz + zc - 1) / zc);
   const bool near = g.fr <= g.nz && g.bk <= g.nz && g.tp <= g.ny &&
                     g.bt <= g.ny && g.lf <= g.nx && g.rt <= g.nx;
@@ -296,19 +224,9 @@ RT_EXPORT int stencil3d(int dtype, int point_fn, int periodic, void* data,
                         int lf, int rt, int zc, int smem, const int* tap_n,
                         const int* tap_cab, const double* tap_w,
                         void* stream) {
-  if (zc < 0 || (tap_n != nullptr && *tap_n > kMaxTaps))
+  Taps taps;
+  if (zc < 0 || !read_taps(tap_n, tap_cab, tap_w, &taps))
     return static_cast<int>(cudaErrorInvalidValue);
-  Taps taps{};
-  taps.n = -1;
-  if (tap_n != nullptr) {
-    taps.n = *tap_n;
-    for (int t = 0; t < taps.n; ++t) {
-      taps.c[t] = tap_cab[3 * t];
-      taps.a[t] = tap_cab[3 * t + 1];
-      taps.b[t] = tap_cab[3 * t + 2];
-      taps.w[t] = tap_w[t];
-    }
-  }
   const Box g{nz, ny, nx, fr, bk, tp, bt, lf, rt};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_point_fn(point_fn, [&](auto p) {

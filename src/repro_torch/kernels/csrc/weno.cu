@@ -124,8 +124,10 @@ __global__ void __launch_bounds__(TX * BY) weno5_kernel(
   // ey[m][c] = (s[m + 1][H + c] - s[m][H + c]) / dy
   __shared__ T ex[TY][TX + 2 * H - 1];
   __shared__ T ey[TY + 2 * H - 1][TX];
-  const int i0 = blockIdx.x * TX;
-  const int j0 = blockIdx.y * TY;
+  // tile x + nbx y of a one-dimensional grid (any number of rows fits)
+  const int nbx = (nx + TX - 1) / TX;
+  const int i0 = blockIdx.x % nbx * TX;
+  const int j0 = blockIdx.x / nbx * TY;
   const int vx = min(TX, nx - i0);  // the tile's valid columns
   const int vy = min(TY, ny - j0);  // and rows
   const int tx = threadIdx.x;
@@ -177,7 +179,7 @@ template <typename T>
 int launch(const void* q, const void* u, const void* v, void* out, int ny,
            int nx, double inv_dx, double inv_dy, cudaStream_t stream) {
   const dim3 block(TX, BY);
-  const dim3 grid((nx + TX - 1) / TX, (ny + TY - 1) / TY);
+  const dim3 grid((nx + TX - 1) / TX * ((ny + TY - 1) / TY));
   const T* qq = static_cast<const T*>(q);
   const T* uu = static_cast<const T*>(u);
   const T* vv = static_cast<const T*>(v);

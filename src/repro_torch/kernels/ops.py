@@ -58,12 +58,16 @@ def stencil_apply(
     bottom: int = 0,
     bc: str = "periodic",
     backend: str = "auto",
+    taps=None,
 ) -> torch.Tensor:
-    """Apply a 2D stencil — the library's Compute primitive."""
+    """Apply a 2D stencil — the library's Compute primitive.  ``taps``:
+    the plan's non-zero taps, which the kernel sums
+    (:func:`repro_torch.kernels.taps.nonzero_taps`); without them it sums
+    every window."""
     kw = dict(point_fn=point_fn, left=left, right=right, top=top,
               bottom=bottom, bc=bc)
     if resolve_backend(backend, data) == "cuda":
-        return stencil2d_cuda(data, coeffs, out_init, **kw)
+        return stencil2d_cuda(data, coeffs, out_init, taps=taps, **kw)
     return stencil2d_torch(data, coeffs=coeffs, out_init=out_init, **kw)
 
 
@@ -77,13 +81,15 @@ def stencil_apply_batch1d(
     right: int = 0,
     bc: str = "periodic",
     backend: str = "auto",
+    taps=None,
 ) -> torch.Tensor:
     """Apply a 1D stencil along axis 1 of a ``(B, M)`` stack — the
     batched-1D Compute primitive (cuSten's 1DBatch family).  The stack may
-    be the transpose of a contiguous field (its columns as lines)."""
+    be the transpose of a contiguous field (its columns as lines).
+    ``taps`` as for :func:`stencil_apply`."""
     kw = dict(point_fn=point_fn, left=left, right=right, bc=bc)
     if resolve_backend(backend, data) == "cuda":
-        return stencil1d_batch_cuda(data, coeffs, out_init, **kw)
+        return stencil1d_batch_cuda(data, coeffs, out_init, taps=taps, **kw)
     return stencil1d_batch_torch(data, coeffs=coeffs, out_init=out_init, **kw)
 
 
@@ -99,9 +105,7 @@ def stencil_apply_3d(
     taps=None,
 ) -> torch.Tensor:
     """Apply a 3D stencil on an ``(nz, ny, nx)`` field — the 3D Compute
-    primitive.  ``taps``: the plan's non-zero taps, which the kernel sums
-    (:func:`repro_torch.kernels.stencil3d.nonzero_taps`); without them it
-    sums every window."""
+    primitive.  ``taps`` as for :func:`stencil_apply`."""
     kw = dict(point_fn=point_fn, halos=tuple(int(h) for h in halos), bc=bc)
     if resolve_backend(backend, data) == "cuda":
         return stencil3d_cuda(data, coeffs, out_init, taps=taps, **kw)

@@ -1,10 +1,15 @@
 """Generic 2D stencil: CUDA kernel wrapper and plain version (counterpart of
 ``repro.kernels.stencil2d``).
 
-The kernel (``csrc/stencil2d.cu``) takes any extent and any halo: each
-thread wraps (periodic) or masks (``np``) its own indices, so none of the
-reference's tile-divisibility rules or padded dispatch apply.  The
-function-pointer mode runs a compile-time device point function.  A
+The kernel (``csrc/stencil2d.cu``) takes any extent and any halo: a
+block stages a 32 x 32 tile and its halo in shared memory, wrapped
+(periodic) or masked (``np``) on the staging loads, so none of the
+reference's tile-divisibility rules or padded dispatch apply; halos too
+wide for shared memory take a direct route, one point a thread
+(:func:`stencil2d_geometry`).  A weighted or cube plan is reduced at
+Create to its non-zero taps (:mod:`repro_torch.kernels.taps`), which the
+kernel takes as a launch parameter.  The function-pointer mode runs a
+compile-time device point function.  A
 Python ``point_fn`` names its device counterpart with a
 ``device_point_fn`` tag (see :data:`DEVICE_POINT_FNS`), or carries the
 CUDA C++ source of its own (:func:`cuda_point_fn`), which the stencil
@@ -16,17 +21,52 @@ card.
 from __future__ import annotations
 
 from collections.abc import Callable
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import stencil2d_ref, weighted_point_fn
+from repro_torch.kernels.taps import Taps, c_taps, halos_2d
+from repro_torch.util import ceil_div
 
 # device point-function tag -> the kernel's point-function id
 DEVICE_POINT_FNS = {"weighted": 0, "cube_laplacian": 1}
 
 # the plain version: the semantic definition in kernels/ref.py
 stencil2d_torch = stencil2d_ref
+
+# csrc/stencil2d.cu: the tile a block owns
+TILE_X, TILE_Y = 32, 32
+
+
+class Stencil2DGeometry(NamedTuple):
+    """Launch geometry of the 2D stencil on a whole field."""
+
+    route: str  # "tile" (staged in shared memory) or "direct"
+    grid: int  # blocks, all in grid.x
+    smem: int  # dynamic shared memory a block, bytes; 0 on the direct route
+
+
+def stencil2d_geometry(shape, halos, itemsize: int, smem_optin: int,
+                       n_sms: int) -> Stencil2DGeometry:
+    """Geometry of the 2D stencil on an ``(ny, nx)`` field with halos
+    ``(left, right, top, bottom)``.
+
+    The tile route when a 32 x 32 tile and its halo, (32 + top + bottom) x
+    (32 + left + right) elements, fit a block's shared memory; else the
+    direct route, one point a thread in blocks of 32 x 8.  It depends on
+    the shape, the halos and the itemsize alone, never on a launch's row
+    window, so streamed row chunks run the same code as the whole field.
+    ``n_sms`` is unused: one tile a block fills the card at any size the
+    tile route takes."""
+    ny, nx = shape
+    left, right, top, bottom = (int(h) for h in halos)
+    nbx = ceil_div(nx, TILE_X)
+    smem = (TILE_Y + top + bottom) * (TILE_X + left + right) * itemsize
+    if smem > smem_optin:
+        return Stencil2DGeometry("direct", nbx * ceil_div(ny, 8), 0)
+    return Stencil2DGeometry("tile", nbx * ceil_div(ny, TILE_Y), smem)
 
 
 def cuda_point_fn(source: str) -> Callable:
@@ -105,12 +145,17 @@ def stencil2d_cuda(
     bc: str = "periodic",
     rows: tuple[int, int] | None = None,
     out: torch.Tensor | None = None,
+    taps: Taps | None = None,
 ) -> torch.Tensor:
     """Launch the 2D stencil kernel on a contiguous (ny, nx) CUDA field.
 
     ``rows=(r0, r1)`` computes only those output rows (their halo comes
     from the whole field) into ``out``, which is then required; the
-    streamed apply issues one such launch per row chunk."""
+    streamed apply issues one such launch per row chunk.  ``taps`` are the
+    plan's non-zero taps (``taps.nonzero_taps`` at Create), which a
+    weighted or cube launch sums; without them it sums every window, its
+    coefficient read from ``coeffs`` on the card.  A user's point function
+    takes every window."""
     if bc not in ("periodic", "np"):
         raise ValueError(f"bc must be 'periodic' or 'np', got {bc!r}")
     if min(left, right, top, bottom) < 0:
@@ -125,12 +170,18 @@ def stencil2d_cuda(
         out_init = None  # every cell is computed, as in the plain version
     elif out_init is not None:
         _build.check_cuda(out_init, "out_init", like=data, shape=(ny, nx))
+    if fn_id == _build.USER_POINT_FN:
+        taps = None
     r0, r1 = _build.window(rows, ny, "row", out)
     out = _build.out_like(out, data)
+    smem, sms = _build.device_info(data.device)
+    geo = stencil2d_geometry((ny, nx), (left, right, top, bottom),
+                             data.element_size(), smem, sms)
     _build.launch(
         "stencil2d", data.device, _build.dtype_code(data), fn_id,
         int(bc == "periodic"), _build.ptr(data), _build.ptr(coeffs),
         _build.ptr(out_init), _build.ptr(out), ny, nx, r0, r1, left, right,
-        top, bottom, libs=libs,
+        top, bottom, geo.smem,
+        *c_taps(taps, halos_2d(left, right, top, bottom)), libs=libs,
     )
     return out

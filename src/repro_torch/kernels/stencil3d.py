@@ -6,48 +6,39 @@ any halos ``(front, back, top, bottom, left, right)``.  A block owns a
 32 x 32 (x, y) tile and marches along z through a ring of planes in
 shared memory (:func:`stencil3d_geometry`); halos too wide for the ring
 take a direct route, one point a thread.  A weighted or cube plan is
-reduced at Create to its non-zero taps (:func:`nonzero_taps`), which the
-kernel takes as a launch parameter.  Point functions are selected by
+reduced at Create to its non-zero taps
+(:func:`repro_torch.kernels.taps.nonzero_taps`), which the kernel takes as
+a launch parameter.  Point functions are selected by
 their ``device_point_fn`` tag or run from their CUDA source, as for the
 2D stencil.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from collections.abc import Callable
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.penta import resident_blocks
 from repro_torch.kernels.ref import stencil3d_ref, weighted_point_fn
 from repro_torch.kernels.stencil2d import coeffs_shape, device_point_fn
+from repro_torch.kernels.taps import Taps, c_taps
 from repro_torch.util import ceil_div
 
 # the plain version: the semantic definition in kernels/ref.py
 stencil3d_torch = stencil3d_ref
 
-# csrc/stencil3d.cu: the tile a block owns, the planes its ring loads
-# ahead of the one computed, and the most taps a launch parameter holds
+# csrc/stencil3d.cu: the tile a block owns and the planes its ring loads
+# ahead of the one computed
 TILE_X, TILE_Y = 32, 32
 AHEAD = 2
-MAX_TAPS = 32
+# the grid's y and z dimensions hold at most this many blocks
+GRID_YZ_MAX = 65535
 # resident grids' worth of blocks the z chunks aim for (1, 2 and 4 timed
 # at 256^3 in PERF.md: 2 is fastest)
 WAVES = 2
-
-
-class Taps3D(NamedTuple):
-    """The non-zero taps of a 3D stencil, in the reference's window order
-    (z-major, then row-major over (y, x)): each tap's offset (dz, dy, dx)
-    from the output point and its weight."""
-
-    offsets: tuple[tuple[int, int, int], ...]
-    weights: tuple[float, ...]
 
 
 class Stencil3DGeometry(NamedTuple):
@@ -55,40 +46,8 @@ class Stencil3DGeometry(NamedTuple):
 
     route: str  # "tile" (a ring of planes in shared memory) or "direct"
     zc: int  # planes a block marches over; 0 on the direct route
-    grid: tuple[int, int, int]
+    grid: tuple[int, int]  # (x, y) tiles in grid.x; z chunks or planes
     smem: int  # dynamic shared memory a block, bytes
-
-
-def nonzero_taps(coeffs, halos) -> Taps3D | None:
-    """The taps of a weighted or cube plan whose weight is not zero, for
-    the kernel (at Create, from the host weights).  None when more than
-    :data:`MAX_TAPS` remain: the kernel then reads every window's
-    coefficient from device memory."""
-    fr, bk, tp, bt, lf, rt = (int(h) for h in halos)
-    sy, sx = tp + bt + 1, lf + rt + 1
-    w = np.asarray(coeffs, dtype=np.float64).ravel()
-    if w.size != (fr + bk + 1) * sy * sx:
-        raise ValueError(f"{w.size} coefficients for halos {tuple(halos)}")
-    keep = np.flatnonzero(w)
-    if keep.size > MAX_TAPS:
-        return None
-    return Taps3D(
-        tuple((int(t // (sy * sx)) - fr, int(t // sx % sy) - tp,
-               int(t % sx) - lf) for t in keep),
-        tuple(float(w[t]) for t in keep),
-    )
-
-
-@functools.lru_cache(maxsize=256)
-def _c_taps(taps: Taps3D, halos: tuple) -> tuple:
-    """The kernel's tap arguments: the count, the window coordinates
-    (c, a, b) of each tap in the box, the weights."""
-    fr, _, tp, _, lf, _ = halos
-    n = len(taps.weights)
-    cab = [v for dz, dy, dx in taps.offsets
-           for v in (dz + fr, dy + tp, dx + lf)]
-    return ((ctypes.c_int * 1)(n), (ctypes.c_int * max(1, 3 * n))(*cab),
-            (ctypes.c_double * max(1, n))(*taps.weights))
 
 
 def stencil3d_geometry(shape, halos, itemsize: int, smem_optin: int,
@@ -98,21 +57,24 @@ def stencil3d_geometry(shape, halos, itemsize: int, smem_optin: int,
     The tile route when the ring (fr + bk + 3 slots, each the tile and its
     halo: (32 + tp + bt) x (32 + lf + rt) elements) fits a block's shared
     memory; the z chunk zc is the largest that still gives ``WAVES``
-    resident grids' worth of blocks.  Else the direct route."""
+    resident grids' worth of blocks.  Else the direct route.  The (x, y)
+    tiles share grid.x (up to 2^31 - 1 blocks), so any ny fits; grid.y
+    holds the z chunks (the direct route: planes, looping past
+    :data:`GRID_YZ_MAX`)."""
     nz, ny, nx = shape
     fr, bk, tp, bt, lf, rt = halos
     smem = ((fr + bk + 1 + AHEAD) * (TILE_Y + tp + bt) * (TILE_X + lf + rt)
             * itemsize)
     if smem > smem_optin:  # csrc/stencil3d.cu:launch, a point a thread
         return Stencil3DGeometry(
-            "direct", 0, (ceil_div(nx, TILE_X), ceil_div(ny, 8), min(nz, 65535)),
-            0)
+            "direct", 0, (ceil_div(nx, TILE_X) * ceil_div(ny, 8),
+                          min(nz, GRID_YZ_MAX)), 0)
     per_sm = resident_blocks(smem, smem_optin)
     tiles = ceil_div(nx, TILE_X) * ceil_div(ny, TILE_Y)
-    chunks = min(nz, 65535, max(1, ceil_div(WAVES * per_sm * n_sms, tiles)))
+    chunks = min(nz, GRID_YZ_MAX,
+                 max(1, ceil_div(WAVES * per_sm * n_sms, tiles)))
     zc = ceil_div(nz, chunks)
-    grid = (ceil_div(nx, TILE_X), ceil_div(ny, TILE_Y), ceil_div(nz, zc))
-    return Stencil3DGeometry("tile", zc, grid, smem)
+    return Stencil3DGeometry("tile", zc, (tiles, ceil_div(nz, zc)), smem)
 
 
 def stencil3d_cuda(
@@ -123,11 +85,11 @@ def stencil3d_cuda(
     point_fn: Callable = weighted_point_fn,
     halos=(0, 0, 0, 0, 0, 0),
     bc: str = "periodic",
-    taps: Taps3D | None = None,
+    taps: Taps | None = None,
 ) -> torch.Tensor:
     """Launch the 3D stencil kernel on a contiguous (nz, ny, nx) CUDA field.
 
-    ``taps`` are the plan's non-zero taps (:func:`nonzero_taps` at
+    ``taps`` are the plan's non-zero taps (``taps.nonzero_taps`` at
     Create), which a weighted or cube launch sums; without them it sums
     every window, its coefficient read from ``coeffs`` on the card.  A
     user's point function takes every window."""
@@ -151,7 +113,6 @@ def stencil3d_cuda(
         _build.check_cuda(out_init, "out_init", like=data, shape=shape)
     if fn_id == _build.USER_POINT_FN:
         taps = None
-    c_taps = (None, None, None) if taps is None else _c_taps(taps, halos)
     smem, sms = _build.device_info(data.device)
     geo = stencil3d_geometry(shape, halos, data.element_size(), smem, sms)
     out = torch.empty_like(data)
@@ -159,6 +120,6 @@ def stencil3d_cuda(
         "stencil3d", data.device, _build.dtype_code(data), fn_id,
         int(bc == "periodic"), _build.ptr(data), _build.ptr(coeffs),
         _build.ptr(out_init), _build.ptr(out), *shape, *halos, geo.zc,
-        geo.smem, *c_taps, libs=libs,
+        geo.smem, *c_taps(taps, halos), libs=libs,
     )
     return out

@@ -279,11 +279,13 @@ def stream_stencil_apply(
     chunk_rows: int | None = None,
     compute: str = "auto",
     pool: Sequence = (),
+    taps=None,
 ) -> torch.Tensor:
     """Streamed 2D stencil apply: the contract (and, chunk for chunk, the
     arithmetic) of :func:`repro_torch.kernels.ops.stencil_apply`, issued as
     row chunks.  ``chunk_rows`` overrides the geometry; ``compute`` is a
-    backend (``'auto'|'cuda'|'torch'``)."""
+    backend (``'auto'|'cuda'|'torch'``); ``taps``, the plan's non-zero
+    taps, go to every chunk's launch."""
     if bc not in ("periodic", "np"):
         raise ValueError(f"bc must be 'periodic' or 'np', got {bc!r}")
     ny, nx = data.shape
@@ -298,7 +300,8 @@ def stream_stencil_apply(
     if resolve_compute(compute, data) == "cuda":
         init = out_init if bc == "np" else None
         _issue(windows, lambda w: stencil2d_cuda(
-            data, coeffs, init, rows=w, out=out, **kw), pool, data.device)
+            data, coeffs, init, rows=w, out=out, taps=taps, **kw), pool,
+            data.device)
         return out
     for r0, r1 in windows:
         out[r0:r1] = _stencil2d_rows_torch(data, coeffs, out_init, r0, r1, **kw)
@@ -319,11 +322,13 @@ def stream_batch1d_apply(
     chunk_rows: int | None = None,
     compute: str = "auto",
     pool: Sequence = (),
+    taps=None,
 ) -> torch.Tensor:
     """Streamed batched-1D apply on a ``(B, M)`` stack (contiguous, or the
     transpose of a contiguous field, read in place): lines never couple, so
     chunks are groups of whole lines with no halo, the ``top = bottom = 0``
-    geometry of the 2D executor."""
+    geometry of the 2D executor.  ``taps`` as for
+    :func:`stream_stencil_apply`."""
     if bc not in ("periodic", "np"):
         raise ValueError(f"bc must be 'periodic' or 'np', got {bc!r}")
     B, M = data.shape
@@ -339,7 +344,8 @@ def stream_batch1d_apply(
             init = in_layout(out_init, data)
         out = torch.empty_like(data)  # data's layout, as the kernel writes
         _issue(windows, lambda w: stencil1d_batch_cuda(
-            data, coeffs, init, lines=w, out=out, **kw), pool, data.device)
+            data, coeffs, init, lines=w, out=out, taps=taps, **kw), pool,
+            data.device)
         return out
     out = torch.empty_like(data)
     for b0, b1 in windows:

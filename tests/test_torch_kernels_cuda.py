@@ -27,7 +27,7 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels import penta as P
 from repro_torch.kernels.ref import weighted_point_fn
 from repro_torch.kernels.stencil2d import cuda_point_fn
-from repro_torch.kernels.stencil3d import nonzero_taps
+from repro_torch.kernels.taps import MAX_TAPS, nonzero_taps
 from repro_torch.util import tolerance_for
 
 # a point function that is not a sum of per-window terms, with its CUDA
@@ -81,6 +81,147 @@ def test_stencil2d(cuda, point_fn, bc, shape, dtype):
     _assert_close(got, ops.stencil_apply(data, coeffs, init, backend="torch", **kw),
                   dtype, 10)
 
+
+
+# Rank-2 plans on the redesigned kernel: the tile route (a 32 x 32 tile and
+# its halo staged in shared memory) at whole and ragged tiles, one row, one
+# column, halos wider than the extent (periodic: the modulo wrap; np: every
+# cell copied), and halos too wide for shared memory (the direct route).
+# Each (shape, extents (left, right, top, bottom)).
+# A user's point function is built for its window count, so it takes the
+# narrow cases alone.
+S2_CASES = [((64, 64), (2, 2, 2, 2)), ((37, 29), (1, 1, 2, 2)),
+            ((1, 37), (2, 1, 0, 0)), ((29, 1), (0, 0, 1, 2)),
+            ((1, 1), (1, 1, 1, 1)), ((3, 5), (7, 2, 4, 6)),
+            ((70, 33), (1, 0, 3, 1)), ((40, 45), (100, 100, 100, 100))]
+S2_PLANS = [(shape, extents, kind) for shape, extents in S2_CASES
+            for kind in ("weighted", "cube", "user")
+            if kind != "user" or sum(extents) <= 8]
+
+
+def _plan_2d(kind, extents, bc, dtype, **kw):
+    """A rank-2 plan of ``kind``: weighted with a third of its weights zero,
+    the cube point function on the same coefficients, or the user's
+    point function."""
+    left, right, top, bottom = extents
+    shape_w = (top + bottom + 1, left + right + 1)
+    w = np.random.default_rng(31).uniform(-1.0, 1.0, shape_w)
+    w.flat[::3] = 0.0
+    ext = dict(left=left, right=right, top=top, bottom=bottom)
+    if kind == "weighted":
+        return create(w, (8, 8), mode="xy", bc=bc, dtype=dtype, extents=ext,
+                      **kw)
+    fn, coeffs = ((cube_laplacian_point_fn, w.ravel()) if kind == "cube"
+                  else (mixed_point_fn, np.array([0.7, -1.3])))
+    return create(fn, (8, 8), bc=bc, dtype=dtype, coeffs=coeffs, extents=ext,
+                  **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("bc", ["periodic", "np", "np+out_init"])
+@pytest.mark.parametrize(("shape", "extents", "kind"), S2_PLANS)
+def test_stencil2d_plans(cuda, shape, extents, kind, bc, dtype):
+    """Rank-2 plans (Create-time taps, or the user's source) against their
+    plain versions; streamed row windows bit for bit the monolithic
+    launch."""
+    mode = "np" if bc.startswith("np") else bc
+    plan = _plan_2d(kind, extents, mode, dtype)
+    plain = _plan_2d(kind, extents, mode, dtype, backend="torch")
+    # the taps, or (user, or more than MAX_TAPS non-zero weights) none
+    n_taps = int(np.count_nonzero(plan.coeffs.cpu().numpy()))
+    assert (plan.taps is None) == (kind == "user" or n_taps > MAX_TAPS)
+    data = _field(shape, dtype, cuda, 32)
+    init = _field(shape, dtype, cuda, 33) if bc == "np+out_init" else None
+    before = _build.LAUNCHES["stencil2d"]
+    got = plan.apply(data, init)
+    assert _build.LAUNCHES["stencil2d"] == before + 1
+    _assert_close(got, plain.apply(data, init), dtype, 10)
+    if shape[0] > 1:
+        rows = 1 if shape[0] % 2 else 2
+        streamed = _plan_2d(kind, extents, mode, dtype, streams=2,
+                            max_tile_bytes=rows * (shape[1] + 512) * 8)
+        assert torch.equal(streamed.apply(data, init), got)
+
+
+# Batch stacks (B, M): one element, three long lines, many short lines,
+# the main path's 1024^2, and lines shorter than the halo; along x (the
+# staged segments) and along y (the register march on the transposed
+# view).  Windows of 5 (left 3, right 1) and of 11 (the along-y direct
+# route: wider than MAX_MARCH).
+B1_SHAPES = [(1, 1), (3, 40000), (65536, 16), (1024, 1024), (37, 3), (5, 2)]
+
+
+def _plan_1d(kind, extents, bc, dtype, **kw):
+    left, right = extents
+    w = np.random.default_rng(34).uniform(-1.0, 1.0, left + right + 1)
+    w[1] = 0.0
+    ext = dict(left=left, right=right)
+    if kind == "weighted":
+        return create(w, (8, 8), mode="batch", bc=bc, dtype=dtype,
+                      extents=ext, **kw)
+    fn, coeffs = ((cube_laplacian_point_fn, w) if kind == "cube"
+                  else (mixed_point_fn, np.array([0.7, -1.3])))
+    return create(fn, (8, 8), mode="batch", bc=bc, dtype=dtype, coeffs=coeffs,
+                  extents=ext, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("bc", ["periodic", "np", "np+out_init"])
+@pytest.mark.parametrize("kind", ["weighted", "cube", "user"])
+@pytest.mark.parametrize("extents", [(3, 1), (5, 5)])
+@pytest.mark.parametrize("shape", B1_SHAPES)
+def test_stencil1d_batch_stacks(cuda, shape, extents, kind, bc, dtype):
+    """Batch plans along x and along y against their plain versions;
+    streamed line windows bit for bit the monolithic launch."""
+    mode = "np" if bc.startswith("np") else bc
+    plan = _plan_1d(kind, extents, mode, dtype)
+    plain = _plan_1d(kind, extents, mode, dtype, backend="torch")
+    assert (plan.taps is None) == (kind == "user")
+    data = _field(shape, dtype, cuda, 35)
+    init = _field(shape, dtype, cuda, 36) if bc == "np+out_init" else None
+    for along, lines in ((apply_along_x, shape[0]), (apply_along_y, shape[1])):
+        before = _build.LAUNCHES["stencil1d_batch"]
+        got = along(plan, data, init)
+        assert _build.LAUNCHES["stencil1d_batch"] == before + 1
+        assert got.is_contiguous()
+        _assert_close(got, along(plain, data, init), dtype, 10)
+        if lines > 1:
+            chunk = 1 if lines % 2 else lines // 2
+            streamed = _plan_1d(kind, extents, mode, dtype, streams=2,
+                                max_tile_bytes=chunk * (max(shape) + 10) * 8)
+            assert torch.equal(along(streamed, data, init), got)
+
+
+# The grid-limit shapes: the smallest ny at which the first launchers asked
+# for more than 65535 blocks in grid.y (a tile of 8 rows: 524281; 16 rows:
+# 1048561; 32 rows: 2097121), each with a narrow nx.
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_grid_limit_shapes(cuda, dtype):
+    h = dict(dt=1e-3, D=0.6, gamma=0.01, inv_h2=1.0, inv_h4=1.0)
+    tall = _field((524281, 8), dtype, cuda, 40)
+    tall2 = _field((524281, 8), dtype, cuda, 41)
+    bih = create("biharmonic", tall.shape, bc="periodic", dtype=dtype)
+    bih_plain = create("biharmonic", tall.shape, bc="periodic", dtype=dtype,
+                       backend="torch")
+    _assert_close(bih.apply(tall), bih_plain.apply(tall), dtype, 10)
+    _assert_close(ops.ch_rhs(tall, tall2, **h),
+                  ops.ch_rhs(tall, tall2, backend="torch", **h), dtype, 10)
+    q, u, v = (_field((1048561, 8), dtype, cuda, s) for s in (42, 43, 44))
+    kw = dict(dx=0.1, dy=0.1)
+    _assert_close(ops.weno_advect(q, u, v, **kw),
+                  ops.weno_advect(q, u, v, backend="torch", **kw), dtype, 10)
+    # stencil3d: the direct route (halos too wide for the ring) at 524281
+    # rows, the tile route at 2097121
+    for shape, halos in (((1, 524281, 8), (30, 30, 0, 0, 0, 0)),
+                         ((1, 2097121, 8), (1,) * 6)):
+        n = (halos[0] + halos[1] + 1) * (halos[2] + halos[3] + 1) * (
+            halos[4] + halos[5] + 1)
+        data = _field(shape, dtype, cuda, 45)
+        c = _field((n,), dtype, cuda, 46)
+        taps = nonzero_taps(c.cpu().numpy(), halos)
+        got = ops.stencil_apply_3d(data, c, halos=halos, taps=taps)
+        want = ops.stencil_apply_3d(data, c, halos=halos, backend="torch")
+        _assert_close(got, want, dtype, 10)
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("bc", ["periodic", "np"])

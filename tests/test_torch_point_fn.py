@@ -22,6 +22,7 @@ import repro_torch as rt
 from repro_torch.core.cahn_hilliard import cube_laplacian_point_fn
 from repro_torch.kernels import _build
 from repro_torch.kernels import stencil3d as S3
+from repro_torch.kernels import taps as TP
 from repro_torch.kernels.ref import weighted_point_fn
 from repro_torch.kernels.stencil2d import (
     cuda_point_fn,
@@ -141,7 +142,7 @@ def test_taps_of_the_7_and_27_point_plans():
     plan = rt.create(skew, (5, 6, 7), mode="xyz", device="cpu",
                      extents=dict(front=0, back=0, top=1, bottom=1, left=1,
                                   right=0))
-    assert plan.taps == S3.Taps3D(((0, -1, 0), (0, 1, -1)), (-3.0, 2.0))
+    assert plan.taps == TP.Taps(((0, -1, 0), (0, 1, -1)), (-3.0, 2.0))
     # the cube mode reduces its coefficients too; more than 32 taps do not
     cube = rt.create(cube_laplacian_point_fn, (8, 8, 8), device="cpu",
                      coeffs=np.asarray(rt.create("laplacian", (4, 4, 4),
@@ -158,12 +159,12 @@ def test_stencil3d_geometry():
     smem, sms = 232448, 132
     # 256^3 float64, 7-point: a ring of 5 slots of 34 x 34, 4 blocks an SM
     # by shared memory, 16 chunks of 16 planes (1024 blocks, two resident
-    # grids' worth)
+    # grids' worth); the 8 x 8 (x, y) tiles share grid.x
     geo = S3.stencil3d_geometry((256, 256, 256), (1,) * 6, 8, smem, sms)
-    assert geo == S3.Stencil3DGeometry("tile", 16, (8, 8, 16), 5 * 34 * 34 * 8)
+    assert geo == S3.Stencil3DGeometry("tile", 16, (64, 16), 5 * 34 * 34 * 8)
     # ragged and small extents: a plane a chunk when the tiles are few
     assert S3.stencil3d_geometry((61, 67, 71), (1,) * 6, 8, smem, sms).grid == (
-        3, 3, 61)
+        9, 61)
     assert S3.stencil3d_geometry((7, 11, 13), (2, 0, 1, 1, 0, 2), 4, smem,
                                  sms)[:2] == ("tile", 1)
     # halos too wide for the ring: one point a thread
@@ -181,9 +182,9 @@ def test_nonzero_taps_reproduce_the_weighted_sum(halos):
     w[rng.random(n) < 0.85] = 0.0
     w[0] = 1.5
     data = torch.as_tensor(rng.uniform(-1.0, 1.0, (5, 6, 7)))
-    taps = S3.nonzero_taps(w, halos)
+    taps = TP.nonzero_taps(w, halos)
     if taps is None:
-        assert np.count_nonzero(w) > S3.MAX_TAPS
+        assert np.count_nonzero(w) > TP.MAX_TAPS
         return
     got = sum(wt * torch.roll(data, shifts=(-dz, -dy, -dx), dims=(0, 1, 2))
               for (dz, dy, dx), wt in zip(taps.offsets, taps.weights))
