@@ -16,7 +16,7 @@ float64, on the main path's inputs:
 - ``penta_rows`` at (1024, 1024), the batch1d and bootstrap x-sweep, and
   at (65536, 256), the 3D x-sweep; ``penta_mid`` at (256, 256, 256), the
   3D y-sweep;
-- ``ch_rhs_xsweep`` at 1024^2;
+- ``ch_rhs_xsweep`` and ``ch_rhs`` (the standalone RHS) at 1024^2;
 - ``weno5_advect`` at 1024^2 (the rotating blob of
   ``examples/weno_advection.py``) and ``stencil3d`` at 256^3 (the 3D run's
   7-point Laplacian plan, through ``compute``);
@@ -38,7 +38,10 @@ float64, on the main path's inputs:
   1024^2 (CUDA events around 200, 50 and 50 steps after a 20-step
   warm-up), of the 3D LOD
   diffusion step at 256^3 (20 steps after 20) and of the WENO RK3 step at
-  1024^2 (200 steps after 20), with the host's enqueue time per step.
+  1024^2 (200 steps after 20), with the host's enqueue time per step;
+  where the checkout streams rank-3 plans, the same 3D step and the
+  7-point plan with ``streams=4, max_tile_bytes=20_000_000`` (8 chunks a
+  sweep or z-slabs; device time summed over the chunks' launches).
   The steps run first, before any profiler session, so that every
   checkout's steps see the same process state.
 
@@ -216,6 +219,7 @@ def main() -> int:
             lambda: P.cyclic_penta_solve_factored_mid(fac3, mid3),
         "ch_rhs_xsweep 1024^2":
             lambda: ops.ch_rhs_xsweep(cn, cm, solver.op_full.fac_x, **ch_kw),
+        "ch_rhs 1024^2": lambda: ops.ch_rhs(cn, cm, **ch_kw),
         "weno5_advect 1024^2":
             lambda: ops.weno_advect(*blob, dx=acfg.dx, dy=acfg.dy),
         "stencil3d 256^3 (7-point)": lambda: rt.compute(lap3, mid3),
@@ -255,6 +259,28 @@ def main() -> int:
     ms, enq = lod_ms(rt, op3, mid3.clone(), 20)
     times["3D LOD step 256^3 (ms/step)"] = ms
     times["3D LOD step 256^3 (host enqueue ms/step)"] = enq
+    knobs3 = dict(streams=4, max_tile_bytes=20_000_000)
+    try:
+        op3s = rt.create("diffusion", (n3,) * 3, mode="adi", alpha=r3,
+                         cyclic=True, **knobs3)
+        lap3s = rt.create("laplacian", (n3,) * 3, bc="periodic",
+                          h=2 * math.pi / n3, **knobs3)
+    except NotImplementedError:  # a checkout without 3D streaming
+        op3s = None
+    if op3s is not None:
+        ms, enq = lod_ms(rt, op3s, mid3.clone(), 20)
+        times["3D LOD step 256^3 streamed (ms/step)"] = ms
+        times["3D LOD step 256^3 streamed (host enqueue ms/step)"] = enq
+        kernels.update({
+            "stencil3d 256^3 (7-point) in 8 z-slabs":
+                lambda: rt.compute(lap3s, mid3),
+            "penta_rows (65536, 256) in 8 row chunks":
+                lambda: op3s.solve_x(mid3),
+            "penta_mid (256, 256, 256) in 8 plane chunks":
+                lambda: op3s.solve_y(mid3),
+            "penta_cols (256, 65536) in 8 column chunks":
+                lambda: op3s.solve_z(mid3),
+        })
     weno = WenoAdvection2D(acfg)
     dt_w = weno.dt_cfl(*blob[1:])
 

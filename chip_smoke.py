@@ -51,7 +51,13 @@ printing a result:
    the first launchers asked for more than 65535 blocks in grid.y:
    ``stencil2d`` and ``ch_rhs`` at 524281x8, ``weno5_advect`` at
    1048561x8, ``stencil3d`` at (1, 524281, 8) on its direct route and
-   (1, 2097121, 8) on its tile route.  Timed besides: the 5x5 biharmonic
+   (1, 2097121, 8) on its tile route.  The standalone RHS (``ch_rhs``,
+   a staged tile) also at one row, one column and 3x5 in both dtypes, its
+   row chunks bit for bit its monolithic launch, and, as an observation,
+   whether it equals bit for bit the RHS the fused kernel assembles
+   (``ch_rhs_xsweep`` with the identity band).  The z windows of
+   ``stencil3d`` and the plane windows of ``penta_mid`` (the slabs of the
+   streamed 3D path) bit for bit their whole launches.  Timed besides: the 5x5 biharmonic
    plan (yardstick circular pad + ``F.conv2d``) and ``stencil1d_batch``
    along y (circular pad + ``F.conv2d`` with a (5, 1) kernel).
 4. Paths, each run with the launch counts set to 0 just before it and
@@ -85,9 +91,13 @@ printing a result:
       every sweep into 8 chunks, bootstrap plus 20 steps, equal bit for bit
       to the monolithic runs of 4a and 4b, launch counts asserted (chunks
       times launches per step).
+   f. 3D streaming: the LOD run of 4c with its operator and Laplacian plan
+      created with ``streams=4, max_tile_bytes=20_000_000`` (8 chunks in
+      each: z-slabs of 32 planes, 8192 rows, 32 planes, 8192 columns),
+      equal bit for bit to 4c's run, launch counts asserted.
 5. Timing: ms/step of the fused step over 200 steps after 20 of warm-up,
-   of the stencil-mode and batched-1D steps, of the 3D LOD step, of the
-   WENO RK3 step at
+   of the stencil-mode and batched-1D steps, of the 3D LOD step and its
+   streamed run, of the WENO RK3 step at
    1024^2 and of the streamed fused and batched-1D steps (host clock,
    CUDA events, and the host's enqueue time per step); each piece of the
    steps timed alone; and one ``torch.profiler`` window over 20 fused
@@ -135,6 +145,9 @@ LONG_M = (40000, 64)  # a column sweep whose (M, C) tile fits no block
 LONG_ROWS = (3, 40000)  # a row sweep whose row fits no block beside the factors
 LONG_MID = (2, 6000, 16)  # a plane sweep whose one-column tile fits no block
 N_TIMED_3D = 20
+# 3D streaming (phase 4f): the budget that cuts the 256^3 float64 LOD step
+# and its Laplacian plan into 8 chunks each
+TILE_BYTES_3D = 20_000_000
 LOD = dict(D=0.5, dt=2e-3)  # examples/diffusion3d_adi.py defaults
 
 # Published H100 SXM peaks, from NVIDIA's H100 SXM data sheet: HBM3
@@ -896,6 +909,67 @@ def main() -> int:
                       "float64", lambda b, p=plan3, u=u_tall: ops.stencil_apply_3d(
                           u, p.coeffs, halos=p.halos, backend=b, taps=p.taps)))
 
+    # the standalone RHS at the edges of its staged tile: one row, one
+    # column, a tile smaller than its halo, each a periodic box of length
+    # 2 pi at its own spacing (as tests/test_torch_kernels_cuda.py); its
+    # row chunks bit for bit the monolithic launch.  (At the 1024^2 spacing
+    # a 1x1 field's biharmonic, 0 in exact arithmetic, is the rounding of
+    # terms of k_bih ~ 2.8e3, which max|plain| does not carry.)
+    for dtype in ("float64", "float32"):
+        for shape in ((1, 1), (1, 8), (8, 1), (3, 5)):
+            cn_e, cm_e = (edge_field(shape, dtype, s) for s in (62, 63))
+            h_e = 2.0 * math.pi / shape[1]
+            kw_e = dict(ch_kw, inv_h2=h_e**-2, inv_h4=h_e**-4)
+            cases.append(("ch_rhs", f"rhs {shape} {dtype}", dtype,
+                          lambda b, x=cn_e, y=cm_e, k=kw_e: ops.ch_rhs(
+                              x, y, backend=b, **k)))
+    cn_s, cm_s = fields(N_MAIN, N_MAIN, "float64")
+    streamed.append(("ch_rhs", f"rows in {N_CHUNKS} chunks {N_MAIN}^2",
+                     lambda: (S.stream_ch_rhs(cn_s, cm_s, streams=STREAMS,
+                                              chunk_rows=N_MAIN // N_CHUNKS,
+                                              **ch_kw),
+                              ops.ch_rhs(cn_s, cm_s, **ch_kw))))
+    # the streamed 3D path's windows: z-slabs of the 3D stencil (tile route:
+    # the 7-point plan; direct route: front = back = 13) and plane chunks of
+    # the plane sweep, at 256^3 and ragged, each window into one output
+    for shape, wins in (((N3,) * 3, [(k, k + N3 // N_CHUNKS)
+                                    for k in range(0, N3, N3 // N_CHUNKS)]),
+                        (RAGGED_3D, [(0, 1), (1, 7), (7, 30), (30, 61)])):
+        u_w = box3(shape, "float64", 64)
+        init_w = box3(shape, "float64", 65)
+        tag = "x".join(map(str, shape))
+        for halos, route in (((1,) * 6, "tile"), ((13, 13, 0, 0, 0, 0),
+                                                  "direct")):
+            nw = (halos[0] + halos[1] + 1) * (halos[2] + halos[3] + 1) * (
+                halos[4] + halos[5] + 1)
+            coeffs_w = lap3.coeffs if route == "tile" else torch.linspace(
+                -1.0, 1.0, nw, dtype=torch.float64, device=dev)
+            taps_w = lap3.taps if route == "tile" else None
+            if S3.stencil3d_geometry(shape, halos, 8, smem, sms).route != route:
+                raise PhaseError(f"stencil3d {shape} {halos}: not the {route} "
+                                 "route")
+            for bc in ("periodic", "np"):
+                def win3(h=halos, c=coeffs_w, t=taps_w, u=u_w, bc=bc, w=wins,
+                         o=init_w):
+                    kw = dict(halos=h, bc=bc, taps=t)
+                    got = torch.full_like(u, float("nan"))
+                    for win in w:
+                        S3.stencil3d_cuda(u, c, o, planes=win, out=got, **kw)
+                    return got, S3.stencil3d_cuda(u, c, o, **kw)
+                streamed.append(("stencil3d", f"{route} z windows {bc} {tag}",
+                                 win3))
+        fac_w = P.cyclic_penta_factor(*P.diffusion_diagonals(shape[1], 1.7),
+                                      device=dev)
+        for cyclic in (True, False):
+            def winmid(f=fac_w, cyc=cyclic, u=u_w, w=wins):
+                wmat = f.w if cyc else None
+                got = torch.full_like(u, float("nan"))
+                for win in w:
+                    P.penta_mid_cuda(f.band, u, wmat, planes=win, out=got)
+                return got, P.penta_mid_cuda(f.band, u, wmat)
+            streamed.append(("penta_mid", f"{'cyclic' if cyclic else 'plain'}"
+                             f" plane windows {tag}", winmid))
+
     checks, failures = [], []
     for kernel, label, dtype, run in cases:
         got = run("cuda")
@@ -936,6 +1010,26 @@ def main() -> int:
         if not moved > c["limit"]:
             failures.append(f"ch_rhs {c['label']}: limit cannot catch a "
                             "dropped nonlinear term")
+    # observation: the standalone RHS against the RHS the fused kernel
+    # assembles in shared memory (the identity band: its solve is exact)
+    ones, zeros = (torch.full((N_MAIN,), v, dtype=torch.float64, device=dev)
+                   for v in (1.0, 0.0))
+    identity = P.CyclicPentaFactors(
+        P.PentaFactors(zeros, zeros, ones, zeros, zeros),
+        torch.zeros((N_MAIN, 4), dtype=torch.float64, device=dev),
+        torch.eye(4, dtype=torch.float64, device=dev),
+        torch.zeros((N_MAIN, 4), dtype=torch.float64, device=dev))
+    rhs_pair = (ops.ch_rhs(cn_s, cm_s, **ch_kw),
+                ops.ch_rhs_xsweep(cn_s, cm_s, identity, **ch_kw))
+    record["ch_rhs_equals_fused_rhs"] = dict(
+        bit_for_bit=bool(torch.equal(*rhs_pair)),
+        max_abs_diff=float((rhs_pair[0] - rhs_pair[1]).abs().max()))
+    print(f"[check] ch_rhs {N_MAIN}^2 float64 against the fused kernel's RHS "
+          f"(ch_rhs_xsweep, identity band): bit for bit "
+          f"{record['ch_rhs_equals_fused_rhs']['bit_for_bit']}, max|diff| "
+          f"{record['ch_rhs_equals_fused_rhs']['max_abs_diff']:.3e} "
+          "(observation)")
+    del rhs_pair, identity
     record["checks"] = checks
     if failures:
         (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -1388,6 +1482,48 @@ def main() -> int:
                             batch1d_launches=sb_launches, fused_seconds=sf_s,
                             batch1d_seconds=sb_s, **stream_checks)
 
+    # -- 4f. 3D streaming: the LOD run in z-slabs, row, plane and column chunks
+    geometry3 = {
+        "z-slabs (7-point Laplacian plan)": N3 // S.choose_chunk_rows(
+            N3, (N3 + 2) ** 2, isz8, top=1, bottom=1,
+            max_tile_bytes=TILE_BYTES_3D, streams=STREAMS),
+        "rows (x-sweep)": N3 * N3 // S.choose_chunk_rows(
+            N3 * N3, N3, isz8, max_tile_bytes=TILE_BYTES_3D, streams=STREAMS),
+        "planes (y-sweep)": N3 // S.choose_chunk_rows(
+            N3, N3 * N3, isz8, max_tile_bytes=TILE_BYTES_3D, streams=STREAMS),
+        "columns (z-sweep)": N3 * N3 // S.choose_chunk_cols(
+            N3, N3 * N3, isz8, max_tile_bytes=TILE_BYTES_3D),
+    }
+    if set(geometry3.values()) != {N_CHUNKS}:
+        raise PhaseError(f"3D streaming geometry {geometry3}, expected "
+                         f"{N_CHUNKS} chunks each")
+    knobs3 = dict(streams=STREAMS, max_tile_bytes=TILE_BYTES_3D)
+    op3s = rt.create("diffusion", (N3,) * 3, mode="adi", alpha=r3,
+                     cyclic=True, **knobs3)
+    lap3s = rt.create("laplacian", (N3,) * 3, bc="periodic", h=h3, **knobs3)
+    t0 = time.perf_counter()
+    (c3s, worst3s, rows3s), lod_s_launches = counts_of(
+        lambda: lod_run(op3s, lap3s))
+    lod_ss = time.perf_counter() - t0
+    expect(lod_s_launches, dict(penta_rows=K * N_STEPS, penta_mid=K * N_STEPS,
+                                penta_cols=K * N_STEPS,
+                                stencil3d=K * len(diag_steps)),
+           "streamed 3D LOD run")
+    same3 = bool(torch.equal(c3s, c3)) and rows3s == rows3
+    print(f"[stream3d] LOD {N3}^3 float64, streams {STREAMS}, max_tile_bytes "
+          f"{TILE_BYTES_3D}: chunks {geometry3}; {N_STEPS} steps in "
+          f"{lod_ss:.3f} s, launches {lod_s_launches}; field and Laplacian "
+          f"residuals equal to the monolithic run (4c) bit for bit: {same3}",
+          flush=True)
+    if not same3:
+        raise PhaseError("streamed 3D run differs from the monolithic run by "
+                         f"{float((c3s - c3).abs().max()):.3e}")
+    record["stream3d"] = dict(geometry=geometry3, streams=STREAMS,
+                              max_tile_bytes=TILE_BYTES_3D,
+                              launches=lod_s_launches, seconds=lod_ss,
+                              decay_max_dev=worst3s, equal_to_monolithic=same3)
+    del c3s
+
     # -- 5. timing -----------------------------------------------------------
     def per_step(run, carry, steps):
         """ms/step of ``carry = run(carry)`` (one call does ``steps`` steps):
@@ -1432,6 +1568,17 @@ def main() -> int:
     if not bool(torch.isfinite(c3).all()):
         raise PhaseError("timed 3D run produced non-finite values")
 
+    def lod_steps_streamed(c):
+        for _ in range(N_TIMED_3D):
+            c = rt.compute(op3s, c)
+        return c
+
+    c3 = lod_steps_streamed(c3_0.clone())  # warm-up
+    c3, step_times["lod3d streamed"] = per_step(lod_steps_streamed, c3,
+                                                N_TIMED_3D)
+    if not bool(torch.isfinite(c3).all()):
+        raise PhaseError("timed streamed 3D run produced non-finite values")
+
     def weno_steps(steps):
         def run(q):
             q, n = w_k.run(q, u1, v1, (steps - 0.5) * dt_w, dt=dt_w)
@@ -1467,6 +1614,16 @@ def main() -> int:
         f"3D x-sweep: penta_rows ({N3 * N3}, {N3})": lambda: op3.solve_x(u3),
         f"3D y-sweep: penta_mid ({N3}, {N3}, {N3})": lambda: op3.solve_y(u3),
         f"3D z-sweep: penta_cols ({N3}, {N3 * N3})": lambda: op3.solve_z(u3),
+        f"streamed 3D x-sweep: penta_rows, {K} row chunks":
+            lambda: op3s.solve_x(u3),
+        f"streamed 3D y-sweep: penta_mid, {K} plane chunks":
+            lambda: op3s.solve_y(u3),
+        f"streamed 3D z-sweep: penta_cols, {K} column chunks":
+            lambda: op3s.solve_z(u3),
+        f"3D Laplacian plan: stencil3d ({N3}, {N3}, {N3})":
+            lambda: lap3.apply(u3),
+        f"streamed 3D Laplacian plan: stencil3d, {K} z-slabs":
+            lambda: lap3s.apply(u3),
         f"WENO RHS: weno5_advect ({N_MAIN}, {N_MAIN})":
             lambda: w_k.rhs(q1, u1, v1),
         "WENO RK3 glue (12 torch ops, as in run)": weno_glue,
@@ -1486,6 +1643,7 @@ def main() -> int:
     record["ms_per_step_stencil"] = step_times["stencil"]
     record["ms_per_step_batch1d"] = step_times["batch1d"]
     record["ms_per_step_lod3d"] = step_times["lod3d"]
+    record["ms_per_step_lod3d_streamed"] = step_times["lod3d streamed"]
     record["ms_per_step_weno"] = step_times["weno"]
     record["ms_per_step_streamed"] = {k: step_times[f"{k} streamed"]
                                       for k in ("fused", "batch1d")}
@@ -1493,6 +1651,8 @@ def main() -> int:
                        ("stencil", f"stencil-mode step at {N_MAIN}^2 float64"),
                        ("batch1d", f"batch1d step at {N_MAIN}^2 float64"),
                        ("lod3d", f"3D LOD step at {N3}^3 float64"),
+                       ("lod3d streamed", f"3D LOD step at {N3}^3 float64, "
+                        f"streams {STREAMS}, {K} chunks a sweep"),
                        ("weno", f"WENO RK3 step at {N_MAIN}^2 float64"),
                        ("fused streamed", f"fused step at {N_MAIN}^2 float64, "
                         f"streams {STREAMS}, {K} chunks"),

@@ -230,8 +230,10 @@ def create(
 
     ``backend`` is ``'auto'|'cuda'|'torch'``; ``device`` defaults to the
     card.  ``streams``/``max_tile_bytes`` (cuSten's ``nStreams``) stream a
-    rank-2 plan's Compute in chunks on CUDA streams when the field exceeds
-    one tile (:mod:`repro_torch.launch.stream`); rank-3 plans refuse them.
+    plan's Compute in chunks on CUDA streams when the field exceeds one
+    tile (:mod:`repro_torch.launch.stream`): row or line chunks at rank 2,
+    z-slabs of a rank-3 stencil, and row, plane and column chunks of the
+    3D ADI sweeps.
     """
     shape = tuple(int(s) for s in shape)
     rank = len(shape)
@@ -240,10 +242,7 @@ def create(
             f"shape must be rank 2 or 3, got {shape!r} "
             "(batched-1D stacks are rank-2 (B, M) with mode='batch')"
         )
-    refuse_unported(
-        streams=streams, max_tile_bytes=max_tile_bytes, tune=tune, lint=lint,
-        rank=rank,
-    )
+    refuse_unported(tune=tune, lint=lint)
     opdef = get_operator(weights_or_fn) if isinstance(weights_or_fn, str) else None
 
     if mode == "adi":

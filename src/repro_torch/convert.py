@@ -6,9 +6,8 @@ The reference's factor sets, ADI operators (2D and 3D) and stencil plans
 pass ``np.asarray`` of each and these functions build the port's
 counterpart on ``device``.  Feeding the reference's own factors to the
 port separates differences in the substitution from differences in the
-factorisation.  The 2D and batched-1D builders also carry a reference
-plan's ``streams`` and ``max_tile_bytes`` across (the 3D ones have no
-streaming yet).
+factorisation.  Each function also carries a reference plan's ``streams``
+and ``max_tile_bytes`` across.
 """
 
 from __future__ import annotations
@@ -82,15 +81,21 @@ def adi_operator_3d(
     *,
     backend: str = "auto",
     operator: str = "hyperdiffusion",
+    streams: int | None = None,
+    max_tile_bytes: int | None = None,
 ) -> ADIOperator3D:
     """A :class:`ADIOperator3D` from three converted factor sets (cyclic
-    when all three are cyclic)."""
+    when all three are cyclic), with the reference operator's streaming
+    knobs."""
     kinds = {isinstance(f, CyclicPentaFactors) for f in (fac_x, fac_y, fac_z)}
     if len(kinds) != 1:
         raise ValueError("fac_x, fac_y and fac_z must all be cyclic or all plain")
+    cyclic = kinds.pop()
+    device = (fac_x.band if cyclic else fac_x).sub.device
     return ADIOperator3D(
-        fac_x=fac_x, fac_y=fac_y, fac_z=fac_z, cyclic=kinds.pop(),
+        fac_x=fac_x, fac_y=fac_y, fac_z=fac_z, cyclic=cyclic,
         backend=backend, operator=operator,
+        **stream_fields(streams, max_tile_bytes, device),
     )
 
 
@@ -130,12 +135,16 @@ def stencil3d(
     bc: str = "periodic",
     point_fn: Callable = weighted_point_fn,
     backend: str = "auto",
+    streams: int | None = None,
+    max_tile_bytes: int | None = None,
     device="cuda",
 ) -> Stencil3D:
     """A :class:`Stencil3D` from flat ``coeffs`` (z-major, then row-major
-    over (y, x)) and ``halos`` ``(front, back, top, bottom, left, right)``."""
+    over (y, x)), ``halos`` ``(front, back, top, bottom, left, right)`` and
+    its streaming knobs."""
     fr, bk, tp, bt, lf, rt = (int(h) for h in halos)
-    coeffs_t = _tensor(coeffs, resolve_device(device)).reshape(-1)
+    dev = resolve_device(device)
+    coeffs_t = _tensor(coeffs, dev).reshape(-1)
     _check_weighted(coeffs_t, point_fn, (fr + bk + 1) * (tp + bt + 1) * (lf + rt + 1))
     axes = "".join(a for a, on in (("x", lf or rt), ("y", tp or bt), ("z", fr or bk)) if on)
     return Stencil3D(
@@ -143,6 +152,7 @@ def stencil3d(
         top=tp, bottom=bt, left=lf, right=rt, coeffs=coeffs_t,
         point_fn=point_fn, backend=backend,
         taps=plan_taps_of(coeffs_t, point_fn, (fr, bk, tp, bt, lf, rt)),
+        **stream_fields(streams, max_tile_bytes, dev),
     )
 
 

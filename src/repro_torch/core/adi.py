@@ -14,7 +14,9 @@ is a batched banded substitution, transpose-free in every sweep:
   chunks (:mod:`repro_torch.launch.stream`);
 - 3D :class:`ADIOperator3D`: the x-sweep runs the row layout on the
   ``(nz*ny, nx)`` view, the y-sweep the plane layout on the field itself,
-  the z-sweep the column layout on the ``(nz, ny*nx)`` view.
+  the z-sweep the column layout on the ``(nz, ny*nx)`` view; with
+  ``streams``/``max_tile_bytes`` each sweep is streamed in row, plane or
+  column chunks.
 """
 
 from __future__ import annotations
@@ -186,7 +188,13 @@ class ADIOperator3D:
     - :meth:`solve_y` — plane layout on the field itself (recurrence along
       the middle axis, batch on planes x lanes);
     - :meth:`solve_z` — column layout on the ``(nz, ny*nx)`` view.
-    """
+
+    ``streams``/``max_tile_bytes`` route each sweep through its streamed
+    executor when the field exceeds one tile: the x-sweep in row chunks,
+    the y-sweep in plane chunks
+    (:func:`~repro_torch.launch.stream.stream_penta_solve_mid`), the
+    z-sweep in column chunks, each chunk one kernel launch on a stream of
+    ``stream_pool``."""
 
     fac_x: CyclicPentaFactors | PentaFactors  # along x (length nx)
     fac_y: CyclicPentaFactors | PentaFactors  # along y (length ny)
@@ -194,25 +202,47 @@ class ADIOperator3D:
     cyclic: bool
     backend: str = "auto"
     operator: str = "hyperdiffusion"
+    streams: int | None = None
+    max_tile_bytes: int | None = None
+    stream_pool: tuple = dataclasses.field(default=(), compare=False, repr=False)
 
     @property
     def destroyed(self) -> bool:
         """True once ``repro_torch.destroy`` ran on this operator."""
         return getattr(self, "_destroyed", False)
 
+    def _should_stream(self, rhs: torch.Tensor) -> bool:
+        return _stream.should_stream(
+            rhs.shape, rhs.element_size(), streams=self.streams,
+            max_tile_bytes=self.max_tile_bytes,
+        )
+
+    def _knobs(self) -> dict:
+        return dict(cyclic=self.cyclic, streams=self.streams,
+                    max_tile_bytes=self.max_tile_bytes, backend=self.backend,
+                    pool=self.stream_pool)
+
     def solve_x(self, rhs: torch.Tensor) -> torch.Tensor:
         """Solve ``L_x w = rhs`` along the x (last) axis — row layout on the
         flattened ``(nz*ny, nx)`` batch."""
         nz, ny, nx = rhs.shape
-        solve = (
-            cyclic_penta_solve_factored_rows if self.cyclic
-            else penta_solve_factored_rows
-        )
-        out = solve(self.fac_x, rhs.reshape(nz * ny, nx), backend=self.backend)
+        flat = rhs.reshape(nz * ny, nx)
+        if self._should_stream(rhs):
+            out = _stream.stream_penta_solve_rows(self.fac_x, flat,
+                                                  **self._knobs())
+        else:
+            solve = (
+                cyclic_penta_solve_factored_rows if self.cyclic
+                else penta_solve_factored_rows
+            )
+            out = solve(self.fac_x, flat, backend=self.backend)
         return out.reshape(rhs.shape)
 
     def solve_y(self, rhs: torch.Tensor) -> torch.Tensor:
         """Solve ``L_y v = rhs`` along the y (middle) axis — plane layout."""
+        if self._should_stream(rhs):
+            return _stream.stream_penta_solve_mid(self.fac_y, rhs,
+                                                  **self._knobs())
         solve = (
             cyclic_penta_solve_factored_mid if self.cyclic
             else penta_solve_factored_mid
@@ -223,8 +253,13 @@ class ADIOperator3D:
         """Solve ``L_z u = rhs`` along the z (first) axis — column layout on
         the ``(nz, ny*nx)`` view."""
         nz, ny, nx = rhs.shape
-        solve = cyclic_penta_solve_factored if self.cyclic else penta_solve_factored
-        out = solve(self.fac_z, rhs.reshape(nz, ny * nx), backend=self.backend)
+        flat = rhs.reshape(nz, ny * nx)
+        if self._should_stream(rhs):
+            out = _stream.stream_penta_solve(self.fac_z, flat, **self._knobs())
+        else:
+            solve = (cyclic_penta_solve_factored if self.cyclic
+                     else penta_solve_factored)
+            out = solve(self.fac_z, flat, backend=self.backend)
         return out.reshape(rhs.shape)
 
 
@@ -251,9 +286,9 @@ def _make_adi_operator_3d(
     ``I + alpha delta^4`` for ``operator='hyperdiffusion'``,
     ``I - alpha delta^2`` for ``operator='diffusion'`` (backward-Euler heat
     sweeps, ``alpha = D dt / h^2``).  ``alpha_y``/``alpha_z`` override the
-    x coefficient per direction on anisotropic grids."""
-    refuse_unported(streams=streams, max_tile_bytes=max_tile_bytes, tune=tune,
-                    rank=3)
+    x coefficient per direction on anisotropic grids; ``streams``/
+    ``max_tile_bytes`` stream the sweeps."""
+    refuse_unported(tune=tune)
     check_backend(backend)
     dev = resolve_device(device)
     diagonals = _band_builder(operator)
@@ -267,4 +302,5 @@ def _make_adi_operator_3d(
         cyclic=cyclic,
         backend=backend,
         operator=operator,
+        **_stream.stream_fields(streams, max_tile_bytes, dev),
     )

@@ -10,8 +10,8 @@ for the three plan families: 2D
 - ``plan.apply`` — Compute, through the family's op in
   :mod:`repro_torch.kernels.ops`, or, when ``streams``/``max_tile_bytes``
   ask for it and the field exceeds one tile, through the family's streamed
-  executor in :mod:`repro_torch.launch.stream` (2D and batched-1D; a 3D
-  plan refuses the knobs).
+  executor in :mod:`repro_torch.launch.stream` (row chunks, line chunks
+  or z-slabs).
 - :class:`DoubleBuffer` — Swap.
 - :func:`plan_destroy` — Destroy (an idempotent mark; tensors are freed by
   reference counting).
@@ -91,12 +91,8 @@ class PlanCore:
         raise NotImplementedError
 
     def _stream_apply(self, *args, **kwargs) -> torch.Tensor:
-        """The family's streamed executor in :mod:`repro_torch.launch.stream`
-        (the 3D family has none yet: Create refuses its knobs)."""
-        raise NotImplementedError(
-            f"{type(self).__name__} has no streamed executor (ROADMAP.md "
-            "queue 1, item 6)"
-        )
+        """The family's streamed executor in :mod:`repro_torch.launch.stream`."""
+        raise NotImplementedError
 
     def apply(
         self, data: torch.Tensor, out_init: torch.Tensor | None = None
@@ -360,6 +356,9 @@ class Stencil3D(PlanCore):
     def _mono_apply(self, *args, **kwargs):
         return ops.stencil_apply_3d(*args, **kwargs)
 
+    def _stream_apply(self, *args, **kwargs):
+        return _stream.stream_stencil3d_apply(*args, **kwargs)
+
     @property
     def num_sten(self) -> int:
         return ((self.front + self.back + 1) * (self.top + self.bottom + 1)
@@ -403,9 +402,9 @@ def _create_3d(
     split inferred for odd lengths, or the explicit extent pair), or a 3D
     ``(sz, sy, sx)`` box for ``'xyz'``.  Function mode: ``func(windows,
     coeffs)`` plus the explicit extents; windows are enumerated z-major,
-    then row-major over (y, x)."""
-    refuse_unported(streams=streams, max_tile_bytes=max_tile_bytes, tune=tune,
-                    rank=3)
+    then row-major over (y, x).  ``streams``/``max_tile_bytes`` stream
+    Compute in z-slabs (:func:`repro_torch.launch.stream.stream_stencil3d_apply`)."""
+    refuse_unported(tune=tune)
     if direction not in _DIRECTIONS_3D:
         raise ValueError(f"direction must be one of {_DIRECTIONS_3D}")
     if bc not in _BCS:
@@ -459,6 +458,7 @@ def _create_3d(
         bottom=bottom, left=left, right=right, coeffs=coeffs_t,
         point_fn=point_fn, backend=backend, op_name=op_name,
         taps=plan_taps_of(coeffs_t, point_fn, halos),
+        **_stream.stream_fields(streams, max_tile_bytes, resolve_device(device)),
     )
 
 

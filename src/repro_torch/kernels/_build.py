@@ -86,7 +86,7 @@ _ENTRY_POINTS = {
          [_I, _I, _I, _P, _P, _P, _P, _I, _I, _L, _L] + [_I] * 7 + [_P] * 4),
     ),
     "stencil3d.cu": (
-        ("stencil3d", [_I, _I, _I, _P, _P, _P, _P] + [_I] * 11 + [_P] * 4),
+        ("stencil3d", [_I, _I, _I, _P, _P, _P, _P] + [_I] * 13 + [_P] * 4),
     ),
     "fused_ch.cu": (
         ("ch_rhs_xsweep",
@@ -116,7 +116,8 @@ def reset_launches() -> None:
 def check_backend(backend: str) -> None:
     if backend == "fft":
         raise NotImplementedError(
-            "backend='fft' is not ported yet (ROADMAP.md queue 1, item 8)"
+            "backend='fft' is not ported yet (ROADMAP.md, Open items: Spectral "
+            "backend)"
         )
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")

@@ -42,6 +42,16 @@
 // halos) the direct route computes one point a thread from device memory,
 // each index wrapped on its own, as the first design did.  The geometry
 // (route, zc, grid) comes from kernels/stencil3d.py:stencil3d_geometry.
+//
+// A launch computes the planes [k0, k1) of the output (the whole field is
+// [0, nz)): a streamed apply (repro_torch/launch/stream.py) issues one
+// launch per z-slab, each reading its halo planes from the whole field
+// with the same wrap, and for bc np testing the interior with the global
+// k, so no padded slab is copied (the reference pads one, _pad_field_3d).
+// The route and the point code depend on the shape, the halos and the
+// dtype alone; only zc and the grid follow the slab's depth, so every
+// point is computed by the same code from the same inputs whatever the
+// slab.
 #include "common.cuh"
 
 namespace {
@@ -61,14 +71,15 @@ struct Box {
 };
 
 // Tile route: block (x + nbx y, z), nbx = ceil(nx / TX), computes the tile
-// [x TX, x TX + TX) x [y TY, y TY + TY) of the planes [z zc, z zc + zc);
+// [x TX, x TX + TX) x [y TY, y TY + TY) of the planes [kb + z zc,
+// kb + z zc + zc) (clipped to ke);
 // blockDim (TX, BY).  The (x, y) tiles share grid.x, whose limit is 2^31 -
 // 1 blocks, not grid.y's 65535.
 template <typename T, typename P, bool PERIODIC, bool NEAR>
 __global__ void __launch_bounds__(TX * BY) stencil3d_tile_kernel(
     const T* __restrict__ data, const T* __restrict__ coeffs,
-    const T* __restrict__ out_init, T* __restrict__ out, const Box g, int zc,
-    const __grid_constant__ Taps taps) {
+    const T* __restrict__ out_init, T* __restrict__ out, const Box g, int kb,
+    int ke, int zc, const __grid_constant__ Taps taps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
   const int sz = g.fr + g.bk + 1, sy = g.tp + g.bt + 1, sx = g.lf + g.rt + 1;
@@ -77,7 +88,7 @@ __global__ void __launch_bounds__(TX * BY) stencil3d_tile_kernel(
   const int plane = W * (TY + g.tp + g.bt);
   const int nbx = (g.nx + TX - 1) / TX;
   const int i0 = blockIdx.x % nbx * TX, j0 = blockIdx.x / nbx * TY;
-  const int k0 = blockIdx.y * zc, k1 = min(k0 + zc, g.nz);
+  const int k0 = kb + blockIdx.y * zc, k1 = min(k0 + zc, ke);
   const int vx = min(TX, g.nx - i0), vy = min(TY, g.ny - j0);
   const int rows = vy + g.tp + g.bt, cols = vx + g.lf + g.rt;
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -134,18 +145,18 @@ __global__ void __launch_bounds__(TX * BY) stencil3d_tile_kernel(
 
 // Direct route: one point a thread, its windows read from device memory
 // with each index wrapped on its own; blockDim (TX, BY), block x + nbx y
-// of grid.x, planes in a loop over grid.y.
+// of grid.x, the planes [kb, ke) in a loop over grid.y.
 template <typename T, typename P, bool PERIODIC>
 __global__ void __launch_bounds__(TX * BY) stencil3d_direct_kernel(
     const T* __restrict__ data, const T* __restrict__ coeffs,
-    const T* __restrict__ out_init, T* __restrict__ out, const Box g,
-    const __grid_constant__ Taps taps) {
+    const T* __restrict__ out_init, T* __restrict__ out, const Box g, int kb,
+    int ke, const __grid_constant__ Taps taps) {
   const int nbx = (g.nx + TX - 1) / TX;
   const int i = blockIdx.x % nbx * TX + threadIdx.x;
   const int j = blockIdx.x / nbx * BY + threadIdx.y;
   if (i >= g.nx || j >= g.ny) return;
   const int sz = g.fr + g.bk + 1, sy = g.tp + g.bt + 1, sx = g.lf + g.rt + 1;
-  for (int k = blockIdx.y; k < g.nz; k += gridDim.y) {
+  for (int k = kb + blockIdx.y; k < ke; k += gridDim.y) {
     const size_t idx = (static_cast<size_t>(k) * g.ny + j) * g.nx + i;
     if (!PERIODIC && !g.interior(k, j, i)) {
       out[idx] = out_init != nullptr ? out_init[idx] : T(0);
@@ -168,8 +179,8 @@ __global__ void __launch_bounds__(TX * BY) stencil3d_direct_kernel(
 
 template <typename T, typename P>
 int launch(int periodic, const void* data, const void* coeffs,
-           const void* out_init, void* out, const Box& g, int zc, int smem,
-           const Taps& taps, cudaStream_t stream) {
+           const void* out_init, void* out, const Box& g, int kb, int ke,
+           int zc, int smem, const Taps& taps, cudaStream_t stream) {
   if constexpr (P::kGeneral) {
     if (P::kWindows !=
         (g.fr + g.bk + 1) * (g.tp + g.bt + 1) * (g.lf + g.rt + 1))
@@ -181,24 +192,26 @@ int launch(int periodic, const void* data, const void* coeffs,
   T* o = static_cast<T*>(out);
   const dim3 block(TX, BY);
   if (zc == 0) {  // the direct route
+    const int planes = ke - kb;
     const dim3 grid((g.nx + TX - 1) / TX * ((g.ny + BY - 1) / BY),
-                    g.nz < 65535 ? g.nz : 65535);
+                    planes < 65535 ? planes : 65535);
     if (periodic)
       stencil3d_direct_kernel<T, P, true>
-          <<<grid, block, 0, stream>>>(d, c, init, o, g, taps);
+          <<<grid, block, 0, stream>>>(d, c, init, o, g, kb, ke, taps);
     else
       stencil3d_direct_kernel<T, P, false>
-          <<<grid, block, 0, stream>>>(d, c, init, o, g, taps);
+          <<<grid, block, 0, stream>>>(d, c, init, o, g, kb, ke, taps);
     return static_cast<int>(cudaGetLastError());
   }
   const dim3 grid((g.nx + TX - 1) / TX * ((g.ny + TY - 1) / TY),
-                  (g.nz + zc - 1) / zc);
+                  (ke - kb + zc - 1) / zc);
   const bool near = g.fr <= g.nz && g.bk <= g.nz && g.tp <= g.ny &&
                     g.bt <= g.ny && g.lf <= g.nx && g.rt <= g.nx;
   auto go = [&](auto kernel, int* smem_set) {
     cudaError_t e = allow_smem(kernel, smem, smem_set);
     if (e != cudaSuccess) return static_cast<int>(e);
-    kernel<<<grid, block, smem, stream>>>(d, c, init, o, g, zc, taps);
+    kernel<<<grid, block, smem, stream>>>(d, c, init, o, g, kb, ke, zc,
+                                          taps);
     return static_cast<int>(cudaGetLastError());
   };
   static int set[4] = {0, 0, 0, 0};
@@ -213,27 +226,30 @@ int launch(int periodic, const void* data, const void* coeffs,
 
 // dtype: 0 float32, 1 float64.  point_fn: 0 weighted, 1 cube (C^3 - C),
 // 2 the user's (in a user build, whose NWIN must be the window count).
-// periodic: 1 periodic, 0 np.  out_init may be null (np zeros).  zc: planes
-// a block on the tile route, 0 for the direct route; smem: the tile
-// route's dynamic shared memory, bytes.  The taps (n, then the window
+// periodic: 1 periodic, 0 np.  out_init may be null (np zeros).  Computes
+// the output planes [k0, k1), 0 <= k0 < k1 <= nz.  zc: planes a block on
+// the tile route, 0 for the direct route; smem: the tile route's dynamic
+// shared memory, bytes.  The taps (n, then the window
 // coordinates c, a, b and the weights of n taps, n <= 32) may be null:
 // every window, weights from coeffs.
 RT_EXPORT int stencil3d(int dtype, int point_fn, int periodic, void* data,
                         void* coeffs, void* out_init, void* out, int nz,
                         int ny, int nx, int fr, int bk, int tp, int bt,
-                        int lf, int rt, int zc, int smem, const int* tap_n,
+                        int lf, int rt, int k0, int k1, int zc, int smem,
+                        const int* tap_n,
                         const int* tap_cab, const double* tap_w,
                         void* stream) {
   Taps taps;
-  if (zc < 0 || !read_taps(tap_n, tap_cab, tap_w, &taps))
+  if (zc < 0 || k0 < 0 || k1 > nz || k0 >= k1 ||
+      !read_taps(tap_n, tap_cab, tap_w, &taps))
     return static_cast<int>(cudaErrorInvalidValue);
   const Box g{nz, ny, nx, fr, bk, tp, bt, lf, rt};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_point_fn(point_fn, [&](auto p) {
     using P = decltype(p);
     return dtype == 1 ? launch<double, P>(periodic, data, coeffs, out_init,
-                                          out, g, zc, smem, taps, s)
+                                          out, g, k0, k1, zc, smem, taps, s)
                       : launch<float, P>(periodic, data, coeffs, out_init,
-                                         out, g, zc, smem, taps, s);
+                                         out, g, k0, k1, zc, smem, taps, s);
   });
 }

@@ -2,8 +2,9 @@
 ``repro.kernels.fused_ch``), both in ``csrc/fused_ch.cu`` and both built on
 one device function for the eq. 2a RHS at a point:
 
-- :func:`ch_rhs_cuda` — the RHS alone, one output per thread, any extent
-  (periodic wrap per index).  Its plain version is the windowed RHS
+- :func:`ch_rhs_cuda` — the RHS alone, any extent: a block stages a 32 x
+  32 tile of both fields and their halo of 2 in shared memory, each
+  thread computes four outputs.  Its plain version is the windowed RHS
   :func:`repro_torch.kernels.ref.ch_rhs_win`.
 - :func:`ch_rhs_xsweep_cuda` — ``L_x^{-1} rhs(c_n, c_nm1)`` in one pass: the
   RHS is assembled into shared memory, substituted in place (one warp per

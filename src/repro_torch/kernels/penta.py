@@ -509,21 +509,31 @@ def penta_rows_cuda(
 
 
 def penta_mid_cuda(
-    band: PentaFactors, rhs: torch.Tensor, w: torch.Tensor | None = None
+    band: PentaFactors,
+    rhs: torch.Tensor,
+    w: torch.Tensor | None = None,
+    *,
+    planes: tuple[int, int] | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch the plane-layout kernel on a (P, M, N) CUDA rhs; with ``w``
     the cyclic closure runs on the kernel's write-out.  Any M: lines whose
     one-column tile does not fit in shared memory are solved in device
-    memory."""
+    memory.  ``planes=(p0, p1)`` solves only those planes into ``out``:
+    the launch takes the planes' slab of rhs and out (contiguous, by
+    pointer offset), and its route, columns a block and L depend on M, N
+    and the dtype alone, so each line is solved as in the whole call."""
     P, M, N = rhs.shape
     _build.check_cuda(rhs, "rhs", like=rhs, shape=(P, M, N))
     _check_factors(band, w, rhs, M)
-    geo = mid_geometry_on(rhs.device, rhs.dtype, P, M, N)
-    out = torch.empty_like(rhs)
+    p0, p1 = _build.window(planes, P, "plane", out)
+    geo = mid_geometry_on(rhs.device, rhs.dtype, p1 - p0, M, N)
+    out = _build.out_like(out, rhs)
     _build.launch(
         "penta_mid", rhs.device, _build.dtype_code(rhs),
-        *(_build.ptr(f) for f in band), _build.ptr(w), _build.ptr(rhs),
-        _build.ptr(out), P, M, N, segment_length(M), geo.cols, geo.ldt,
+        *(_build.ptr(f) for f in band), _build.ptr(w),
+        _build.ptr(rhs[p0:p1]), _build.ptr(out[p0:p1]), p1 - p0, M, N,
+        segment_length(M), geo.cols, geo.ldt,
     )
     return out
 

@@ -10,7 +10,9 @@ reduced at Create to its non-zero taps
 (:func:`repro_torch.kernels.taps.nonzero_taps`), which the kernel takes as
 a launch parameter.  Point functions are selected by
 their ``device_point_fn`` tag or run from their CUDA source, as for the
-2D stencil.
+2D stencil.  A launch may compute a window of planes ``[k0, k1)`` into a
+given output, its halo planes read from the whole field: the z-slabs of
+:func:`repro_torch.launch.stream.stream_stencil3d_apply`.
 """
 
 from __future__ import annotations
@@ -51,17 +53,21 @@ class Stencil3DGeometry(NamedTuple):
 
 
 def stencil3d_geometry(shape, halos, itemsize: int, smem_optin: int,
-                       n_sms: int) -> Stencil3DGeometry:
-    """Geometry of the 3D stencil on an ``(nz, ny, nx)`` field.
+                       n_sms: int, planes: int | None = None
+                       ) -> Stencil3DGeometry:
+    """Geometry of the 3D stencil on an ``(nz, ny, nx)`` field, over
+    ``planes`` of its planes (all nz by default: a z window's depth).
 
     The tile route when the ring (fr + bk + 3 slots, each the tile and its
     halo: (32 + tp + bt) x (32 + lf + rt) elements) fits a block's shared
     memory; the z chunk zc is the largest that still gives ``WAVES``
-    resident grids' worth of blocks.  Else the direct route.  The (x, y)
-    tiles share grid.x (up to 2^31 - 1 blocks), so any ny fits; grid.y
-    holds the z chunks (the direct route: planes, looping past
-    :data:`GRID_YZ_MAX`)."""
-    nz, ny, nx = shape
+    resident grids' worth of blocks.  Else the direct route.  The route
+    depends on the halos and the dtype alone, so a window's points are
+    computed as the whole field's.  The (x, y) tiles share grid.x (up to
+    2^31 - 1 blocks), so any ny fits; grid.y holds the z chunks (the direct
+    route: planes, looping past :data:`GRID_YZ_MAX`)."""
+    _, ny, nx = shape
+    nz = shape[0] if planes is None else planes
     fr, bk, tp, bt, lf, rt = halos
     smem = ((fr + bk + 1 + AHEAD) * (TILE_Y + tp + bt) * (TILE_X + lf + rt)
             * itemsize)
@@ -86,13 +92,16 @@ def stencil3d_cuda(
     halos=(0, 0, 0, 0, 0, 0),
     bc: str = "periodic",
     taps: Taps | None = None,
+    planes: tuple[int, int] | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch the 3D stencil kernel on a contiguous (nz, ny, nx) CUDA field.
 
     ``taps`` are the plan's non-zero taps (``taps.nonzero_taps`` at
     Create), which a weighted or cube launch sums; without them it sums
     every window, its coefficient read from ``coeffs`` on the card.  A
-    user's point function takes every window."""
+    user's point function takes every window.  ``planes=(k0, k1)``
+    computes only those planes into ``out``."""
     if bc not in ("periodic", "np"):
         raise ValueError(f"bc must be 'periodic' or 'np', got {bc!r}")
     halos = tuple(int(h) for h in halos)
@@ -113,13 +122,15 @@ def stencil3d_cuda(
         _build.check_cuda(out_init, "out_init", like=data, shape=shape)
     if fn_id == _build.USER_POINT_FN:
         taps = None
+    k0, k1 = _build.window(planes, shape[0], "plane", out)
     smem, sms = _build.device_info(data.device)
-    geo = stencil3d_geometry(shape, halos, data.element_size(), smem, sms)
-    out = torch.empty_like(data)
+    geo = stencil3d_geometry(shape, halos, data.element_size(), smem, sms,
+                             planes=k1 - k0)
+    out = _build.out_like(out, data)
     _build.launch(
         "stencil3d", data.device, _build.dtype_code(data), fn_id,
         int(bc == "periodic"), _build.ptr(data), _build.ptr(coeffs),
-        _build.ptr(out_init), _build.ptr(out), *shape, *halos, geo.zc,
-        geo.smem, *c_taps(taps, halos), libs=libs,
+        _build.ptr(out_init), _build.ptr(out), *shape, *halos, k0, k1,
+        geo.zc, geo.smem, *c_taps(taps, halos), libs=libs,
     )
     return out

@@ -1,8 +1,10 @@
-"""Streamed execution for the 2D and batched-1D paths (paper §III, cuSten's
-``nStreams``; counterpart of ``repro.launch.stream``).
+"""Streamed execution for the 2D, batched-1D and 3D paths (paper §III,
+cuSten's ``nStreams``; counterpart of ``repro.launch.stream``).
 
 cuSten cuts a ``(ny, nx)`` field into row chunks and computes them on
-``nStreams`` overlapping CUDA streams.  Here:
+``nStreams`` overlapping CUDA streams; the 3D paths lift it one axis up
+(z-slabs of an ``(nz, ny, nx)`` field, plane chunks of the 3D y-sweep).
+Here:
 
 - the chunk geometry is the reference's (:func:`choose_chunk_rows`,
   :func:`choose_chunk_cols`, :func:`should_stream`), plain Python: the
@@ -12,7 +14,8 @@ cuSten cuts a ``(ny, nx)`` field into row chunks and computes them on
 - each chunk is ONE launch of the ported kernel on a window of the whole
   field (rows for the 2D stencil, the CH RHS, the fused RHS + x-sweep and
   the row-layout sweep; lines for the batched-1D stencil; columns for the
-  column-layout sweep).  The kernel reads the chunk's halo from the whole
+  column-layout sweep; planes for the 3D stencil and the plane-layout
+  sweep).  The kernel reads the chunk's halo from the whole
   field with its own wrap, so no slab is copied, and every point is
   computed by the same code from the same inputs as in the monolithic
   launch: on the card a streamed result equals the monolithic one bit for
@@ -28,10 +31,10 @@ cuSten cuts a ``(ny, nx)`` field into row chunks and computes them on
   window (slabs gathered with the periodic wrap), with no streams; they
   equal the monolithic plain versions bit for bit too.
 
-Not ported yet, and refused where a caller could reach them: the 3D
-executors (``stream_stencil3d_apply``, ``stream_penta_solve_mid``;
-ROADMAP.md queue 1, item 6), Create-time tuning of the geometry (item 10)
-and the multi-device path (:func:`stream_stencil_apply_dist`, item 13).
+Not ported yet, and refused where a caller could reach them: Create-time
+tuning of the geometry (ROADMAP.md, Open items: Tuning) and the
+multi-device path (:func:`stream_stencil_apply_dist`; Open items:
+Distribution).
 """
 
 from __future__ import annotations
@@ -45,10 +48,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.fused_ch import ch_rhs_cuda, ch_rhs_xsweep_cuda
 from repro_torch.kernels.penta import (
     cyclic_penta_solve_factored,
+    cyclic_penta_solve_factored_mid,
     cyclic_penta_solve_factored_rows,
     penta_cols_cuda,
+    penta_mid_cuda,
     penta_rows_cuda,
     penta_solve_factored,
+    penta_solve_factored_mid,
     penta_solve_factored_rows,
     rows_woodbury_correct,
     substitute_rows_torch,
@@ -62,6 +68,7 @@ from repro_torch.kernels.ref import (
 )
 from repro_torch.kernels.stencil1d_batch import in_layout, stencil1d_batch_cuda
 from repro_torch.kernels.stencil2d import stencil2d_cuda
+from repro_torch.kernels.stencil3d import stencil3d_cuda
 from repro_torch.util import ceil_div
 
 # ---------------------------------------------------------------------------
@@ -199,8 +206,8 @@ def make_stream_pool(streams: int | None, device) -> tuple:
 
 def stream_fields(streams: int | None, max_tile_bytes: int | None,
                   device) -> dict:
-    """The streaming fields of a rank-2 plan or 2D ADI operator: the two
-    knobs and the pool of :func:`make_stream_pool`."""
+    """The streaming fields of a plan or ADI operator: the two knobs and
+    the pool of :func:`make_stream_pool`."""
     return dict(streams=streams, max_tile_bytes=max_tile_bytes,
                 stream_pool=make_stream_pool(streams, device))
 
@@ -518,10 +525,130 @@ def stream_ch_rhs_xsweep(
     return out
 
 
+def _stencil3d_slab_torch(data, coeffs, out_init, k0, k1, *, point_fn,
+                          halos, bc):
+    """Plain version on the planes [k0, k1): the z-major windows of the
+    reference's ``_slab_windows_3d``, in its order, sliced from the slab of
+    planes ``k0 - fr .. k1 + bk - 1`` padded in y and x, every index
+    wrapped.  The reference pads ``bc='np'`` with zeros instead; the
+    interior's windows never reach the pad, and the other cells take
+    ``out_init``."""
+    fr, bk, tp, bt, lf, rt = halos
+    nz, ny, nx = data.shape
+    dev = data.device
+
+    def wrapped(a, b, n):
+        return torch.arange(a, b, device=dev) % n
+
+    slab = (data.index_select(0, wrapped(k0 - fr, k1 + bk, nz))
+            .index_select(1, wrapped(-tp, ny + bt, ny))
+            .index_select(2, wrapped(-lf, nx + rt, nx)))
+    planes = k1 - k0
+    wins = [slab[c : c + planes, a : a + ny, b : b + nx]
+            for c in range(fr + bk + 1)
+            for a in range(tp + bt + 1)
+            for b in range(lf + rt + 1)]
+    out = point_fn(wins, coeffs)
+    if bc == "np":
+        kk = torch.arange(k0, k1, device=dev)[:, None, None]
+        jj = torch.arange(ny, device=dev)[None, :, None]
+        ii = torch.arange(nx, device=dev)[None, None, :]
+        mask = ((kk >= fr) & (kk < nz - bk) & (jj >= tp) & (jj < ny - bt)
+                & (ii >= lf) & (ii < nx - rt))
+        base = (torch.zeros_like(out) if out_init is None
+                else out_init[k0:k1].to(out.dtype))
+        out = torch.where(mask, out, base)
+    return out
+
+
+def stream_stencil3d_apply(
+    data: torch.Tensor,
+    coeffs: torch.Tensor,
+    out_init: torch.Tensor | None = None,
+    *,
+    point_fn: Callable = weighted_point_fn,
+    halos=(0, 0, 0, 0, 0, 0),
+    bc: str = "periodic",
+    streams: int | None = None,
+    max_tile_bytes: int | None = None,
+    chunk_slabs: int | None = None,
+    compute: str = "auto",
+    pool: Sequence = (),
+    taps=None,
+) -> torch.Tensor:
+    """Streamed 3D stencil apply: the contract (and, slab for slab, the
+    arithmetic) of :func:`repro_torch.kernels.ops.stencil_apply_3d`, issued
+    as z-slabs.  ``chunk_slabs`` overrides the geometry (slabs of that many
+    planes); otherwise the largest divisor of nz whose halo-padded slab,
+    ``(planes + front + back)`` planes of ``(ny + top + bottom) x (nx +
+    left + right)``, fits ``max_tile_bytes``, as the reference reckons it.
+    On the card each slab is one launch of the 3D kernel on its window of
+    planes, its halo planes read from the whole field."""
+    if bc not in ("periodic", "np"):
+        raise ValueError(f"bc must be 'periodic' or 'np', got {bc!r}")
+    nz, ny, nx = data.shape
+    halos = tuple(int(h) for h in halos)
+    fr, bk, tp, bt, lf, rt = halos
+    planes = chunk_slabs or choose_chunk_rows(
+        nz, (ny + tp + bt) * (nx + lf + rt), data.element_size(),
+        top=fr, bottom=bk, max_tile_bytes=max_tile_bytes, streams=streams,
+    )
+    windows = _windows(nz, planes, "slabs")
+    kw = dict(point_fn=point_fn, halos=halos, bc=bc)
+    out = torch.empty_like(data)
+    if resolve_compute(compute, data) == "cuda":
+        init = out_init if bc == "np" else None
+        _issue(windows, lambda w: stencil3d_cuda(
+            data, coeffs, init, planes=w, out=out, taps=taps, **kw), pool,
+            data.device)
+        return out
+    for k0, k1 in windows:
+        out[k0:k1] = _stencil3d_slab_torch(data, coeffs, out_init, k0, k1,
+                                           **kw)
+    return out
+
+
+def stream_penta_solve_mid(
+    fac,
+    rhs: torch.Tensor,
+    *,
+    cyclic: bool,
+    streams: int | None = None,
+    max_tile_bytes: int | None = None,
+    chunk_planes: int | None = None,
+    backend: str = "auto",
+    pool: Sequence = (),
+) -> torch.Tensor:
+    """Streamed plane-layout substitution on a ``(P, M, N)`` rhs (the 3D
+    y-sweep): every ``(p, :, n)`` line is one system, so the plane axis
+    streams as plane chunks with no halo, one launch each."""
+    if rhs.ndim != 3:
+        raise ValueError(f"plane layout takes a (P, M, N) rhs, got {tuple(rhs.shape)}")
+    P, M, N = rhs.shape
+    planes = chunk_planes or choose_chunk_rows(
+        P, M * N, rhs.element_size(), max_tile_bytes=max_tile_bytes,
+        streams=streams,
+    )
+    windows = _windows(P, planes, "planes")
+    solve = (cyclic_penta_solve_factored_mid if cyclic
+             else penta_solve_factored_mid)
+    if len(windows) == 1:
+        return solve(fac, rhs, backend=backend)
+    out = torch.empty_like(rhs)
+    if resolve_compute(backend, rhs) == "cuda":
+        band, w = (fac.band, fac.w) if cyclic else (fac, None)
+        _issue(windows, lambda p: penta_mid_cuda(
+            band, rhs, w, planes=p, out=out), pool, rhs.device)
+        return out
+    for p0, p1 in windows:
+        out[p0:p1] = solve(fac, rhs[p0:p1], backend="torch")
+    return out
+
+
 def stream_stencil_apply_dist(*args, **kwargs):
     """The multi-device streamed apply (chunks sharded over a mesh) is not
     ported: it waits for the distribution slice."""
     raise NotImplementedError(
         "stream_stencil_apply_dist (multi-device streamed execution) is not "
-        "ported yet (ROADMAP.md queue 1, item 13)"
+        "ported yet (ROADMAP.md, Open items: Distribution)"
     )

@@ -58,29 +58,18 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def refuse_unported(
-    *, streams=None, max_tile_bytes=None, tune="off", lint=None, rank=2
-) -> None:
+def refuse_unported(*, tune="off", lint=None) -> None:
     """Raise for a reference knob this port does not have yet, naming the
-    ROADMAP.md item that ports it (never silently ignored).  Streaming is
-    ported for rank-2 plans (2D, batched-1D, the 2D ADI operator); a rank-3
-    plan or operator with ``streams``/``max_tile_bytes`` raises."""
-    if rank == 3 and (streams is not None or max_tile_bytes is not None):
-        raise NotImplementedError(
-            "streams= / max_tile_bytes= on a rank-3 plan or ADIOperator3D: "
-            "the 3D streamed executors (stream_stencil3d_apply, "
-            "stream_penta_solve_mid) are not ported yet (ROADMAP.md queue 1, "
-            "item 6); rank-2 plans stream"
-        )
+    ROADMAP.md item that ports it by its title (never silently ignored)."""
     if tune != "off":
         raise NotImplementedError(
             f"tune={tune!r}: Create-time autotuning is not ported yet "
-            "(ROADMAP.md queue 1, item 10); only tune='off' is accepted"
+            "(ROADMAP.md, Open items: Tuning); only tune='off' is accepted"
         )
     if lint not in (None, "off"):
         raise NotImplementedError(
-            f"lint={lint!r}: stencil-lint is not ported yet (ROADMAP.md "
-            "queue 1, item 14)"
+            f"lint={lint!r}: stencil-lint is not ported yet (ROADMAP.md, "
+            "Open items: Analysis)"
         )
 
 

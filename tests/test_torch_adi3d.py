@@ -6,8 +6,11 @@ dense oracle; ``ADIOperator3D`` and rank-3 ``create``/``compute`` against
 the reference's ``backend='jnp'`` path (its Pallas substitutions need
 ``pl.load``, which the installed jax lacks), cyclic and not, sweep by
 sweep and whole; the reference's factors carried over by ``convert.py``;
-and the LOD diffusion scheme of ``examples/diffusion3d_adi.py``, whose
-decay on the separable mode is known exactly.  Tolerance
+the LOD diffusion scheme of ``examples/diffusion3d_adi.py``, whose
+decay on the separable mode is known exactly; and the streamed operator
+(``streams``/``max_tile_bytes``: row, plane and column chunks), which
+equals the port's monolithic one bit for bit and the reference's streamed
+operator within the same tolerance.  Tolerance
 ``tolerance_for(dtype, scale=10)``: the same recurrences with per-op
 rounding, which XLA may contract into multiply-adds, carried over at most
 14 steps.
@@ -24,6 +27,7 @@ import repro_torch as rt
 from repro_torch import convert
 from repro_torch.kernels import penta as TP
 from repro_torch.kernels import ref as TR
+from repro_torch.launch import stream as TS
 from repro_torch.util import tolerance_for
 
 SHAPE = (12, 10, 14)
@@ -152,10 +156,93 @@ def test_validation():
                   device="cpu")
     with pytest.raises(ValueError, match="only applies to mode='adi'"):
         rt.create("laplacian", (4, 8, 8), alpha_z=0.2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        rt.create("diffusion", (4, 8, 8), mode="adi", alpha=0.1, streams=2,
-                  device="cpu")
+    # rank-3 plans stream; a slab height that does not divide nz raises
+    with pytest.raises(ValueError, match="must divide"):
+        TS.stream_stencil3d_apply(torch.zeros((12, 8, 8), dtype=torch.float64),
+                                  torch.ones(7, dtype=torch.float64),
+                                  halos=(1,) * 6, chunk_slabs=5)
     op = rt.create("diffusion", (6, 8, 8), mode="adi", alpha=0.1, device="cpu")
     rt.destroy(op)
     with pytest.raises(ValueError, match="destroyed"):
         rt.compute(op, torch.zeros((6, 8, 8), dtype=torch.float64))
+
+
+# (nz, ny, nx) of the reference's streamed-operator test
+# (tests/test_adi3d.py::TestADIOperator3D)
+STREAM_SHAPE = (8, 12, 16)
+
+
+@pytest.mark.parametrize("bc", ["periodic", "np"])
+@pytest.mark.parametrize("operator", ["hyperdiffusion", "diffusion"])
+def test_streamed_operator_equals_monolithic(operator, bc, monkeypatch):
+    """streams=2 and a budget of a quarter of the field: each sweep runs
+    its streamed executor (x in row chunks, y in plane chunks, z in column
+    chunks), bit for bit the monolithic sweep, and within the tolerance of
+    the reference's streamed operator."""
+    rhs = np.random.default_rng(5).standard_normal(STREAM_SHAPE)
+    knobs = dict(streams=2, max_tile_bytes=rhs.nbytes // 4)
+    kw = dict(mode="adi", bc=bc, alpha=0.3, alpha_y=0.2, alpha_z=0.4)
+    mono = rt.create(operator, STREAM_SHAPE, device="cpu", **kw)
+    streamed = rt.create(operator, STREAM_SHAPE, device="cpu", **knobs, **kw)
+    ref = repro.create(operator, STREAM_SHAPE, backend="jnp", lint="off",
+                       **knobs, **kw)
+    assert (streamed.streams, streamed.max_tile_bytes) == (2, rhs.nbytes // 4)
+    assert streamed.stream_pool == ()  # no CUDA streams on the CPU
+    calls = []
+    for name in ("stream_penta_solve_rows", "stream_penta_solve_mid",
+                 "stream_penta_solve"):
+        real = getattr(TS, name)
+        monkeypatch.setattr(TS, name, lambda *a, _r=real, _n=name, **k: (
+            calls.append(_n), _r(*a, **k))[1])
+    tol = tolerance_for("float64", scale=10)
+    tc, jc = torch.as_tensor(rhs), jnp.asarray(rhs)
+    for sweep in ("solve_x", "solve_y", "solve_z"):
+        got = getattr(streamed, sweep)(tc)
+        np.testing.assert_array_equal(got.numpy(),
+                                      getattr(mono, sweep)(tc).numpy(),
+                                      err_msg=sweep)
+        np.testing.assert_allclose(got.numpy(),
+                                   np.asarray(getattr(ref, sweep)(jc)),
+                                   **tol, err_msg=sweep)
+    assert calls == ["stream_penta_solve_rows", "stream_penta_solve_mid",
+                     "stream_penta_solve"]
+    np.testing.assert_array_equal(rt.compute(streamed, tc).numpy(),
+                                  rt.compute(mono, tc).numpy())
+
+
+def test_streamed_operator_within_budget_stays_monolithic(monkeypatch):
+    """One stream and a field within the budget: no sweep streams."""
+    calls = []
+    for name in ("stream_penta_solve_rows", "stream_penta_solve_mid",
+                 "stream_penta_solve"):
+        monkeypatch.setattr(TS, name, lambda *a, _n=name, **k: calls.append(_n))
+    rhs = torch.as_tensor(np.random.default_rng(6).standard_normal(STREAM_SHAPE))
+    op = rt.create("diffusion", STREAM_SHAPE, mode="adi", alpha=0.3,
+                   streams=1, max_tile_bytes=rhs.numel() * 8, device="cpu")
+    mono = rt.create("diffusion", STREAM_SHAPE, mode="adi", alpha=0.3,
+                     device="cpu")
+    np.testing.assert_array_equal(rt.compute(op, rhs).numpy(),
+                                  rt.compute(mono, rhs).numpy())
+    assert calls == []
+
+
+def test_convert_carries_the_streaming_knobs():
+    """convert.adi_operator_3d takes the reference operator's knobs."""
+    knobs = dict(streams=2, max_tile_bytes=8 * 12 * 16 * 8 // 4)
+    ref = repro.create("hyperdiffusion", STREAM_SHAPE, mode="adi", alpha=0.4,
+                       backend="jnp", lint="off", **knobs)
+
+    def carry(f):
+        return convert.cyclic_penta_factors(
+            [np.asarray(a) for a in f.band], np.asarray(f.z),
+            np.asarray(f.s_inv), np.asarray(f.w), device="cpu")
+
+    op = convert.adi_operator_3d(carry(ref.fac_x), carry(ref.fac_y),
+                                 carry(ref.fac_z), streams=ref.streams,
+                                 max_tile_bytes=ref.max_tile_bytes)
+    assert (op.streams, op.max_tile_bytes) == (2, knobs["max_tile_bytes"])
+    c = np.random.default_rng(7).standard_normal(STREAM_SHAPE)
+    np.testing.assert_allclose(
+        rt.compute(op, torch.as_tensor(c)).numpy(),
+        np.asarray(repro.compute(ref, jnp.asarray(c))),
+        **tolerance_for("float64", scale=10))

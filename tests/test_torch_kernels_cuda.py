@@ -366,17 +366,60 @@ def test_ch_rhs_xsweep_long_rows_streamed(cuda, dtype):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("shape", [(64, 64), (37, 29), (1, 8)])
-def test_ch_rhs(cuda, shape, dtype):
-    h = 2 * np.pi / shape[1]
+# The staged tile of the RHS at its edges: whole and ragged tiles, one row
+# or column (the halo wraps onto itself: the modulo), a tile smaller than
+# its halo, and 524281 rows (16384 tiles in grid.x).
+RHS_SHAPES = [(64, 64), (37, 29), (1, 8), (1024, 1024), (1021, 1019), (1, 1),
+              (8, 1), (3, 5), (524281, 8)]
+
+
+def _rhs_inputs(shape, dtype, cuda):
+    h = 2 * np.pi / min(shape[1], 1024)
     p = dict(dt=1e-3, D=0.6, gamma=0.01, inv_h2=h**-2, inv_h4=h**-4)
     cn = _field(shape, getattr(torch, dtype), cuda, 6)
     cm = _field(shape, getattr(torch, dtype), cuda, 7)
+    return cn, cm, p
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("shape", RHS_SHAPES)
+def test_ch_rhs(cuda, shape, dtype):
+    cn, cm, p = _rhs_inputs(shape, dtype, cuda)
     before = _build.LAUNCHES["ch_rhs"]
     got = ops.ch_rhs(cn, cm, **p)
     assert _build.LAUNCHES["ch_rhs"] == before + 1
     _assert_close(got, ops.ch_rhs(cn, cm, backend="torch", **p), dtype, 10)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize(("shape", "chunk"), [((1024, 1024), 128), ((37, 29), 1),
+                                              ((3, 5), 1)])
+def test_ch_rhs_streamed_and_fused(cuda, shape, chunk, dtype):
+    """Row chunks of the RHS equal the monolithic launch bit for bit, one
+    launch a chunk; and the RHS equals the one the fused kernel assembles
+    (``ch_rhs_xsweep`` with the identity band, whose solve is exact), bit
+    for bit where the fused kernel applies (nx >= 6)."""
+    from repro_torch.kernels.penta import CyclicPentaFactors, PentaFactors
+    from repro_torch.launch.stream import stream_ch_rhs
+
+    cn, cm, p = _rhs_inputs(shape, dtype, cuda)
+    want = ops.ch_rhs(cn, cm, **p)
+    before = _build.LAUNCHES["ch_rhs"]
+    got = stream_ch_rhs(cn, cm, chunk_rows=chunk, streams=4, **p)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ch_rhs"] == before + shape[0] // chunk
+    assert torch.equal(got, want)
+    nx = shape[1]
+    if nx < 6:
+        return
+    zero = torch.zeros(nx, dtype=cn.dtype, device=cuda)
+    one = torch.ones(nx, dtype=cn.dtype, device=cuda)
+    identity = CyclicPentaFactors(
+        PentaFactors(zero, zero, one, zero, zero),
+        torch.zeros((nx, 4), dtype=cn.dtype, device=cuda),
+        torch.eye(4, dtype=cn.dtype, device=cuda),
+        torch.zeros((nx, 4), dtype=cn.dtype, device=cuda))
+    assert torch.equal(ops.ch_rhs_xsweep(cn, cm, identity, **p), want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -456,6 +499,98 @@ def test_stencil3d_laplacian_plan_256(cuda, bc, dtype):
     got = rt.compute(lap, data, init)
     assert _build.LAUNCHES["stencil3d"] == before + 1
     _assert_close(got, rt.compute(plain, data, init), dtype, 10)
+
+
+# z windows of the 3D stencil: the path's slabs of 32 planes at 256^3 and
+# ragged windows of 61 x 67 x 71, on the tile route (the 27-point box) and
+# the direct route (front = back = 13: the ring of 29 planes does not fit
+# in float64; in float32 the same halos take the tile route).
+S3_WINDOWS = [((256, 256, 256), [(k, k + 32) for k in range(0, 256, 32)]),
+              ((61, 67, 71), [(0, 1), (1, 7), (7, 30), (30, 60), (60, 61)])]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("bc", ["periodic", "np"])
+@pytest.mark.parametrize("halos", [(1,) * 6, (13, 13, 0, 0, 0, 0)],
+                         ids=["box", "z13"])
+@pytest.mark.parametrize(("shape", "windows"), S3_WINDOWS,
+                         ids=["256", "61x67x71"])
+def test_stencil3d_windows(cuda, shape, windows, halos, bc, dtype):
+    """Each window of planes, launched into one output, equals the whole
+    field's launch bit for bit (its halo planes read from the whole field;
+    np's interior tested with the global k)."""
+    from repro_torch.kernels.stencil3d import stencil3d_cuda, stencil3d_geometry
+
+    fr, bk, tp, bt, lf, rt = halos
+    n = (fr + bk + 1) * (tp + bt + 1) * (lf + rt + 1)
+    smem, sms = _build.device_info(cuda)
+    route = stencil3d_geometry(shape, halos, dtype.itemsize, smem, sms).route
+    assert route == ("direct" if fr == 13 and dtype == torch.float64 else "tile")
+    data = _field(shape, dtype, cuda, 26)
+    coeffs = _field((n,), dtype, cuda, 27)
+    taps = nonzero_taps(coeffs.cpu().numpy(), halos)
+    init = _field(shape, dtype, cuda, 28) if bc == "np" else None
+    kw = dict(halos=halos, bc=bc, taps=taps)
+    want = stencil3d_cuda(data, coeffs, init, **kw)
+    got = torch.full_like(data, float("nan"))
+    before = _build.LAUNCHES["stencil3d"]
+    for w in windows:
+        stencil3d_cuda(data, coeffs, init, planes=w, out=got, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["stencil3d"] == before + len(windows)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("cyclic", [True, False], ids=["cyclic", "plain"])
+@pytest.mark.parametrize(("shape", "windows"), S3_WINDOWS,
+                         ids=["256", "61x67x71"])
+def test_penta_mid_windows(cuda, shape, windows, cyclic, dtype):
+    """Each window of planes of the plane sweep equals the whole call bit
+    for bit (route, columns a block and L depend on M, N and the dtype)."""
+    M = shape[1]
+    fac = P.cyclic_penta_factor(*P.diffusion_diagonals(M, 1.7, dtype),
+                                device=cuda)
+    band, w = (fac.band, fac.w) if cyclic else (fac.band, None)
+    rhs = _field(shape, getattr(torch, dtype), cuda, 29)
+    want = P.penta_mid_cuda(band, rhs, w)
+    got = torch.full_like(rhs, float("nan"))
+    before = _build.LAUNCHES["penta_mid"]
+    for win in windows:
+        P.penta_mid_cuda(band, rhs, w, planes=win, out=got)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["penta_mid"] == before + len(windows)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bc", ["periodic", "np"])
+def test_streamed_3d_plan_and_operator(cuda, bc):
+    """The 256^3 float64 path with streams=4 and a 20 MB budget: the
+    Laplacian plan in 8 z-slabs and each sweep of the diffusion operator in
+    8 chunks (rows, planes, columns), every chunk one launch, each result
+    equal to the monolithic one bit for bit."""
+    shape, budget = (256, 256, 256), 20_000_000
+    knobs = dict(streams=4, max_tile_bytes=budget)
+    h = 2 * np.pi / 256
+    data = _field(shape, torch.float64, cuda, 30)
+    init = _field(shape, torch.float64, cuda, 31) if bc == "np" else None
+    lap = lambda k: create("laplacian", shape, bc=bc, h=h, **k)
+    op = lambda k: create("diffusion", shape, mode="adi", bc=bc, alpha=1.7, **k)
+    cases = [("laplacian", "stencil3d", lap, lambda p: p.apply(data, init)),
+             ("x-sweep", "penta_rows", op, lambda o: o.solve_x(data)),
+             ("y-sweep", "penta_mid", op, lambda o: o.solve_y(data)),
+             ("z-sweep", "penta_cols", op, lambda o: o.solve_z(data))]
+    for name, kernel, make, run in cases:
+        want = run(make({}))
+        streamed = make(knobs)
+        assert len(streamed.stream_pool) == 4
+        before = dict(_build.LAUNCHES)
+        got = run(streamed)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()
+                    if v != before[k]}
+        assert launched == {kernel: 8}, (name, launched)
+        assert torch.equal(got, want), name
 
 
 # (P, M, N).  The first two through a rank-3 ADI plan (every extent >= 6:

@@ -462,7 +462,7 @@ def test_backend_dispatch_on_cpu():
     assert _build.resolve_backend("auto", rhs) == "torch"
     with pytest.raises(ValueError, match="CUDA tensor"):
         TP.penta_solve_factored(fac, rhs, backend="cuda")
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+    with pytest.raises(NotImplementedError, match="Open items: Spectral backend"):
         TP.penta_solve_factored(fac, rhs, backend="fft")
     with pytest.raises(ValueError, match="backend must be one of"):
         TP.penta_solve_factored(fac, rhs, backend="pallas")

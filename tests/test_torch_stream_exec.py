@@ -1,6 +1,8 @@
 """repro_torch's streamed execution (``repro_torch.launch.stream``) on the
 CPU, held against the reference's streamed path and the port's monolithic
-path; mirrors ``tests/test_stream_exec.py`` (its 2D and batched-1D parts).
+path; mirrors ``tests/test_stream_exec.py`` (its 2D and batched-1D parts)
+and the 3D executors of ``tests/test_adi3d.py`` (z-slab stencils and the
+plane-chunk y-sweep).
 
 On a CPU tensor every chunk runs the plain version on its window, with the
 windows' values and reduction order those of the monolithic plain version,
@@ -177,7 +179,8 @@ class TestStreamedMatchesMonolithic:
             TS.stream_stencil_apply(data, w, compute="pallas")
         with pytest.raises(ValueError, match="CUDA tensor"):
             TS.stream_stencil_apply(data, w, compute="cuda", chunk_rows=4)
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(NotImplementedError,
+                           match="Open items: Distribution"):
             TS.stream_stencil_apply_dist(None, data, None)
 
     def test_launch_windows(self):
@@ -313,7 +316,8 @@ class TestPlanRouting:
         assert TS.resolve_compute("cuda", t) == "cuda"  # forced: raises at launch
         with pytest.raises(ValueError, match="backend"):
             TS.resolve_compute("jnp", t)
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(NotImplementedError,
+                           match="Open items: Spectral backend"):
             TS.resolve_compute("fft", t)
 
     def test_batch1d_plan_streams(self, monkeypatch):
@@ -487,26 +491,153 @@ class TestStreamedADI:
         np.testing.assert_allclose(_np(out), np.asarray(ref), **TOL_ADI)
 
 
+# -- 3D: z-slab stencils and plane chunks -------------------------------------
+
+
+SHAPE_3D = (8, 12, 10)
+
+
+def _box(rng, halos):
+    fr, bk, tp, bt, lf, rt_ = halos
+    return _rand(rng, ((fr + bk + 1) * (tp + bt + 1) * (lf + rt_ + 1),))
+
+
+class TestStreamed3D:
+    @pytest.mark.parametrize("bc", ["periodic", "np"])
+    def test_stencil3d_weighted_box(self, bc):
+        # a full 3x3x3 box of weights; np with an out_init
+        rng = np.random.default_rng(30)
+        halos = (1,) * 6
+        data, w = _rand(rng, SHAPE_3D), _box(rng, halos)
+        init = _rand(rng, SHAPE_3D) if bc == "np" else None
+        kw = dict(halos=halos, bc=bc)
+        out = TS.stream_stencil3d_apply(_t(data), _t(w), _t(init),
+                                        chunk_slabs=2, streams=2, **kw)
+        _equal(out, ops.stencil_apply_3d(_t(data), _t(w), _t(init), **kw))
+        ref = RS.stream_stencil3d_apply(_j(data), _j(w), _j(init),
+                                        chunk_slabs=2, streams=2,
+                                        compute="jnp", **kw)
+        np.testing.assert_allclose(_np(out), np.asarray(ref), **TOL)
+
+    @pytest.mark.parametrize("bc", ["periodic", "np"])
+    def test_stencil3d_asymmetric_xyz_box(self, bc):
+        # front 2, back 1: the slab's halo planes differ on its two sides
+        rng = np.random.default_rng(31)
+        halos = (2, 1, 1, 0, 0, 1)
+        data, w = _rand(rng, SHAPE_3D), _box(rng, halos)
+        init = _rand(rng, SHAPE_3D) if bc == "np" else None
+        kw = dict(halos=halos, bc=bc)
+        out = TS.stream_stencil3d_apply(_t(data), _t(w), _t(init),
+                                        chunk_slabs=2, streams=2, **kw)
+        _equal(out, ops.stencil_apply_3d(_t(data), _t(w), _t(init), **kw))
+        ref = RS.stream_stencil3d_apply(_j(data), _j(w), _j(init),
+                                        chunk_slabs=2, streams=2,
+                                        compute="jnp", **kw)
+        np.testing.assert_allclose(_np(out), np.asarray(ref), **TOL)
+
+    def test_laplacian_plan_streams(self, monkeypatch):
+        # the weighted 7-point plan through create/compute: routed through
+        # the z-slab executor when the field exceeds the budget
+        rng = np.random.default_rng(32)
+        data = _rand(rng, SHAPE_3D)
+        knobs = dict(streams=2, max_tile_bytes=data.nbytes // 2)
+        calls = []
+        real = TS.stream_stencil3d_apply
+        monkeypatch.setattr(TS, "stream_stencil3d_apply", lambda *a, **k: (
+            calls.append(k), real(*a, **k))[1])
+        plan = rt.create("laplacian", SHAPE_3D, device="cpu", **knobs)
+        mono = rt.create("laplacian", SHAPE_3D, device="cpu")
+        assert plan.streams == 2 and plan.stream_pool == ()
+        got = rt.compute(plan, _t(data))
+        assert len(calls) == 1 and calls[0]["halos"] == (1,) * 6
+        _equal(got, rt.compute(mono, _t(data)))
+        ref = repro.create("laplacian", SHAPE_3D, backend="jnp", lint="off",
+                           **knobs)
+        np.testing.assert_allclose(_np(got),
+                                   np.asarray(repro.compute(ref, _j(data))),
+                                   **TOL)
+
+    def test_function_mode_cube_plan(self):
+        # the paper's Fun variant on a 3x3x3 cube: c (w^3 - w) summed
+        rng = np.random.default_rng(33)
+        data, coeffs = _rand(rng, SHAPE_3D), _rand(rng, (27,))
+        ext = dict(front=1, back=1, top=1, bottom=1, left=1, right=1)
+        kw = dict(mode="xyz", coeffs=coeffs, extents=ext)
+        plan = rt.create(cube_laplacian_point_fn, SHAPE_3D, streams=4,
+                         max_tile_bytes=data.nbytes // 4, device="cpu", **kw)
+        mono = rt.create(cube_laplacian_point_fn, SHAPE_3D, device="cpu", **kw)
+        got = rt.compute(plan, _t(data))
+        _equal(got, rt.compute(mono, _t(data)))
+        ref = RS.stream_stencil3d_apply(
+            _j(data), _j(coeffs), point_fn=RCH.cube_laplacian_point_fn,
+            halos=(1,) * 6, chunk_slabs=2, streams=4, compute="jnp")
+        np.testing.assert_allclose(_np(got), np.asarray(ref), **TOL)
+
+    @pytest.mark.parametrize("cyclic", [True, False], ids=["cyclic", "plain"])
+    def test_penta_solve_mid_streamed(self, cyclic):
+        rng = np.random.default_rng(34)
+        fac_r = RP.cyclic_penta_factor(*RP.hyperdiffusion_diagonals(16, 0.5))
+        fac_t = _ref_factors_across(fac_r)
+        if not cyclic:
+            fac_r, fac_t = fac_r.band, fac_t.band
+        rhs = _rand(rng, (8, 16, 6))
+        out = TS.stream_penta_solve_mid(fac_t, _t(rhs), cyclic=cyclic,
+                                        chunk_planes=2, streams=2)
+        solve = (TP.cyclic_penta_solve_factored_mid if cyclic
+                 else TP.penta_solve_factored_mid)
+        _equal(out, solve(fac_t, _t(rhs)))
+        ref = RS.stream_penta_solve_mid(fac_r, _j(rhs), cyclic=cyclic,
+                                        chunk_planes=2, streams=2)
+        np.testing.assert_allclose(_np(out), np.asarray(ref), **TOL)
+
+    def test_3d_geometry_matches_reference(self):
+        # the path's geometry: 256^3 float64 under a 20 MB budget with four
+        # streams gives 8 chunks in every 3D executor
+        n, budget = 256, 20_000_000
+        slab = TS.choose_chunk_rows(n, (n + 2) ** 2, 8, top=1, bottom=1,
+                                    max_tile_bytes=budget, streams=4)
+        assert slab == RS.choose_chunk_rows(n, (n + 2) ** 2, 8, top=1,
+                                            bottom=1, max_tile_bytes=budget,
+                                            streams=4) == 32
+        assert TS.choose_chunk_rows(n, n * n, 8, max_tile_bytes=budget,
+                                    streams=4) == 32
+        assert TS.choose_chunk_rows(n * n, n, 8, max_tile_bytes=budget,
+                                    streams=4) == 8192
+        assert TS.choose_chunk_cols(n, n * n, 8, max_tile_bytes=budget) == 8192
+
+    def test_validation(self):
+        data = torch.zeros(SHAPE_3D, dtype=torch.float64)
+        w = torch.ones(7, dtype=torch.float64)
+        with pytest.raises(ValueError, match="chunk_slabs=3 must divide"):
+            TS.stream_stencil3d_apply(data, w, halos=(1, 1, 0, 0, 0, 0),
+                                      chunk_slabs=3)
+        with pytest.raises(ValueError, match="bc"):
+            TS.stream_stencil3d_apply(data, w, bc="reflect")
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            TS.stream_stencil3d_apply(data, w, halos=(1, 1, 0, 0, 0, 0),
+                                      chunk_slabs=2, compute="cuda")
+        fac = TP.penta_factor(*TP.hyperdiffusion_diagonals(12, 0.5),
+                              device="cpu")
+        with pytest.raises(ValueError, match="chunk_planes=3 must divide"):
+            TS.stream_penta_solve_mid(fac, data, cyclic=False, chunk_planes=3)
+        with pytest.raises(ValueError, match=r"\(P, M, N\)"):
+            TS.stream_penta_solve_mid(fac, data[0], cyclic=False)
+
+
 # -- what stays refused ------------------------------------------------------
 
 
 @pytest.mark.parametrize("call, match", [
-    (lambda: rt.create("laplacian", (4, 8, 8), streams=2, device="cpu"),
-     "stream_stencil3d_apply.*item 6"),
-    (lambda: rt.create("laplacian", (4, 8, 8), max_tile_bytes=64, device="cpu"),
-     "item 6"),
-    (lambda: rt.create("diffusion", (6, 6, 6), mode="adi", alpha=0.1, streams=2,
-                       device="cpu"), "stream_penta_solve_mid.*item 6"),
     (lambda: rt.create("laplacian", (8, 8), streams=2, tune="cached",
-                       device="cpu"), "item 10"),
+                       device="cpu"), "Open items: Tuning"),
     (lambda: rt.create("hyperdiffusion", (8, 8), mode="adi", alpha=0.1,
-                       max_tile_bytes=64, tune="force", device="cpu"), "item 10"),
+                       max_tile_bytes=64, tune="force", device="cpu"),
+     "Open items: Tuning"),
     (lambda: TCH.CahnHilliardADI(TCH.CHConfig(nx=8, ny=8, streams=2,
                                               tune="cached", device="cpu")),
-     "item 10"),
-    (lambda: TS.stream_stencil_apply_dist(), "item 13"),
-], ids=["rank3-streams", "rank3-budget", "adi3d", "tune-2d", "tune-adi",
-        "tune-ch", "dist"])
+     "Open items: Tuning"),
+    (lambda: TS.stream_stencil_apply_dist(), "Open items: Distribution"),
+], ids=["tune-2d", "tune-adi", "tune-ch", "dist"])
 def test_unported_streaming_is_refused(call, match):
     with pytest.raises(NotImplementedError, match=match):
         call()

@@ -1,5 +1,5 @@
-"""Create-time taps of every plan rank, and the launch geometry of the 2D and
-batched-1D stencil kernels, on the CPU.
+"""Create-time taps of every plan rank, and the launch geometry of the 2D,
+batched-1D and 3D stencil kernels and of the plane sweep, on the CPU.
 
 A weighted or cube plan is reduced at Create to its non-zero windows
 (``repro_torch.kernels.taps``), which the card's kernels sum in the
@@ -7,8 +7,8 @@ reference's window order; summing them here with ``torch.roll`` must give
 the plain version's result (tolerance ``tolerance_for(float64, scale=10)``:
 the same products, summed with the zero terms left out).  The geometry
 functions are pure: the route and grid follow from the shape, the halos,
-the layout and the dtype, never from a launch's row or line window, so a
-streamed chunk runs the same code as the whole field.  The launches
+the layout and the dtype, never from a launch's row, line or plane
+window, so a streamed chunk runs the same code as the whole field.  The launches
 themselves run in ``tests/test_torch_kernels_cuda.py``.
 """
 
@@ -236,3 +236,56 @@ def test_stencil1d_batch_launch_geometry_ignores_the_line_window(
     assert len({a[15:18] for a in rec.args}) == 1
     assert rec.args[0][15] == (2 if transposed else 1)
     assert [a[11:13] for a in rec.args] == [(0, B), (0, 16), (16, B)]
+
+
+@pytest.mark.parametrize(("halos", "route"), [((1,) * 6, "tile"),
+                                              ((13, 13, 0, 0, 0, 0), "direct")])
+def test_stencil3d_launch_geometry_follows_only_the_plane_window(
+        monkeypatch, halos, route):
+    """z windows: the route and shared memory of the whole field, the
+    window's planes, and z chunks sized for the window's depth."""
+    rec = _Launches(monkeypatch)
+    shape = (256, 64, 64)
+    data = torch.zeros(shape, dtype=torch.float64)
+    nwin = (halos[0] + halos[1] + 1) * (halos[2] + halos[3] + 1) * (
+        halos[4] + halos[5] + 1)
+    coeffs = torch.ones(nwin, dtype=torch.float64)
+    out = torch.empty_like(data)
+    windows = [None, (0, 32), (32, 256), (255, 256)]
+    for planes in windows:
+        S3.stencil3d_cuda(data, coeffs, None, planes=planes,
+                          out=None if planes is None else out, halos=halos)
+    # (dtype, fn, periodic, data, coeffs, init, out, nz, ny, nx, 6 halos,
+    #  k0, k1, zc, smem, taps)
+    assert [a[16:18] for a in rec.args] == [(0, 256), (0, 32), (32, 256),
+                                            (255, 256)]
+    assert {a[7:16] for a in rec.args} == {(*shape, *halos)}
+    assert len({a[19] for a in rec.args}) == 1
+    whole = S3.stencil3d_geometry(shape, halos, 8, SMEM, SMS)
+    assert whole.route == route
+    for a, planes in zip(rec.args, windows):
+        depth = 256 if planes is None else planes[1] - planes[0]
+        geo = S3.stencil3d_geometry(shape, halos, 8, SMEM, SMS, planes=depth)
+        assert (geo.route, geo.smem) == (whole.route, whole.smem)
+        assert a[18] == geo.zc and (geo.zc == 0) == (route == "direct")
+
+
+def test_penta_mid_launch_window_is_a_slab_of_planes(monkeypatch):
+    """Plane windows: the launch takes the window's slab of rhs and out by
+    pointer offset, with the whole call's L, columns a block and stride."""
+    from repro_torch.kernels import penta as P
+
+    rec = _Launches(monkeypatch)
+    Pn, M, N = 12, 40, 24
+    fac = P.cyclic_penta_factor(*P.diffusion_diagonals(M, 0.7), device="cpu")
+    rhs = torch.zeros((Pn, M, N), dtype=torch.float64)
+    out = torch.empty_like(rhs)
+    for planes in (None, (0, 4), (4, 12)):
+        P.penta_mid_cuda(fac.band, rhs, fac.w, planes=planes,
+                         out=None if planes is None else out)
+    # (dtype, 5 factors, w, rhs, out, P, M, N, L, C, ldt)
+    plane = M * N * 8
+    assert [a[7] - rhs.data_ptr() for a in rec.args[1:]] == [0, 4 * plane]
+    assert [a[8] - out.data_ptr() for a in rec.args[1:]] == [0, 4 * plane]
+    assert [a[9] for a in rec.args] == [12, 4, 8]
+    assert len({a[10:15] for a in rec.args}) == 1

@@ -98,7 +98,7 @@ def test_weno_advect_backend_dispatch():
         ops.weno_advect(q, u, v, dx=0.1, dy=0.1, backend="cuda")
     with pytest.raises(ValueError, match="backend"):
         ops.weno_advect(q, u, v, dx=0.1, dy=0.1, backend="pallas")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="Open items: Spectral backend"):
         ops.weno_advect(q, u, v, dx=0.1, dy=0.1, backend="fft")
 
 
