@@ -95,15 +95,35 @@ printing a result:
       created with ``streams=4, max_tile_bytes=20_000_000`` (8 chunks in
       each: z-slabs of 32 planes, 8192 rows, 32 planes, 8192 columns),
       equal bit for bit to 4c's run, launch counts asserted.
+   g. Spectral (``backend='fft'``, ``torch.fft`` on the card, as the
+      reference's ``jnp.fft``): the 5x5 biharmonic plan and the
+      hyperdiffusion ADI operator at 1024^2 float64 (``alpha`` the main
+      path's beta) against the same plans on the kernels, within scale 50,
+      with 0 kernel launches, and the x-sweep's residual against the
+      cyclic band; the stencil-mode solver with ``op_full``/``op_half`` on
+      fft, bootstrap plus 20 steps from 4a's start field, within scale 2000
+      of 4a's stencil-mode run, mean kept to 1e-12, launching ``stencil2d``
+      only; the 3D LOD run of 4c with the operator and the Laplacian plan
+      on fft, each step within 1e-10 of the exact decay, 0 launches.
+   h. Examples: ``examples/torch_quickstart.py``,
+      ``torch_cahn_hilliard_adi.py``, ``torch_diffusion3d_adi.py`` and
+      ``torch_weno_advection.py`` as subprocesses, started together, at
+      their default arguments (the Cahn–Hilliard script at ``--n 128``:
+      at its default 256^2 its bootstrap overflows, as the reference
+      script's does); each must exit 0 and print its result line (logs in
+      ``chiprun_out/example_*.log``).
 5. Timing: ms/step of the fused step over 200 steps after 20 of warm-up,
-   of the stencil-mode and batched-1D steps, of the 3D LOD step and its
-   streamed run, of the WENO RK3 step at
+   of the stencil-mode step on the penta and on the fft sweeps and of the
+   batched-1D step, of the 3D LOD step on the kernels, streamed and on
+   fft, of the WENO RK3 step at
    1024^2 and of the streamed fused and batched-1D steps (host clock,
    CUDA events, and the host's enqueue time per step); each piece of the
    steps timed alone; and one ``torch.profiler`` window over 20 fused
    steps: device time by kernel name, the device-busy share and the gaps
    between kernels (trace in ``chiprun_out/fused_trace.json``).
-6. The ``kernels`` JSON line, the card line, and the result line.
+6. The ``spectral`` JSON line (phases 4g and 4h and the fft steps'
+   timings), the ``kernels`` JSON line, the card line, and the result
+   line.
 
 A full record goes to ``chiprun_out/chip_smoke.json`` and the nvcc logs to
 ``chiprun_out/nvcc_build.log`` and ``chiprun_out/nvcc_build_point_fn.log``.
@@ -111,8 +131,10 @@ A full record goes to ``chiprun_out/chip_smoke.json`` and the nvcc logs to
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -205,6 +227,28 @@ SCALE_3D = N_STEPS * SCALE["penta_mid"]
 SCALE_WENO = N_WENO_CHECK * SCALE["weno5_advect"]
 MASS_DRIFT_MAX = 1e-10
 DECAY_MAX = 1e-10
+# The spectral phase (4g), as tests/test_spectral.py holds the reference:
+# one apply or one solve against the kernels -> scale 50 (up to 25 taps a
+# point, and each transform spreads a few ulp over every output); 20 CH
+# steps whose per-step differences compound -> scale 2000; the mean of the
+# field (the k = 0 mode, which every sweep keeps) to 1e-12.
+SCALE_FFT = 50
+SCALE_CH_FFT = 2000
+FFT_MEAN_DRIFT_MAX = 1e-12
+# The example scripts (phase 4h): their arguments and the label each must
+# print.  Each runs at its defaults but the Cahn-Hilliard script: at its
+# (and the reference's) default --n 256, dt 2e-3, the eq. 3 bootstrap
+# grows grid-scale noise by up to 1 + 16 beta_half (about 270) and the
+# cubic term overflows, so the run turns to NaN and fit_power_law raises,
+# as examples/cahn_hilliard_adi.py does on the CPU (ROADMAP.md, Faults);
+# at --n 128 the run stays in the coarsening regime to t = 8.
+EXAMPLES = {
+    "examples/torch_quickstart.py": ((), "[registry] laplacian max|err|"),
+    "examples/torch_cahn_hilliard_adi.py": (("--n", "128"), "# max|grad^2 mu|"),
+    "examples/torch_diffusion3d_adi.py": ((), "# final amp"),
+    "examples/torch_weno_advection.py": ((), "L2 error after"),
+}
+EXAMPLE_TIMEOUT_S = 300
 
 KERNEL_INFO = {
     "ch_rhs_xsweep": ("src/repro_torch/kernels/csrc/fused_ch.cu",
@@ -278,31 +322,44 @@ def band_limited_quench(n: int, *, seed: int, modes: int = 64):
     return torch.fft.irfft2(big, s=(n, n)) * (n * n) / (modes * modes)
 
 
-def device_ms(fn, n: int = 20, warmup: int = 3) -> float | None:
-    """Mean device time of the kernels ``fn`` launches, per call, in ms:
-    their durations as ``torch.profiler`` (CUPTI) records them over ``n``
-    calls.  Unlike CUDA events around a call, it leaves out the time the
-    card waits for the host to enqueue the launch.  A window counts only
-    when every kernel in it was recorded a multiple of ``n`` times (a
-    window that lost activity records reads short: once a kernel at 0.7
-    of its byte bound); None when three windows in a row do not."""
+def short_name(name: str) -> str:
+    """A kernel's name without its namespace and template arguments' tail."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("(")[0][:70]
+
+
+def kernel_rows(fn, n: int = 20) -> list:
+    """One ``torch.profiler`` (CUPTI) window over ``n`` calls of ``fn``:
+    ``[(kernel, launches, device ms a call)]`` for every device activity
+    recorded (kernels and copies)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.count, e.self_device_time_total / n / 1e3)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+
+
+def device_ms(fn, n: int = 20, warmup: int = 3) -> float | None:
+    """Mean device time of the kernels ``fn`` launches, per call, in ms:
+    their durations as ``torch.profiler`` records them over ``n`` calls.
+    Unlike CUDA events around a call, it leaves out the time the card
+    waits for the host to enqueue the launch.  A window counts only when
+    every kernel in it was recorded a multiple of ``n`` times (a window
+    that lost activity records reads short: once a kernel at 0.7 of its
+    byte bound); None when three windows in a row do not."""
     for _ in range(warmup):
         fn()
     for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA")
-                   and e.self_device_time_total > 0]
-        if kernels and all(e.count % n == 0 for e in kernels):
-            return sum(e.self_device_time_total for e in kernels) / n / 1e3
+        rows = kernel_rows(fn, n)
+        if rows and all(count % n == 0 for _, count, _ in rows):
+            return sum(ms for _, _, ms in rows)
     return None
 
 
@@ -334,10 +391,6 @@ def profile_fused(solver, pair) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    def short(name):
-        name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
-        return name.split("(")[0][:70]
-
     evolve = solver.make_evolve(N_STEPS)
     torch.cuda.synchronize()
     try:
@@ -355,13 +408,13 @@ def profile_fused(solver, pair) -> dict:
     for e in averages:
         us = getattr(e, "self_device_time_total", 0) or 0
         if us > 0 and str(e.device_type).endswith("CUDA"):
-            k = short(e.key)
+            k = short_name(e.key)
             got = by_name.setdefault(k, dict(count=0, device_us=0.0))
             got["count"] += e.count
             got["device_us"] += us
     events = json.loads(trace_path.read_text()).get("traceEvents", [])
     spans = sorted((float(ev["ts"]), float(ev["ts"]) + float(ev["dur"]),
-                    short(ev.get("name", "")))
+                    short_name(ev.get("name", "")))
                    for ev in events
                    if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
                    and "dur" in ev)
@@ -393,6 +446,44 @@ def profile_fused(solver, pair) -> dict:
               f"({v['device_us'] / v['count']:.2f} us each)  {k}")
     for k, v in sorted(gaps.items(), key=lambda kv: -kv[1]):
         print(f"[prof]   gap after {k}: {v:.1f} us in all")
+    return out
+
+
+def run_examples() -> dict:
+    """Run the port's example scripts as subprocesses, all started
+    together, with the arguments of ``EXAMPLES`` (the card, ``--backend
+    auto``); each must exit 0 and print its quantities.  Their output goes to
+    ``chiprun_out/example_<name>.log``; a script past its time limit is
+    killed."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = {
+        path: subprocess.Popen(
+            [sys.executable, str(ROOT / path), *EXAMPLES[path][0]], cwd=ROOT,
+            env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for path in EXAMPLES
+    }
+    out, failed = {}, []
+    for path, proc in procs.items():
+        try:
+            text, _ = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+            text += f"\n(killed after {EXAMPLE_TIMEOUT_S} s)"
+        name = Path(path).stem
+        (OUT / f"example_{name}.log").write_text(text)
+        lines = [ln for ln in text.splitlines() if EXAMPLES[path][1] in ln]
+        out[name] = dict(rc=proc.returncode, line=lines[-1] if lines else None)
+        print(f"[examples] {name}: rc {proc.returncode}; "
+              f"{lines[-1] if lines else 'no result line'}", flush=True)
+        if proc.returncode != 0 or not lines:
+            failed.append(name)
+    print(f"[examples] four scripts in {time.perf_counter() - t0:.1f} s "
+          f"(run together; logs in chiprun_out/example_*.log)", flush=True)
+    if failed:
+        raise PhaseError(f"example scripts failed: {failed}")
     return out
 
 
@@ -1524,6 +1615,93 @@ def main() -> int:
                               decay_max_dev=worst3s, equal_to_monolithic=same3)
     del c3s
 
+    # -- 4g. spectral: backend='fft' through create/compute at full width ----
+    # torch.fft on CUDA tensors (cuFFT), as the reference's jnp.fft: no
+    # kernel of the port may launch, and nothing may leave the card
+    spec_tol = tolerance_for("float64", scale=SCALE_FFT)
+    spectral: dict = dict(checks={})
+    gen = torch.Generator(device=dev).manual_seed(19)
+    x_fft = torch.randn((N_MAIN, N_MAIN), generator=gen, device=dev,
+                        dtype=torch.float64)
+
+    def on_card(name, out, like):
+        if not (out.is_cuda and out.dtype == like.dtype
+                and out.shape == like.shape):
+            raise PhaseError(f"{name}: {out.device} {out.dtype} "
+                             f"{tuple(out.shape)}, expected the input's")
+
+    bih_fft = rt.create("biharmonic", (N_MAIN, N_MAIN), backend="fft")
+    op_fft = rt.create("hyperdiffusion", (N_MAIN, N_MAIN), mode="adi",
+                       alpha=beta_full, backend="fft")
+    op_penta = rt.create("hyperdiffusion", (N_MAIN, N_MAIN), mode="adi",
+                         alpha=beta_full)
+    for name, fft_plan, direct in (
+            ("biharmonic plan", bih_fft, solver.plan_bih),
+            ("hyperdiffusion operator", op_fft, op_penta)):
+        got, n_fft = counts_of(lambda p=fft_plan: rt.compute(p, x_fft))
+        expect(n_fft, {}, f"fft {name}")
+        on_card(f"fft {name}", got, x_fft)
+        compare(f"fft {name} vs the kernels ({N_MAIN}^2)", got,
+                rt.compute(direct, x_fft), spec_tol, spectral["checks"])
+    # the x-sweep's residual: the cyclic band I + beta delta_x^4 applied to
+    # its solution gives back the right-hand side
+    w_x = op_fft.solve_x(x_fft)
+    band_w = w_x + beta_full * (
+        w_x.roll(2, 1) - 4.0 * w_x.roll(1, 1) + 6.0 * w_x
+        - 4.0 * w_x.roll(-1, 1) + w_x.roll(-2, 1))
+    compare(f"fft x-sweep residual A w vs rhs (beta {beta_full:.1f})", band_w,
+            x_fft, spec_tol, spectral["checks"])
+    del x_fft, w_x, band_w
+
+    # Cahn-Hilliard: the stencil-mode solver with spectral implicit sweeps
+    ch_fft = CahnHilliardADI(CHConfig(nx=N_MAIN, ny=N_MAIN, rhs_mode="stencil"))
+    ch_fft.op_full = dataclasses.replace(ch_fft.op_full, backend="fft")
+    ch_fft.op_half = dataclasses.replace(ch_fft.op_half, backend="fft")
+    t0 = time.perf_counter()
+    (c_fft, _), ch_fft_launches = counts_of(lambda: ch_evolve(ch_fft, c0, N_STEPS))
+    ch_fft_s = time.perf_counter() - t0
+    expect(ch_fft_launches, dict(stencil2d=4 + 2 * N_STEPS),
+           "rhs_mode='stencil' run with fft sweeps")
+    on_card("fft CH run", c_fft, c0)
+    compare("CH fft sweeps vs penta sweeps (stencil mode)", c_fft, c_sten,
+            tolerance_for("float64", scale=SCALE_CH_FFT), spectral["checks"])
+    mass_drift("stencil, fft sweeps", c_fft, spectral["checks"])
+    mean_drift = abs(float(c_fft.mean()) - float(c0.mean()))
+    spectral["checks"]["CH mean drift"] = mean_drift
+    print(f"[spectral] CH fft run: bootstrap + {N_STEPS} steps in "
+          f"{ch_fft_s:.3f} s, launches {ch_fft_launches}; |mean c - mean c0| "
+          f"{mean_drift:.3e} <= {FFT_MEAN_DRIFT_MAX:.0e}", flush=True)
+    if not mean_drift <= FFT_MEAN_DRIFT_MAX:
+        raise PhaseError(f"CH fft run: mean drift {mean_drift:.3e}")
+
+    # 3D: the LOD step of examples/torch_diffusion3d_adi.py --backend fft
+    op3f = rt.create("diffusion", (N3,) * 3, mode="adi", alpha=r3,
+                     cyclic=True, backend="fft")
+    lap3f = rt.create("laplacian", (N3,) * 3, bc="periodic", h=h3,
+                      backend="fft")
+    t0 = time.perf_counter()
+    (c3f, worst3f, rows3f), lod_fft_launches = counts_of(
+        lambda: lod_run(op3f, lap3f))
+    lod_fft_s = time.perf_counter() - t0
+    expect(lod_fft_launches, {}, "3D LOD run with fft sweeps and Laplacian")
+    on_card("fft 3D run", c3f, c3_0)
+    print(f"[spectral] 3D LOD {N3}^3 float64 on fft: {N_STEPS} steps in "
+          f"{lod_fft_s:.3f} s, launches {lod_fft_launches}; max |amp/exact "
+          f"- 1| {worst3f:.3e} <= {DECAY_MAX:.0e}", flush=True)
+    for k, amp, ratio, res in rows3f:
+        print(f"[spectral] 3d {k:4d} {amp:.6e} {ratio:.15f} {res:.3e}")
+    compare("3D fft vs penta", c3f, c3, tolerance_for("float64", scale=SCALE_3D),
+            spectral["checks"])
+    spectral.update(
+        ch=dict(launches=ch_fft_launches, seconds=ch_fft_s),
+        lod3d=dict(launches=lod_fft_launches, seconds=lod_fft_s,
+                   decay_max_dev=worst3f, diagnostics=rows3f),
+    )
+    del c3f
+
+    # -- 4h. the example scripts, at their default arguments -----------------
+    spectral["examples"] = run_examples()
+
     # -- 5. timing -----------------------------------------------------------
     def per_step(run, carry, steps):
         """ms/step of ``carry = run(carry)`` (one call does ``steps`` steps):
@@ -1548,6 +1726,7 @@ def main() -> int:
     step_times = {}
     for name, s_, steps in (("fused", solver, N_TIMED),
                             ("stencil", stencil, N_TIMED_B1D),
+                            ("stencil fft", ch_fft, N_TIMED_B1D),
                             ("batch1d", b1d, N_TIMED_B1D),
                             ("fused streamed", s_fused, N_TIMED),
                             ("batch1d streamed", s_b1d, N_TIMED_B1D)):
@@ -1578,6 +1757,16 @@ def main() -> int:
                                                 N_TIMED_3D)
     if not bool(torch.isfinite(c3).all()):
         raise PhaseError("timed streamed 3D run produced non-finite values")
+
+    def lod_steps_fft(c):
+        for _ in range(N_TIMED_3D):
+            c = rt.compute(op3f, c)
+        return c
+
+    c3 = lod_steps_fft(c3_0.clone())  # warm-up (cuFFT builds its plans)
+    c3, step_times["lod3d fft"] = per_step(lod_steps_fft, c3, N_TIMED_3D)
+    if not bool(torch.isfinite(c3).all()):
+        raise PhaseError("timed fft 3D run produced non-finite values")
 
     def weno_steps(steps):
         def run(q):
@@ -1631,6 +1820,16 @@ def main() -> int:
             lambda: s_fused._fused_xsweep(c1, c0),
         f"streamed y-sweep: penta_cols, {K} column chunks":
             lambda: s_fused.op_full.solve_y(c1),
+        f"fft biharmonic plan: rfft2 * symbol, irfft2 ({N_MAIN}, {N_MAIN})":
+            lambda: bih_fft.apply(c1),
+        f"fft x-sweep: rfft / symbol, irfft ({N_MAIN}, {N_MAIN})":
+            lambda: ch_fft.op_full.solve_x(c1),
+        f"fft y-sweep: rfft / symbol, irfft ({N_MAIN}, {N_MAIN})":
+            lambda: ch_fft.op_full.solve_y(c1),
+        f"fft 3D x-sweep ({N3}, {N3}, {N3})": lambda: op3f.solve_x(u3),
+        f"fft 3D y-sweep ({N3}, {N3}, {N3})": lambda: op3f.solve_y(u3),
+        f"fft 3D z-sweep ({N3}, {N3}, {N3})": lambda: op3f.solve_z(u3),
+        f"fft 3D Laplacian plan ({N3}, {N3}, {N3})": lambda: lap3f.apply(u3),
     }
     breakdown = {name: dict(events=time_ms(fn), device=device_ms(fn))
                  for name, fn in pieces.items()}
@@ -1638,6 +1837,19 @@ def main() -> int:
     for name, t in breakdown.items():
         how = "not in the trace" if t["device"] is None else f"{t['device']:.4f} ms"
         print(f"[time] {name}: {t['events']:.4f} ms (events), device {how}")
+    # the fft pieces by device activity (cuFFT's kernels, torch's
+    # elementwise passes and copies), one profiler window each; an
+    # observation, kept even where a window lost records
+    fft_rows = {}
+    for name, fn in pieces.items():
+        if name.startswith("fft"):
+            rows = kernel_rows(fn)
+            fft_rows[name] = [dict(kernel=short_name(k), launches=c, ms=ms)
+                              for k, c, ms in rows]
+            print(f"[fft-prof] {name}: {sum(ms for *_, ms in rows):.4f} ms of "
+                  f"device activity a call in {len(rows)} rows")
+            for k, c, ms in sorted(rows, key=lambda r: -r[2]):
+                print(f"[fft-prof]   {c:3d} x {ms * 20 / c:.4f} ms  {short_name(k)}")
     record["fused_profile"] = profile_fused(solver, pair_of(solver))
     record["ms_per_step"] = step_times["fused"]
     record["ms_per_step_stencil"] = step_times["stencil"]
@@ -1649,10 +1861,13 @@ def main() -> int:
                                       for k in ("fused", "batch1d")}
     for name, what in (("fused", f"fused step at {N_MAIN}^2 float64"),
                        ("stencil", f"stencil-mode step at {N_MAIN}^2 float64"),
+                       ("stencil fft", f"stencil-mode step with fft sweeps at "
+                        f"{N_MAIN}^2 float64"),
                        ("batch1d", f"batch1d step at {N_MAIN}^2 float64"),
                        ("lod3d", f"3D LOD step at {N3}^3 float64"),
                        ("lod3d streamed", f"3D LOD step at {N3}^3 float64, "
                         f"streams {STREAMS}, {K} chunks a sweep"),
+                       ("lod3d fft", f"3D LOD step on fft at {N3}^3 float64"),
                        ("weno", f"WENO RK3 step at {N_MAIN}^2 float64"),
                        ("fused streamed", f"fused step at {N_MAIN}^2 float64, "
                         f"streams {STREAMS}, {K} chunks"),
@@ -1688,7 +1903,14 @@ def main() -> int:
             bound_by=t["bound_by"], library_ms=t["library_ms"],
         ))
     record["kernels"] = kernels
+    spectral["ms_per_step"] = {
+        k: step_times[k] for k in ("stencil", "stencil fft", "lod3d", "lod3d fft")}
+    spectral["step_breakdown_ms"] = {k: v for k, v in breakdown.items()
+                                     if k.startswith("fft")}
+    spectral["fft_device_rows"] = fft_rows
+    record["spectral"] = spectral
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    print(json.dumps({"spectral": spectral}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ of ``repro.api``).
 - :func:`compute` — the single apply path for any plan.
 - :func:`swap` — the double-buffer flip between time steps.
 - :func:`destroy` — unified, idempotent teardown.
+- :func:`plan_key` — the canonical string identity of one plan request.
 
 The operator registry (:func:`register_operator` / :func:`get_operator`)
 is the single source of named operators: stencil ``weights`` builders and
@@ -22,6 +23,7 @@ ADI band ``diagonals`` builders.  Built-ins: ``"laplacian"``,
 from __future__ import annotations
 
 import dataclasses
+import json
 from collections.abc import Callable
 
 import numpy as np
@@ -39,6 +41,7 @@ __all__ = [
     "destroy",
     "get_operator",
     "operator_names",
+    "plan_key",
     "register_operator",
     "swap",
 ]
@@ -96,6 +99,52 @@ def get_operator(name: str) -> OperatorDef:
 def operator_names() -> tuple:
     """The registered operator names, sorted."""
     return tuple(sorted(_REGISTRY))
+
+
+def _dtype_name(dtype) -> str:
+    """The numpy name of a dtype given as a torch dtype, a numpy dtype or a
+    name (``torch.float32``, ``np.float32`` and ``'float32'`` all give
+    ``'float32'``)."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    if isinstance(dtype, str) and dtype == "bfloat16":
+        return dtype  # numpy has no bfloat16
+    return np.dtype(dtype).name
+
+
+def plan_key(
+    operator: str,
+    shape,
+    *,
+    dtype,
+    bc: str = "periodic",
+    mode: str | None = None,
+    alpha: float | None = None,
+    extra=None,
+) -> str:
+    """Canonical string identity of one plan request: operator name, field
+    shape, dtype, boundary condition, the ``mode`` hint, the ADI ``alpha``
+    and an ``extra`` dict for caller-specific discriminators (backend
+    request, batch quantisation, ...).  Deterministic and order-independent,
+    and the same string as ``repro.plan_key`` gives for the same request; a
+    torch dtype and its name give the same key.  Host identity is not part
+    of it: a plan is portable.
+
+    >>> plan_key("laplacian", (64, 64), dtype=torch.float32) == plan_key(
+    ...     "laplacian", [64, 64], dtype="float32")
+    True
+    """
+    doc = {
+        "schema": 1,
+        "operator": str(operator),
+        "shape": [int(s) for s in shape],
+        "dtype": _dtype_name(dtype),
+        "bc": bc,
+        "mode": mode,
+        "alpha": None if alpha is None else float(alpha),
+        "extra": extra,
+    }
+    return json.dumps(doc, sort_keys=True, separators=(",", ":"))
 
 
 _D2 = np.array([1.0, -2.0, 1.0])  # delta (paper eq. 4a)
@@ -228,8 +277,14 @@ def create(
                               ``bc='periodic'`` gives cyclic bands)
     ========================  =========================================
 
-    ``backend`` is ``'auto'|'cuda'|'torch'``; ``device`` defaults to the
-    card.  ``streams``/``max_tile_bytes`` (cuSten's ``nStreams``) stream a
+    ``backend`` is ``'auto'|'cuda'|'torch'|'fft'``; ``device`` defaults to
+    the card.  ``'fft'`` is the spectral path
+    (:mod:`repro_torch.kernels.spectral`): the operator's Fourier symbol is
+    computed at Create and Compute is a multiply (stencils) or a divide
+    (cyclic ADI sweeps) in frequency space.  It needs periodic boundaries,
+    explicit weights and cyclic bands, and refuses anything else with
+    :class:`~repro_torch.kernels.spectral.SpectralBackendError`;
+    ``'auto'`` never picks it.  ``streams``/``max_tile_bytes`` (cuSten's ``nStreams``) stream a
     plan's Compute in chunks on CUDA streams when the field exceeds one
     tile (:mod:`repro_torch.launch.stream`): row or line chunks at rank 2,
     z-slabs of a rank-3 stencil, and row, plane and column chunks of the
@@ -327,7 +382,7 @@ def create(
     common = dict(
         weights=weights, func=func, coeffs=coeffs, backend=backend,
         dtype=dtype, device=device, streams=streams,
-        max_tile_bytes=max_tile_bytes,
+        max_tile_bytes=max_tile_bytes, shape=shape,
         op_name=None if opdef is None else opdef.name,
         **{f"num_sten_{k}": v for k, v in ext.items()},
     )

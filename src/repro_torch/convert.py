@@ -7,7 +7,9 @@ pass ``np.asarray`` of each and these functions build the port's
 counterpart on ``device``.  Feeding the reference's own factors to the
 port separates differences in the substitution from differences in the
 factorisation.  Each function also carries a reference plan's ``streams``
-and ``max_tile_bytes`` across.
+and ``max_tile_bytes`` across, and its fft backend's Create-time symbols
+(a plan's ``symbol``, an operator's ``sym_x``/``sym_y``/``sym_z``; complex
+arrays), so the symbols can be held apart from the transforms.
 """
 
 from __future__ import annotations
@@ -33,6 +35,10 @@ from repro_torch.util import resolve_device
 
 def _tensor(a, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a, copy=True, order="C"), device=device)
+
+
+def _symbol(a, device) -> torch.Tensor | None:
+    return None if a is None else _tensor(a, device)
 
 
 def penta_factors(sub, low, inv_mu, al, be, *, device="cuda") -> PentaFactors:
@@ -61,16 +67,21 @@ def adi_operator(
     operator: str = "hyperdiffusion",
     streams: int | None = None,
     max_tile_bytes: int | None = None,
+    sym_x=None,
+    sym_y=None,
 ) -> ADIOperator:
     """A 2D :class:`ADIOperator` from two converted factor sets (cyclic when
-    both are cyclic), with the reference operator's streaming knobs."""
+    both are cyclic), with the reference operator's streaming knobs and
+    band symbols."""
     cyclic = isinstance(fac_x, CyclicPentaFactors)
     if cyclic != isinstance(fac_y, CyclicPentaFactors):
         raise ValueError("fac_x and fac_y must both be cyclic or both plain")
     device = (fac_x.band if cyclic else fac_x).sub.device
     return ADIOperator(
         fac_x=fac_x, fac_y=fac_y, cyclic=cyclic, backend=backend,
-        operator=operator, **stream_fields(streams, max_tile_bytes, device),
+        operator=operator, sym_x=_symbol(sym_x, device),
+        sym_y=_symbol(sym_y, device),
+        **stream_fields(streams, max_tile_bytes, device),
     )
 
 
@@ -83,10 +94,13 @@ def adi_operator_3d(
     operator: str = "hyperdiffusion",
     streams: int | None = None,
     max_tile_bytes: int | None = None,
+    sym_x=None,
+    sym_y=None,
+    sym_z=None,
 ) -> ADIOperator3D:
     """A :class:`ADIOperator3D` from three converted factor sets (cyclic
     when all three are cyclic), with the reference operator's streaming
-    knobs."""
+    knobs and band symbols."""
     kinds = {isinstance(f, CyclicPentaFactors) for f in (fac_x, fac_y, fac_z)}
     if len(kinds) != 1:
         raise ValueError("fac_x, fac_y and fac_z must all be cyclic or all plain")
@@ -94,7 +108,8 @@ def adi_operator_3d(
     device = (fac_x.band if cyclic else fac_x).sub.device
     return ADIOperator3D(
         fac_x=fac_x, fac_y=fac_y, fac_z=fac_z, cyclic=cyclic,
-        backend=backend, operator=operator,
+        backend=backend, operator=operator, sym_x=_symbol(sym_x, device),
+        sym_y=_symbol(sym_y, device), sym_z=_symbol(sym_z, device),
         **stream_fields(streams, max_tile_bytes, device),
     )
 
@@ -114,17 +129,18 @@ def stencil_batch1d(
     backend: str = "auto",
     streams: int | None = None,
     max_tile_bytes: int | None = None,
+    symbol=None,
     device="cuda",
 ) -> StencilBatch1D:
     """A :class:`StencilBatch1D` from its ``coeffs`` (left to right),
-    extents and streaming knobs."""
+    extents, streaming knobs and fft symbol."""
     dev = resolve_device(device)
     coeffs_t = _tensor(coeffs, dev).reshape(-1)
     _check_weighted(coeffs_t, point_fn, left + right + 1)
     return StencilBatch1D(
         bc=bc, left=left, right=right, coeffs=coeffs_t, point_fn=point_fn,
         backend=backend, taps=plan_taps_of(coeffs_t, point_fn, halos_1d(left, right)),
-        **stream_fields(streams, max_tile_bytes, dev),
+        symbol=_symbol(symbol, dev), **stream_fields(streams, max_tile_bytes, dev),
     )
 
 
@@ -137,11 +153,12 @@ def stencil3d(
     backend: str = "auto",
     streams: int | None = None,
     max_tile_bytes: int | None = None,
+    symbol=None,
     device="cuda",
 ) -> Stencil3D:
     """A :class:`Stencil3D` from flat ``coeffs`` (z-major, then row-major
-    over (y, x)), ``halos`` ``(front, back, top, bottom, left, right)`` and
-    its streaming knobs."""
+    over (y, x)), ``halos`` ``(front, back, top, bottom, left, right)``,
+    its streaming knobs and fft symbol."""
     fr, bk, tp, bt, lf, rt = (int(h) for h in halos)
     dev = resolve_device(device)
     coeffs_t = _tensor(coeffs, dev).reshape(-1)
@@ -152,7 +169,7 @@ def stencil3d(
         top=tp, bottom=bt, left=lf, right=rt, coeffs=coeffs_t,
         point_fn=point_fn, backend=backend,
         taps=plan_taps_of(coeffs_t, point_fn, (fr, bk, tp, bt, lf, rt)),
-        **stream_fields(streams, max_tile_bytes, dev),
+        symbol=_symbol(symbol, dev), **stream_fields(streams, max_tile_bytes, dev),
     )
 
 
@@ -168,10 +185,12 @@ def stencil2d(
     backend: str = "auto",
     streams: int | None = None,
     max_tile_bytes: int | None = None,
+    symbol=None,
     device="cuda",
 ) -> Stencil2D:
     """A :class:`Stencil2D` from flat ``coeffs`` (row-major from the
-    stencil's top-left), its extents and its streaming knobs."""
+    stencil's top-left), its extents, its streaming knobs and fft
+    symbol."""
     dev = resolve_device(device)
     coeffs_t = _tensor(coeffs, dev).reshape(-1)
     _check_weighted(coeffs_t, point_fn, (left + right + 1) * (top + bottom + 1))
@@ -182,5 +201,5 @@ def stencil2d(
         direction=direction, bc=bc, left=left, right=right, top=top,
         bottom=bottom, coeffs=coeffs_t, point_fn=point_fn, backend=backend,
         taps=plan_taps_of(coeffs_t, point_fn, halos_2d(left, right, top, bottom)),
-        **stream_fields(streams, max_tile_bytes, dev),
+        symbol=_symbol(symbol, dev), **stream_fields(streams, max_tile_bytes, dev),
     )

@@ -17,6 +17,14 @@ is a batched banded substitution, transpose-free in every sweep:
   the z-sweep the column layout on the ``(nz, ny*nx)`` view; with
   ``streams``/``max_tile_bytes`` each sweep is streamed in row, plane or
   column chunks.
+
+A cyclic operator also carries its band symbols (``sym_x``, ``sym_y``,
+``sym_z``: the rfft eigenvalues of the circulant bands, computed at
+Create whatever the backend); with ``backend='fft'`` each sweep divides by
+its symbol in Fourier space (:func:`_fft_sweep`) instead of running the
+recurrence and the Woodbury closure.  ``make_adi_operator`` and
+``make_adi_operator_3d`` are one-release deprecation shims of the Create
+functions.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels import spectral
 from repro_torch.kernels._build import check_backend
 from repro_torch.core.stencil import StencilBatch1D
 from repro_torch.launch import stream as _stream
@@ -40,7 +49,7 @@ from repro_torch.kernels.penta import (
     penta_solve_factored_mid,
     penta_solve_factored_rows,
 )
-from repro_torch.util import refuse_unported, resolve_device
+from repro_torch.util import deprecated_shim, refuse_unported, resolve_device
 
 
 def _band_builder(operator: str):
@@ -91,7 +100,9 @@ class ADIOperator:
     (:func:`~repro_torch.launch.stream.stream_penta_solve_rows`), the
     y-sweep in column chunks
     (:func:`~repro_torch.launch.stream.stream_penta_solve`), each chunk one
-    kernel launch on a stream of ``stream_pool``."""
+    kernel launch on a stream of ``stream_pool``.  ``sym_x``/``sym_y`` are
+    the band symbols of a cyclic operator, which ``backend='fft'`` divides
+    by."""
 
     fac_x: CyclicPentaFactors | PentaFactors  # along x (length nx)
     fac_y: CyclicPentaFactors | PentaFactors  # along y (length ny)
@@ -101,6 +112,10 @@ class ADIOperator:
     streams: int | None = None
     max_tile_bytes: int | None = None
     stream_pool: tuple = dataclasses.field(default=(), compare=False, repr=False)
+    sym_x: torch.Tensor | None = dataclasses.field(default=None, compare=False,
+                                                   repr=False)
+    sym_y: torch.Tensor | None = dataclasses.field(default=None, compare=False,
+                                                   repr=False)
 
     @property
     def destroyed(self) -> bool:
@@ -116,6 +131,8 @@ class ADIOperator:
     def solve_x(self, rhs: torch.Tensor) -> torch.Tensor:
         """Solve ``L_x w = rhs`` along the x (last) axis of an (ny, nx)
         field — row layout, transpose-free."""
+        if self.backend == "fft":
+            return _fft_sweep(self.sym_x, rhs, axis=-1)
         if self._streamed(rhs):
             return _stream.stream_penta_solve_rows(
                 self.fac_x, rhs, cyclic=self.cyclic, streams=self.streams,
@@ -131,6 +148,8 @@ class ADIOperator:
     def solve_y(self, rhs: torch.Tensor) -> torch.Tensor:
         """Solve ``L_y v = rhs`` along the y (first) axis of an (ny, nx)
         field — column layout."""
+        if self.backend == "fft":
+            return _fft_sweep(self.sym_y, rhs, axis=0)
         if self._streamed(rhs):
             return _stream.stream_penta_solve(
                 self.fac_y, rhs, cyclic=self.cyclic, streams=self.streams,
@@ -139,6 +158,43 @@ class ADIOperator:
             )
         solve = cyclic_penta_solve_factored if self.cyclic else penta_solve_factored
         return solve(self.fac_y, rhs, backend=self.backend)
+
+
+def _fft_sweep(sym, rhs: torch.Tensor, axis: int) -> torch.Tensor:
+    """The spectral implicit sweep: divide by the band symbol along one
+    axis (:func:`repro_torch.kernels.spectral.solve_symbol_axis`) — the
+    circulant diagonalisation of the cyclic penta solve."""
+    if sym is None:
+        raise spectral.SpectralBackendError(
+            "this ADI operator carries no band symbol (Create attaches "
+            "one only for cyclic operators)"
+        )
+    return spectral.solve_symbol_axis(rhs, sym, axis)
+
+
+def _check_adi_backend(backend: str, cyclic: bool) -> None:
+    """Create-time backend validation of the 2D and 3D factories:
+    ``backend='fft'`` on a non-cyclic operator raises
+    :class:`~repro_torch.kernels.spectral.SpectralBackendError`, since the
+    spectral sweep is the circulant diagonalisation, which only periodic
+    (cyclic) bands have."""
+    check_backend(backend)
+    if backend == "fft" and not cyclic:
+        raise spectral.SpectralBackendError(
+            "non-cyclic ADI bands are not circulants, so they do not "
+            "diagonalise under the DFT; use bc='periodic' (cyclic=True) "
+            "or a direct backend"
+        )
+
+
+def _band_symbols(diagonals, lengths_alphas, dtype, cyclic: bool, device):
+    """The band symbol of each ``(length, alpha)`` sweep of a cyclic
+    operator (``None`` each for a non-cyclic one), on ``device``."""
+    return [
+        spectral.band_symbol(*diagonals(n, a, dtype), dtype=dtype, device=device)
+        if cyclic else None
+        for n, a in lengths_alphas
+    ]
 
 
 def _make_adi_operator(
@@ -162,19 +218,25 @@ def _make_adi_operator(
     ``(2/3) D gamma dt / h**4`` for the paper's full scheme);
     ``operator='diffusion'`` factors ``I - alpha delta^2`` instead.  The
     bands are factored on the host in ``dtype`` and the factors moved to
-    ``device``; ``streams``/``max_tile_bytes`` stream the sweeps."""
+    ``device``; ``streams``/``max_tile_bytes`` stream the sweeps.  A cyclic
+    operator also gets its band symbols, which ``backend='fft'`` (cyclic
+    only) divides by."""
     refuse_unported(tune=tune)
-    check_backend(backend)
+    _check_adi_backend(backend, cyclic)
     dev = resolve_device(device)
     diagonals = _band_builder(operator)
     ay = alpha_over_h4 if alpha_over_h4_y is None else alpha_over_h4_y
     factor = cyclic_penta_factor if cyclic else penta_factor
+    sym_x, sym_y = _band_symbols(diagonals, ((nx, alpha_over_h4), (ny, ay)),
+                                 dtype, cyclic, dev)
     return ADIOperator(
         fac_x=factor(*diagonals(nx, alpha_over_h4, dtype), device=dev),
         fac_y=factor(*diagonals(ny, ay, dtype), device=dev),
         cyclic=cyclic,
         backend=backend,
         operator=operator,
+        sym_x=sym_x,
+        sym_y=sym_y,
         **_stream.stream_fields(streams, max_tile_bytes, dev),
     )
 
@@ -194,7 +256,9 @@ class ADIOperator3D:
     the y-sweep in plane chunks
     (:func:`~repro_torch.launch.stream.stream_penta_solve_mid`), the
     z-sweep in column chunks, each chunk one kernel launch on a stream of
-    ``stream_pool``."""
+    ``stream_pool``.  ``sym_x``/``sym_y``/``sym_z`` are the band symbols of
+    a cyclic operator: with ``backend='fft'`` every sweep divides by its
+    symbol along its own axis, with no reshape."""
 
     fac_x: CyclicPentaFactors | PentaFactors  # along x (length nx)
     fac_y: CyclicPentaFactors | PentaFactors  # along y (length ny)
@@ -205,6 +269,12 @@ class ADIOperator3D:
     streams: int | None = None
     max_tile_bytes: int | None = None
     stream_pool: tuple = dataclasses.field(default=(), compare=False, repr=False)
+    sym_x: torch.Tensor | None = dataclasses.field(default=None, compare=False,
+                                                   repr=False)
+    sym_y: torch.Tensor | None = dataclasses.field(default=None, compare=False,
+                                                   repr=False)
+    sym_z: torch.Tensor | None = dataclasses.field(default=None, compare=False,
+                                                   repr=False)
 
     @property
     def destroyed(self) -> bool:
@@ -225,6 +295,8 @@ class ADIOperator3D:
     def solve_x(self, rhs: torch.Tensor) -> torch.Tensor:
         """Solve ``L_x w = rhs`` along the x (last) axis — row layout on the
         flattened ``(nz*ny, nx)`` batch."""
+        if self.backend == "fft":
+            return _fft_sweep(self.sym_x, rhs, axis=-1)
         nz, ny, nx = rhs.shape
         flat = rhs.reshape(nz * ny, nx)
         if self._should_stream(rhs):
@@ -240,6 +312,8 @@ class ADIOperator3D:
 
     def solve_y(self, rhs: torch.Tensor) -> torch.Tensor:
         """Solve ``L_y v = rhs`` along the y (middle) axis — plane layout."""
+        if self.backend == "fft":
+            return _fft_sweep(self.sym_y, rhs, axis=-2)
         if self._should_stream(rhs):
             return _stream.stream_penta_solve_mid(self.fac_y, rhs,
                                                   **self._knobs())
@@ -252,6 +326,8 @@ class ADIOperator3D:
     def solve_z(self, rhs: torch.Tensor) -> torch.Tensor:
         """Solve ``L_z u = rhs`` along the z (first) axis — column layout on
         the ``(nz, ny*nx)`` view."""
+        if self.backend == "fft":
+            return _fft_sweep(self.sym_z, rhs, axis=-3)
         nz, ny, nx = rhs.shape
         flat = rhs.reshape(nz, ny * nx)
         if self._should_stream(rhs):
@@ -287,14 +363,17 @@ def _make_adi_operator_3d(
     ``I - alpha delta^2`` for ``operator='diffusion'`` (backward-Euler heat
     sweeps, ``alpha = D dt / h^2``).  ``alpha_y``/``alpha_z`` override the
     x coefficient per direction on anisotropic grids; ``streams``/
-    ``max_tile_bytes`` stream the sweeps."""
+    ``max_tile_bytes`` stream the sweeps.  A cyclic operator also gets its
+    band symbols, which ``backend='fft'`` (cyclic only) divides by."""
     refuse_unported(tune=tune)
-    check_backend(backend)
+    _check_adi_backend(backend, cyclic)
     dev = resolve_device(device)
     diagonals = _band_builder(operator)
     ay = alpha if alpha_y is None else alpha_y
     az = alpha if alpha_z is None else alpha_z
     factor = cyclic_penta_factor if cyclic else penta_factor
+    sym_x, sym_y, sym_z = _band_symbols(
+        diagonals, ((nx, alpha), (ny, ay), (nz, az)), dtype, cyclic, dev)
     return ADIOperator3D(
         fac_x=factor(*diagonals(nx, alpha, dtype), device=dev),
         fac_y=factor(*diagonals(ny, ay, dtype), device=dev),
@@ -302,5 +381,16 @@ def _make_adi_operator_3d(
         cyclic=cyclic,
         backend=backend,
         operator=operator,
+        sym_x=sym_x,
+        sym_y=sym_y,
+        sym_z=sym_z,
         **_stream.stream_fields(streams, max_tile_bytes, dev),
     )
+
+
+make_adi_operator = deprecated_shim(
+    "make_adi_operator", "create(..., mode='adi')", _make_adi_operator
+)
+make_adi_operator_3d = deprecated_shim(
+    "make_adi_operator_3d", "create(..., mode='adi')", _make_adi_operator_3d
+)

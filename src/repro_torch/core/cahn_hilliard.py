@@ -33,7 +33,11 @@ the stencil plans and the sweeps.  The geometry is the untuned
 ``choose_chunk_rows``, as the reference's with ``tune='off'``.
 
 Everything runs on ``CHConfig.device`` (the card unless the caller asks for
-the CPU).
+the CPU).  ``CHConfig(backend='fft')`` is refused at Create, as in the
+reference: the function-pointer Laplacian plan has no Fourier symbol.  A
+solver whose ``op_full`` and ``op_half`` are replaced with
+``dataclasses.replace(op, backend='fft')`` steps with spectral implicit
+sweeps.
 """
 
 from __future__ import annotations
@@ -106,7 +110,7 @@ class CHConfig:
     gamma: float = 0.01
     dtype: str = "float64"
     rhs_mode: str = "fused"  # 'fused' | 'stencil' | 'batch1d'
-    backend: str = "auto"  # 'auto' | 'cuda' | 'torch'
+    backend: str = "auto"  # 'auto' | 'cuda' | 'torch' | 'fft'
     streams: int | None = None
     max_tile_bytes: int | None = None
     tune: str = "off"

@@ -11,7 +11,9 @@ for the three plan families: 2D
   :mod:`repro_torch.kernels.ops`, or, when ``streams``/``max_tile_bytes``
   ask for it and the field exceeds one tile, through the family's streamed
   executor in :mod:`repro_torch.launch.stream` (row chunks, line chunks
-  or z-slabs).
+  or z-slabs).  A ``backend='fft'`` plan multiplies by its Create-time
+  Fourier symbol instead (:mod:`repro_torch.kernels.spectral`), never
+  streamed.
 - :class:`DoubleBuffer` — Swap.
 - :func:`plan_destroy` — Destroy (an idempotent mark; tensors are freed by
   reference counting).
@@ -20,6 +22,10 @@ Direction is encoded by the halo extents: an X plan has ``left/right``, a
 Y plan ``top/bottom``, a Z plan ``front/back``, an XY or XYZ plan all of
 its axes'.  ``bc='np'`` computes interior points only and passes
 ``out_init`` through on the boundary.
+
+The pre-facade per-dimension names (``stencil_create_2d``,
+``stencil_compute_2d``, ... — nine in all) are one-release deprecation
+shims at the bottom of this module.
 """
 
 from __future__ import annotations
@@ -30,13 +36,18 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, spectral
 from repro_torch.kernels._build import check_backend, point_fn_build
 from repro_torch.kernels.ref import weighted_point_fn
 from repro_torch.kernels.stencil2d import user_point_source
 from repro_torch.kernels.taps import Taps, halos_1d, halos_2d, plan_taps
 from repro_torch.launch import stream as _stream
-from repro_torch.util import refuse_unported, resolve_device, torch_dtype
+from repro_torch.util import (
+    deprecated_shim,
+    refuse_unported,
+    resolve_device,
+    torch_dtype,
+)
 
 _DIRECTIONS = ("x", "y", "xy")
 _DIRECTIONS_3D = ("x", "y", "z", "xyz")
@@ -65,7 +76,9 @@ class PlanCore:
     ``stream_pool`` holds the plan's CUDA streams, made at Create), and
     the non-zero taps the kernel sums (weighted and cube modes; None:
     every window), reduced at Create from the coefficients
-    (:func:`repro_torch.kernels.taps.plan_taps`)."""
+    (:func:`repro_torch.kernels.taps.plan_taps`).  ``symbol`` is the
+    Fourier symbol of the wrapped stencil kernel (rfftn layout, on the
+    plan's device), attached at Create when ``backend='fft'``."""
 
     bc: str
     coeffs: torch.Tensor
@@ -77,6 +90,8 @@ class PlanCore:
     stream_pool: tuple = dataclasses.field(default=(), compare=False, repr=False)
     taps: Taps | None = dataclasses.field(default=None, compare=False,
                                           repr=False)
+    symbol: torch.Tensor | None = dataclasses.field(default=None,
+                                                    compare=False, repr=False)
 
     @property
     def destroyed(self) -> bool:
@@ -94,12 +109,64 @@ class PlanCore:
         """The family's streamed executor in :mod:`repro_torch.launch.stream`."""
         raise NotImplementedError
 
+    # -- the spectral (fft) backend ----------------------------------------
+    def _spectral_spec(self, shape):
+        """``(weights_box, los, transform_shape)`` feeding
+        :func:`repro_torch.kernels.spectral.stencil_symbol` — per family."""
+        raise NotImplementedError
+
+    def _box(self, *extents) -> np.ndarray:
+        """The weights as their stencil box, on the host."""
+        return self.coeffs.detach().cpu().numpy().reshape(extents)
+
+    def _fft_ineligible(self, shape) -> str | None:
+        """Why the fft backend cannot serve this plan (None: it can)."""
+        if self.bc != "periodic":
+            return (
+                f"bc={self.bc!r} — the symbol multiply is a *circular* "
+                "convolution, so only periodic boundaries diagonalise"
+            )
+        if self.point_fn is not weighted_point_fn:
+            return (
+                "function-pointer stencils have no precomputable Fourier "
+                "symbol; register explicit weights instead"
+            )
+        if shape is None:
+            return (
+                "the symbol is precomputed for one field shape at Create; "
+                "pass shape=(...)"
+            )
+        return None
+
+    def _with_symbol(self, shape) -> "PlanCore":
+        """The plan carrying its Create-time Fourier symbol."""
+        box, los, tshape = self._spectral_spec(shape)
+        sym = spectral.stencil_symbol(box, los, tshape, dtype=self.coeffs.dtype,
+                                      device=self.coeffs.device)
+        return dataclasses.replace(self, symbol=sym)
+
+    def _fft_axes(self) -> tuple[int, ...]:
+        """The transformed (trailing) axes — the rank of the symbol."""
+        return tuple(range(-self.symbol.ndim, 0))
+
+    def _fft_apply(self, data: torch.Tensor) -> torch.Tensor:
+        if self.symbol is None:
+            raise spectral.SpectralBackendError(
+                "this plan carries no Fourier symbol (Create attaches one "
+                "for periodic weighted plans)"
+            )
+        return spectral.apply_symbol(data, self.symbol, self._fft_axes())
+
     def apply(
         self, data: torch.Tensor, out_init: torch.Tensor | None = None
     ) -> torch.Tensor:
         """Apply the stencil to ``data`` (the Compute call).  For
         ``bc='np'`` the cells within the halo of the domain edge are copied
         from ``out_init`` (zeros if not given)."""
+        if self.backend == "fft":
+            # one symbol multiply over the whole periodic extent: never
+            # streamed (Create validated the boundary mode)
+            return self._fft_apply(data)
         if _stream.should_stream(
             data.shape, data.element_size(), streams=self.streams,
             max_tile_bytes=self.max_tile_bytes,
@@ -124,9 +191,24 @@ def _build_point_fn(point_fn: Callable, nwin: int, device, backend: str) -> None
     CUDA source compiled into the stencil libraries for ``nwin`` windows
     (``_build.point_fn_build``), so a compile error raises here."""
     source = user_point_source(point_fn)
-    if (source is not None and backend != "torch"
+    if (source is not None and backend in ("auto", "cuda")
             and resolve_device(device).type == "cuda"):
         point_fn_build(source, nwin)
+
+
+def _finish_plan(plan: PlanCore, shape) -> PlanCore:
+    """The shared Create tail: ``backend='fft'`` is validated here, at
+    Create — non-periodic boundaries, function-pointer stencils and a
+    missing ``shape`` raise
+    :class:`~repro_torch.kernels.spectral.SpectralBackendError` — and an
+    eligible plan gets its Fourier symbol.  (``'auto'`` never picks fft:
+    in the reference only a tuned plan races it.)"""
+    if plan.backend != "fft":
+        return plan
+    reason = plan._fft_ineligible(shape)
+    if reason is not None:
+        raise spectral.SpectralBackendError(reason)
+    return plan._with_symbol(shape)
 
 
 def plan_taps_of(coeffs_t: torch.Tensor, point_fn: Callable, halos):
@@ -169,6 +251,10 @@ class Stencil2D(PlanCore):
     def _stream_apply(self, *args, **kwargs):
         return _stream.stream_stencil_apply(*args, **kwargs)
 
+    def _spectral_spec(self, shape):
+        box = self._box(self.top + self.bottom + 1, self.left + self.right + 1)
+        return box, (self.top, self.left), tuple(shape)
+
     @property
     def num_sten(self) -> int:
         return (self.left + self.right + 1) * (self.top + self.bottom + 1)
@@ -195,6 +281,7 @@ def _create_2d(
     streams: int | None = None,
     max_tile_bytes: int | None = None,
     tune: str = "off",
+    shape: tuple[int, int] | None = None,
     op_name: str | None = None,
 ) -> Stencil2D:
     """Create a 2D stencil plan (the Create call).
@@ -206,7 +293,9 @@ def _create_2d(
     the stencil.  ``dtype`` defaults to the weights' own (float64 for
     Python or numpy float64 weights).  ``streams``/``max_tile_bytes`` route
     Compute through the streamed executor for fields larger than one tile
-    (cuSten ``nStreams``; see :mod:`repro_torch.launch.stream`)."""
+    (cuSten ``nStreams``; see :mod:`repro_torch.launch.stream`).
+    ``backend='fft'`` needs periodic ``bc``, weights and the field's
+    ``shape``, for which Create computes the Fourier symbol."""
     refuse_unported(tune=tune)
     if direction not in _DIRECTIONS:
         raise ValueError(f"direction must be one of {_DIRECTIONS}")
@@ -249,7 +338,7 @@ def _create_2d(
         _build_point_fn(func, (left + right + 1) * (top + bottom + 1), device,
                         backend)
 
-    return Stencil2D(
+    plan = Stencil2D(
         direction=direction, bc=bc, left=left, right=right, top=top,
         bottom=bottom, coeffs=coeffs_t, point_fn=point_fn,
         backend=backend, op_name=op_name,
@@ -257,6 +346,7 @@ def _create_2d(
                                                         bottom)),
         **_stream.stream_fields(streams, max_tile_bytes, resolve_device(device)),
     )
+    return _finish_plan(plan, shape)
 
 
 @dataclasses.dataclass(frozen=True, kw_only=True)
@@ -276,6 +366,11 @@ class StencilBatch1D(PlanCore):
 
     def _stream_apply(self, *args, **kwargs):
         return _stream.stream_batch1d_apply(*args, **kwargs)
+
+    def _spectral_spec(self, shape):
+        # each line of the (B, M) stack transforms alone: the 1D symbol
+        # broadcasts over the batch axis
+        return self._box(self.left + self.right + 1), (self.left,), (tuple(shape)[-1],)
 
     @property
     def num_sten(self) -> int:
@@ -300,6 +395,7 @@ def _create_1d_batch(
     streams: int | None = None,
     max_tile_bytes: int | None = None,
     tune: str = "off",
+    shape: tuple[int, int] | None = None,
     op_name: str | None = None,
 ) -> StencilBatch1D:
     """Create a batched-1D stencil plan (cuSten ``custenCreate1DBatch*``).
@@ -329,12 +425,13 @@ def _create_1d_batch(
             coeffs = np.zeros((1,), np.float32)
         coeffs_t, point_fn = tensor(_host(coeffs)), func
         _build_point_fn(func, left + right + 1, device, backend)
-    return StencilBatch1D(
+    plan = StencilBatch1D(
         bc=bc, left=left, right=right, coeffs=coeffs_t, point_fn=point_fn,
         backend=backend, op_name=op_name,
         taps=plan_taps_of(coeffs_t, point_fn, halos_1d(left, right)),
         **_stream.stream_fields(streams, max_tile_bytes, resolve_device(device)),
     )
+    return _finish_plan(plan, shape)
 
 
 @dataclasses.dataclass(frozen=True, kw_only=True)
@@ -358,6 +455,11 @@ class Stencil3D(PlanCore):
 
     def _stream_apply(self, *args, **kwargs):
         return _stream.stream_stencil3d_apply(*args, **kwargs)
+
+    def _spectral_spec(self, shape):
+        box = self._box(self.front + self.back + 1, self.top + self.bottom + 1,
+                        self.left + self.right + 1)
+        return box, (self.front, self.top, self.left), tuple(shape)
 
     @property
     def num_sten(self) -> int:
@@ -394,6 +496,7 @@ def _create_3d(
     streams: int | None = None,
     max_tile_bytes: int | None = None,
     tune: str = "off",
+    shape: tuple[int, int, int] | None = None,
     op_name: str | None = None,
 ) -> Stencil3D:
     """Create a 3D stencil plan (the §VI.A Create call).
@@ -453,13 +556,34 @@ def _create_3d(
     halos = (front, back, top, bottom, left, right)
     nwin = (front + back + 1) * (top + bottom + 1) * (left + right + 1)
     _build_point_fn(point_fn, nwin, device, backend)
-    return Stencil3D(
+    plan = Stencil3D(
         direction=direction, bc=bc, front=front, back=back, top=top,
         bottom=bottom, left=left, right=right, coeffs=coeffs_t,
         point_fn=point_fn, backend=backend, op_name=op_name,
         taps=plan_taps_of(coeffs_t, point_fn, halos),
         **_stream.stream_fields(streams, max_tile_bytes, resolve_device(device)),
     )
+    return _finish_plan(plan, shape)
+
+
+def central_difference_weights(order: int, derivative: int, h: float = 1.0):
+    """Weights of the central finite difference of accuracy ``order``
+    (even) for ``derivative`` (1 or 2), from the Vandermonde system of the
+    standard Fornberg construction.  Returns a numpy array of length
+    ``order + derivative - (derivative % 2) + 1`` scaled by
+    ``h**-derivative``."""
+    import math as _math
+
+    if order % 2:
+        raise ValueError("order must be even for central differences")
+    npts = 2 * ((order + derivative - 1) // 2) + 1
+    offsets = np.arange(npts) - npts // 2
+    # sum_k w_k * off_k^m = m! * delta_{m, derivative}
+    A = np.vander(offsets, npts, increasing=True).T.astype(np.float64)
+    b = np.zeros(npts)
+    b[derivative] = _math.factorial(derivative)
+    w = np.linalg.solve(A, b)
+    return w / h**derivative
 
 
 def laplacian3d_weights(h: float = 1.0) -> np.ndarray:
@@ -507,3 +631,29 @@ class DoubleBuffer:
     def swap(self) -> "DoubleBuffer":
         self.old, self.new = self.new, self.old
         return self
+
+
+# ---------------------------------------------------------------------------
+# Deprecated per-dimension entry points (one release; use repro_torch.api)
+# ---------------------------------------------------------------------------
+
+
+def _compute_impl(plan, data, out_init=None):
+    return plan.apply(data, out_init)
+
+
+stencil_create_2d = deprecated_shim("stencil_create_2d", "create", _create_2d)
+stencil_compute_2d = deprecated_shim("stencil_compute_2d", "compute", _compute_impl)
+stencil_destroy_2d = deprecated_shim("stencil_destroy_2d", "destroy", plan_destroy)
+stencil_create_1d_batch = deprecated_shim(
+    "stencil_create_1d_batch", "create", _create_1d_batch
+)
+stencil_compute_1d_batch = deprecated_shim(
+    "stencil_compute_1d_batch", "compute", _compute_impl
+)
+stencil_destroy_1d_batch = deprecated_shim(
+    "stencil_destroy_1d_batch", "destroy", plan_destroy
+)
+stencil_create_3d = deprecated_shim("stencil_create_3d", "create", _create_3d)
+stencil_compute_3d = deprecated_shim("stencil_compute_3d", "compute", _compute_impl)
+stencil_destroy_3d = deprecated_shim("stencil_destroy_3d", "destroy", plan_destroy)

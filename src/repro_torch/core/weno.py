@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops as _ops
-from repro_torch.kernels._build import check_backend
+from repro_torch.kernels._build import check_kernel_backend
 from repro_torch.util import resolve_device, torch_dtype
 
 
@@ -47,7 +47,7 @@ class WenoAdvection2D:
     exactly like the u/v fields of the paper's modified kernel."""
 
     def __init__(self, cfg: AdvectionConfig):
-        check_backend(cfg.backend)
+        check_kernel_backend(cfg.backend)
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
 

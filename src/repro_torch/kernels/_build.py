@@ -65,7 +65,10 @@ LAUNCHES: dict[str, int] = {
     "weno5_advect": 0,
 }
 
+# what a kernel wrapper takes, and what a plan or ADI operator takes: the
+# spectral backend is routed by the plan before any kernel wrapper
 BACKENDS = ("auto", "cuda", "torch")
+PLAN_BACKENDS = BACKENDS + ("fft",)
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _L = ctypes.c_longlong
@@ -114,10 +117,22 @@ def reset_launches() -> None:
 
 
 def check_backend(backend: str) -> None:
+    """A plan's or an ADI operator's backend: ``'auto'|'cuda'|'torch'|'fft'``
+    (``'auto'`` never picks ``'fft'``)."""
+    if backend not in PLAN_BACKENDS:
+        raise ValueError(
+            f"backend must be one of {PLAN_BACKENDS}, got {backend!r}")
+
+
+def check_kernel_backend(backend: str) -> None:
+    """A kernel wrapper's backend: ``'auto'|'cuda'|'torch'``.  The spectral
+    backend is a plan's and is routed before any kernel wrapper, so an
+    ``'fft'`` that reaches one is a caller's bug."""
     if backend == "fft":
-        raise NotImplementedError(
-            "backend='fft' is not ported yet (ROADMAP.md, Open items: Spectral "
-            "backend)"
+        raise ValueError(
+            "backend='fft' reached a kernel wrapper: the spectral path is a "
+            "plan's (a symbol multiply or divide), routed before any kernel; "
+            f"kernel backends are {BACKENDS}"
         )
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
@@ -127,7 +142,7 @@ def resolve_backend(backend: str, tensor: torch.Tensor) -> str:
     """``'auto'`` picks by the tensor's device: the kernel for a CUDA
     tensor, the plain version for a CPU tensor.  ``'cuda'`` forces the
     kernel (which raises on a CPU tensor), ``'torch'`` the plain version."""
-    check_backend(backend)
+    check_kernel_backend(backend)
     if backend == "auto":
         return "cuda" if tensor.is_cuda else "torch"
     return backend

@@ -17,14 +17,26 @@ from __future__ import annotations
 
 from collections.abc import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels._build import LAUNCHES, reset_launches, resolve_backend
+from repro_torch.kernels._build import (
+    LAUNCHES,
+    check_kernel_backend,
+    reset_launches,
+    resolve_backend,
+)
 from repro_torch.kernels.fused_ch import (
     ch_rhs_cuda,
     ch_rhs_xsweep_cuda,
     ch_rhs_xsweep_torch,
+)
+from repro_torch.kernels.penta import (
+    cyclic_penta_factor,
+    cyclic_penta_solve_factored,
+    penta_factor,
+    penta_solve_factored,
 )
 from repro_torch.kernels.stencil1d_batch import (
     stencil1d_batch_cuda,
@@ -33,11 +45,13 @@ from repro_torch.kernels.stencil1d_batch import (
 from repro_torch.kernels.stencil2d import stencil2d_cuda, stencil2d_torch
 from repro_torch.kernels.stencil3d import stencil3d_cuda, stencil3d_torch
 from repro_torch.kernels.weno import weno5_advect_cuda, weno5_advect_torch
+from repro_torch.util import numpy_dtype
 
 __all__ = [
     "LAUNCHES",
     "ch_rhs",
     "ch_rhs_xsweep",
+    "penta_solve",
     "reset_launches",
     "stencil_apply",
     "stencil_apply_3d",
@@ -133,6 +147,25 @@ def ch_rhs_xsweep(
     if resolve_backend(backend, c_n) == "cuda":
         return ch_rhs_xsweep_cuda(c_n, c_nm1, fac_x, **kw)
     return ch_rhs_xsweep_torch(c_n, c_nm1, fac_x, **kw)
+
+
+def penta_solve(l2, l1, d, u1, u2, rhs, *, cyclic: bool, backend: str = "auto"):
+    """One-shot batched pentadiagonal solve: factor, then substitute.
+
+    ``rhs`` is (M,) or (M, N) (systems down the columns); the diagonals are
+    (M,) and are factored on the host in ``rhs``'s dtype, the factors moved
+    to ``rhs``'s device.  For repeated solves with one operator (the ADI hot
+    path) use the factor / ``*_solve_factored`` pair of
+    :mod:`repro_torch.kernels.penta` — cuSten's Create/Compute split."""
+    check_kernel_backend(backend)
+    dt = numpy_dtype(rhs.dtype)
+    bands = [np.asarray(a.detach().cpu() if isinstance(a, torch.Tensor) else a,
+                        dt) for a in (l2, l1, d, u1, u2)]
+    if cyclic:
+        fac = cyclic_penta_factor(*bands, device=rhs.device)
+        return cyclic_penta_solve_factored(fac, rhs, backend=backend)
+    return penta_solve_factored(penta_factor(*bands, device=rhs.device), rhs,
+                                backend=backend)
 
 
 def weno_advect(q, u, v, *, dx: float, dy: float, backend: str = "auto"):

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
@@ -11,6 +13,35 @@ _DTYPES = {
     "bfloat16": torch.bfloat16,
     "float16": torch.float16,
 }
+
+
+def warn_deprecated(old: str, new: str, *, stacklevel: int = 3) -> None:
+    """The one-release deprecation warning of a pre-facade name (the nine
+    per-dimension ``stencil_*`` functions and both ``make_adi_operator*``
+    factories), with the reference's text for this package."""
+    warnings.warn(
+        f"{old} is deprecated; use repro_torch.{new} — "
+        "the unified four-function facade (repro_torch.api)",
+        DeprecationWarning,
+        stacklevel=stacklevel,
+    )
+
+
+def deprecated_shim(old: str, new: str, impl):
+    """Wrap a pre-facade entry point: warn via :func:`warn_deprecated` on
+    every call, then delegate to the private implementation."""
+
+    def shim(*args, **kwargs):
+        warn_deprecated(old, new)
+        return impl(*args, **kwargs)
+
+    shim.__name__ = shim.__qualname__ = old
+    shim.__doc__ = (
+        f"Deprecated alias (one release): use ``repro_torch.{new}``, the "
+        f"four-function facade of :mod:`repro_torch.api`.  Behaves as the "
+        f"pre-facade ``{old}``; every call emits a ``DeprecationWarning``."
+    )
+    return shim
 
 
 def ceil_div(a: int, b: int) -> int:

@@ -244,8 +244,6 @@ def test_facade_validation():
     # refusals name their ROADMAP.md item by its title
     (lambda: rt.create("laplacian", (8, 8), tune="cached", device="cpu"),
      "Open items: Tuning"),
-    (lambda: rt.create("laplacian", (8, 8), backend="fft", device="cpu"),
-     "Open items: Spectral backend"),
     (lambda: rt.create("laplacian", (8, 8), mode="batch", streams=2,
                        tune="cached", device="cpu"), "Open items: Tuning"),
     (lambda: rt.create("laplacian", (8, 8), lint="warn", device="cpu"),
@@ -259,7 +257,7 @@ def test_facade_validation():
     (lambda: TCH.CahnHilliardADI(TCH.CHConfig(nx=8, ny=8, tune="force",
                                               device="cpu")),
      "Open items: Tuning"),
-], ids=["tune", "fft", "batch", "lint", "batch1d", "ch-streams", "ch-tune"])
+], ids=["tune", "batch", "lint", "batch1d", "ch-streams", "ch-tune"])
 def test_unported_knobs_are_refused(call, item):
     with pytest.raises(NotImplementedError, match=item):
         call()
@@ -276,7 +274,7 @@ def test_refusals_name_roadmap_items_that_exist():
     for f in (root / "src" / "repro_torch").rglob("*.py"):
         text = re.sub(r'"\s*\n\s*f?"', "", f.read_text())  # join literals
         named |= set(re.findall(r"Open items: ([^)\n]+)\)", text))
-    assert {"Spectral backend", "Tuning", "Analysis", "Distribution"} <= named
+    assert {"Tuning", "Analysis", "Distribution"} <= named
     assert named <= titles, named - titles
 
 
@@ -308,9 +306,12 @@ def _imports(path):
 def test_port_never_imports_jax_or_repro():
     sources = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     sources += [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
+    sources += sorted((ROOT / "examples").glob("torch_*.py"))
     names = {p.name for p in sources}
     assert {"stencil1d_batch.py", "stencil3d.py", "adi.py", "penta.py",
-            "fused_ch.py", "convert.py", "weno.py", "stream.py"} <= names
+            "fused_ch.py", "convert.py", "weno.py", "stream.py", "spectral.py",
+            "torch_quickstart.py", "torch_cahn_hilliard_adi.py",
+            "torch_diffusion3d_adi.py", "torch_weno_advection.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in sources}
     assert {"src/repro_torch/core/weno.py", "src/repro_torch/kernels/weno.py",
             "src/repro_torch/launch/stream.py"} <= rel
@@ -324,7 +325,7 @@ def test_port_never_imports_jax_or_repro():
         "assert not bad, bad\n"
         "need = {'repro_torch.kernels.stencil1d_batch', 'repro_torch.kernels.stencil3d',\n"
         "        'repro_torch.core.weno', 'repro_torch.kernels.weno',\n"
-        "        'repro_torch.launch.stream'}\n"
+        "        'repro_torch.launch.stream', 'repro_torch.kernels.spectral'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print('clean')\n"
     )

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import create
+from repro_torch import compute, create
 from repro_torch.core.adi import apply_along_x, apply_along_y
 from repro_torch.core.cahn_hilliard import cube_laplacian_point_fn
 from repro_torch.kernels import _build, ops
@@ -692,3 +692,30 @@ def test_streamed_equals_monolithic_bit_for_bit(cuda):
                     if v != before[k]}
         assert launched == {kernel: 8}, (name, launched)
         assert torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["2d", "2d-x", "batch", "3d", "adi", "adi3d"])
+def test_fft_plans_stay_on_card(cuda, case, dtype):
+    """backend='fft' on a CUDA tensor: torch.fft on the card, the input's
+    dtype, no kernel of the port launched, and within scale 50 of the same
+    plan on the kernels (tests/test_torch_spectral.py holds it against the
+    reference)."""
+    shape, name, kw = {
+        "2d": ((64, 61), "biharmonic", {}),
+        "2d-x": ((33, 64), "laplacian", dict(mode="x")),
+        "batch": ((16, 61), "hyperdiffusion", dict(mode="batch")),
+        "3d": ((16, 17, 18), "laplacian", {}),
+        "adi": ((64, 61), "hyperdiffusion", dict(mode="adi", alpha=0.2)),
+        "adi3d": ((16, 17, 18), "diffusion", dict(mode="adi", alpha=0.3)),
+    }[case]
+    x = _field(shape, dtype, cuda, 19)
+    fft = create(name, shape, backend="fft", dtype=dtype, device=cuda, **kw)
+    kernel = create(name, shape, dtype=dtype, device=cuda, **kw)
+    want = compute(kernel, x)
+    _build.reset_launches()
+    got = compute(fft, x)
+    torch.cuda.synchronize()
+    assert got.is_cuda and got.dtype == dtype and got.shape == x.shape
+    assert sum(_build.LAUNCHES.values()) == 0, dict(_build.LAUNCHES)
+    _assert_close(got, want, dtype, 50)

@@ -316,8 +316,7 @@ class TestPlanRouting:
         assert TS.resolve_compute("cuda", t) == "cuda"  # forced: raises at launch
         with pytest.raises(ValueError, match="backend"):
             TS.resolve_compute("jnp", t)
-        with pytest.raises(NotImplementedError,
-                           match="Open items: Spectral backend"):
+        with pytest.raises(ValueError, match="backend='fft' reached a kernel"):
             TS.resolve_compute("fft", t)
 
     def test_batch1d_plan_streams(self, monkeypatch):
