@@ -49,8 +49,12 @@ Prints one JSON line with the tree, the card (name and power limit), the
 times and, for each design choice, whether its output equals the
 default's bit for bit.  With ``--sass NAME ...`` it prints instead the
 SASS instruction counts, by opcode, of the checkout's built kernels whose
-names hold one of the NAMEs (``cuobjdump -sass``).  Exits non-zero
-without a card or when a choice's output differs.
+names hold one of the NAMEs (``cuobjdump -sass``); with ``--regs NAME
+...`` the registers of those kernels (the ``-Xptxas=-v`` report of a
+build made in this process); with ``--fused-only`` only the fused step's
+ms/step, five times over 200 steps, in a fresh process (run it on both
+checkouts in rotating order).  Exits non-zero without a card or when a
+choice's output differs.
 """
 
 from __future__ import annotations
@@ -125,6 +129,22 @@ def host_ms(fn, n: int = 200) -> float:
 SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
 
 
+PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_registers(log: str, names: tuple[str, ...]) -> dict:
+    """``{kernel: registers}`` from a build's ``-Xptxas=-v`` report, for the
+    kernels whose mangled name holds one of ``names``."""
+    regs, kernel = {}, None
+    for line in log.splitlines():
+        if m := PTXAS_ENTRY.search(line):
+            kernel = m.group(1) if any(n in m.group(1) for n in names) else None
+        elif kernel and (m := PTXAS_REGS.search(line)):
+            regs[kernel] = int(m.group(1))
+    return regs
+
+
 def sass_counts(lib_dir: Path, names: tuple[str, ...]) -> dict:
     """Instruction counts by opcode (its first dotted part) of each kernel
     of the built libraries in ``lib_dir`` whose mangled name holds one of
@@ -157,6 +177,11 @@ def main() -> int:
     ap.add_argument("--sass", metavar="NAME", nargs="+", default=None,
                     help="build, print the SASS instruction counts of the "
                     "kernels whose names hold NAME, and exit")
+    ap.add_argument("--regs", metavar="NAME", nargs="+", default=None,
+                    help="build, print the registers (ptxas) of the kernels "
+                    "whose names hold NAME, and exit")
+    ap.add_argument("--fused-only", action="store_true",
+                    help="time only the fused step, five times, and exit")
     args = ap.parse_args()
     import torch
 
@@ -186,6 +211,22 @@ def main() -> int:
         print(json.dumps(dict(tree=str(tree), label=args.label, card=card,
                               sass=sass_counts(Path(built["dir"]),
                                                tuple(args.sass)))))
+        return 0
+    if args.regs:
+        if not built["log"]:
+            print("chip_ab: the kernels were built before this process; "
+                  "no ptxas report", file=sys.stderr)
+            return 1
+        print(json.dumps(dict(tree=str(tree), label=args.label, card=card,
+                              regs=ptxas_registers(built["log"],
+                                                   tuple(args.regs)))))
+        return 0
+    if args.fused_only:
+        solver = CahnHilliardADI(CHConfig(nx=1024, ny=1024, dtype="float64"))
+        c0 = band_limited_quench(1024, seed=0)
+        print(json.dumps(dict(tree=str(tree), label=args.label, card=card,
+                              fused_ms=[step_ms(solver, c0, 200)
+                                        for _ in range(5)])))
         return 0
     n = 1024
     cfg = CHConfig(nx=n, ny=n, dtype="float64")

@@ -60,6 +60,15 @@ printing a result:
    streamed 3D path) bit for bit their whole launches.  Timed besides: the 5x5 biharmonic
    plan (yardstick circular pad + ``F.conv2d``) and ``stencil1d_batch``
    along y (circular pad + ``F.conv2d`` with a (5, 1) kernel).
+   The stacked ``stencil2d`` (the serving engine's rank-2 buckets): a
+   ``(B, ny, nx)`` stack in one launch (``Stencil2D.apply_stacked``)
+   equal bit for bit to its B single launches, and within the stencil
+   tolerance of its plain version, at B = 1, 3, 32 at 1024^2 float64 for
+   the 5x3 and 5x5 plans, B = 64 at 64^2, 1021x1019, float32, ``bc='np'``
+   with and without out_init, and B = 80 at 1024^2 (81920 blocks, more
+   than grid.y could hold); timed at (32, 1024, 1024) against its bound
+   (0.160 ms), its plain version and a batched circular-pad ``F.conv2d``,
+   and at (32, 64, 64) against 32 single launches (CUDA events).
 4. Paths, each run with the launch counts set to 0 just before it and
    read just after:
    a. Main path: the 1024x1024 float64 Cahn–Hilliard solver, bootstrap
@@ -112,6 +121,30 @@ printing a result:
       at its default 256^2 its bootstrap overflows, as the reference
       script's does); each must exit 0 and print its result line (logs in
       ``chiprun_out/example_*.log``).
+   i. Serving: ``python -m repro_torch.serve --requests 48`` (the CLI at
+      its defaults, on the card) must verify and exit 0 (log in
+      ``chiprun_out/serve_cli.log``); then 128 requests round-robin over
+      the CLI's four classes raised to the paper's grid (``laplacian`` and
+      ``biharmonic`` at 1024^2, ``laplacian`` lines of 1024,
+      ``hyperdiffusion`` ADI at 1024^2 with alpha 0.1; float64, fields on
+      the card) through ``ServeEngine(max_batch=32)``: every result bit for
+      bit the port's sequential ``create``/``compute`` on the card, 0
+      degrades and 0 retries, one ``stencil2d`` launch per rank-2 bucket
+      (not per member), one ``stencil1d_batch`` per line bucket, one
+      ``penta_rows`` and one ``penta_cols`` per ADI member (asserted);
+      requests/s and p50/p99 latency.  Then the same stream with a
+      ``'kernel.dispatch'`` ``backend_error`` at hit 1 (its class, and no
+      other, degrades to ``backend='torch'``, within the float64 scale-10
+      tolerance of the kernels' results) and with a
+      ``'serve.bucket_compute'`` ``transient`` at hit 1 (retried once, the
+      clean results bit for bit).
+   j. The self-healing long run: ``resilient_evolve`` of 4a's solver from
+      its start field, 64 steps in chunks of 16 (checkpoints under
+      ``chiprun_out``, removed after): the clean run bit for bit
+      ``ch_evolve``'s, a run with an ``'evolve.step'`` crash at hit 2 and a
+      NaN at hit 3 healed to the same bits (rollbacks and failures
+      listed), the last checkpoint read back bit for bit; the commit time
+      of a chunk's pair (16 MB) and ms/step beside ``ch_evolve``'s.
 5. Timing: ms/step of the fused step over 200 steps after 20 of warm-up,
    of the stencil-mode step on the penta and on the fft sweeps and of the
    batched-1D step, of the 3D LOD step on the kernels, streamed and on
@@ -122,8 +155,10 @@ printing a result:
    steps: device time by kernel name, the device-busy share and the gaps
    between kernels (trace in ``chiprun_out/fused_trace.json``).
 6. The ``spectral`` JSON line (phases 4g and 4h and the fft steps'
-   timings), the ``kernels`` JSON line, the card line, and the result
-   line.
+   timings), the ``kernels`` JSON line (each kernel's launches on the main
+   path, and under ``paths`` on every path that launched it, the serving
+   stream and the resilient run included; ``stencil2d`` also carries its
+   stacked timings), the card line, and the result line.
 
 A full record goes to ``chiprun_out/chip_smoke.json`` and the nvcc logs to
 ``chiprun_out/nvcc_build.log`` and ``chiprun_out/nvcc_build_point_fn.log``.
@@ -131,6 +166,7 @@ A full record goes to ``chiprun_out/chip_smoke.json`` and the nvcc logs to
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -151,6 +187,24 @@ N_TIMED = 200
 N_TIMED_B1D = 50
 N3 = 256  # the 3D path's box: 134 MB per float64 field
 N_WENO_CHECK = 100  # RK3 steps of the 1024^2 kernel-vs-plain WENO run
+# The stacked stencil2d (phase 3): the serving engine's largest bucket, and a
+# stack whose B x tiles (80 x 1024 at 1024^2) exceeds 65535 blocks.
+STACK_B = 32
+STACK_MANY = 80
+# Serving (phase 4i): the CLI's four classes raised to the paper's grid.
+SERVE_CLASSES = [
+    ("laplacian", (1024, 1024), None, None),
+    ("biharmonic", (1024, 1024), None, None),
+    ("laplacian", (1024,), None, None),
+    ("hyperdiffusion", (1024, 1024), "adi", 0.1),
+]
+SERVE_N = 128
+SERVE_MAX_BATCH = 32
+SERVE_CLI_TIMEOUT_S = 300
+# The self-healing long run (phase 4j)
+N_RESILIENT = 64
+CKPT_EVERY = 16
+N_COMMITS = 5
 # The reference's L2 error after one revolution at 512^2:
 # examples/weno_advection.py --n 512 (backend='jnp', jax 0.9.0, float64,
 # CPU), which prints 5.720e-08.
@@ -484,6 +538,261 @@ def run_examples() -> dict:
           f"(run together; logs in chiprun_out/example_*.log)", flush=True)
     if failed:
         raise PhaseError(f"example scripts failed: {failed}")
+    return out
+
+
+def serve_cli() -> dict:
+    """``python -m repro_torch.serve`` at its documented defaults (48
+    requests, the card) as a subprocess: it must verify bit for bit against
+    sequential create/compute and exit 0 (log in
+    ``chiprun_out/serve_cli.log``)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.serve", "--requests", "48"],
+            cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=SERVE_CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired as exc:
+        raise PhaseError(f"serve CLI did not finish in {SERVE_CLI_TIMEOUT_S} s"
+                         ) from exc
+    text = proc.stdout + proc.stderr
+    (OUT / "serve_cli.log").write_text(text)
+    lines = {k: next((ln for ln in proc.stdout.splitlines() if k in ln), None)
+             for k in ("req/s", "latency", "verify")}
+    print(f"[serve] CLI at its defaults: rc {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s; {lines['verify']}", flush=True)
+    print(f"[serve]   {lines['req/s']}\n[serve]   {lines['latency']}")
+    if proc.returncode != 0 or not (lines["verify"] and "bit-identical"
+                                    in lines["verify"]):
+        raise PhaseError(f"serve CLI failed (rc {proc.returncode}): see "
+                         "chiprun_out/serve_cli.log")
+    return dict(rc=proc.returncode, **lines)
+
+
+def serve_phase(counts_of, expect, dev) -> dict:
+    """Phase 4i: the CLI at its defaults, then a stream at the paper's grid
+    (SERVE_CLASSES round-robin, SERVE_N requests, fields on the card) held
+    bit for bit to sequential create/compute on the card, 0 degrades and 0
+    retries, one stencil2d launch per stacked rank-2 bucket, one
+    stencil1d_batch per line bucket, one penta_rows and one penta_cols per
+    ADI member; then an injected kernel failure (degrades its class, within
+    the stencil tolerance of the kernels' results) and an injected
+    transient bucket fault (retried to the same results)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import chaos
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.cli import build_requests, sequential_reference
+    from repro_torch.util import tolerance_for
+
+    out = dict(cli=serve_cli())
+    host = build_requests(SERVE_N, seed=0, steps=1, classes=SERVE_CLASSES)
+    requests = [dataclasses.replace(r, field=r.field.to(dev)) for r in host]
+    del host
+    torch.cuda.synchronize()
+
+    def served(plan=None):
+        """``(results, stats, launches, seconds)`` of one engine over the
+        stream, after a warm-up of one request a class."""
+        with ServeEngine(max_batch=SERVE_MAX_BATCH, device=dev) as engine:
+            engine.solve_many(requests[:len(SERVE_CLASSES)])
+            engine.metrics.reset()
+            ctx = (chaos.injected(plan) if plan is not None
+                   else contextlib.nullcontext())
+            with ctx:
+                t0 = time.perf_counter()
+                (results, stats), launches = counts_of(
+                    lambda: (engine.solve_many(requests), engine.stats()))
+                seconds = time.perf_counter() - t0
+        return results, stats, launches, seconds
+
+    results, stats, launches, seconds = served()
+    refs = sequential_reference(requests, device=dev)
+    same = [bool(torch.equal(r.out, ref)) for r, ref in zip(results, refs)]
+
+    def buckets(rank, mode=None):
+        return round(sum(1 / r.batch_size for r in results
+                         if len(r.request.shape) == rank
+                         and r.request.mode == mode))
+
+    n_adi = sum(1 for r in results if r.request.mode == "adi")
+    b2, b1 = buckets(2), buckets(1)
+    expect(launches, dict(stencil2d=b2, stencil1d_batch=b1, penta_rows=n_adi,
+                          penta_cols=n_adi), "served stream")
+    n2 = sum(1 for r in results if len(r.request.shape) == 2
+             and r.request.mode is None)
+    lat = stats["latency"]
+    out["stream"] = dict(
+        requests=len(results), seconds=seconds,
+        req_per_s=len(results) / seconds, p50_ms=lat["p50_s"] * 1e3,
+        p99_ms=lat["p99_s"] * 1e3, mean_ms=lat["mean_s"] * 1e3,
+        batches=stats["batches"], largest_batch=stats["largest_batch"],
+        rank2_buckets=b2, rank2_requests=n2, line_buckets=b1, adi_members=n_adi,
+        launches=launches, degraded=stats["degraded"], retries=stats["retries"],
+        bit_for_bit=all(same))
+    print(f"[serve] {len(results)} requests over {len(SERVE_CLASSES)} classes "
+          f"at 1024^2 float64 on the card: {seconds:.3f} s, "
+          f"{len(results) / seconds:.1f} req/s, p50 {lat['p50_s'] * 1e3:.2f} "
+          f"ms, p99 {lat['p99_s'] * 1e3:.2f} ms; {stats['batches']} buckets "
+          f"(largest {stats['largest_batch']}); launches {launches}: "
+          f"stencil2d {b2} for {n2} rank-2 requests, stencil1d_batch {b1}, "
+          f"penta_rows = penta_cols = {n_adi} ADI members", flush=True)
+    print(f"[serve] bit for bit sequential create/compute: {sum(same)}/"
+          f"{len(same)}; degraded {stats['degraded']}, retries "
+          f"{stats['retries']}", flush=True)
+    if not all(same) or stats["degraded"] or stats["retries"] or b2 >= n2:
+        raise PhaseError(f"served stream: {out['stream']}")
+    # where a bucket's time goes: its stack built on the card from 8
+    # members, and its one download of 8 x 8 MB (host clock to the
+    # synchronize, median of 5)
+    members = [r.field for r in requests[:4 * 8:4]]
+
+    def host_ms(fn):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    stack8 = torch.stack(members)
+    out["bucket_pieces_ms"] = {
+        "stack 8 members on the card": host_ms(lambda: torch.stack(members)),
+        "download 8 x 8 MB": host_ms(lambda: stack8.cpu()),
+    }
+    del stack8, members
+    print(f"[serve] a bucket of 8 at 1024^2: {out['bucket_pieces_ms']} (ms, "
+          "host clock, median of 5)", flush=True)
+
+    # an injected kernel failure at the first launch: its class degrades
+    plan = chaos.FaultPlan(seed=1).add("kernel.dispatch", "backend_error", at=1)
+    inj, inj_stats, _, _ = served(plan)
+    first = requests[0]
+    cls = lambda r: (r.operator, r.shape, r.mode)  # noqa: E731
+    tol = tolerance_for(torch.float64, scale=10)
+    worst, wrong = 0.0, []
+    for r, clean in zip(inj, results):
+        if cls(r.request) == cls(first):
+            err = float((r.out - clean.out).abs().max())
+            worst = max(worst, err / (tol["atol"] + tol["rtol"] *
+                                      float(clean.out.abs().max())))
+            if not r.degraded:
+                wrong.append(r.tag)
+        elif r.degraded or not torch.equal(r.out, clean.out):
+            wrong.append(r.tag)
+    n_first = sum(1 for r in requests if cls(r) == cls(first))
+    out["injected_backend_error"] = dict(
+        fired=plan.fired(), degraded=inj_stats["degraded"],
+        degraded_classes=inj_stats["degraded_classes"],
+        worst_err_over_limit=worst, wrong=wrong)
+    print(f"[serve] injected kernel.dispatch backend_error at hit 1: "
+          f"{plan.fired()}; degraded {inj_stats['degraded']} of {n_first} "
+          f"{first.operator} {first.shape} requests "
+          f"({inj_stats['degraded_classes']} class), their results within "
+          f"{worst:.3f} of the float64 scale-10 limit of the kernels'; other "
+          f"classes bit for bit and not degraded", flush=True)
+    if (wrong or worst > 1.0 or inj_stats["degraded"] != n_first
+            or inj_stats["degraded_classes"] != 1):
+        raise PhaseError(f"injected backend_error: {out['injected_backend_error']}")
+
+    # an injected transient bucket fault: retried to the same results
+    plan = chaos.FaultPlan(seed=1).add("serve.bucket_compute", "transient", at=1)
+    tr, tr_stats, _, _ = served(plan)
+    tr_same = all(torch.equal(a.out, b.out) for a, b in zip(tr, results))
+    out["injected_transient"] = dict(fired=plan.fired(),
+                                     retries=tr_stats["retries"],
+                                     degraded=tr_stats["degraded"],
+                                     bit_for_bit=tr_same)
+    print(f"[serve] injected serve.bucket_compute transient at hit 1: retries "
+          f"{tr_stats['retries']}, degraded {tr_stats['degraded']}, results "
+          f"bit for bit the clean run's {tr_same}", flush=True)
+    if tr_stats["retries"] != 1 or tr_stats["degraded"] or not tr_same:
+        raise PhaseError(f"injected transient: {out['injected_transient']}")
+    return out
+
+
+def resilient_phase(solver, c0, counts_of) -> dict:
+    """Phase 4j: ``resilient_evolve`` of the 1024^2 fused solver, 64 steps in
+    chunks of 16, into a directory under ``chiprun_out``: a clean run bit
+    for bit ``ch_evolve``; a run with a crash at chunk boundary 2 and a NaN
+    at 3 healed to the same bits; the last checkpoint read back bit for bit;
+    the commit time of a chunk's pair and ms/step beside ``ch_evolve``'s."""
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import Checkpointer, restore_pytree
+    from repro_torch.core.cahn_hilliard import ch_evolve
+    from repro_torch.runtime import chaos
+    from repro_torch.runtime.resilient import resilient_evolve
+
+    out = {}
+    steps = N_RESILIENT
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (want, _), n_evolve = counts_of(lambda: ch_evolve(solver, c0, steps))
+    evolve_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(dir=OUT) as root:
+        t0 = time.perf_counter()
+        clean, n_clean = counts_of(lambda: resilient_evolve(
+            solver, c0, steps, directory=f"{root}/clean",
+            checkpoint_every=CKPT_EVERY))
+        clean_s = time.perf_counter() - t0
+        plan = (chaos.FaultPlan(seed=3).add("evolve.step", "crash", at=2)
+                .add("evolve.step", "nan", at=3))
+        with chaos.injected(plan):
+            healed, n_healed = counts_of(lambda: resilient_evolve(
+                solver, c0, steps, directory=f"{root}/healed",
+                checkpoint_every=CKPT_EVERY))
+        back, manifest = restore_pytree({"c": c0, "c_prev": c0},
+                                        f"{root}/healed")
+        c_prev = ch_evolve(solver, c0, steps - 1)[0]
+        read_back = (bool(torch.equal(back["c"], healed.c_final))
+                     and bool(torch.equal(back["c_prev"], c_prev))
+                     and back["c"].device == c0.device)
+        # the commit of one chunk's pair (2 x 8 MB): a copy to the host on
+        # this thread, then the writer's atomic save, waited for
+        ckpt = Checkpointer(f"{root}/timed", keep_last=1)
+        commits = []
+        for k in range(N_COMMITS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt.save_async({"c": want, "c_prev": c_prev}, k)
+            ckpt.wait()
+            commits.append((time.perf_counter() - t0) * 1e3)
+        ckpt.close()
+    same_clean = bool(torch.equal(clean.c_final, want))
+    same_healed = bool(torch.equal(healed.c_final, want))
+    out.update(
+        steps=steps, checkpoint_every=CKPT_EVERY,
+        clean=dict(bit_for_bit_ch_evolve=same_clean, restarts=clean.restarts,
+                   rollbacks=clean.rollbacks, seconds=clean_s,
+                   ms_per_step=clean_s * 1e3 / (steps + 1), launches=n_clean),
+        healed=dict(bit_for_bit=same_healed, restarts=healed.restarts,
+                    rollbacks=healed.rollbacks, failures=healed.failures,
+                    fired=plan.fired(), launches=n_healed),
+        ch_evolve=dict(seconds=evolve_s, ms_per_step=evolve_s * 1e3 / (steps + 1),
+                       launches=n_evolve),
+        read_back=dict(bit_for_bit=read_back, step=manifest["step"]),
+        commit_ms=dict(median=statistics.median(commits), all=commits))
+    print(f"[resilient] {N_MAIN}^2 float64 fused, {steps} steps in chunks of "
+          f"{CKPT_EVERY}: clean run bit for bit ch_evolve {same_clean} "
+          f"(restarts {clean.restarts}); crash at hit 2 + nan at hit 3 "
+          f"{plan.fired()}: healed bit for bit {same_healed}, restarts "
+          f"{healed.restarts}, rollbacks {healed.rollbacks}, failures "
+          f"{healed.failures}; checkpoint step {manifest['step']} read back "
+          f"bit for bit {read_back}", flush=True)
+    print(f"[resilient] ms/step (host clock, bootstrap included): resilient "
+          f"{out['clean']['ms_per_step']:.3f}, ch_evolve "
+          f"{out['ch_evolve']['ms_per_step']:.3f}; commit of a chunk's pair "
+          f"(16 MB) {out['commit_ms']['median']:.2f} ms median of "
+          f"{N_COMMITS}; launches clean {n_clean}", flush=True)
+    if not (same_clean and same_healed and read_back
+            and healed.rollbacks >= 1 and len(healed.failures) == 2
+            and clean.restarts == 0):
+        raise PhaseError(f"resilient run: {out}")
     return out
 
 
@@ -1299,6 +1608,109 @@ def main() -> int:
         print(f"[time] library yardstick agrees with {kernel} to {e:.2e}")
     record["library_max_abs_diff"] = dict(lib_err, stencil2d=conv_err)
 
+    # -- 3s. the stacked stencil2d launch (the serving engine's buckets) -----
+    # A (B, ny, nx) stack is one launch; each member must equal its own
+    # single-field launch bit for bit (the tile geometry does not depend on
+    # B), and the stack its plain version within the stencil tolerance.
+    stacked = dict(checks=[], timings={})
+
+    def stack_plan(kind, shape, dtype, bc="periodic"):
+        if kind == "5x3":
+            return rt.create(solver_init_a_w, shape, bc=bc, dtype=dtype)
+        if kind in ("cube", "user"):
+            fn, c = ((cube_laplacian_point_fn, solver.plan_lap_cube.coeffs.cpu())
+                     if kind == "cube" else (user_fn, [0.7, -1.3]))
+            return rt.create(fn, shape, bc=bc, dtype=dtype, coeffs=c,
+                             extents=dict(left=1, right=1, top=1, bottom=1))
+        return rt.create("biharmonic", shape, bc=bc, dtype=dtype)
+
+    solver_init_a_w = solver.plan_init_a.coeffs.reshape(5, 3).cpu().numpy()
+    stack_cases = [(b, (N_MAIN, N_MAIN), k, "float64", "periodic")
+                   for b in (1, 3, 32) for k in ("5x3", "5x5")]
+    stack_cases += [(64, (64, 64), "5x5", "float64", "periodic"),
+                    (5, RAGGED, "5x3", "float64", "periodic"),
+                    (5, (N_MAIN, N_MAIN), "5x5", "float32", "periodic"),
+                    (5, RAGGED, "5x3", "float64", "np"),
+                    (5, RAGGED, "5x3", "float64", "np+out_init"),
+                    (3, (N_MAIN, N_MAIN), "5x5", "float32", "np+out_init"),
+                    (3, (N_MAIN, N_MAIN), "cube", "float64", "periodic"),
+                    (5, RAGGED, "cube", "float32", "np+out_init"),
+                    (3, (N_MAIN, N_MAIN), "user", "float64", "periodic"),
+                    (5, RAGGED, "user", "float32", "np"),
+                    (STACK_MANY, (N_MAIN, N_MAIN), "5x3", "float64", "periodic")]
+    for B, shape, kind, dtype, bc in stack_cases:
+        plan = stack_plan(kind, shape, dtype, bc[:2] if bc != "periodic" else bc)
+        geo = S2.stencil2d_geometry(shape, plan.halo, 4 if dtype == "float32"
+                                    else 8, smem, sms, B)
+        x = edge_field((B,) + shape, dtype, 70)
+        oi = edge_field((B,) + shape, dtype, 71) if bc == "np+out_init" else None
+        n0 = _build.LAUNCHES["stencil2d"]
+        got = plan.apply_stacked(x, oi)
+        one_launch = _build.LAUNCHES["stencil2d"] == n0 + 1
+        singles = torch.stack([plan.apply(x[b], None if oi is None else oi[b])
+                               for b in range(B)])
+        plain = ops.stencil_apply(x, plan.coeffs, oi, backend="torch",
+                                  point_fn=plan.point_fn, bc=plan.bc,
+                                  **plan._halo_kwargs())
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, singles))
+        tol = tolerance_for(dtype, scale=SCALE["stencil2d"])
+        err = float((got - plain).abs().max())
+        limit = tol["atol"] + tol["rtol"] * float(plain.abs().max())
+        ok = same and one_launch and err <= limit
+        label = f"B={B} {shape[0]}x{shape[1]} {kind} {dtype} {bc}"
+        stacked["checks"].append(dict(label=label, grid=geo.grid, route=geo.route,
+                                      bit_for_bit_singles=same,
+                                      one_launch=one_launch, max_abs_err=err,
+                                      limit=limit, ok=ok))
+        print(f"[stack] {'ok ' if ok else 'BAD'} {label}: grid {geo.grid} "
+              f"blocks ({geo.route}), one launch {one_launch}, bit for bit "
+              f"the {B} single launches {same}, kernel vs plain "
+              f"{err:.3e} <= {limit:.3e}", flush=True)
+        if not ok:
+            failures.append(f"stacked stencil2d {label}")
+        del x, oi, got, singles, plain
+    if not any(c["grid"] > 65535 for c in stacked["checks"]):
+        failures.append("no stacked case exceeded 65535 blocks")
+    if failures:
+        record["stacked_stencil2d"] = stacked
+        (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+        raise PhaseError(f"stacked stencil2d failed: {failures}")
+    # time: the stacked launch at (32, 1024, 1024) against its bound, the
+    # plain version and a batched conv2d; and at (32, 64, 64) against 32
+    # single launches (CUDA events around each whole set)
+    for B, shape in ((STACK_B, (N_MAIN, N_MAIN)), (STACK_B, (64, 64))):
+        plan = stack_plan("5x5", shape, "float64")
+        x = edge_field((B,) + shape, "float64", 72)
+        n_pts = B * shape[0] * shape[1]
+        t_bytes = 2 * n_pts * 8 / HBM_BYTES_PER_S * 1e3
+        t_ops = (2 * len(plan.taps.weights) - 1) * n_pts / PEAK_FLOPS["float64"] * 1e3
+        members = list(x.unbind(0))
+        w5 = plan.coeffs.view(1, 1, 5, 5)
+        entry = dict(
+            ms=device_ms(lambda: plan.apply_stacked(x)),
+            event_ms=time_ms(lambda: plan.apply_stacked(x)),
+            singles_event_ms=time_ms(lambda: [plan.apply(m) for m in members]),
+            plain_ms=time_ms(lambda: ops.stencil_apply(
+                x, plan.coeffs, backend="torch", **plan._halo_kwargs()),
+                n=5, warmup=1),
+            library_ms=time_ms(lambda: F.conv2d(
+                F.pad(x[:, None], (2, 2, 2, 2), mode="circular"), w5)[:, 0]),
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        key = f"({B}, {shape[0]}, {shape[1]})"
+        stacked["timings"][key] = entry
+        dev_txt = ("not in the trace" if entry["ms"] is None
+                   else f"{entry['ms']:.4f} ms")
+        print(f"[stack] 5x5 biharmonic stack {key} float64: device {dev_txt}, "
+              f"events {entry['event_ms']:.4f} ms, {B} single launches "
+              f"{entry['singles_event_ms']:.4f} ms (events), bound "
+              f"{entry['bound_ms']:.4f} ms by {entry['bound_by']}, plain "
+              f"{entry['plain_ms']:.3f} ms, batched conv2d "
+              f"{entry['library_ms']:.4f} ms", flush=True)
+        del x, members
+    record["stacked_stencil2d"] = stacked
+
     # -- 4. main path --------------------------------------------------------
     c0 = band_limited_quench(N_MAIN, seed=0)
     m0, a0 = float(c0.sum()), float(c0.abs().sum())
@@ -1702,6 +2114,15 @@ def main() -> int:
     # -- 4h. the example scripts, at their default arguments -----------------
     spectral["examples"] = run_examples()
 
+    # -- 4i. serving: the engine on the card ---------------------------------
+    serve = serve_phase(counts_of, expect,
+                        torch.device("cuda", torch.cuda.current_device()))
+    record["serve"] = serve
+
+    # -- 4j. the self-healing long run ---------------------------------------
+    resilient = resilient_phase(solver, c0, counts_of)
+    record["resilient"] = resilient
+
     # -- 5. timing -----------------------------------------------------------
     def per_step(run, carry, steps):
         """ms/step of ``carry = run(carry)`` (one call does ``steps`` steps):
@@ -1888,6 +2309,12 @@ def main() -> int:
         stencil3d=lod_launches, penta_mid=lod_launches,
         weno5_advect=weno_launches,
     )
+    # and each kernel's count on every path that launched it, the serving
+    # stream and the clean resilient run included
+    by_path = dict(main=main_launches, batch1d=b1d_launches, rhs=rhs_launches,
+                   lod3d=lod_launches, weno=weno_launches,
+                   serve=serve["stream"]["launches"],
+                   resilient=resilient["clean"]["launches"])
     kernels = []
     for name, counts in path_launches.items():
         if not counts[name] > 0:
@@ -1901,7 +2328,10 @@ def main() -> int:
                             if c["kernel"] == name and "main" in c["label"]),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
+            paths={p: c[name] for p, c in by_path.items() if c[name]},
         ))
+        if name == "stencil2d":
+            kernels[-1]["stacked"] = stacked["timings"]
     record["kernels"] = kernels
     spectral["ms_per_step"] = {
         k: step_times[k] for k in ("stencil", "stencil fft", "lod3d", "lod3d fft")}

@@ -54,6 +54,7 @@ from repro_torch.core import metrics as _metrics
 from repro_torch.core.adi import apply_along_x, apply_along_y
 from repro_torch.kernels import ops as _ops
 from repro_torch.launch import stream as _stream
+from repro_torch.runtime import chaos as _chaos
 from repro_torch.util import refuse_unported, resolve_device, torch_dtype
 
 # Stencil weight tables (paper eq. 4; §V.B stencil shapes), from the registry
@@ -322,6 +323,23 @@ class CahnHilliardADI:
         )
 
 
+def poison_at_chunk(carry: tuple, step: int) -> tuple:
+    """The chaos hook at a chunk boundary of the drivers (site
+    ``'evolve.step'``, as the reference's ``ch_evolve``): ``'crash'`` raises
+    here (checkpoint/restart territory); ``'nan'`` returns the carry with
+    element ``(0, 0)`` of a copy of its current field set to the fault's
+    value, so the chunk blows up and the health guard of
+    :mod:`repro_torch.runtime.resilient` catches it.  A copy, because
+    :meth:`CahnHilliardADI.make_evolve` updates its buffers in place and a
+    caller may hold them.  Without an installed plan: one global load."""
+    fault = _chaos.fire("evolve.step", step=step)
+    if fault is None or fault.kind != "nan":
+        return carry
+    c = carry[0].clone()
+    c[(0,) * c.ndim] = fault.value
+    return (c, carry[1])
+
+
 def ch_evolve(
     solver: CahnHilliardADI,
     c0,
@@ -337,7 +355,8 @@ def ch_evolve(
     field buffers swap and are updated in place (:meth:`CahnHilliardADI.
     make_evolve`).  ``c0`` is copied once on entry, so the caller's tensor
     is left as it was.  Returns ``(c_final, history)`` with history a list
-    of ``(step, metrics_fn(c))`` every ``save_every`` steps."""
+    of ``(step, metrics_fn(c))`` every ``save_every`` steps.  Each chunk
+    boundary fires the chaos site ``'evolve.step'`` (:func:`poison_at_chunk`)."""
     c0 = torch.as_tensor(c0, dtype=solver.dtype, device=solver.device).clone()
     c1 = solver.initial_step(c0)
     carry = _api.swap((c0, c1))  # the fresh field becomes the carry's current
@@ -346,6 +365,7 @@ def ch_evolve(
     done = 1  # the bootstrap counts as step 1
     while done < n_steps + 1:
         todo = min(chunk, n_steps + 1 - done)
+        carry = poison_at_chunk(carry, done)
         carry = solver.make_evolve(todo)(*carry)
         done += todo
         if metrics_fn is not None:

@@ -240,10 +240,41 @@ class Stencil2D(PlanCore):
     right: int
     top: int
     bottom: int
+    # the field shape given at Create (None when none was): what a stack
+    # of fields is checked against
+    shape: tuple[int, int] | None = dataclasses.field(default=None,
+                                                      compare=False)
 
     def _halo_kwargs(self) -> dict:
         return dict(left=self.left, right=self.right, top=self.top,
                     bottom=self.bottom)
+
+    def apply_stacked(
+        self, stack: torch.Tensor, out_init: torch.Tensor | None = None
+    ) -> torch.Tensor:
+        """Compute on a stack ``(B, ny, nx)`` of independent fields at once:
+        one ``stencil2d`` launch for the whole stack on the card, the plain
+        version over the last two axes on the CPU (the reference's
+        ``jax.vmap`` of Compute, which the serving engine's stacked buckets
+        run).  Member ``b`` equals ``apply(stack[b], out_init[b])`` bit for
+        bit.  ``out_init`` is a stack of the same shape (``bc='np'``; zeros
+        when None).  The stack is checked against the plan's Create-time
+        shape; a streamed plan's knobs do not apply (its streamed Compute
+        equals the monolithic one bit for bit)."""
+        if stack.ndim != 3:
+            raise ValueError(
+                f"apply_stacked takes a (B, ny, nx) stack, got shape "
+                f"{tuple(stack.shape)}")
+        if self.shape is not None and tuple(stack.shape[1:]) != self.shape:
+            raise ValueError(
+                f"stack of fields {tuple(stack.shape[1:])} on a plan created "
+                f"for {self.shape}")
+        if self.backend == "fft":
+            return self._fft_apply(stack)
+        return self._mono_apply(
+            stack, self.coeffs, out_init, point_fn=self.point_fn, bc=self.bc,
+            backend=self.backend, taps=self.taps, **self._halo_kwargs(),
+        )
 
     def _mono_apply(self, *args, **kwargs):
         return ops.stencil_apply(*args, **kwargs)
@@ -340,7 +371,8 @@ def _create_2d(
 
     plan = Stencil2D(
         direction=direction, bc=bc, left=left, right=right, top=top,
-        bottom=bottom, coeffs=coeffs_t, point_fn=point_fn,
+        bottom=bottom, shape=None if shape is None else tuple(shape),
+        coeffs=coeffs_t, point_fn=point_fn,
         backend=backend, op_name=op_name,
         taps=plan_taps_of(coeffs_t, point_fn, halos_2d(left, right, top,
                                                         bottom)),

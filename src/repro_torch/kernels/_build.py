@@ -45,6 +45,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.runtime import chaos as _chaos
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
@@ -82,7 +84,7 @@ _ENTRY_POINTS = {
         ("penta_rows_occupancy", [_I, _I, _P]),
     ),
     "stencil2d.cu": (
-        ("stencil2d", [_I, _I, _I, _P, _P, _P, _P] + [_I] * 9 + [_P] * 4),
+        ("stencil2d", [_I, _I, _I, _P, _P, _P, _P] + [_I] * 10 + [_P] * 4),
     ),
     "stencil1d_batch.cu": (
         ("stencil1d_batch",
@@ -390,7 +392,13 @@ def launch(name: str, device: torch.device, *args, libs=None) -> None:
     """Call the C entry point ``name`` on ``device``'s current stream (the
     stream is appended to ``args``), raise if the launch failed, and count
     the launch.  ``libs`` are a user point function's libraries
-    (:func:`point_fn_build`), else the library's own."""
+    (:func:`point_fn_build`), else the library's own.
+
+    The chaos site ``'kernel.dispatch'`` (the reference's
+    ``'pallas.dispatch'``) fires first, with ``kernel=name``: an injected
+    ``backend_error`` raises before the C call, so it leaves no partial
+    output."""
+    _chaos.fire("kernel.dispatch", kernel=name)
     lib, fn = (build()["libs"] if libs is None else libs)[name]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

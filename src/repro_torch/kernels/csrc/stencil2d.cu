@@ -49,7 +49,23 @@
 // with the same wrap or mask, so every point is computed by the same code
 // from the same inputs whatever the chunk.  The tiles share grid.x (up to
 // 2^31 - 1 blocks), so any number of rows fits.
+//
+// A launch takes a stack of nb fields, (nb, ny, nx) contiguous: the
+// counterpart of the reference's jax.vmap of Compute over a serving
+// bucket (repro/serve/batching.py).  The member index is folded into
+// grid.x above the tiles (block b * tiles + t, tiles = tiles a member), so
+// the grid limit stays that of the tiles alone; member b reads and writes
+// at offset b * ny * nx.  The tile geometry does not depend on nb, and
+// every point of every member is computed by the template code that
+// computes it in a single-field launch: a stacked launch equals nb single
+// launches bit for bit.  A stack (nb > 1) runs the STACKED instantiation,
+// which alone moves the three field pointers to the member: moved in
+// every launch, they took the float64 3x3 cube kernel from 32 to 46
+// registers and its 1024^2 launch from 0.0069 to 0.0080 ms on an H100,
+// where the single-field instantiation runs at 0.0069.
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -76,20 +92,37 @@ __device__ __forceinline__ void store(T* __restrict__ out,
     out[idx] = v;
 }
 
-// Tile route: block x + nbx y of grid.x, nbx = ceil(nx / TX), computes
-// the tile [x TX, x TX + TX) x [row0 + y TY, row0 + y TY + TY) (clipped to
-// row1); blockDim (TX, BY).
-template <typename T, typename P, bool PERIODIC, bool NEAR>
+// The offset of the member of the stack that block blockIdx.x works on,
+// and in *t the block's index among that member's `per` blocks.
+__device__ __forceinline__ size_t member_offset(const Field& g, int per,
+                                                int* t) {
+  const int b = blockIdx.x / per;
+  *t = blockIdx.x - b * per;
+  return static_cast<size_t>(b) * g.ny * g.nx;
+}
+
+// Tile route: block b per + x + nbx y of grid.x, nbx = ceil(nx / TX), per
+// = nbx ceil((row1 - row0) / TY), computes the tile [x TX, x TX + TX) x
+// [row0 + y TY, row0 + y TY + TY) (clipped to row1) of member b; blockDim
+// (TX, BY).
+template <typename T, typename P, bool PERIODIC, bool NEAR, bool STACKED>
 __global__ void __launch_bounds__(TX * BY) stencil2d_tile_kernel(
     const T* __restrict__ data, const T* __restrict__ coeffs,
     const T* __restrict__ out_init, T* __restrict__ out, const Field g,
-    int row0, int row1, const __grid_constant__ Taps taps) {
+    int row0, int row1, int per, const __grid_constant__ Taps taps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* tile = reinterpret_cast<T*>(smem_raw);
   const int sy = g.tp + g.bt + 1, sx = g.lf + g.rt + 1;
   const int W = TX + g.lf + g.rt;  // the tile's row stride
   const int nbx = (g.nx + TX - 1) / TX;
-  const int i0 = blockIdx.x % nbx * TX, j0 = row0 + blockIdx.x / nbx * TY;
+  int t = blockIdx.x;
+  if constexpr (STACKED) {
+    const size_t off = member_offset(g, per, &t);
+    data += off;
+    out += off;
+    if (out_init != nullptr) out_init += off;
+  }
+  const int i0 = t % nbx * TX, j0 = row0 + t / nbx * TY;
   const int vx = min(TX, g.nx - i0), vy = min(TY, row1 - j0);
   const int rows = vy + g.tp + g.bt, cols = vx + g.lf + g.rt;
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -117,16 +150,23 @@ __global__ void __launch_bounds__(TX * BY) stencil2d_tile_kernel(
 }
 
 // Direct route: one point a thread, its windows read from device memory
-// with each index wrapped on its own; blockDim (TX, BY), block x + nbx y of
-// grid.x.
-template <typename T, typename P, bool PERIODIC>
+// with each index wrapped on its own; blockDim (TX, BY), block b per + x +
+// nbx y of grid.x, per = nbx ceil((row1 - row0) / BY).
+template <typename T, typename P, bool PERIODIC, bool STACKED>
 __global__ void __launch_bounds__(TX * BY) stencil2d_direct_kernel(
     const T* __restrict__ data, const T* __restrict__ coeffs,
     const T* __restrict__ out_init, T* __restrict__ out, const Field g,
-    int row0, int row1, const __grid_constant__ Taps taps) {
+    int row0, int row1, int per, const __grid_constant__ Taps taps) {
   const int nbx = (g.nx + TX - 1) / TX;
-  const int i = blockIdx.x % nbx * TX + threadIdx.x;
-  const int j = row0 + blockIdx.x / nbx * BY + threadIdx.y;
+  int t = blockIdx.x;
+  if constexpr (STACKED) {
+    const size_t off = member_offset(g, per, &t);
+    data += off;
+    out += off;
+    if (out_init != nullptr) out_init += off;
+  }
+  const int i = t % nbx * TX + threadIdx.x;
+  const int j = row0 + t / nbx * BY + threadIdx.y;
   if (i >= g.nx || j >= row1) return;
   if (!PERIODIC && !g.interior(j, i)) {
     store<T, PERIODIC>(out, out_init, g, j, i, T(0));
@@ -148,7 +188,7 @@ __global__ void __launch_bounds__(TX * BY) stencil2d_direct_kernel(
 
 template <typename T, typename P>
 int launch(int periodic, const void* data, const void* coeffs,
-           const void* out_init, void* out, const Field& g, int row0,
+           const void* out_init, void* out, int nb, const Field& g, int row0,
            int row1, int smem, const Taps& taps, cudaStream_t stream) {
   if constexpr (P::kGeneral) {
     if (P::kWindows != (g.lf + g.rt + 1) * (g.tp + g.bt + 1))
@@ -160,51 +200,61 @@ int launch(int periodic, const void* data, const void* coeffs,
   T* o = static_cast<T*>(out);
   const dim3 block(TX, BY);
   const int nbx = (g.nx + TX - 1) / TX;
-  if (smem == 0) {  // the direct route
-    const dim3 grid(nbx * ((row1 - row0 + BY - 1) / BY));
+  // blocks a member, and the grid: nb members of `per` blocks in grid.x
+  const long long per =
+      static_cast<long long>(nbx) * ((row1 - row0 + (smem ? TY : BY) - 1) /
+                                     (smem ? TY : BY));
+  if (per * nb > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(per * nb));
+  const int p = static_cast<int>(per);
+  auto run = [&](auto stacked) {
+    constexpr bool S = decltype(stacked)::value;
+    if (smem == 0) {  // the direct route
+      if (periodic)
+        stencil2d_direct_kernel<T, P, true, S>
+            <<<grid, block, 0, stream>>>(d, c, init, o, g, row0, row1, p, taps);
+      else
+        stencil2d_direct_kernel<T, P, false, S>
+            <<<grid, block, 0, stream>>>(d, c, init, o, g, row0, row1, p, taps);
+      return static_cast<int>(cudaGetLastError());
+    }
+    const bool near =
+        g.tp <= g.ny && g.bt <= g.ny && g.lf <= g.nx && g.rt <= g.nx;
+    auto go = [&](auto kernel, int* smem_set) {
+      cudaError_t e = allow_smem(kernel, smem, smem_set);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      kernel<<<grid, block, smem, stream>>>(d, c, init, o, g, row0, row1, p,
+                                            taps);
+      return static_cast<int>(cudaGetLastError());
+    };
+    static int set[4] = {0, 0, 0, 0};
     if (periodic)
-      stencil2d_direct_kernel<T, P, true>
-          <<<grid, block, 0, stream>>>(d, c, init, o, g, row0, row1, taps);
-    else
-      stencil2d_direct_kernel<T, P, false>
-          <<<grid, block, 0, stream>>>(d, c, init, o, g, row0, row1, taps);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const bool near =
-      g.tp <= g.ny && g.bt <= g.ny && g.lf <= g.nx && g.rt <= g.nx;
-  const dim3 grid(nbx * ((row1 - row0 + TY - 1) / TY));
-  auto go = [&](auto kernel, int* smem_set) {
-    cudaError_t e = allow_smem(kernel, smem, smem_set);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kernel<<<grid, block, smem, stream>>>(d, c, init, o, g, row0, row1,
-                                          taps);
-    return static_cast<int>(cudaGetLastError());
+      return near ? go(stencil2d_tile_kernel<T, P, true, true, S>, set)
+                  : go(stencil2d_tile_kernel<T, P, true, false, S>, set + 1);
+    return near ? go(stencil2d_tile_kernel<T, P, false, true, S>, set + 2)
+                : go(stencil2d_tile_kernel<T, P, false, false, S>, set + 3);
   };
-  static int set[4] = {0, 0, 0, 0};
-  if (periodic)
-    return near ? go(stencil2d_tile_kernel<T, P, true, true>, set)
-                : go(stencil2d_tile_kernel<T, P, true, false>, set + 1);
-  return near ? go(stencil2d_tile_kernel<T, P, false, true>, set + 2)
-              : go(stencil2d_tile_kernel<T, P, false, false>, set + 3);
+  return nb > 1 ? run(std::true_type{}) : run(std::false_type{});
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 float64.  point_fn: 0 weighted, 1 cube (C^3 - C),
 // 2 the user's (in a user build, whose NWIN must be the window count).
-// periodic: 1 periodic, 0 np.  out_init may be null (np zeros).  Computes
-// the output rows [row0, row1), 0 <= row0 < row1 <= ny.  smem: the tile
+// periodic: 1 periodic, 0 np.  out_init may be null (np zeros).  data,
+// out_init and out hold nb >= 1 fields of (ny, nx), contiguous; computes
+// the output rows [row0, row1) of each, 0 <= row0 < row1 <= ny.  smem: the tile
 // route's dynamic shared memory in bytes, 0 for the direct route.  The
 // taps (n, then the window coordinates c = 0, a, b and the weights of n
 // taps, n <= 32) may be null: every window, weights from coeffs.
 RT_EXPORT int stencil2d(int dtype, int point_fn, int periodic, void* data,
-                        void* coeffs, void* out_init, void* out, int ny,
-                        int nx, int row0, int row1, int left, int right,
-                        int top, int bottom, int smem, const int* tap_n,
-                        const int* tap_cab, const double* tap_w,
-                        void* stream) {
+                        void* coeffs, void* out_init, void* out, int nb,
+                        int ny, int nx, int row0, int row1, int left,
+                        int right, int top, int bottom, int smem,
+                        const int* tap_n, const int* tap_cab,
+                        const double* tap_w, void* stream) {
   Taps taps;
-  if (row0 < 0 || row1 > ny || row0 >= row1 || smem < 0 ||
+  if (nb < 1 || row0 < 0 || row1 > ny || row0 >= row1 || smem < 0 ||
       !read_taps(tap_n, tap_cab, tap_w, &taps))
     return static_cast<int>(cudaErrorInvalidValue);
   const Field g{ny, nx, top, bottom, left, right};
@@ -212,8 +262,10 @@ RT_EXPORT int stencil2d(int dtype, int point_fn, int periodic, void* data,
   return with_point_fn(point_fn, [&](auto p) {
     using P = decltype(p);
     return dtype == 1 ? launch<double, P>(periodic, data, coeffs, out_init,
-                                          out, g, row0, row1, smem, taps, s)
+                                          out, nb, g, row0, row1, smem, taps,
+                                          s)
                       : launch<float, P>(periodic, data, coeffs, out_init,
-                                         out, g, row0, row1, smem, taps, s);
+                                         out, nb, g, row0, row1, smem, taps,
+                                         s);
   });
 }

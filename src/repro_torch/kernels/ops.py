@@ -74,8 +74,10 @@ def stencil_apply(
     backend: str = "auto",
     taps=None,
 ) -> torch.Tensor:
-    """Apply a 2D stencil — the library's Compute primitive.  ``taps``:
-    the plan's non-zero taps, which the kernel sums
+    """Apply a 2D stencil — the library's Compute primitive — to an
+    ``(ny, nx)`` field, or to a ``(B, ny, nx)`` stack of them (one launch;
+    each member bit for bit its own apply).  ``taps``: the plan's non-zero
+    taps, which the kernel sums
     (:func:`repro_torch.kernels.taps.nonzero_taps`); without them it sums
     every window."""
     kw = dict(point_fn=point_fn, left=left, right=right, top=top,

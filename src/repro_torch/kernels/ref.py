@@ -38,12 +38,13 @@ weighted_point_fn.device_point_fn = "weighted"
 def shifted_windows(
     data: torch.Tensor, *, left: int, right: int, top: int, bottom: int
 ) -> list[torch.Tensor]:
-    """All stencil windows of ``data`` (periodic shifts), row-major order.
+    """All stencil windows of ``data`` (periodic shifts over its last two
+    axes), row-major order.
 
-    ``window[a*sx+b][j, i] == data[(j - top + a) % ny, (i - left + b) % nx]``
+    ``window[a*sx+b][..., j, i] == data[..., (j - top + a) % ny, (i - left + b) % nx]``
     """
     return [
-        torch.roll(data, shifts=(top - a, left - b), dims=(0, 1))
+        torch.roll(data, shifts=(top - a, left - b), dims=(-2, -1))
         for a in range(top + bottom + 1)
         for b in range(left + right + 1)
     ]
@@ -68,13 +69,15 @@ def stencil2d_ref(
     coeffs: torch.Tensor | None = None,
     out_init: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Plain version of the generic 2D stencil apply (any direction)."""
+    """Plain version of the generic 2D stencil apply (any direction), on an
+    ``(ny, nx)`` field or a stack ``(B, ny, nx)`` of them (each member
+    computed alone, by the same operations as a single field)."""
     if bc not in ("periodic", "np"):
         raise ValueError(f"bc must be 'periodic' or 'np', got {bc!r}")
     wins = shifted_windows(data, left=left, right=right, top=top, bottom=bottom)
     out = point_fn(wins, coeffs)
     if bc == "np":
-        out = _np_mask(out, interior_mask(data.shape, left=left, right=right,
+        out = _np_mask(out, interior_mask(data.shape[-2:], left=left, right=right,
                                           top=top, bottom=bottom), out_init)
     return out
 

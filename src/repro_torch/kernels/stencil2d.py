@@ -41,23 +41,25 @@ TILE_X, TILE_Y = 32, 32
 
 
 class Stencil2DGeometry(NamedTuple):
-    """Launch geometry of the 2D stencil on a whole field."""
+    """Launch geometry of the 2D stencil on a whole field or stack."""
 
     route: str  # "tile" (staged in shared memory) or "direct"
-    grid: int  # blocks, all in grid.x
+    grid: int  # blocks, all in grid.x: the members' tiles, member-major
     smem: int  # dynamic shared memory a block, bytes; 0 on the direct route
 
 
 def stencil2d_geometry(shape, halos, itemsize: int, smem_optin: int,
-                       n_sms: int) -> Stencil2DGeometry:
-    """Geometry of the 2D stencil on an ``(ny, nx)`` field with halos
-    ``(left, right, top, bottom)``.
+                       n_sms: int, batch: int = 1) -> Stencil2DGeometry:
+    """Geometry of the 2D stencil on an ``(ny, nx)`` field, or on a stack of
+    ``batch`` of them, with halos ``(left, right, top, bottom)``.
 
     The tile route when a 32 x 32 tile and its halo, (32 + top + bottom) x
     (32 + left + right) elements, fit a block's shared memory; else the
     direct route, one point a thread in blocks of 32 x 8.  It depends on
     the shape, the halos and the itemsize alone, never on a launch's row
-    window, so streamed row chunks run the same code as the whole field.
+    window or the stack's size, so streamed row chunks and each member of
+    a stack run the same code as the whole single field; a stack's grid is
+    ``batch`` times a field's (the member index above the tiles in grid.x).
     ``n_sms`` is unused: one tile a block fills the card at any size the
     tile route takes."""
     ny, nx = shape
@@ -65,8 +67,8 @@ def stencil2d_geometry(shape, halos, itemsize: int, smem_optin: int,
     nbx = ceil_div(nx, TILE_X)
     smem = (TILE_Y + top + bottom) * (TILE_X + left + right) * itemsize
     if smem > smem_optin:
-        return Stencil2DGeometry("direct", nbx * ceil_div(ny, 8), 0)
-    return Stencil2DGeometry("tile", nbx * ceil_div(ny, TILE_Y), smem)
+        return Stencil2DGeometry("direct", batch * nbx * ceil_div(ny, 8), 0)
+    return Stencil2DGeometry("tile", batch * nbx * ceil_div(ny, TILE_Y), smem)
 
 
 def cuda_point_fn(source: str) -> Callable:
@@ -147,7 +149,10 @@ def stencil2d_cuda(
     out: torch.Tensor | None = None,
     taps: Taps | None = None,
 ) -> torch.Tensor:
-    """Launch the 2D stencil kernel on a contiguous (ny, nx) CUDA field.
+    """Launch the 2D stencil kernel on a contiguous (ny, nx) CUDA field, or
+    on a contiguous stack (B, ny, nx) of them in one launch (each member as
+    a single-field launch computes it, bit for bit; ``out_init`` is then a
+    stack too).
 
     ``rows=(r0, r1)`` computes only those output rows (their halo comes
     from the whole field) into ``out``, which is then required; the
@@ -160,27 +165,34 @@ def stencil2d_cuda(
         raise ValueError(f"bc must be 'periodic' or 'np', got {bc!r}")
     if min(left, right, top, bottom) < 0:
         raise ValueError("stencil extents must be >= 0")
-    ny, nx = data.shape
+    if data.ndim not in (2, 3):
+        raise ValueError(
+            f"data must be an (ny, nx) field or a (B, ny, nx) stack, got "
+            f"shape {tuple(data.shape)}")
+    *stack, ny, nx = data.shape
+    nb = stack[0] if stack else 1
+    if nb < 1:
+        raise ValueError("a stack holds at least one field")
     n_sten = (left + right + 1) * (top + bottom + 1)
     fn_id, libs = device_point_fn(point_fn, n_sten)
-    _build.check_cuda(data, "data", like=data, shape=(ny, nx))
+    _build.check_cuda(data, "data", like=data, shape=data.shape)
     _build.check_cuda(coeffs, "coeffs", like=data,
                       shape=coeffs_shape(fn_id, n_sten, coeffs))
     if bc == "periodic":
         out_init = None  # every cell is computed, as in the plain version
     elif out_init is not None:
-        _build.check_cuda(out_init, "out_init", like=data, shape=(ny, nx))
+        _build.check_cuda(out_init, "out_init", like=data, shape=data.shape)
     if fn_id == _build.USER_POINT_FN:
         taps = None
     r0, r1 = _build.window(rows, ny, "row", out)
     out = _build.out_like(out, data)
     smem, sms = _build.device_info(data.device)
     geo = stencil2d_geometry((ny, nx), (left, right, top, bottom),
-                             data.element_size(), smem, sms)
+                             data.element_size(), smem, sms, nb)
     _build.launch(
         "stencil2d", data.device, _build.dtype_code(data), fn_id,
         int(bc == "periodic"), _build.ptr(data), _build.ptr(coeffs),
-        _build.ptr(out_init), _build.ptr(out), ny, nx, r0, r1, left, right,
+        _build.ptr(out_init), _build.ptr(out), nb, ny, nx, r0, r1, left, right,
         top, bottom, geo.smem,
         *c_taps(taps, halos_2d(left, right, top, bottom)), libs=libs,
     )

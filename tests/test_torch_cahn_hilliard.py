@@ -314,7 +314,12 @@ def test_port_never_imports_jax_or_repro():
             "torch_diffusion3d_adi.py", "torch_weno_advection.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in sources}
     assert {"src/repro_torch/core/weno.py", "src/repro_torch/kernels/weno.py",
-            "src/repro_torch/launch/stream.py"} <= rel
+            "src/repro_torch/launch/stream.py",
+            "src/repro_torch/runtime/chaos.py",
+            "src/repro_torch/runtime/resilient.py",
+            "src/repro_torch/checkpoint/checkpointer.py",
+            "src/repro_torch/serve/engine.py",
+            "src/repro_torch/serve/cli.py"} <= rel
     bad = [(p.name, m) for p in sources for m in _imports(p) if _FORBIDDEN.match(m)]
     assert not bad, bad
     code = (
@@ -325,7 +330,9 @@ def test_port_never_imports_jax_or_repro():
         "assert not bad, bad\n"
         "need = {'repro_torch.kernels.stencil1d_batch', 'repro_torch.kernels.stencil3d',\n"
         "        'repro_torch.core.weno', 'repro_torch.kernels.weno',\n"
-        "        'repro_torch.launch.stream', 'repro_torch.kernels.spectral'}\n"
+        "        'repro_torch.launch.stream', 'repro_torch.kernels.spectral',\n"
+        "        'repro_torch.runtime.chaos', 'repro_torch.runtime.resilient',\n"
+        "        'repro_torch.checkpoint.checkpointer', 'repro_torch.serve.engine'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print('clean')\n"
     )

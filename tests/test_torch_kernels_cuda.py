@@ -719,3 +719,106 @@ def test_fft_plans_stay_on_card(cuda, case, dtype):
     assert got.is_cuda and got.dtype == dtype and got.shape == x.shape
     assert sum(_build.LAUNCHES.values()) == 0, dict(_build.LAUNCHES)
     _assert_close(got, want, dtype, 50)
+
+
+# -- the stacked 2D launch (the serving engine's rank-2 buckets) -----------
+
+STACK_CASES = [
+    # (B, (ny, nx), operator or weights, dtype)
+    (1, (1024, 1024), "biharmonic", torch.float64),
+    (3, (1024, 1024), "biharmonic", torch.float64),
+    (3, (1021, 1019), "laplacian", torch.float64),
+    (5, (64, 64), "5x3", torch.float32),
+    (64, (64, 64), "biharmonic", torch.float64),
+    (80, (1024, 1024), "5x3", torch.float64),  # 81920 tiles: > 65535
+    (7, (37, 29), "wide", torch.float64),  # the direct route
+    (3, (64, 64), "cube", torch.float64),
+    (4, (37, 29), "user", torch.float32),
+]
+
+
+def _stack_plan(op, shape, dtype, bc, cuda):
+    if op == "5x3":
+        w = np.random.default_rng(3).standard_normal((5, 3))
+        return create(w, shape, bc=bc, dtype=dtype, device=cuda)
+    if op in ("cube", "user"):
+        fn, c = ((cube_laplacian_point_fn, np.linspace(-1.0, 1.0, 9))
+                 if op == "cube" else (mixed_point_fn, [0.7, -1.3]))
+        return create(fn, shape, bc=bc, dtype=dtype, device=cuda, coeffs=c,
+                      extents=dict(left=1, right=1, top=1, bottom=1))
+    if op == "wide":  # 881 rows of halo: no tile fits shared memory
+        w = np.random.default_rng(4).standard_normal((881, 1))
+        return create(w, shape, bc=bc, dtype=dtype, device=cuda)
+    return create(op, shape, bc=bc, dtype=dtype, device=cuda)
+
+
+@pytest.mark.parametrize("bc", ["periodic", "np"])
+@pytest.mark.parametrize(("B", "shape", "op", "dtype"), STACK_CASES)
+def test_stencil2d_stacked_equals_single_launches(cuda, B, shape, op, dtype, bc):
+    plan = _stack_plan(op, shape, dtype, bc, cuda)
+    stack = _field((B,) + shape, dtype, cuda, 5)
+    inits = [None] if bc == "periodic" else [None, _field((B,) + shape, dtype,
+                                                          cuda, 6)]
+    for init in inits:
+        before = _build.LAUNCHES["stencil2d"]
+        got = plan.apply_stacked(stack, init)
+        assert _build.LAUNCHES["stencil2d"] == before + 1
+        torch.cuda.synchronize()
+        for b in range(B):
+            one = plan.apply(stack[b].clone(),
+                             None if init is None else init[b].clone())
+            assert torch.equal(got[b], one), b
+        # the kernel against its plain version on the whole stack
+        plain = ops.stencil_apply(stack, plan.coeffs, init, backend="torch",
+                                  point_fn=plan.point_fn, bc=bc,
+                                  **plan._halo_kwargs())
+        _assert_close(got, plain, dtype, 10 if op != "wide" else 100)
+
+
+def test_served_mixed_stream_bit_for_bit(cuda):
+    """A served mixed stream on the card equals the port's sequential
+    create/compute on the card, one stencil2d launch per stacked bucket."""
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.cli import build_requests, sequential_reference
+
+    requests = build_requests(24, seed=0, steps=2)
+    with ServeEngine(max_batch=8, device=cuda) as engine:
+        engine.solve_many(build_requests(4, seed=1, steps=2))  # warm
+        _build.reset_launches()
+        results = engine.solve_many(requests)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        stats = engine.stats()
+    refs = sequential_reference(requests, device=cuda)
+    assert [r.tag for r in results] == list(range(24))
+    for res, ref in zip(results, refs):
+        assert torch.equal(res.out, ref), res.tag
+    assert stats["degraded"] == 0 and stats["retries"] == 0
+
+    def buckets(rank):  # a bucket of n results counts 1/n for each
+        return round(sum(1 / r.batch_size for r in results
+                         if len(r.request.shape) == rank and r.request.mode is None))
+
+    # one launch a step per stacked bucket; the ADI members one by one
+    assert launches["stencil2d"] == 2 * buckets(2) > 0
+    assert launches["stencil1d_batch"] == 2 * buckets(1) > 0
+    assert launches["penta_rows"] == launches["penta_cols"] == 2 * 6
+
+
+def test_served_injected_kernel_failure_degrades(cuda):
+    from repro_torch.runtime import chaos
+    from repro_torch.serve import ServeEngine, SolveRequest
+
+    f = _field((64, 64), torch.float64, cuda, 7)
+    g = _field((48, 48), torch.float64, cuda, 8)
+    plan = chaos.FaultPlan(seed=1).add("kernel.dispatch", "backend_error", at=1)
+    with ServeEngine(device=cuda) as engine:
+        with chaos.injected(plan):
+            bad = engine.solve(SolveRequest(field=f, operator="laplacian"))
+            ok = engine.solve(SolveRequest(field=g, operator="biharmonic"))
+        stats = engine.stats()
+    assert bad.degraded and not ok.degraded and stats["degraded"] == 1
+    kernel = compute(create("laplacian", (64, 64), device=cuda), f).cpu()
+    _assert_close(bad.out, kernel, torch.float64, 10)
+    assert torch.equal(ok.out, compute(create("biharmonic", (48, 48),
+                                              device=cuda), g).cpu())

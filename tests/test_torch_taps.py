@@ -209,11 +209,45 @@ def test_stencil2d_launch_geometry_ignores_the_row_window(monkeypatch):
         S2.stencil2d_cuda(data, plan.coeffs, None, rows=rows,
                           out=None if rows is None else out, taps=plan.taps,
                           left=2, right=2, top=2, bottom=2)
-    # (..., ny, nx, row0, row1, left, right, top, bottom, smem, taps)
-    assert {a[7:9] for a in rec.args} == {(96, 40)}
-    assert {a[15] for a in rec.args} == {36 * 36 * 8}
-    assert [a[9:11] for a in rec.args] == [(0, 96), (0, 32), (32, 40), (95, 96)]
-    assert all(a[16][0] == 13 for a in rec.args)  # the 13 taps
+    # (..., nb, ny, nx, row0, row1, left, right, top, bottom, smem, taps)
+    assert {a[7:10] for a in rec.args} == {(1, 96, 40)}
+    assert {a[16] for a in rec.args} == {36 * 36 * 8}
+    assert [a[10:12] for a in rec.args] == [(0, 96), (0, 32), (32, 40), (95, 96)]
+    assert all(a[17][0] == 13 for a in rec.args)  # the 13 taps
+
+
+@pytest.mark.parametrize("halos", [(2, 2, 2, 2), (100, 100, 100, 100)])
+def test_stencil2d_stacked_launch_geometry(monkeypatch, halos):
+    """A (B, ny, nx) stack is one launch with the single field's tile
+    geometry (route, shared memory, taps, row window): only the batch
+    extent and the grid, B times a field's, differ."""
+    rec = _Launches(monkeypatch)
+    left, right, top, bottom = halos
+    one = torch.zeros((96, 40), dtype=torch.float64)
+    w = np.ones((top + bottom + 1, left + right + 1))
+    plan = rt.create(w, one.shape, device="cpu")
+    for b in (1, 3, 80):
+        S2.stencil2d_cuda(torch.zeros((b, 96, 40), dtype=torch.float64),
+                          plan.coeffs, taps=plan.taps, left=left, right=right,
+                          top=top, bottom=bottom)
+    S2.stencil2d_cuda(one, plan.coeffs, taps=plan.taps, left=left,
+                      right=right, top=top, bottom=bottom)
+    assert [a[7] for a in rec.args] == [1, 3, 80, 1]
+    # ny, nx, the row window, the halos and the shared memory; the taps
+    assert {a[8:17] for a in rec.args} == {rec.args[-1][8:17]}
+    assert all(TP.c_taps(plan.taps, TP.halos_2d(*halos))[0] is None
+               or a[17][0] == rec.args[-1][17][0] for a in rec.args)
+    single = S2.stencil2d_geometry((96, 40), halos, 8, SMEM, SMS)
+    for b in (1, 3, 80):
+        geo = S2.stencil2d_geometry((96, 40), halos, 8, SMEM, SMS, b)
+        assert geo == single._replace(grid=b * single.grid)
+    # 80 members of 1024^2: more blocks than grid.y could hold, in grid.x
+    big = S2.stencil2d_geometry((1024, 1024), (2, 2, 1, 1), 8, SMEM, SMS, 80)
+    assert 65535 < big.grid == 80 * 1024 < 2**31
+    with pytest.raises(ValueError, match="stack"):
+        S2.stencil2d_cuda(torch.zeros((0, 96, 40), dtype=torch.float64),
+                          plan.coeffs, taps=plan.taps, left=left,
+                          right=right, top=top, bottom=bottom)
 
 
 @pytest.mark.parametrize("transposed", [False, True])
