@@ -145,6 +145,27 @@ printing a result:
       NaN at hit 3 healed to the same bits (rollbacks and failures
       listed), the last checkpoint read back bit for bit; the commit time
       of a chunk's pair (16 MB) and ms/step beside ``ch_evolve``'s.
+   k. Tuning and lint, with a fresh cache under ``chiprun_out/tune_cache``
+      (removed after): ``tune='force'`` Creates (``backend='auto'``, so
+      fft races too) of the 1024^2 biharmonic plan and hyperdiffusion
+      operator, of 4c's 256^3 operator (the ``penta_rows``, ``penta_mid``
+      and ``penta_cols`` geometries) and Laplacian plan, of the 1024^2
+      batched ``_D4`` plan, and of 4e's streamed fused solver (its
+      streamed operators and plans race fft alone, and the (streams x
+      chunk_rows) grid of the fused RHS + x-sweep races); each race's
+      candidates with their times (CUDA events) and spreads, pruned
+      candidates and winner, a kernel race without the stream hold
+      failing the phase; each
+      tuned Compute bit for bit the untuned one when a kernel geometry
+      wins, within the fft scale when fft wins; the tuned streamed run bit
+      for bit 4e's, and both streamed steps' ms/step in turns; a second
+      ``tune='cached'`` Create of each with 0 measurements; a fresh
+      1024^2 solver (every plan and operator of 4a, ``lint='warn'``)
+      warning exactly ``SOLVER_LINT``, the reference's four
+      ``adi_band_singular`` findings and no plan finding, a register with
+      a wrong declared derivative raising
+      ``LintError`` under ``lint='error'``, and the concurrency lint of
+      ``src/repro_torch`` finding nothing.
 5. Timing: ms/step of the fused step over 200 steps after 20 of warm-up,
    of the stencil-mode step on the penta and on the fft sweeps and of the
    batched-1D step, of the 3D LOD step on the kernels, streamed and on
@@ -155,10 +176,13 @@ printing a result:
    steps: device time by kernel name, the device-busy share and the gaps
    between kernels (trace in ``chiprun_out/fused_trace.json``).
 6. The ``spectral`` JSON line (phases 4g and 4h and the fft steps'
-   timings), the ``kernels`` JSON line (each kernel's launches on the main
-   path, and under ``paths`` on every path that launched it, the serving
-   stream and the resilient run included; ``stencil2d`` also carries its
-   stacked timings), the card line, and the result line.
+   timings), the ``tune`` JSON line (phase 4k: each tuned object's
+   choices and races, the cached Creates, the streamed ms/step, the
+   checks and the lint), the ``kernels`` JSON line (each kernel's
+   launches on the main path, and under ``paths`` on every path that
+   launched it, the serving stream, the resilient run and the tuning
+   Creates included; ``stencil2d`` also carries its stacked timings), the
+   card line, and the result line.
 
 A full record goes to ``chiprun_out/chip_smoke.json`` and the nvcc logs to
 ``chiprun_out/nvcc_build.log`` and ``chiprun_out/nvcc_build_point_fn.log``.
@@ -171,6 +195,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -793,6 +818,334 @@ def resilient_phase(solver, c0, counts_of) -> dict:
             and healed.rollbacks >= 1 and len(healed.failures) == 2
             and clean.restarts == 0):
         raise PhaseError(f"resilient run: {out}")
+    return out
+
+
+# Tuning and lint (phase 4k): the kernels whose launch geometry the tuner
+# races on the main path's shapes (the fused RHS + x-sweep through the
+# streamed-geometry race)
+TUNED_KERNELS = ("stencil2d", "stencil1d_batch", "stencil3d", "penta_cols",
+                 "penta_rows", "penta_mid", "ch_rhs_xsweep")
+# (rule, severity) of each lint finding a fresh 1024^2 solver's Create
+# emits: the reference's band lint calls I + beta delta^4 near-singular
+# (circulant symbol min |lambda| ~ 1e-4 relative to its largest
+# coefficient) on both sweeps of op_full and op_half, and no plan has a
+# finding.  tests/test_torch_analysis.py holds the reference's Create at
+# this shape to the same list.
+SOLVER_LINT = [("adi_band_singular", "warning")] * 4
+
+
+def analytic_floors(bounds: dict) -> dict:
+    """The closed-form floors of ``repro_torch.analysis.cost`` for each
+    kernel at its main path's float64 shape, in ms on this card's published
+    peaks (max of bytes over HBM bandwidth and flops over the float64
+    peak), beside the bound this script computes from the kernel's own
+    traffic (``bounds``: name -> bound_ms).  The floors are the
+    reference's formulas, kept for parity: ``expected_penta`` counts six
+    field passes a sweep where a sweep kernel moves two, and
+    ``expected_stencil`` one input field where the CH RHS reads two."""
+    from repro_torch.analysis import cost as C
+
+    def ms(e):
+        return max(e.bytes / HBM_BYTES_PER_S,
+                   e.flops / PEAK_FLOPS["float64"]) * 1e3
+
+    n2, n3 = (N_MAIN, N_MAIN), (N3,) * 3
+    floors = {
+        "stencil2d": ("expected_stencil(1024^2, 13 taps, halo 2)",
+                      C.expected_stencil(n2, 13, 8, halo=2)),
+        "stencil1d_batch": ("expected_stencil(1024^2, 5 taps, halo 2)",
+                            C.expected_stencil(n2, 5, 8, halo=2)),
+        "stencil3d": ("expected_stencil(256^3, 7 taps, halo 1)",
+                      C.expected_stencil(n3, 7, 8, halo=1)),
+        "ch_rhs": ("expected_stencil(1024^2, 34 taps, halo 2)",
+                   C.expected_stencil(n2, 34, 8, halo=2)),
+        "penta_cols": ("expected_penta(1024^2, 1 sweep)",
+                       C.expected_penta(n2, 8)),
+        "penta_rows": ("expected_penta(1024^2, 1 sweep)",
+                       C.expected_penta(n2, 8)),
+        "penta_mid": ("expected_penta(256^3, 1 sweep)",
+                      C.expected_penta(n3, 8)),
+        "ch_rhs_xsweep": ("expected_stencil(34 taps) + expected_penta(1 "
+                          "sweep), 1024^2", None),
+    }
+    rhs, sweep = C.expected_stencil(n2, 34, 8, halo=2), C.expected_penta(n2, 8)
+    out = {}
+    for name, (what, e) in floors.items():
+        floor = ms(e) if e is not None else ms(rhs) + ms(sweep)
+        out[name] = dict(floor=what, floor_ms=floor,
+                         bound_ms=bounds.get(name),
+                         ratio=floor / bounds[name] if bounds.get(name)
+                         else None)
+    step_bound = bounds.get("ch_rhs_xsweep", 0) + bounds.get("penta_cols", 0)
+    out["fused CH step"] = dict(
+        floor="expected_ch_step(1024^2)",
+        floor_ms=ms(C.expected_ch_step(n2, 8)), bound_ms=step_bound or None,
+        ratio=ms(C.expected_ch_step(n2, 8)) / step_bound if step_bound
+        else None)
+    out["fft apply"] = dict(floor="expected_fft(1024^2)",
+                            floor_ms=ms(C.expected_fft(n2, 8)),
+                            bound_ms=None, ratio=None)
+    return out
+
+
+def tune_summary(tuning: dict) -> dict:
+    """The ``tune`` JSON line: each tuned object's choices and its races
+    (kernel, winner, its microseconds, how many candidates raced and how
+    many the prior pruned), the cached Creates, the streamed steps' median
+    ms/step, the checks and the lint; the full record is in
+    ``chip_smoke.json``."""
+    out = {
+        name: dict(choice=tuning[name]["choice"],
+                   races=[dict(kernel=r["kernel"], winner=r["winner"],
+                               us=r["us"], measured=len(r["measured"]),
+                               pruned=len(r["pruned"]))
+                          for r in tuning[name]["races"]])
+        for name in tuning["objects"]}
+    out.update(cached=tuning["cached"],
+               ms_per_step_median={w: tuning[f"ms_per_step_{w}_median"]
+                                   for w in ("untuned", "tuned")},
+               checks=tuning["checks"], lint=tuning["lint"])
+    return out
+
+
+def tuning_phase(ctx: dict, counts_of) -> dict:
+    """Phase 4k: Create-time tuning and lint on the card, with a fresh cache
+    under ``chiprun_out/tune_cache`` (removed after).
+
+    ``tune='force'`` Creates of the 1024^2 float64 biharmonic plan and
+    hyperdiffusion operator (``backend='auto'``, so fft races too), of the
+    256^3 LOD operator and Laplacian plan of 4c, and of the streamed fused
+    solver of 4e (``streams=4``, ``max_tile_bytes`` of 4e): each race's
+    candidates with their times (CUDA events), the pruned candidates and
+    the winner.  Each tuned Compute against the untuned one: bit for bit
+    when a kernel geometry wins, within the fft scale where fft wins; the
+    tuned streamed solver's 20 steps bit for bit 4e's fused run (the fft
+    CH scale where a sweep went to fft), and its ms/step beside the
+    untuned one's, in turns.  The streamed solver's plans and operators
+    stream at this shape, so they race fft alone (pruned or lost) and the
+    batched-1D plan is raced alone, unstreamed.  A second
+    ``tune='cached'`` Create of each measures nothing.  Then lint: a fresh
+    1024^2 solver (every plan and operator of 4a through
+    ``create(lint='warn')``) warns exactly :data:`SOLVER_LINT`, the
+    reference's findings on the same bands (no plan finding); a register
+    declaring the wrong derivative raises ``LintError`` under
+    ``lint='error'``; the concurrency lint finds nothing in
+    ``src/repro_torch``."""
+    import shutil
+    import warnings
+
+    import numpy as np
+    import torch
+    import repro_torch as rt
+    from repro_torch import analysis as an
+    from repro_torch import tune as T
+    from repro_torch.analysis.concurrency import lint_paths
+    from repro_torch.core.cahn_hilliard import CahnHilliardADI, CHConfig, ch_evolve
+    from repro_torch.launch import stream as S
+    from repro_torch.util import tolerance_for
+
+    cache_dir = OUT / "tune_cache"
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    env_before = os.environ.get(T.ENV_VAR)
+    os.environ[T.ENV_VAR] = str(cache_dir)
+    out: dict = dict(checks={})
+    shape2, shape3 = (N_MAIN, N_MAIN), (N3,) * 3
+    stream_cfg = dict(nx=N_MAIN, ny=N_MAIN, streams=STREAMS,
+                      max_tile_bytes=TILE_BYTES)
+    specs = {
+        "biharmonic plan": lambda tune: rt.create(
+            "biharmonic", shape2, tune=tune),
+        "hyperdiffusion operator": lambda tune: rt.create(
+            "hyperdiffusion", shape2, mode="adi", alpha=ctx["beta_full"],
+            tune=tune),
+        "3D LOD operator": lambda tune: rt.create(
+            "diffusion", shape3, mode="adi", alpha=ctx["r3"], cyclic=True,
+            tune=tune),
+        "3D Laplacian plan": lambda tune: rt.create(
+            "laplacian", shape3, bc="periodic", h=ctx["h3"], tune=tune),
+        "batch D4 plan": lambda tune: rt.create(
+            "biharmonic", shape2, mode="batch", tune=tune),
+        "streamed fused solver": lambda tune: CahnHilliardADI(
+            CHConfig(tune=tune, **stream_cfg)),
+    }
+    out["objects"] = list(specs)
+
+    def cfgs(obj):
+        """The tuned choices of a plan, operator or solver."""
+        if isinstance(obj, CahnHilliardADI):
+            plans = ("plan_bih", "plan_lap_cube", "plan_init_a", "plan_init_b",
+                     "plan_d4_1d", "plan_d2_1d", "plan_lap_cube_1d")
+            return dict(op_full=cfgs(obj.op_full), op_half=cfgs(obj.op_half),
+                        stream=dict(streams=obj._streams_eff,
+                                    chunk_rows=obj._chunk_rows_eff),
+                        **{p: cfgs(getattr(obj, p)) for p in plans})
+        if hasattr(obj, "y_cfg"):
+            return {k: getattr(obj, k) for k in ("x_cfg", "y_cfg", "z_cfg")
+                    if getattr(obj, k, None) is not None}
+        return dict(backend=obj.backend, geometry=obj.geometry)
+
+    def uses_fft(c):
+        if isinstance(c, dict):
+            return c.get("backend") == "fft" or any(uses_fft(v)
+                                                    for v in c.values())
+        return False
+
+    try:
+        made, cached = {}, {}
+        for name, make in specs.items():
+            T.reset_stats()
+            made[name], launches = counts_of(lambda m=make: m("force"))
+            races = [dict(r) for r in T.stats.races]
+            out[name] = dict(choice=cfgs(made[name]), launches=launches,
+                             races=races)
+            # a second tune='cached' Create measures nothing and gets the
+            # winners just stored (a later Create of the same problem, as
+            # the streamed solver's operators are, may store others)
+            T.reset_stats()
+            again = make("cached")
+            cached[name] = dict(measure_runs=T.stats.measure_runs,
+                                cache_hits=T.stats.cache_hits,
+                                cache_misses=T.stats.cache_misses,
+                                same_winners=cfgs(again) == out[name]["choice"])
+            del again
+            for r in races:
+                print(f"[tune] {name}: {r['kernel']} {tuple(r['shape'])}: "
+                      f"winner {r['winner']} {r['us']:.2f} us (held "
+                      f"{r['held']}, default kept on the spread "
+                      f"{r['kept_default']}); " + "; ".join(
+                          f"{m['config']} {m['us']:.2f} +{m['spread_us']:.2f}"
+                          for m in r["measured"])
+                      + (f"; pruned {r['pruned']}" if r["pruned"] else ""),
+                      flush=True)
+            if any(r["held"] is False and r["kernel"] != "ch_stream_geometry"
+                   for r in races):
+                raise PhaseError(f"{name}: a kernel race ran without the "
+                                 "stream hold (no torch.cuda._sleep)")
+        totals = {k: sum(out[n]["launches"][k] for n in specs)
+                  for k in out[next(iter(specs))]["launches"]}
+        out["launches"] = totals
+        missing = [k for k in TUNED_KERNELS if not totals.get(k)]
+        if missing:
+            raise PhaseError(f"tuning launched no {missing}: {totals}")
+        print(f"[tune] launches while tuning: {totals}")
+
+        # the tuned Computes against the untuned ones
+        gen = torch.Generator(device="cuda").manual_seed(23)
+        x2 = torch.randn(shape2, generator=gen, device="cuda",
+                         dtype=torch.float64)
+        fft2 = tolerance_for("float64", scale=SCALE_FFT)
+        d4 = rt.create("biharmonic", shape2, mode="batch")
+        pairs = (("biharmonic plan", ctx["plan_bih"], x2),
+                 ("hyperdiffusion operator", ctx["op_full"], x2),
+                 ("3D LOD operator", ctx["op3"], ctx["u3"]),
+                 ("3D Laplacian plan", ctx["lap3"], ctx["u3"]),
+                 # the lines of apply_along_y, the layout it was tuned on
+                 ("batch D4 plan", d4, x2.T))
+        for name, untuned, x in pairs:
+            got, want = rt.compute(made[name], x), rt.compute(untuned, x)
+            if uses_fft(out[name]["choice"]):
+                ctx["compare"](f"tuned {name} (fft won) vs untuned", got, want,
+                               fft2, out["checks"])
+            elif not bool(torch.equal(got, want)):
+                raise PhaseError(f"tuned {name} differs from the untuned one "
+                                 f"by {float((got - want).abs().max()):.3e}")
+            out["checks"][f"tuned {name} equal to untuned"] = bool(
+                torch.equal(got, want))
+        solver_t = made["streamed fused solver"]
+        (c_t, _), n_t = counts_of(lambda: ch_evolve(solver_t, ctx["c0"],
+                                                    N_STEPS))
+        if uses_fft(out["streamed fused solver"]["choice"]):
+            ctx["compare"]("tuned streamed solver (fft won) vs 4e", c_t,
+                           ctx["c_sf"], tolerance_for(
+                               "float64", scale=SCALE_CH_FFT), out["checks"])
+        else:
+            same = bool(torch.equal(c_t, ctx["c_sf"]))
+            out["checks"]["tuned streamed solver equal to 4e"] = same
+            rows = solver_t._chunk_rows_eff or S.choose_chunk_rows(
+                N_MAIN, N_MAIN, 8, top=2, bottom=2, left=2, right=2,
+                max_tile_bytes=TILE_BYTES, streams=solver_t._streams_eff)
+            if not same or n_t["ch_rhs_xsweep"] != N_STEPS * (N_MAIN // rows):
+                raise PhaseError(f"tuned streamed solver: equal {same}, "
+                                 f"launches {n_t}")
+        out["streamed fused solver"]["run_launches"] = n_t
+        print(f"[tune] tuned streamed solver {out['streamed fused solver']['choice']['stream']}: "
+              f"bootstrap + {N_STEPS} steps, launches {n_t}; checks "
+              f"{out['checks']}", flush=True)
+
+        # ms/step, untuned (4e) and tuned streamed steps in turns
+        def ms_per_step(s):
+            ev = s.make_evolve(N_TIMED)
+            pair = (s.initial_step(ctx["c0"]), ctx["c0"].clone())
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            ev(*pair)
+            end.record()
+            torch.cuda.synchronize()
+            return dict(events=start.elapsed_time(end) / N_TIMED,
+                        host=(time.perf_counter() - t0) * 1e3 / N_TIMED)
+
+        # three rounds of (untuned, tuned, tuned, untuned): the steps are
+        # host-bound, so one pair reads the host's noise
+        turns = [("untuned", ctx["s_fused"]), ("tuned", solver_t),
+                 ("tuned", solver_t), ("untuned", ctx["s_fused"])] * 3
+        ms_per_step(solver_t)  # warm-up
+        timed = [(who, ms_per_step(s)) for who, s in turns]
+        out["ms_per_step"] = timed
+        for who in ("untuned", "tuned"):
+            ev = [t["events"] for w, t in timed if w == who]
+            out[f"ms_per_step_{who}_median"] = statistics.median(ev)
+            print(f"[tune] streamed fused step {who}: "
+                  + ", ".join(f"{v:.4f}" for v in ev) + " ms/step (events), "
+                  f"median {statistics.median(ev):.4f}")
+
+        out["cached"] = cached
+        print(f"[tune] cached Creates: {cached}")
+        if any(c["measure_runs"] or not c["same_winners"]
+               for c in cached.values()):
+            raise PhaseError(f"cached Creates: {cached}")
+
+        # lint: the main path warns exactly the reference's findings; a
+        # wrong declaration raises under lint='error'; the locking
+        # discipline holds
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            CahnHilliardADI(CHConfig(nx=N_MAIN, ny=N_MAIN))
+        found = [str(w.message) for w in caught
+                 if issubclass(w.category, an.StencilLintWarning)]
+        rules = sorted(re.match(r"(\w+) \((\w+)\):", m).groups()
+                       for m in found)
+        try:
+            rt.register_operator(
+                "_chip_smoke_wrong_derivative",
+                weights=lambda ndim=1, h=1.0: np.array([1.0, -2.0, 1.0]),
+                derivative=4, lint="error")
+            raised = []
+        except an.LintError as e:
+            raised = [str(f) for f in e.findings]
+        concurrency = [str(f) for f in lint_paths([ROOT / "src" / "repro_torch"])]
+        out["lint"] = dict(warnings_on_main_path=found,
+                           wrong_derivative_findings=raised,
+                           concurrency_findings=concurrency)
+        for m in found:
+            print(f"[lint] main path: {m}")
+        print(f"[lint] main path: {len(found)} warnings {rules} (expected "
+              f"{sorted(SOLVER_LINT)}); wrong derivative under "
+              f"lint='error': LintError with {len(raised)} findings; "
+              f"concurrency lint of src/repro_torch: {len(concurrency)} "
+              "findings", flush=True)
+        if (rules != sorted(SOLVER_LINT) or not raised or concurrency
+                or "_chip_smoke_wrong_derivative" in rt.operator_names()):
+            raise PhaseError(f"lint: {out['lint']}")
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+        if env_before is None:
+            os.environ.pop(T.ENV_VAR, None)
+        else:
+            os.environ[T.ENV_VAR] = env_before
     return out
 
 
@@ -2123,6 +2476,13 @@ def main() -> int:
     resilient = resilient_phase(solver, c0, counts_of)
     record["resilient"] = resilient
 
+    # -- 4k. tuning and lint ---------------------------------------------------
+    tuning = tuning_phase(dict(
+        beta_full=beta_full, r3=r3, h3=h3, plan_bih=solver.plan_bih,
+        op_full=solver.op_full, op3=op3, lap3=lap3, u3=u3, c0=c0,
+        s_fused=s_fused, c_sf=c_sf, compare=compare), counts_of)
+    record["tune"] = tuning
+
     # -- 5. timing -----------------------------------------------------------
     def per_step(run, carry, steps):
         """ms/step of ``carry = run(carry)`` (one call does ``steps`` steps):
@@ -2314,7 +2674,8 @@ def main() -> int:
     by_path = dict(main=main_launches, batch1d=b1d_launches, rhs=rhs_launches,
                    lod3d=lod_launches, weno=weno_launches,
                    serve=serve["stream"]["launches"],
-                   resilient=resilient["clean"]["launches"])
+                   resilient=resilient["clean"]["launches"],
+                   tune=tuning["launches"])
     kernels = []
     for name, counts in path_launches.items():
         if not counts[name] > 0:
@@ -2333,6 +2694,12 @@ def main() -> int:
         if name == "stencil2d":
             kernels[-1]["stacked"] = stacked["timings"]
     record["kernels"] = kernels
+    floors = analytic_floors({k["name"]: k["bound_ms"] for k in kernels})
+    record["tune"]["floors"] = floors
+    for name, f in floors.items():
+        bound = "-" if f["bound_ms"] is None else f"{f['bound_ms']:.4f}"
+        print(f"[floors] {name}: {f['floor']} {f['floor_ms']:.4f} ms; "
+              f"bound {bound} ms")
     spectral["ms_per_step"] = {
         k: step_times[k] for k in ("stencil", "stencil fft", "lod3d", "lod3d fft")}
     spectral["step_breakdown_ms"] = {k: v for k, v in breakdown.items()
@@ -2341,6 +2708,7 @@ def main() -> int:
     record["spectral"] = spectral
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"spectral": spectral}))
+    print(json.dumps({"tune": tune_summary(tuning)}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

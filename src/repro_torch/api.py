@@ -16,8 +16,11 @@ of ``repro.api``).
 
 The operator registry (:func:`register_operator` / :func:`get_operator`)
 is the single source of named operators: stencil ``weights`` builders and
-ADI band ``diagonals`` builders.  Built-ins: ``"laplacian"``,
-``"biharmonic"``, ``"hyperdiffusion"``, ``"diffusion"``.
+ADI band ``diagonals`` builders, with the analytic properties they declare
+(``derivative``, ``symmetric``, ``zero_sum``), which stencil-lint
+(:mod:`repro_torch.analysis`) verifies at register and Create time.
+Built-ins: ``"laplacian"``, ``"biharmonic"``, ``"hyperdiffusion"``,
+``"diffusion"``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,6 @@ import torch
 from repro_torch.core import adi as _adi
 from repro_torch.core import stencil as _stencil
 from repro_torch.kernels.penta import diffusion_diagonals, hyperdiffusion_diagonals
-from repro_torch.util import refuse_unported
 
 __all__ = [
     "OperatorDef",
@@ -51,12 +53,18 @@ __all__ = [
 class OperatorDef:
     """A named difference operator: ``weights(ndim, h=1.0)`` builds explicit
     stencil weights, ``diagonals(n, alpha, dtype)`` the pentadiagonal bands
-    of the implicit per-direction operator.  Either may be ``None``."""
+    of the implicit per-direction operator.  Either may be ``None``.
+    ``derivative``/``symmetric``/``zero_sum`` are the declared analytic
+    properties stencil-lint may verify; None means undeclared, and lint
+    never second-guesses math it was not told."""
 
     name: str
     weights: Callable | None = None
     diagonals: Callable | None = None
     doc: str = ""
+    derivative: int | None = None
+    symmetric: bool | None = None
+    zero_sum: bool | None = None
 
 
 _REGISTRY: dict[str, OperatorDef] = {}
@@ -69,9 +77,25 @@ def register_operator(
     diagonals: Callable | None = None,
     doc: str = "",
     overwrite: bool = False,
+    derivative: int | None = None,
+    symmetric: bool | None = None,
+    zero_sum: bool | None = None,
+    lint: str = "warn",
 ) -> OperatorDef:
     """Register a named operator for :func:`create`.  Re-registering an
-    existing name raises unless ``overwrite=True``."""
+    existing name raises unless ``overwrite=True``.
+
+    ``derivative=``/``symmetric=``/``zero_sum=`` declare analytic
+    properties of the weights that stencil-lint verifies here, on the
+    weights built for 1, 2 and 3 dimensions, and at Create (moment/Taylor
+    conditions, central symmetry, zero row sum); ``lint='off'|'warn'|
+    'error'`` picks how the findings surface
+    (:class:`~repro_torch.analysis.StencilLintWarning` /
+    :class:`~repro_torch.analysis.LintError`, in which case nothing is
+    registered)."""
+    from repro_torch.analysis import check_lint_mode
+
+    check_lint_mode(lint)
     if not name or not isinstance(name, str):
         raise ValueError("operator name must be a non-empty string")
     if weights is None and diagonals is None:
@@ -81,7 +105,19 @@ def register_operator(
             f"operator {name!r} is already registered "
             "(pass overwrite=True to replace it)"
         )
-    opdef = OperatorDef(name=name, weights=weights, diagonals=diagonals, doc=doc)
+    opdef = OperatorDef(
+        name=name, weights=weights, diagonals=diagonals, doc=doc,
+        derivative=derivative, symmetric=symmetric, zero_sum=zero_sum,
+    )
+    if lint != "off" and weights is not None and (
+        derivative or symmetric or zero_sum
+    ):
+        from repro_torch.analysis import lint_operator, surface
+
+        findings = []
+        for ndim in (1, 2, 3):
+            findings += lint_operator(opdef, ndim=ndim)
+        surface(findings, lint)
     _REGISTRY[name] = opdef
     return opdef
 
@@ -183,22 +219,26 @@ def _biharmonic_weights(ndim: int = 2, h: float = 1.0):
 register_operator(
     "laplacian", weights=_laplacian_weights,
     doc="grad^2: 3-point / 5-point cross / 7-point box (units h^-2)",
+    derivative=2, symmetric=True, zero_sum=True,
 )
 register_operator(
     "biharmonic", weights=_biharmonic_weights,
     doc="grad^4: delta^4 / the paper's 5x5 eq.-(4) stencil (units h^-4)",
+    derivative=4, symmetric=True, zero_sum=True,
 )
 register_operator(
     "hyperdiffusion",
     weights=lambda ndim=1, h=1.0: _biharmonic_weights(ndim, h),
     diagonals=hyperdiffusion_diagonals,
     doc="implicit I + alpha delta^4 (ADI bands); explicit delta^4 weights",
+    derivative=4, symmetric=True, zero_sum=True,
 )
 register_operator(
     "diffusion",
     weights=lambda ndim=1, h=1.0: _laplacian_weights(ndim, h),
     diagonals=diffusion_diagonals,
     doc="implicit I - alpha delta^2 (ADI bands); explicit delta^2 weights",
+    derivative=2, symmetric=True, zero_sum=True,
 )
 
 
@@ -252,7 +292,8 @@ def create(
     streams: int | None = None,
     max_tile_bytes: int | None = None,
     tune: str = "off",
-    lint: str | None = None,
+    tune_cache=None,
+    lint: str = "warn",
     device="cuda",
 ):
     """Create a plan — the one entry point for every plan family.
@@ -289,7 +330,26 @@ def create(
     tile (:mod:`repro_torch.launch.stream`): row or line chunks at rank 2,
     z-slabs of a rank-3 stencil, and row, plane and column chunks of the
     3D ADI sweeps.
+
+    ``tune='cached'|'force'`` races the plan's candidates at Create, on a
+    field of ``shape`` (:mod:`repro_torch.tune`): on the card the
+    kernel's launch geometries (every one computes what the default one
+    does, bit for bit) and, under ``backend='auto'`` for a periodic
+    weighted plan or a cyclic ADI operator, the fft backend; on the CPU
+    the plain path and fft.  Winners are remembered in ``tune_cache`` (a
+    :class:`~repro_torch.tune.TuneCache`; by default
+    ``$REPRO_TUNE_CACHE`` or ``~/.cache/repro-tune``).
+
+    ``lint='off'|'warn'|'error'`` runs Create-time stencil-lint (the
+    registry operator's declared moments, symmetry and zero sum; ADI band
+    topology, sign and conditioning; the plan's halo and launch geometry
+    against ``shape``) and surfaces findings as
+    :class:`~repro_torch.analysis.StencilLintWarning` or
+    :class:`~repro_torch.analysis.LintError`.
     """
+    from repro_torch.analysis import check_lint_mode
+
+    check_lint_mode(lint)
     shape = tuple(int(s) for s in shape)
     rank = len(shape)
     if rank not in (2, 3):
@@ -297,7 +357,6 @@ def create(
             f"shape must be rank 2 or 3, got {shape!r} "
             "(batched-1D stacks are rank-2 (B, M) with mode='batch')"
         )
-    refuse_unported(tune=tune, lint=lint)
     opdef = get_operator(weights_or_fn) if isinstance(weights_or_fn, str) else None
 
     if mode == "adi":
@@ -320,10 +379,24 @@ def create(
                 f"bc={bc!r} asks for a non-cyclic operator but cyclic=True "
                 "was passed; drop one of them"
             )
+        if lint != "off":
+            from repro_torch.analysis import lint_adi, surface
+
+            ay = alpha if alpha_y is None else alpha_y
+            az = alpha if alpha_z is None else alpha_z
+            dirs = [("x", shape[-1], alpha), ("y", shape[-2], ay)]
+            if rank == 3:
+                dirs.append(("z", shape[-3], az))
+            findings = []
+            for dname, n, a in dirs:
+                findings += lint_adi(opdef, n, a, bc=bc, cyclic=cyclic,
+                                     direction=dname)
+            surface(findings, lint)
         common = dict(
             cyclic=cyclic, dtype=torch.float64 if dtype is None else dtype,
             backend=backend, operator=opdef.name, device=device,
-            streams=streams, max_tile_bytes=max_tile_bytes,
+            streams=streams, max_tile_bytes=max_tile_bytes, tune=tune,
+            tune_cache=tune_cache,
         )
         if rank == 2:
             if alpha_z is not None:
@@ -382,15 +455,27 @@ def create(
     common = dict(
         weights=weights, func=func, coeffs=coeffs, backend=backend,
         dtype=dtype, device=device, streams=streams,
-        max_tile_bytes=max_tile_bytes, shape=shape,
-        op_name=None if opdef is None else opdef.name,
+        max_tile_bytes=max_tile_bytes, shape=shape, tune=tune,
+        tune_cache=tune_cache, op_name=None if opdef is None else opdef.name,
         **{f"num_sten_{k}": v for k, v in ext.items()},
     )
     if batch:
-        return _stencil._create_1d_batch(bc, **common)
-    if rank == 2:
-        return _stencil._create_2d(direction, bc, **common)
-    return _stencil._create_3d(direction, bc, **common)
+        plan = _stencil._create_1d_batch(bc, **common)
+    elif rank == 2:
+        plan = _stencil._create_2d(direction, bc, **common)
+    else:
+        plan = _stencil._create_3d(direction, bc, **common)
+
+    if lint != "off":
+        from repro_torch.analysis import check_plan, lint_operator, surface
+
+        findings = []
+        if opdef is not None:
+            wndim = 1 if batch else {"xy": 2, "xyz": 3}.get(direction, 1)
+            findings += lint_operator(opdef, ndim=wndim, h=h)
+        findings += check_plan(plan, shape, ("launch_geometry_feasible",))
+        surface(findings, lint)
+    return plan
 
 
 def compute(plan, field, *extra):

@@ -29,8 +29,16 @@ Three RHS paths:
 ``CHConfig.streams``/``max_tile_bytes`` (cuSten's ``nStreams``) stream
 every piece of a step in row or column chunks on CUDA streams
 (:mod:`repro_torch.launch.stream`): the fused RHS + x-sweep, the RHS alone,
-the stencil plans and the sweeps.  The geometry is the untuned
-``choose_chunk_rows``, as the reference's with ``tune='off'``.
+the stencil plans and the sweeps.  The geometry is ``choose_chunk_rows``'s
+unless ``CHConfig.tune`` is on.
+
+``CHConfig.tune='cached'|'force'`` tunes at Create, as the reference does:
+the ADI operators' sweeps (``op_half`` reads ``op_full``'s cache entry),
+the 2D plans, the batched-1D plans when ``ny == nx`` (they are applied
+along both axes), and, when the fused step is streamed, the (streams x
+chunk_rows) geometry of its RHS + x-sweep, raced on
+:func:`repro_torch.launch.stream.stream_ch_rhs_xsweep`
+(:meth:`CahnHilliardADI._tune_stream_geometry`).
 
 Everything runs on ``CHConfig.device`` (the card unless the caller asks for
 the CPU).  ``CHConfig(backend='fft')`` is refused at Create, as in the
@@ -55,7 +63,7 @@ from repro_torch.core.adi import apply_along_x, apply_along_y
 from repro_torch.kernels import ops as _ops
 from repro_torch.launch import stream as _stream
 from repro_torch.runtime import chaos as _chaos
-from repro_torch.util import refuse_unported, resolve_device, torch_dtype
+from repro_torch.util import resolve_device, torch_dtype
 
 # Stencil weight tables (paper eq. 4; §V.B stencil shapes), from the registry
 _D4 = np.asarray(_api.get_operator("biharmonic").weights(1))  # eq. (4b)
@@ -128,7 +136,9 @@ class CHConfig:
     def validate(self):
         if abs(self.dx - self.dy) > 1e-12:
             raise ValueError("paper scheme assumes a uniform grid dx == dy")
-        refuse_unported(tune=self.tune)
+        from repro_torch.tune import check_mode
+
+        check_mode(self.tune)
         if self.rhs_mode not in _RHS_MODES:
             raise ValueError(f"unknown rhs_mode {self.rhs_mode!r}")
 
@@ -145,7 +155,11 @@ class CahnHilliardADI:
         self.inv_h2 = 1.0 / h2
         self.inv_h4 = 1.0 / h4
 
-        # Create: factor the implicit operators once (cuPentBatch pattern)
+        # Create: factor the implicit operators once (cuPentBatch pattern).
+        # With tune != 'off' each sweep's configuration is measured;
+        # op_half shares op_full's cache entry: the key is (shape, dtype,
+        # backend, operator), not alpha, since a sweep's cost does not
+        # depend on the coefficients
         beta_full = (2.0 / 3.0) * cfg.D * cfg.gamma * cfg.dt / h4
         beta_half = 0.5 * cfg.D * cfg.gamma * cfg.dt / h4
         knobs = dict(streams=cfg.streams, max_tile_bytes=cfg.max_tile_bytes)
@@ -154,13 +168,18 @@ class CahnHilliardADI:
             cyclic=True, dtype=self.dtype, backend=cfg.backend,
             device=self.device, **knobs,
         )
-        self.op_full = mk_op(alpha=beta_full)
-        self.op_half = mk_op(alpha=beta_half)
+        self.op_full = mk_op(alpha=beta_full, tune=cfg.tune)
+        self.op_half = mk_op(
+            alpha=beta_half,
+            tune="cached" if cfg.tune == "force" else cfg.tune,
+        )
 
-        # Create: the stencil plans (bootstrap and paper-faithful RHS path)
+        # Create: the stencil plans (bootstrap and paper-faithful RHS path);
+        # shape doubles as the tuning shape
         mk = functools.partial(
             _api.create, shape=(cfg.ny, cfg.nx), mode="xy", bc="periodic",
-            dtype=self.dtype, backend=cfg.backend, device=self.device, **knobs,
+            dtype=self.dtype, backend=cfg.backend, device=self.device,
+            tune=cfg.tune, **knobs,
         )
         self.plan_bih = mk("biharmonic")
         self.plan_lap_cube = mk(
@@ -173,9 +192,12 @@ class CahnHilliardADI:
 
         # Create: the batched-1D plans (rhs_mode='batch1d').  Each is one
         # directional factor; apply_along_{x,y} runs it over all grid lines.
+        # They are applied to the (ny, nx) rows and to the (nx, ny)
+        # transpose, so they are tuned only where the two coincide
         mk1d = functools.partial(
             _api.create, shape=(cfg.ny, cfg.nx), mode="batch", bc="periodic",
-            dtype=self.dtype, backend=cfg.backend, device=self.device, **knobs,
+            dtype=self.dtype, backend=cfg.backend, device=self.device,
+            tune=cfg.tune if cfg.ny == cfg.nx else "off", **knobs,
         )
         self.plan_d4_1d = mk1d(_D4)
         self.plan_d2_1d = mk1d(_D2)
@@ -184,6 +206,78 @@ class CahnHilliardADI:
         )
         # the fused kernels' own streams (rhs_mode='fused')
         self._pool = _stream.make_stream_pool(cfg.streams, self.device)
+        # the streamed fused RHS + x-sweep's geometry: the pipeline width
+        # and the chunk height (None: choose_chunk_rows), tuned when
+        # streaming is on (both are properties of the host, not the PDE)
+        self._streams_eff, self._chunk_rows_eff = cfg.streams, None
+        self._xsweep_pool = self._pool
+        if (cfg.tune != "off" and cfg.rhs_mode == "fused"
+                and self._streamed_shape()):
+            self._streams_eff, self._chunk_rows_eff = (
+                self._tune_stream_geometry())
+            self._xsweep_pool = _stream.make_stream_pool(self._streams_eff,
+                                                         self.device)
+
+    def _streamed_shape(self) -> bool:
+        cfg = self.cfg
+        return _stream.should_stream(
+            (cfg.ny, cfg.nx), self.dtype.itemsize, streams=cfg.streams,
+            max_tile_bytes=cfg.max_tile_bytes)
+
+    def _tune_stream_geometry(self) -> tuple:
+        """Race the (pipeline width x chunk height) grid of the streamed
+        fused RHS + x-sweep (:func:`repro_torch.launch.stream.
+        stream_ch_rhs_xsweep`) and return the winning ``(streams,
+        chunk_rows)``.
+
+        Widths {1, 2, 4, 8, cfg.streams}; heights ``None`` (let
+        ``choose_chunk_rows`` decide: the untuned geometry stays in the
+        race, so tuning can only match or beat it) and the divisors ny/4,
+        ny/8 and ny/16 whose halo-padded slab fits ``max_tile_bytes``, so
+        tuning cannot unbound the working set.  Every candidate computes
+        each row as the monolithic launch does, so the result is the same
+        bit for bit.  The race times wall time (``hold=False``): the
+        chunk count is host work as much as device work."""
+        from repro_torch.tune import autotune
+
+        cfg = self.cfg
+        c = torch.zeros((cfg.ny, cfg.nx), dtype=self.dtype, device=self.device)
+        fac_x = self.op_full.fac_x
+
+        def build(cand):
+            kw = dict(self._fused_kw(), streams=cand["streams"],
+                      chunk_rows=cand["chunk_rows"],
+                      max_tile_bytes=cfg.max_tile_bytes,
+                      pool=_stream.make_stream_pool(cand["streams"],
+                                                    self.device))
+            return lambda a, b: _stream.stream_ch_rhs_xsweep(a, b, fac_x,
+                                                             **kw)
+
+        base = cfg.streams or 1
+        budget = cfg.max_tile_bytes
+        heights = [None] + sorted(
+            {
+                r for r in (cfg.ny // k for k in (4, 8, 16))
+                if r > 0 and cfg.ny % r == 0 and (
+                    budget is None or _stream.slab_bytes(
+                        r, cfg.nx, self.dtype.itemsize,
+                        top=2, bottom=2, left=2, right=2) <= budget)
+            },
+            reverse=True,
+        )
+        best = autotune(
+            "ch_stream_geometry",
+            [{"streams": w, "chunk_rows": r}
+             for w in sorted({1, 2, 4, 8, base}) for r in heights],
+            build, (c, c), shape=(cfg.ny, cfg.nx), dtype=self.dtype,
+            backend=cfg.backend,
+            # streams is part of the key: it shapes the candidate list
+            extra={"max_tile_bytes": cfg.max_tile_bytes,
+                   "streams": cfg.streams},
+            mode=cfg.tune, default={"streams": base, "chunk_rows": None},
+            hold=False,
+        )
+        return best["streams"], best.get("chunk_rows")
 
     def _streamed(self, c: torch.Tensor) -> bool:
         return _stream.should_stream(
@@ -253,11 +347,15 @@ class CahnHilliardADI:
 
     def _fused_xsweep(self, c_n: torch.Tensor, c_nm1: torch.Tensor) -> torch.Tensor:
         """``L_x^{-1} rhs(c_n, c_nm1)`` in one fused pass, streamed in row
-        chunks when the domain exceeds one tile."""
+        chunks when the domain exceeds one tile (the tuned geometry, when
+        ``CHConfig.tune`` is on)."""
         fac_x = self.op_full.fac_x
         if self._streamed(c_n):
             return _stream.stream_ch_rhs_xsweep(
-                c_n, c_nm1, fac_x, **self._fused_kw(), **self._stream_kw())
+                c_n, c_nm1, fac_x, **self._fused_kw(),
+                streams=self._streams_eff, chunk_rows=self._chunk_rows_eff,
+                max_tile_bytes=self.cfg.max_tile_bytes,
+                pool=self._xsweep_pool)
         return _ops.ch_rhs_xsweep(c_n, c_nm1, fac_x, **self._fused_kw())
 
     # -- one full scheme step (eq. 2) ---------------------------------------

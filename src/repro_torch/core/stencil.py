@@ -14,6 +14,12 @@ for the three plan families: 2D
   or z-slabs).  A ``backend='fft'`` plan multiplies by its Create-time
   Fourier symbol instead (:mod:`repro_torch.kernels.spectral`), never
   streamed.
+- ``tune='cached'|'force'`` at Create (:meth:`PlanCore.tuned`) races the
+  plan's candidates and keeps the winner: on the card the family's launch
+  geometries (each sums every point's taps as the default one does) and,
+  for a periodic weighted ``backend='auto'`` plan, the fft backend; on the
+  CPU the plain path and fft.  ``grid_problems`` says why a plan (its
+  halo, its tuned geometry) cannot serve a field shape.
 - :class:`DoubleBuffer` — Swap.
 - :func:`plan_destroy` — Destroy (an idempotent mark; tensors are freed by
   reference counting).
@@ -37,17 +43,21 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops, spectral
-from repro_torch.kernels._build import check_backend, point_fn_build
+from repro_torch.kernels._build import check_backend, device_info, point_fn_build
 from repro_torch.kernels.ref import weighted_point_fn
-from repro_torch.kernels.stencil2d import user_point_source
+from repro_torch.kernels.stencil1d_batch import (
+    stencil1d_batch_geometries,
+    stencil1d_batch_geometry,
+)
+from repro_torch.kernels.stencil2d import (
+    stencil2d_geometries,
+    stencil2d_geometry,
+    user_point_source,
+)
+from repro_torch.kernels.stencil3d import stencil3d_geometries, stencil3d_geometry
 from repro_torch.kernels.taps import Taps, halos_1d, halos_2d, plan_taps
 from repro_torch.launch import stream as _stream
-from repro_torch.util import (
-    deprecated_shim,
-    refuse_unported,
-    resolve_device,
-    torch_dtype,
-)
+from repro_torch.util import deprecated_shim, resolve_device, torch_dtype
 
 _DIRECTIONS = ("x", "y", "xy")
 _DIRECTIONS_3D = ("x", "y", "z", "xyz")
@@ -92,6 +102,13 @@ class PlanCore:
                                           repr=False)
     symbol: torch.Tensor | None = dataclasses.field(default=None,
                                                     compare=False, repr=False)
+    # the tuned launch geometry (the reference's ``tile``): None computes
+    # it per launch; a dict (the family's geometry function's override)
+    # forces it on a monolithic launch on the card
+    geometry: dict | None = dataclasses.field(default=None, hash=False)
+
+    # the kernel a Compute of the family launches on the card
+    kernel_name = "stencil"
 
     @property
     def destroyed(self) -> bool:
@@ -100,6 +117,38 @@ class PlanCore:
 
     def _halo_kwargs(self) -> dict:
         raise NotImplementedError
+
+    def _geometry_candidates(self, shape) -> list[dict]:
+        """The family's launch geometries besides the computed one, on the
+        card of the plan's device, for fields of ``shape``."""
+        raise NotImplementedError
+
+    def _tuning_field(self, shape) -> torch.Tensor:
+        """The field the candidates are timed on: zeros of ``shape`` on the
+        plan's device."""
+        return torch.zeros(shape, dtype=self.coeffs.dtype,
+                           device=self.coeffs.device)
+
+    def _geometry_problem(self, shape) -> str | None:
+        """Why the card cannot launch the plan's tuned geometry on a field
+        of ``shape`` (None: it can, or there is none)."""
+        raise NotImplementedError
+
+    def _check_geometry(self, probe) -> str | None:
+        """``probe(smem_optin, n_sms)`` (a geometry function with the
+        plan's override) on the card of the plan's device; its
+        ``ValueError`` becomes the problem.  A plan off the card launches
+        no kernel, so a geometry it carries is a problem in itself."""
+        if self.geometry is None:
+            return None
+        if self.coeffs.device.type != "cuda":
+            return (f"tuned geometry {self.geometry} on a plan off the card "
+                    f"({self.coeffs.device}): only a kernel launch has one")
+        try:
+            probe(*device_info(self.coeffs.device))
+        except ValueError as e:
+            return f"tuned geometry {self.geometry}: {e}"
+        return None
 
     def _mono_apply(self, *args, **kwargs) -> torch.Tensor:
         """The family's Compute op in :mod:`repro_torch.kernels.ops`."""
@@ -179,11 +228,83 @@ class PlanCore:
             )
         return self._mono_apply(
             data, self.coeffs, out_init, point_fn=self.point_fn, bc=self.bc,
-            backend=self.backend, taps=self.taps, **self._halo_kwargs(),
+            backend=self.backend, taps=self.taps, geometry=self.geometry,
+            **self._halo_kwargs(),
         )
 
     def __call__(self, data, out_init=None):
         return self.apply(data, out_init)
+
+    # -- Create-time autotuning (the tune= hook) ---------------------------
+    def tuned(self, shape, mode: str, cache) -> "PlanCore":
+        """Measure the plan's candidates on a ``shape`` field and return the
+        plan with the winner baked in (``backend`` and ``geometry``).
+
+        Candidates: the plan as it is; ``backend='fft'`` for a ``'auto'``
+        plan carrying a Fourier symbol (Create attaches it speculatively);
+        and, for a plan on the card that launches its kernel, the family's
+        launch geometries (:meth:`_geometry_candidates`), each of which
+        sums every point's taps as the default geometry does, so a tuned
+        plan computes what the untuned one does, bit for bit, unless fft
+        wins.  On the CPU that leaves the plain path and fft.  A plan whose
+        Compute streams at ``shape`` races no geometry: the streamed
+        executor ignores one, as the reference's ignores a tuned tile.
+        Candidates are timed on the monolithic Compute."""
+        from repro_torch.tune import autotune, check_mode
+
+        check_mode(mode)
+        if mode == "off":
+            return self
+        if shape is None:
+            raise ValueError("tune != 'off' needs shape=(...) to measure with")
+        shape = tuple(int(n) for n in shape)
+        data = self._tuning_field(shape)
+        default = {"backend": self.backend, "geometry": None}
+        candidates = [default]
+        # only 'auto' plans race fft: an explicit backend is an explicit
+        # choice, and the fp64 tuned-equals-untuned contract holds only
+        # where tuning cannot change the arithmetic
+        if self.backend == "auto" and self.symbol is not None:
+            candidates.append({"backend": "fft", "geometry": None})
+        streamed = _stream.should_stream(
+            shape, data.element_size(), streams=self.streams,
+            max_tile_bytes=self.max_tile_bytes)
+        if data.is_cuda and self.backend in ("auto", "cuda") and not streamed:
+            candidates += [{"backend": self.backend, "geometry": g}
+                           for g in self._geometry_candidates(shape)]
+        halo_kwargs = self._halo_kwargs()
+
+        def build(cfg):
+            if cfg["backend"] == "fft":
+                sym, axes = self.symbol, self._fft_axes()
+                return lambda d: spectral.apply_symbol(d, sym, axes)
+            return lambda d: self._mono_apply(
+                d, self.coeffs, None, point_fn=self.point_fn, bc=self.bc,
+                backend=cfg["backend"], taps=self.taps,
+                geometry=cfg["geometry"], **halo_kwargs)
+
+        extra = {
+            "halo": [int(h) for h in self.halo],
+            "fn": getattr(self.point_fn, "__name__", "fn"),
+            "op": self.op_name,
+        }
+        # the analytic cost prior: a backend predicted far off the pace
+        # (fft for a short stencil) never races; geometries all score alike
+        prior = None
+        if len(candidates) > 1:
+            from repro_torch.tune.prior import prior_enabled, stencil_prior
+
+            if prior_enabled():
+                taps = int(torch.count_nonzero(self.coeffs))
+                prior = stencil_prior(shape, max(taps, 1),
+                                      data.element_size())
+        best = autotune(
+            self.kernel_name, candidates, build, (data,), shape=shape,
+            dtype=data.dtype, bc=self.bc, backend=self.backend, extra=extra,
+            mode=mode, default=default, cache=cache, prior=prior,
+        )
+        return dataclasses.replace(self, backend=best["backend"],
+                                   geometry=best.get("geometry"))
 
 
 def _build_point_fn(point_fn: Callable, nwin: int, device, backend: str) -> None:
@@ -196,19 +317,29 @@ def _build_point_fn(point_fn: Callable, nwin: int, device, backend: str) -> None
         point_fn_build(source, nwin)
 
 
-def _finish_plan(plan: PlanCore, shape) -> PlanCore:
-    """The shared Create tail: ``backend='fft'`` is validated here, at
-    Create — non-periodic boundaries, function-pointer stencils and a
-    missing ``shape`` raise
+def _finish_plan(plan: PlanCore, shape, tune: str = "off",
+                 tune_cache=None) -> PlanCore:
+    """The shared Create tail: spectral validation and symbol attachment,
+    then the ``tune=`` hook (:meth:`PlanCore.tuned`).
+
+    ``backend='fft'`` is validated here, at Create — non-periodic
+    boundaries, function-pointer stencils and a missing ``shape`` raise
     :class:`~repro_torch.kernels.spectral.SpectralBackendError` — and an
-    eligible plan gets its Fourier symbol.  (``'auto'`` never picks fft:
-    in the reference only a tuned plan races it.)"""
-    if plan.backend != "fft":
-        return plan
-    reason = plan._fft_ineligible(shape)
-    if reason is not None:
-        raise spectral.SpectralBackendError(reason)
-    return plan._with_symbol(shape)
+    eligible plan gets its Fourier symbol.  Under ``backend='auto'`` with
+    tuning on, an eligible plan gets its symbol speculatively, so that
+    :meth:`PlanCore.tuned` can race fft against the direct path.
+    (Untuned, ``'auto'`` never picks fft.)"""
+    from repro_torch.tune import check_mode
+
+    check_mode(tune)
+    wants_fft = plan.backend == "fft"
+    if wants_fft or (plan.backend == "auto" and tune != "off"):
+        reason = plan._fft_ineligible(shape)
+        if reason is None:
+            plan = plan._with_symbol(shape)
+        elif wants_fft:
+            raise spectral.SpectralBackendError(reason)
+    return plan.tuned(shape, tune, tune_cache)
 
 
 def plan_taps_of(coeffs_t: torch.Tensor, point_fn: Callable, halos):
@@ -245,9 +376,35 @@ class Stencil2D(PlanCore):
     shape: tuple[int, int] | None = dataclasses.field(default=None,
                                                       compare=False)
 
+    kernel_name = "stencil2d"
+
     def _halo_kwargs(self) -> dict:
         return dict(left=self.left, right=self.right, top=self.top,
                     bottom=self.bottom)
+
+    def _geometry_candidates(self, shape) -> list[dict]:
+        return stencil2d_geometries(
+            shape, self.halo, self.coeffs.element_size(),
+            *device_info(self.coeffs.device))
+
+    def _geometry_problem(self, shape) -> str | None:
+        return self._check_geometry(lambda smem, sms: stencil2d_geometry(
+            shape, self.halo, self.coeffs.element_size(), smem, sms,
+            route=self.geometry.get("route")))
+
+    def grid_problems(self, shape) -> list:
+        """Why this plan cannot serve an ``(ny, nx)`` field — empty when it
+        can (the ``launch_geometry_feasible`` rule's probe): a halo wider
+        than the field, or a tuned geometry the card cannot launch."""
+        ny, nx = (int(n) for n in shape)
+        hx, hy = max(self.left, self.right), max(self.top, self.bottom)
+        problems = []
+        if hy > ny or hx > nx:
+            problems.append(
+                f"halo (hy={hy}, hx={hx}) exceeds the field ({ny}, {nx}); "
+                "the stencil is wider than the domain")
+        geo = self._geometry_problem((ny, nx))
+        return problems + ([geo] if geo else [])
 
     def apply_stacked(
         self, stack: torch.Tensor, out_init: torch.Tensor | None = None
@@ -273,7 +430,8 @@ class Stencil2D(PlanCore):
             return self._fft_apply(stack)
         return self._mono_apply(
             stack, self.coeffs, out_init, point_fn=self.point_fn, bc=self.bc,
-            backend=self.backend, taps=self.taps, **self._halo_kwargs(),
+            backend=self.backend, taps=self.taps, geometry=self.geometry,
+            **self._halo_kwargs(),
         )
 
     def _mono_apply(self, *args, **kwargs):
@@ -314,6 +472,7 @@ def _create_2d(
     tune: str = "off",
     shape: tuple[int, int] | None = None,
     op_name: str | None = None,
+    tune_cache=None,
 ) -> Stencil2D:
     """Create a 2D stencil plan (the Create call).
 
@@ -326,8 +485,11 @@ def _create_2d(
     Compute through the streamed executor for fields larger than one tile
     (cuSten ``nStreams``; see :mod:`repro_torch.launch.stream`).
     ``backend='fft'`` needs periodic ``bc``, weights and the field's
-    ``shape``, for which Create computes the Fourier symbol."""
-    refuse_unported(tune=tune)
+    ``shape``, for which Create computes the Fourier symbol.
+    ``tune='cached'|'force'`` races the plan's candidates on a ``shape``
+    field at Create (:meth:`PlanCore.tuned`), remembered in ``tune_cache``
+    (a :class:`~repro_torch.tune.TuneCache`; the default directory when
+    None)."""
     if direction not in _DIRECTIONS:
         raise ValueError(f"direction must be one of {_DIRECTIONS}")
     if bc not in _BCS:
@@ -378,7 +540,7 @@ def _create_2d(
                                                         bottom)),
         **_stream.stream_fields(streams, max_tile_bytes, resolve_device(device)),
     )
-    return _finish_plan(plan, shape)
+    return _finish_plan(plan, shape, tune, tune_cache)
 
 
 @dataclasses.dataclass(frozen=True, kw_only=True)
@@ -390,8 +552,44 @@ class StencilBatch1D(PlanCore):
     left: int
     right: int
 
+    kernel_name = "stencil1d_batch"
+
     def _halo_kwargs(self) -> dict:
         return dict(left=self.left, right=self.right)
+
+    def _geometry_candidates(self, shape) -> list[dict]:
+        B, M = shape
+        return stencil1d_batch_geometries(
+            B, M, self.halo, self.coeffs.element_size(),
+            *device_info(self.coeffs.device))
+
+    def _tuning_field(self, shape) -> torch.Tensor:
+        """The transposed layout of the ``(B, M)`` stack (the lines of
+        ``apply_along_y``), where the kernel's geometries race
+        (:func:`~repro_torch.kernels.stencil1d_batch.stencil1d_batch_geometries`)."""
+        B, M = shape
+        return super()._tuning_field((M, B)).T
+
+    def _geometry_problem(self, shape) -> str | None:
+        B, M = shape
+        return self._check_geometry(lambda smem, sms: stencil1d_batch_geometry(
+            B, M, self.halo, True, self.coeffs.element_size(), smem, sms,
+            route=self.geometry.get("route"),
+            param=self.geometry.get("param")))
+
+    def grid_problems(self, shape) -> list:
+        """Why this plan cannot serve a ``(B, M)`` stack — empty when it can:
+        a halo wider than the line, or a tuned geometry the card cannot
+        launch on the transposed stack it applies to."""
+        B, M = (int(n) for n in shape)
+        hm = max(self.left, self.right)
+        problems = []
+        if hm > M:
+            problems.append(
+                f"line halo hm={hm} exceeds the row length M={M}; the "
+                "stencil is wider than the line")
+        geo = self._geometry_problem((B, M))
+        return problems + ([geo] if geo else [])
 
     def _mono_apply(self, *args, **kwargs):
         return ops.stencil_apply_batch1d(*args, **kwargs)
@@ -429,6 +627,7 @@ def _create_1d_batch(
     tune: str = "off",
     shape: tuple[int, int] | None = None,
     op_name: str | None = None,
+    tune_cache=None,
 ) -> StencilBatch1D:
     """Create a batched-1D stencil plan (cuSten ``custenCreate1DBatch*``).
 
@@ -436,8 +635,9 @@ def _create_1d_batch(
     inferred for odd lengths, or give ``num_sten_left/right``).  Function
     mode (``Fun`` variants): ``func(windows, coeffs)`` plus ``coeffs`` and
     the explicit extents; ``windows`` sweep left to right.  The streaming
-    knobs are those of :func:`_create_2d`."""
-    refuse_unported(tune=tune)
+    and tuning knobs are those of :func:`_create_2d`; a plan is tuned on
+    the transposed layout of its ``(B, M)`` stack (the layout whose launch
+    geometry can change without changing a point's arithmetic)."""
     if bc not in _BCS:
         raise ValueError(f"bc must be one of {_BCS}")
     check_backend(backend)
@@ -463,7 +663,7 @@ def _create_1d_batch(
         taps=plan_taps_of(coeffs_t, point_fn, halos_1d(left, right)),
         **_stream.stream_fields(streams, max_tile_bytes, resolve_device(device)),
     )
-    return _finish_plan(plan, shape)
+    return _finish_plan(plan, shape, tune, tune_cache)
 
 
 @dataclasses.dataclass(frozen=True, kw_only=True)
@@ -479,8 +679,36 @@ class Stencil3D(PlanCore):
     left: int
     right: int
 
+    kernel_name = "stencil3d"
+
     def _halo_kwargs(self) -> dict:
         return dict(halos=self.halos)
+
+    def _geometry_candidates(self, shape) -> list[dict]:
+        return stencil3d_geometries(
+            shape, self.halos, self.coeffs.element_size(),
+            *device_info(self.coeffs.device))
+
+    def _geometry_problem(self, shape) -> str | None:
+        return self._check_geometry(lambda smem, sms: stencil3d_geometry(
+            shape, self.halos, self.coeffs.element_size(), smem, sms,
+            route=self.geometry.get("route"), zc=self.geometry.get("zc")))
+
+    def grid_problems(self, shape) -> list:
+        """Why this plan cannot serve an ``(nz, ny, nx)`` box — empty when
+        it can: a halo wider than the field, or a tuned geometry the card
+        cannot launch."""
+        nz, ny, nx = (int(n) for n in shape)
+        hz = max(self.front, self.back)
+        hy = max(self.top, self.bottom)
+        hx = max(self.left, self.right)
+        problems = []
+        if hz > nz or hy > ny or hx > nx:
+            problems.append(
+                f"halo (hz={hz}, hy={hy}, hx={hx}) exceeds the field "
+                f"({nz}, {ny}, {nx}); the stencil is wider than the domain")
+        geo = self._geometry_problem((nz, ny, nx))
+        return problems + ([geo] if geo else [])
 
     def _mono_apply(self, *args, **kwargs):
         return ops.stencil_apply_3d(*args, **kwargs)
@@ -530,6 +758,7 @@ def _create_3d(
     tune: str = "off",
     shape: tuple[int, int, int] | None = None,
     op_name: str | None = None,
+    tune_cache=None,
 ) -> Stencil3D:
     """Create a 3D stencil plan (the §VI.A Create call).
 
@@ -538,8 +767,8 @@ def _create_3d(
     ``(sz, sy, sx)`` box for ``'xyz'``.  Function mode: ``func(windows,
     coeffs)`` plus the explicit extents; windows are enumerated z-major,
     then row-major over (y, x).  ``streams``/``max_tile_bytes`` stream
-    Compute in z-slabs (:func:`repro_torch.launch.stream.stream_stencil3d_apply`)."""
-    refuse_unported(tune=tune)
+    Compute in z-slabs (:func:`repro_torch.launch.stream.stream_stencil3d_apply`);
+    the tuning knobs are those of :func:`_create_2d`."""
     if direction not in _DIRECTIONS_3D:
         raise ValueError(f"direction must be one of {_DIRECTIONS_3D}")
     if bc not in _BCS:
@@ -595,7 +824,7 @@ def _create_3d(
         taps=plan_taps_of(coeffs_t, point_fn, halos),
         **_stream.stream_fields(streams, max_tile_bytes, resolve_device(device)),
     )
-    return _finish_plan(plan, shape)
+    return _finish_plan(plan, shape, tune, tune_cache)
 
 
 def central_difference_weights(order: int, derivative: int, h: float = 1.0):

@@ -73,17 +73,20 @@ def stencil_apply(
     bc: str = "periodic",
     backend: str = "auto",
     taps=None,
+    geometry: dict | None = None,
 ) -> torch.Tensor:
     """Apply a 2D stencil — the library's Compute primitive — to an
     ``(ny, nx)`` field, or to a ``(B, ny, nx)`` stack of them (one launch;
     each member bit for bit its own apply).  ``taps``: the plan's non-zero
     taps, which the kernel sums
     (:func:`repro_torch.kernels.taps.nonzero_taps`); without them it sums
-    every window."""
+    every window.  ``geometry``: a tuned plan's launch geometry, which only
+    the kernel reads (:func:`repro_torch.kernels.stencil2d.stencil2d_geometry`)."""
     kw = dict(point_fn=point_fn, left=left, right=right, top=top,
               bottom=bottom, bc=bc)
     if resolve_backend(backend, data) == "cuda":
-        return stencil2d_cuda(data, coeffs, out_init, taps=taps, **kw)
+        return stencil2d_cuda(data, coeffs, out_init, taps=taps,
+                              geometry=geometry, **kw)
     return stencil2d_torch(data, coeffs=coeffs, out_init=out_init, **kw)
 
 
@@ -98,14 +101,16 @@ def stencil_apply_batch1d(
     bc: str = "periodic",
     backend: str = "auto",
     taps=None,
+    geometry: dict | None = None,
 ) -> torch.Tensor:
     """Apply a 1D stencil along axis 1 of a ``(B, M)`` stack — the
     batched-1D Compute primitive (cuSten's 1DBatch family).  The stack may
     be the transpose of a contiguous field (its columns as lines).
-    ``taps`` as for :func:`stencil_apply`."""
+    ``taps`` and ``geometry`` as for :func:`stencil_apply`."""
     kw = dict(point_fn=point_fn, left=left, right=right, bc=bc)
     if resolve_backend(backend, data) == "cuda":
-        return stencil1d_batch_cuda(data, coeffs, out_init, taps=taps, **kw)
+        return stencil1d_batch_cuda(data, coeffs, out_init, taps=taps,
+                                    geometry=geometry, **kw)
     return stencil1d_batch_torch(data, coeffs=coeffs, out_init=out_init, **kw)
 
 
@@ -119,12 +124,14 @@ def stencil_apply_3d(
     bc: str = "periodic",
     backend: str = "auto",
     taps=None,
+    geometry: dict | None = None,
 ) -> torch.Tensor:
     """Apply a 3D stencil on an ``(nz, ny, nx)`` field — the 3D Compute
-    primitive.  ``taps`` as for :func:`stencil_apply`."""
+    primitive.  ``taps`` and ``geometry`` as for :func:`stencil_apply`."""
     kw = dict(point_fn=point_fn, halos=tuple(int(h) for h in halos), bc=bc)
     if resolve_backend(backend, data) == "cuda":
-        return stencil3d_cuda(data, coeffs, out_init, taps=taps, **kw)
+        return stencil3d_cuda(data, coeffs, out_init, taps=taps,
+                              geometry=geometry, **kw)
     return stencil3d_torch(data, coeffs=coeffs, out_init=out_init, **kw)
 
 

@@ -295,13 +295,32 @@ def tile_stride(M: int, itemsize: int) -> int:
     return next_multiple(M, 128 // itemsize) + 16 // itemsize
 
 
-def cols_per_block(M: int, itemsize: int, smem_optin: int) -> int:
+def cols_per_block(M: int, itemsize: int, smem_optin: int,
+                   cols: int | None = None) -> int:
     """Columns a block of the column sweep stages in shared memory beside
     the five factors: at most 8 (one warp each), fewer when M is long, and
     0 when not even one fits (the kernel then runs each column in device
-    memory)."""
+    memory).  ``cols`` (a tuned sweep's geometry, :func:`cols_geometries`)
+    forces that many, 1 to 8: each column is one warp's recurrence
+    whatever the block holds, so the choice changes no result; a count
+    that does not fit raises ``ValueError`` here, before any launch."""
     free = smem_optin // itemsize - 5 * M
-    return max(0, min(COLS_PER_BLOCK, free // tile_stride(M, itemsize)))
+    fit = max(0, min(COLS_PER_BLOCK, free // tile_stride(M, itemsize)))
+    if cols is None:
+        return fit
+    if not 1 <= cols <= fit:
+        raise ValueError(
+            f"penta_cols cannot stage {cols} columns a block at M = {M} "
+            f"({itemsize}-byte elements): 1 to {fit} fit in the card's "
+            f"{smem_optin} bytes")
+    return cols
+
+
+def cols_geometries(M: int, itemsize: int, smem_optin: int) -> list[dict]:
+    """The column sweep's launch geometries a tuned sweep races besides its
+    default one: 1, 2, 4 and 8 columns a block where they fit."""
+    fit = cols_per_block(M, itemsize, smem_optin)
+    return [{"cols": c} for c in (1, 2, 4, 8) if c <= fit and c != fit]
 
 
 # The row and plane sweeps (csrc/penta.cu:penta_rows, penta_mid): blocks of
@@ -361,7 +380,8 @@ def rows_tile_bytes(M: int, itemsize: int, cyclic: bool, rows: int,
 
 def rows_geometry(M: int, itemsize: int, n_rows: int, smem_optin: int,
                   n_sms: int, *, cyclic: bool, depth: int | None = None,
-                  blocks_per_sm: int | None = None) -> RowsGeometry:
+                  blocks_per_sm: int | None = None,
+                  rows: int | None = None) -> RowsGeometry:
     """Geometry of a row sweep over ``n_rows`` rows of length M.
 
     The route depends on M, the dtype and ``cyclic`` alone: the tile route
@@ -371,18 +391,56 @@ def rows_geometry(M: int, itemsize: int, n_rows: int, smem_optin: int,
     does not fit; the ring keeps ``depth`` groups (``ROWS_RING`` by
     default, 1 when two groups do not fit).  The grid is the groups or one
     grid of resident blocks, whichever is smaller, and each block walks
-    the groups ``blockIdx.x + k * blocks``."""
+    the groups ``blockIdx.x + k * blocks``.
+
+    ``rows`` with ``depth`` (a tuned sweep's geometry,
+    :func:`rows_geometries`) force the group, 1 to 8 rows, and the ring
+    depth, 1 or 2: each row is one warp's recurrence whatever the group
+    and the ring, so the choice changes no result; a ring that does not
+    fit raises ``ValueError`` here, before any launch."""
+    forced = rows is not None
+    if forced and (not 1 <= rows <= BLOCK_WARPS or depth not in (1, 2)):
+        raise ValueError(
+            f"penta_rows takes 1 to {BLOCK_WARPS} rows a group and a ring of "
+            f"1 or 2, got rows {rows}, depth {depth}")
     depth = ROWS_RING if depth is None else depth
     row_bytes = next_multiple(M, 16 // itemsize) * itemsize
     fit = (smem_optin - rows_tile_bytes(M, itemsize, cyclic, 0, 0)) // row_bytes
+    if forced and rows * depth > fit:
+        raise ValueError(
+            f"penta_rows cannot ring {depth} groups of {rows} rows of {M} "
+            f"({itemsize}-byte elements) in the card's {smem_optin} bytes")
     if fit < 1:
         return RowsGeometry("global", 0, 0, ceil_div(n_rows, BLOCK_WARPS), 0, 0)
-    rows = max(1, min(BLOCK_WARPS, ceil_div(n_rows, n_sms), fit // depth))
-    depth = max(1, min(depth, fit // rows))
+    if not forced:
+        rows = max(1, min(BLOCK_WARPS, ceil_div(n_rows, n_sms), fit // depth))
+        depth = max(1, min(depth, fit // rows))
     smem = rows_tile_bytes(M, itemsize, cyclic, rows, depth)
     per_sm = blocks_per_sm or resident_blocks(smem, smem_optin)
     blocks = min(ceil_div(n_rows, rows), per_sm * n_sms)
     return RowsGeometry("tile", rows, depth, blocks, smem, per_sm)
+
+
+def rows_geometries(M: int, itemsize: int, n_rows: int, smem_optin: int,
+                    n_sms: int, *, cyclic: bool) -> list[dict]:
+    """The row sweep's launch geometries a tuned sweep races besides its
+    default one: groups of 1, 2, 4 and 8 rows with rings of 1 and 2, where
+    they fit.  None where rows take the global route."""
+    geo = rows_geometry(M, itemsize, n_rows, smem_optin, n_sms, cyclic=cyclic)
+    if geo.route != "tile":
+        return []
+    out = []
+    for rows in (1, 2, 4, 8):
+        for depth in (1, 2):
+            if (rows, depth) == (geo.rows, geo.depth):
+                continue
+            try:
+                rows_geometry(M, itemsize, n_rows, smem_optin, n_sms,
+                              cyclic=cyclic, depth=depth, rows=rows)
+            except ValueError:
+                continue
+            out.append({"rows": rows, "depth": depth})
+    return out
 
 
 def mid_tile_stride(M: int, itemsize: int, cols: int) -> int:
@@ -396,14 +454,32 @@ def mid_tile_stride(M: int, itemsize: int, cols: int) -> int:
 
 
 def mid_geometry(P: int, M: int, N: int, itemsize: int, smem_optin: int, *,
-                 max_cols: int | None = None) -> MidGeometry:
+                 max_cols: int | None = None,
+                 cols: int | None = None) -> MidGeometry:
     """Geometry of a plane sweep over a (P, M, N) rhs.
 
     C columns a block: a power of two, at most ``max_cols``
     (``MID_MAX_COLS``) and no more than covers N, as many as fit beside the
     five factors; the global route when not one fits (it depends on M and
     the dtype alone).  The grid is (ceil(N / C), min(P, 65535)), a block a
-    column group of a plane (``csrc/penta.cu:launch_mid``)."""
+    column group of a plane (``csrc/penta.cu:launch_mid``).
+
+    ``cols`` (a tuned sweep's geometry, :func:`mid_geometries`) forces C,
+    a power of two the default rule gives for some ``max_cols``: each line
+    is one warp's recurrence whatever the block holds, so the choice
+    changes no result; a C the rule does not give here raises
+    ``ValueError``, before any launch."""
+    if cols is not None:
+        if cols < 1 or cols & (cols - 1) or BLOCK_WARPS * 32 % cols:
+            raise ValueError(f"penta_mid stages a power of two of columns a "
+                             f"block, at most {BLOCK_WARPS * 32}; got {cols}")
+        geo = mid_geometry(P, M, N, itemsize, smem_optin, max_cols=cols)
+        if geo.cols != cols:
+            raise ValueError(
+                f"penta_mid cannot stage {cols} columns a block of a "
+                f"({P}, {M}, {N}) rhs ({itemsize}-byte elements) in the "
+                f"card's {smem_optin} bytes (it fits {geo.cols})")
+        return geo
     max_cols = MID_MAX_COLS if max_cols is None else max_cols
     free = smem_optin // itemsize - 5 * M
     cols = 1
@@ -419,6 +495,23 @@ def mid_geometry(P: int, M: int, N: int, itemsize: int, smem_optin: int, *,
                        (5 * M + cols * ldt) * itemsize)
 
 
+def mid_geometries(P: int, M: int, N: int, itemsize: int,
+                   smem_optin: int) -> list[dict]:
+    """The plane sweep's launch geometries a tuned sweep races besides its
+    default one: 8, 16 and 32 columns a block (``max_cols``), those that
+    give a column count of their own."""
+    base = mid_geometry(P, M, N, itemsize, smem_optin)
+    if base.route != "tile":
+        return []
+    seen, out = {base.cols}, []
+    for c in (8, 16, 32):
+        geo = mid_geometry(P, M, N, itemsize, smem_optin, max_cols=c)
+        if geo.route == "tile" and geo.cols not in seen:
+            seen.add(geo.cols)
+            out.append({"cols": geo.cols})
+    return out
+
+
 def penta_cols_cuda(
     band: PentaFactors,
     rhs: torch.Tensor,
@@ -426,16 +519,20 @@ def penta_cols_cuda(
     *,
     cols: tuple[int, int] | None = None,
     out: torch.Tensor | None = None,
+    geometry: dict | None = None,
 ) -> torch.Tensor:
     """Launch the column-layout kernel on an (M, N) CUDA rhs; with ``w``
     (the cyclic Woodbury matrix) the closure runs as its epilogue.
-    ``cols=(c0, c1)`` solves only those columns into ``out``."""
+    ``cols=(c0, c1)`` solves only those columns into ``out``.
+    ``geometry`` (``{'cols': C}``, a tuned sweep's) overrides the columns
+    a block (:func:`cols_per_block`)."""
     M, N = rhs.shape
     _build.check_cuda(rhs, "rhs", like=rhs, shape=(M, N))
     _check_factors(band, w, rhs, M)
     c0, c1 = _build.window(cols, N, "column", out)
     smem, _ = _build.device_info(rhs.device)
-    C = cols_per_block(M, rhs.element_size(), smem)
+    C = cols_per_block(M, rhs.element_size(), smem,
+                       cols=(geometry or {}).get("cols"))
     out = _build.out_like(out, rhs)
     _build.launch(
         "penta_cols", rhs.device, _build.dtype_code(rhs),
@@ -461,24 +558,31 @@ def _rows_occupancy(device: torch.device, dtype: torch.dtype, smem: int) -> int:
 
 
 def rows_geometry_on(device: torch.device, dtype: torch.dtype, M: int,
-                     n_rows: int, *, cyclic: bool) -> RowsGeometry:
+                     n_rows: int, *, cyclic: bool,
+                     geometry: dict | None = None) -> RowsGeometry:
     """:func:`rows_geometry` on a card, the blocks an SM holds lowered to
-    what its registers allow."""
+    what its registers allow; ``geometry`` (``{'rows': G, 'depth': d}``,
+    a tuned sweep's) forces the group and the ring."""
     smem, sms = _build.device_info(device)
     isz = dtype.itemsize
-    geo = rows_geometry(M, isz, n_rows, smem, sms, cyclic=cyclic)
+    over = dict(rows=geometry["rows"], depth=geometry["depth"]) if geometry \
+        else {}
+    geo = rows_geometry(M, isz, n_rows, smem, sms, cyclic=cyclic, **over)
     if geo.route == "tile":
         occ = _rows_occupancy(device, dtype, geo.smem)
         if occ < geo.blocks_per_sm:
             geo = rows_geometry(M, isz, n_rows, smem, sms, cyclic=cyclic,
-                                depth=geo.depth, blocks_per_sm=occ)
+                                depth=geo.depth, blocks_per_sm=occ,
+                                rows=over.get("rows"))
     return geo
 
 
 def mid_geometry_on(device: torch.device, dtype: torch.dtype, P: int, M: int,
-                    N: int) -> MidGeometry:
-    """:func:`mid_geometry` on a card."""
-    return mid_geometry(P, M, N, dtype.itemsize, _build.device_info(device)[0])
+                    N: int, geometry: dict | None = None) -> MidGeometry:
+    """:func:`mid_geometry` on a card; ``geometry`` (``{'cols': C}``, a
+    tuned sweep's) forces the columns a block."""
+    return mid_geometry(P, M, N, dtype.itemsize, _build.device_info(device)[0],
+                        cols=(geometry or {}).get("cols"))
 
 
 def penta_rows_cuda(
@@ -488,16 +592,20 @@ def penta_rows_cuda(
     *,
     rows: tuple[int, int] | None = None,
     out: torch.Tensor | None = None,
+    geometry: dict | None = None,
 ) -> torch.Tensor:
     """Launch the row-layout kernel on a (B, M) CUDA rhs; with ``w`` the
     Woodbury closure runs on the kernel's write-out.  ``rows=(r0, r1)``
     solves only those rows into ``out``.  Any M: rows whose tile does not
-    fit in shared memory are solved in device memory."""
+    fit in shared memory are solved in device memory.  ``geometry``
+    (``{'rows': G, 'depth': d}``, a tuned sweep's) overrides the group
+    and the ring (:func:`rows_geometry`)."""
     B, M = rhs.shape
     _build.check_cuda(rhs, "rhs", like=rhs, shape=(B, M))
     _check_factors(band, w, rhs, M)
     r0, r1 = _build.window(rows, B, "row", out)
-    geo = rows_geometry_on(rhs.device, rhs.dtype, M, r1 - r0, cyclic=w is not None)
+    geo = rows_geometry_on(rhs.device, rhs.dtype, M, r1 - r0,
+                           cyclic=w is not None, geometry=geometry)
     out = _build.out_like(out, rhs)
     _build.launch(
         "penta_rows", rhs.device, _build.dtype_code(rhs),
@@ -515,6 +623,7 @@ def penta_mid_cuda(
     *,
     planes: tuple[int, int] | None = None,
     out: torch.Tensor | None = None,
+    geometry: dict | None = None,
 ) -> torch.Tensor:
     """Launch the plane-layout kernel on a (P, M, N) CUDA rhs; with ``w``
     the cyclic closure runs on the kernel's write-out.  Any M: lines whose
@@ -522,12 +631,14 @@ def penta_mid_cuda(
     memory.  ``planes=(p0, p1)`` solves only those planes into ``out``:
     the launch takes the planes' slab of rhs and out (contiguous, by
     pointer offset), and its route, columns a block and L depend on M, N
-    and the dtype alone, so each line is solved as in the whole call."""
+    and the dtype alone, so each line is solved as in the whole call.
+    ``geometry`` (``{'cols': C}``, a tuned sweep's) overrides the columns
+    a block (:func:`mid_geometry`)."""
     P, M, N = rhs.shape
     _build.check_cuda(rhs, "rhs", like=rhs, shape=(P, M, N))
     _check_factors(band, w, rhs, M)
     p0, p1 = _build.window(planes, P, "plane", out)
-    geo = mid_geometry_on(rhs.device, rhs.dtype, p1 - p0, M, N)
+    geo = mid_geometry_on(rhs.device, rhs.dtype, p1 - p0, M, N, geometry)
     out = _build.out_like(out, rhs)
     _build.launch(
         "penta_mid", rhs.device, _build.dtype_code(rhs),
@@ -543,12 +654,12 @@ def penta_mid_cuda(
 # ---------------------------------------------------------------------------
 
 
-def _solve_cols(band, w, rhs, backend):
+def _solve_cols(band, w, rhs, backend, geometry=None):
     squeeze = rhs.ndim == 1
     if squeeze:
         rhs = rhs[:, None]
     if _build.resolve_backend(backend, rhs) == "cuda":
-        out = penta_cols_cuda(band, rhs, w)
+        out = penta_cols_cuda(band, rhs, w, geometry=geometry)
     else:
         out = substitute_torch(band, rhs)
         if w is not None:
@@ -556,12 +667,12 @@ def _solve_cols(band, w, rhs, backend):
     return out[:, 0] if squeeze else out
 
 
-def _solve_rows(band, w, rhs, backend):
+def _solve_rows(band, w, rhs, backend, geometry=None):
     squeeze = rhs.ndim == 1
     if squeeze:
         rhs = rhs[None, :]
     if _build.resolve_backend(backend, rhs) == "cuda":
-        out = penta_rows_cuda(band, rhs, w)
+        out = penta_rows_cuda(band, rhs, w, geometry=geometry)
     else:
         out = substitute_rows_torch(band, rhs)
         if w is not None:
@@ -569,49 +680,57 @@ def _solve_rows(band, w, rhs, backend):
     return out[0] if squeeze else out
 
 
-def _solve_mid(band, w, rhs, backend):
+def _solve_mid(band, w, rhs, backend, geometry=None):
     if rhs.ndim != 3:
         raise ValueError(f"plane layout takes a (P, M, N) rhs, got {tuple(rhs.shape)}")
     if _build.resolve_backend(backend, rhs) == "cuda":
-        return penta_mid_cuda(band, rhs, w)
+        return penta_mid_cuda(band, rhs, w, geometry=geometry)
     out = substitute_mid_torch(band, rhs)
     return out if w is None else mid_woodbury_correct(out, w)
 
 
-def penta_solve_factored(fac: PentaFactors, rhs, *, backend: str = "auto"):
+# The factored solves take ``geometry``, a tuned sweep's launch geometry
+# (``{'cols': C}``, ``{'rows': G, 'depth': d}`` or, for the plane layout,
+# ``{'cols': C}``), which only a kernel launch reads.
+
+
+def penta_solve_factored(fac: PentaFactors, rhs, *, backend: str = "auto",
+                         geometry=None):
     """Solve ``A x = rhs`` given Create-time factors.  rhs: (M,) or (M, N)."""
-    return _solve_cols(fac, None, rhs, backend)
+    return _solve_cols(fac, None, rhs, backend, geometry)
 
 
-def penta_solve_factored_rows(fac: PentaFactors, rhs, *, backend: str = "auto"):
+def penta_solve_factored_rows(fac: PentaFactors, rhs, *, backend: str = "auto",
+                              geometry=None):
     """Row-layout solve: ``rhs`` is (B, M) (or (M,)), each row one system."""
-    return _solve_rows(fac, None, rhs, backend)
+    return _solve_rows(fac, None, rhs, backend, geometry)
 
 
-def penta_solve_factored_mid(fac: PentaFactors, rhs, *, backend: str = "auto"):
+def penta_solve_factored_mid(fac: PentaFactors, rhs, *, backend: str = "auto",
+                             geometry=None):
     """Plane-layout solve: ``rhs`` is (P, M, N), every (p, :, n) line one
     system — the transpose-free y-sweep of a 3D ADI step."""
-    return _solve_mid(fac, None, rhs, backend)
+    return _solve_mid(fac, None, rhs, backend, geometry)
 
 
 def cyclic_penta_solve_factored(
-    fac: CyclicPentaFactors, rhs, *, backend: str = "auto"
+    fac: CyclicPentaFactors, rhs, *, backend: str = "auto", geometry=None
 ):
     """Cyclic column-layout solve: ``x = y - W V^T y``, ``y = A^{-1} rhs``."""
-    return _solve_cols(fac.band, fac.w, rhs, backend)
+    return _solve_cols(fac.band, fac.w, rhs, backend, geometry)
 
 
 def cyclic_penta_solve_factored_rows(
-    fac: CyclicPentaFactors, rhs, *, backend: str = "auto"
+    fac: CyclicPentaFactors, rhs, *, backend: str = "auto", geometry=None
 ):
     """Cyclic row-layout solve on a (B, M) rhs (each row one system): the
     transpose-free x-sweep of a periodic ADI step."""
-    return _solve_rows(fac.band, fac.w, rhs, backend)
+    return _solve_rows(fac.band, fac.w, rhs, backend, geometry)
 
 
 def cyclic_penta_solve_factored_mid(
-    fac: CyclicPentaFactors, rhs, *, backend: str = "auto"
+    fac: CyclicPentaFactors, rhs, *, backend: str = "auto", geometry=None
 ):
     """Cyclic plane-layout solve on a (P, M, N) rhs (each (p, :, n) line one
     cyclic system): the y-sweep of a periodic 3D ADI step."""
-    return _solve_mid(fac.band, fac.w, rhs, backend)
+    return _solve_mid(fac.band, fac.w, rhs, backend, geometry)

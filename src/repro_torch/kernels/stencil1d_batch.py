@@ -53,8 +53,9 @@ class Batch1DGeometry(NamedTuple):
 
 
 def stencil1d_batch_geometry(B: int, M: int, halos, lines_fast: bool,
-                             itemsize: int, smem_optin: int,
-                             n_sms: int) -> Batch1DGeometry:
+                             itemsize: int, smem_optin: int, n_sms: int,
+                             route: str | None = None,
+                             param: int | None = None) -> Batch1DGeometry:
     """Geometry of the batched-1D stencil on a ``(B, M)`` stack with halos
     ``(left, right)``; ``lines_fast``: the transposed layout (line stride
     1).
@@ -66,8 +67,25 @@ def stencil1d_batch_geometry(B: int, M: int, halos, lines_fast: bool,
     blocks (at least ``MIN_CHUNK`` elements each) for windows of at most
     ``MAX_MARCH``.  Else the direct route, one thread an element.  It
     depends on B, M, the halos, the layout and the itemsize alone, never on
-    a launch's line window."""
+    a launch's line window.
+
+    ``route='y'`` with ``param`` (a tuned plan's geometry,
+    :func:`stencil1d_batch_geometries`) forces the elements a chunk along
+    y; one the card cannot launch for this stack and layout raises
+    ``ValueError`` here, before any launch."""
     left, right = (int(h) for h in halos)
+    if route not in (None, "y"):
+        raise ValueError(f"a tuned stencil1d_batch geometry takes the 'y' "
+                         f"route, got {route!r}")
+    if route == "y":
+        if not lines_fast or param is None or param < 1 or (
+                left + right + 1 > MAX_MARCH):
+            raise ValueError(
+                f"the stencil1d_batch 'y' route takes a transposed stack, a "
+                f"window of at most {MAX_MARCH} and chunks of at least one "
+                f"element (param {param!r})")
+        return Batch1DGeometry("y", param, ceil_div(B, LINES_Y)
+                               * ceil_div(M, param), 0)
     if not lines_fast:
         sw_log2 = min(SEGMENT.bit_length() - 1, max(0, (M - 1).bit_length()))
         nl = SEGMENT >> sw_log2
@@ -83,6 +101,30 @@ def stencil1d_batch_geometry(B: int, M: int, halos, lines_fast: bool,
     n_u, n_v = (B, M) if lines_fast else (M, B)
     return Batch1DGeometry("direct", 0,
                            ceil_div(n_u, 32) * min(ceil_div(n_v, 8), 65535), 0)
+
+
+def stencil1d_batch_geometries(B: int, M: int, halos, itemsize: int,
+                               smem_optin: int, n_sms: int) -> list[dict]:
+    """The launch geometries a tuned batched-1D plan races besides its
+    default one: on the transposed layout of its ``(B, M)`` stack (the
+    lines of ``apply_along_y``), chunks of 2, 4 and 8 times the default's
+    elements, where they divide M.
+
+    A point's arithmetic must not change with the geometry.  Along y a
+    thread marches its line in an unrolled-by-4 loop, so a chunk that is a
+    multiple of 4 dividing M (the default's too) keeps every point in the
+    same unrolled copy of the loop body.  Along x none qualifies: a thread
+    computes four outputs, and a shorter segment or the direct route moves
+    a point to another of the four, which ptxas may contract differently
+    (results apart in the last bit on an H100), so the contiguous layout
+    has no candidate."""
+    geo = stencil1d_batch_geometry(B, M, halos, True, itemsize, smem_optin,
+                                   n_sms)
+    mc = geo.param
+    if geo.route != "y" or mc % 4 or M % mc:
+        return []
+    return [{"route": "y", "param": k * mc} for k in (2, 4, 8)
+            if k * mc <= M and M % (k * mc) == 0]
 
 
 def _like(data: torch.Tensor, lines_contiguous: bool) -> torch.Tensor:
@@ -115,6 +157,7 @@ def stencil1d_batch_cuda(
     lines: tuple[int, int] | None = None,
     out: torch.Tensor | None = None,
     taps: Taps | None = None,
+    geometry: dict | None = None,
 ) -> torch.Tensor:
     """Launch the batched-1D stencil kernel on a (B, M) CUDA stack that is
     contiguous or the transpose of a contiguous tensor; the result has the
@@ -123,7 +166,10 @@ def stencil1d_batch_cuda(
     ``lines=(b0, b1)`` computes only those lines into ``out`` (in data's
     layout), which is then required; the streamed apply issues one such
     launch per line chunk.  ``taps`` are the plan's non-zero taps, as for
-    :func:`repro_torch.kernels.stencil2d.stencil2d_cuda`."""
+    :func:`repro_torch.kernels.stencil2d.stencil2d_cuda`.  ``geometry``
+    (``{'route': 'y', 'param': ...}``, a tuned plan's) overrides the
+    computed geometry of a transposed stack, the layout it was tuned on; a
+    contiguous stack keeps its computed geometry."""
     if bc not in ("periodic", "np"):
         raise ValueError(f"bc must be 'periodic' or 'np', got {bc!r}")
     if min(left, right) < 0:
@@ -152,9 +198,12 @@ def stencil1d_batch_cuda(
     if fn_id == _build.USER_POINT_FN:
         taps = None
     smem, sms = _build.device_info(data.device)
-    geo = stencil1d_batch_geometry(B, M, (left, right),
-                                   line_stride == 1 and elem_stride != 1,
-                                   data.element_size(), smem, sms)
+    lines_fast = line_stride == 1 and elem_stride != 1
+    over = (geometry or {}) if lines_fast else {}
+    geo = stencil1d_batch_geometry(B, M, (left, right), lines_fast,
+                                   data.element_size(), smem, sms,
+                                   route=over.get("route"),
+                                   param=over.get("param"))
     _build.launch(
         "stencil1d_batch", data.device, _build.dtype_code(data), fn_id,
         int(bc == "periodic"), _build.ptr(data), _build.ptr(coeffs),

@@ -49,7 +49,8 @@ class Stencil2DGeometry(NamedTuple):
 
 
 def stencil2d_geometry(shape, halos, itemsize: int, smem_optin: int,
-                       n_sms: int, batch: int = 1) -> Stencil2DGeometry:
+                       n_sms: int, batch: int = 1,
+                       route: str | None = None) -> Stencil2DGeometry:
     """Geometry of the 2D stencil on an ``(ny, nx)`` field, or on a stack of
     ``batch`` of them, with halos ``(left, right, top, bottom)``.
 
@@ -61,14 +62,38 @@ def stencil2d_geometry(shape, halos, itemsize: int, smem_optin: int,
     a stack run the same code as the whole single field; a stack's grid is
     ``batch`` times a field's (the member index above the tiles in grid.x).
     ``n_sms`` is unused: one tile a block fills the card at any size the
-    tile route takes."""
+    tile route takes.
+
+    ``route`` (a tuned plan's geometry, :func:`stencil2d_geometries`)
+    forces ``'tile'`` or ``'direct'``: both routes sum a point's taps by
+    the same template code in the same order, so the choice changes no
+    result.  A tile that does not fit raises ``ValueError`` here, before
+    any launch."""
     ny, nx = shape
     left, right, top, bottom = (int(h) for h in halos)
     nbx = ceil_div(nx, TILE_X)
     smem = (TILE_Y + top + bottom) * (TILE_X + left + right) * itemsize
-    if smem > smem_optin:
+    if route not in (None, "tile", "direct"):
+        raise ValueError(f"stencil2d route must be 'tile' or 'direct', got "
+                         f"{route!r}")
+    if route == "tile" and smem > smem_optin:
+        raise ValueError(
+            f"the stencil2d tile route needs {smem} bytes of shared memory "
+            f"a block for halos {(left, right, top, bottom)}, more than the "
+            f"card's {smem_optin}")
+    if route == "direct" or smem > smem_optin:
         return Stencil2DGeometry("direct", batch * nbx * ceil_div(ny, 8), 0)
     return Stencil2DGeometry("tile", batch * nbx * ceil_div(ny, TILE_Y), smem)
+
+
+def stencil2d_geometries(shape, halos, itemsize: int, smem_optin: int,
+                         n_sms: int) -> list[dict]:
+    """The launch geometries a tuned 2D plan races besides its default one
+    (:func:`stencil2d_geometry`): the direct route where the default is
+    the tile route (no other geometry exists where the tile does not
+    fit)."""
+    geo = stencil2d_geometry(shape, halos, itemsize, smem_optin, n_sms)
+    return [{"route": "direct"}] if geo.route == "tile" else []
 
 
 def cuda_point_fn(source: str) -> Callable:
@@ -148,6 +173,7 @@ def stencil2d_cuda(
     rows: tuple[int, int] | None = None,
     out: torch.Tensor | None = None,
     taps: Taps | None = None,
+    geometry: dict | None = None,
 ) -> torch.Tensor:
     """Launch the 2D stencil kernel on a contiguous (ny, nx) CUDA field, or
     on a contiguous stack (B, ny, nx) of them in one launch (each member as
@@ -160,7 +186,8 @@ def stencil2d_cuda(
     plan's non-zero taps (``taps.nonzero_taps`` at Create), which a
     weighted or cube launch sums; without them it sums every window, its
     coefficient read from ``coeffs`` on the card.  A user's point function
-    takes every window."""
+    takes every window.  ``geometry`` (``{'route': ...}``, a tuned plan's)
+    overrides the computed route (:func:`stencil2d_geometry`)."""
     if bc not in ("periodic", "np"):
         raise ValueError(f"bc must be 'periodic' or 'np', got {bc!r}")
     if min(left, right, top, bottom) < 0:
@@ -188,7 +215,8 @@ def stencil2d_cuda(
     out = _build.out_like(out, data)
     smem, sms = _build.device_info(data.device)
     geo = stencil2d_geometry((ny, nx), (left, right, top, bottom),
-                             data.element_size(), smem, sms, nb)
+                             data.element_size(), smem, sms, nb,
+                             route=(geometry or {}).get("route"))
     _build.launch(
         "stencil2d", data.device, _build.dtype_code(data), fn_id,
         int(bc == "periodic"), _build.ptr(data), _build.ptr(coeffs),

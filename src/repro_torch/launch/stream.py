@@ -31,10 +31,12 @@ Here:
   window (slabs gathered with the periodic wrap), with no streams; they
   equal the monolithic plain versions bit for bit too.
 
-Not ported yet, and refused where a caller could reach them: Create-time
-tuning of the geometry (ROADMAP.md, Open items: Tuning) and the
-multi-device path (:func:`stream_stencil_apply_dist`; Open items:
-Distribution).
+The fused RHS + x-sweep's geometry (streams x chunk rows) is tuned at
+Create by ``CHConfig.tune``
+(:meth:`repro_torch.core.cahn_hilliard.CahnHilliardADI._tune_stream_geometry`).
+Not ported yet, and refused where a caller could reach it: the
+multi-device path (:func:`stream_stencil_apply_dist`; ROADMAP.md, Open
+items: Distribution).
 """
 
 from __future__ import annotations

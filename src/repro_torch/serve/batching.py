@@ -126,7 +126,7 @@ def plan_spec(req: SolveRequest, *, backend: str = "auto") -> tuple[str, str, di
 def create_plan(req: SolveRequest, *, backend: str = "auto", tune: str = "off",
                 device="cuda"):
     """Create the plan for one request class on ``device`` (the LRU-miss
-    factory)."""
+    factory); ``tune`` passes through to Create."""
     _, _, kwargs = plan_spec(req, backend=backend)
     shape = kwargs.pop("shape")
     return _api.create(req.operator, shape, tune=tune, device=device, **kwargs)

@@ -129,7 +129,7 @@ def main(argv=None) -> int:
                     help="kernel backend request: auto|cuda|torch")
     ap.add_argument("--tune", default="off",
                     help="Create-time autotuning for missed plans: "
-                         "off (the only value ported)")
+                         "off|cached|force (default off)")
     ap.add_argument("--device", default="cuda",
                     help="where plans and fields live: cuda (default) | cpu")
     ap.add_argument("--seed", type=int, default=0)

@@ -92,7 +92,7 @@ from repro_torch.serve.errors import (
 from repro_torch.serve.lru import PlanLRU
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.request import SolveRequest, SolveResult, validate_request
-from repro_torch.util import refuse_unported, resolve_device
+from repro_torch.util import resolve_device
 
 _SENTINEL = None  # queue poison pill; FIFO order guarantees full drain first
 
@@ -107,8 +107,9 @@ class ServeEngine:
     ingestion queue; ``batch_window_s`` optionally lingers after the
     first request of a drain to let a sparse stream accumulate into
     fuller batches; ``backend`` (``'auto'|'cuda'|'torch'``) and ``tune``
-    pass through to the Create of every plan the LRU misses on, on
-    ``device`` (the card unless the caller asks for the CPU).
+    (``'off'|'cached'|'force'``, :mod:`repro_torch.tune`) pass through to
+    the Create of every plan the LRU misses on, on ``device`` (the card
+    unless the caller asks for the CPU).
 
     Resilience knobs: ``backpressure`` picks what a full queue does to
     submitters (``'block'`` or ``'reject'``); ``max_retries`` bounds the
@@ -133,7 +134,9 @@ class ServeEngine:
         degrade: bool = True,
         device="cuda",
     ):
-        refuse_unported(tune=tune)
+        from repro_torch.tune import check_mode
+
+        check_mode(tune)
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if backpressure not in _BACKPRESSURE:

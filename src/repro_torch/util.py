@@ -89,21 +89,6 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def refuse_unported(*, tune="off", lint=None) -> None:
-    """Raise for a reference knob this port does not have yet, naming the
-    ROADMAP.md item that ports it by its title (never silently ignored)."""
-    if tune != "off":
-        raise NotImplementedError(
-            f"tune={tune!r}: Create-time autotuning is not ported yet "
-            "(ROADMAP.md, Open items: Tuning); only tune='off' is accepted"
-        )
-    if lint not in (None, "off"):
-        raise NotImplementedError(
-            f"lint={lint!r}: stencil-lint is not ported yet (ROADMAP.md, "
-            "Open items: Analysis)"
-        )
-
-
 def tolerance_for(dtype, scale: float = 1.0) -> dict:
     """allclose tolerances per dtype for kernel <-> plain-version checks.
 

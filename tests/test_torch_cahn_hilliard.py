@@ -14,6 +14,7 @@ import os
 import re
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -240,33 +241,47 @@ def test_facade_validation():
         rt.create("laplacian", (8, 8), mode="z", device="cpu")
 
 
-@pytest.mark.parametrize("call, item", [
-    # refusals name their ROADMAP.md item by its title
+@pytest.mark.parametrize("call, kind", [
+    # the knobs this test once saw refused, now ported: each runs on the CPU
     (lambda: rt.create("laplacian", (8, 8), tune="cached", device="cpu"),
-     "Open items: Tuning"),
+     rt.Stencil2D),
     (lambda: rt.create("laplacian", (8, 8), mode="batch", streams=2,
-                       tune="cached", device="cpu"), "Open items: Tuning"),
+                       tune="cached", device="cpu"), rt.StencilBatch1D),
     (lambda: rt.create("laplacian", (8, 8), lint="warn", device="cpu"),
-     "Open items: Analysis"),
+     rt.Stencil2D),
     (lambda: TCH.CahnHilliardADI(TCH.CHConfig(nx=8, ny=8, rhs_mode="batch1d",
                                               tune="cached", device="cpu")),
-     "Open items: Tuning"),
+     TCH.CahnHilliardADI),
     (lambda: TCH.CahnHilliardADI(TCH.CHConfig(nx=8, ny=8, streams=2,
                                               tune="cached", device="cpu")),
-     "Open items: Tuning"),
+     TCH.CahnHilliardADI),
     (lambda: TCH.CahnHilliardADI(TCH.CHConfig(nx=8, ny=8, tune="force",
                                               device="cpu")),
-     "Open items: Tuning"),
+     TCH.CahnHilliardADI),
 ], ids=["tune", "batch", "lint", "batch1d", "ch-streams", "ch-tune"])
-def test_unported_knobs_are_refused(call, item):
-    with pytest.raises(NotImplementedError, match=item):
-        call()
+def test_unported_knobs_are_refused(call, kind, tmp_path, monkeypatch):
+    """``tune=`` and ``lint=`` were refused here until the port had
+    ``repro_torch.tune`` and ``repro_torch.analysis``; they now run, on a
+    cache of their own, with no lint finding on these plans, and an
+    invalid value is still refused (``ValueError``, as in the
+    reference)."""
+    from repro_torch import tune as T
+
+    monkeypatch.setenv(T.ENV_VAR, str(tmp_path / "tune"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert isinstance(call(), kind)
+    with pytest.raises(ValueError, match="tune must be one of"):
+        rt.create("laplacian", (8, 8), tune="always", device="cpu")
+    with pytest.raises(ValueError, match="lint must be one of"):
+        rt.create("laplacian", (8, 8), lint="loud", device="cpu")
 
 
 def test_refusals_name_roadmap_items_that_exist():
-    """Every ROADMAP.md item a module of the port names in a refusal
-    ("Open items: <title>") is a title of ROADMAP.md, so renumbering the
-    items cannot break a refusal's pointer."""
+    """Every ROADMAP.md item a module of the port names in a refusal or a
+    docstring ("Open items: <title>") is a title of ROADMAP.md, so
+    renumbering the items cannot break a pointer; the refusals still in
+    the port name Distribution and Rank-3 serve buckets."""
     root = Path(__file__).resolve().parents[1]
     titles = set(re.findall(r"^\s*\d+\. \*\*(.+?)\.?\*\*",
                             (root / "ROADMAP.md").read_text(), re.M))
@@ -274,7 +289,7 @@ def test_refusals_name_roadmap_items_that_exist():
     for f in (root / "src" / "repro_torch").rglob("*.py"):
         text = re.sub(r'"\s*\n\s*f?"', "", f.read_text())  # join literals
         named |= set(re.findall(r"Open items: ([^)\n]+)\)", text))
-    assert {"Tuning", "Analysis", "Distribution"} <= named
+    assert {"Distribution", "Rank-3 serve buckets"} <= named
     assert named <= titles, named - titles
 
 
@@ -319,7 +334,15 @@ def test_port_never_imports_jax_or_repro():
             "src/repro_torch/runtime/resilient.py",
             "src/repro_torch/checkpoint/checkpointer.py",
             "src/repro_torch/serve/engine.py",
-            "src/repro_torch/serve/cli.py"} <= rel
+            "src/repro_torch/serve/cli.py",
+            "src/repro_torch/analysis/findings.py",
+            "src/repro_torch/analysis/stencil_lint.py",
+            "src/repro_torch/analysis/concurrency.py",
+            "src/repro_torch/analysis/cost.py",
+            "src/repro_torch/analysis/rules.py",
+            "src/repro_torch/tune/cache.py",
+            "src/repro_torch/tune/autotuner.py",
+            "src/repro_torch/tune/prior.py"} <= rel
     bad = [(p.name, m) for p in sources for m in _imports(p) if _FORBIDDEN.match(m)]
     assert not bad, bad
     code = (
@@ -332,7 +355,12 @@ def test_port_never_imports_jax_or_repro():
         "        'repro_torch.core.weno', 'repro_torch.kernels.weno',\n"
         "        'repro_torch.launch.stream', 'repro_torch.kernels.spectral',\n"
         "        'repro_torch.runtime.chaos', 'repro_torch.runtime.resilient',\n"
-        "        'repro_torch.checkpoint.checkpointer', 'repro_torch.serve.engine'}\n"
+        "        'repro_torch.checkpoint.checkpointer', 'repro_torch.serve.engine',\n"
+        "        'repro_torch.analysis', 'repro_torch.analysis.stencil_lint',\n"
+        "        'repro_torch.analysis.concurrency', 'repro_torch.analysis.cost',\n"
+        "        'repro_torch.analysis.rules', 'repro_torch.tune',\n"
+        "        'repro_torch.tune.cache', 'repro_torch.tune.autotuner',\n"
+        "        'repro_torch.tune.prior'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print('clean')\n"
     )

@@ -2,8 +2,8 @@
 fault plans, crash-consistency sweeps over the checkpoint commit, the
 ``'kernel.dispatch'`` site, and parity with the reference's harness.
 
-Mirrors ``tests/test_chaos.py``; the tune-cache sweeps wait for the
-Tuning item (ROADMAP.md).  The parity tests drive the reference's
+Mirrors ``tests/test_chaos.py``, the tune-cache sweeps included
+(``repro_torch.tune.cache``).  The parity tests drive the reference's
 ``repro.runtime.chaos`` and the port's with the same seed, schedule and
 site-hit sequence and require the same log, with the one site renamed
 (``'pallas.dispatch'`` -> ``'kernel.dispatch'``).
@@ -25,6 +25,7 @@ from repro_torch.checkpoint import (
 )
 from repro_torch.kernels import _build
 from repro_torch.runtime import chaos
+from repro_torch.tune import TuneCache
 
 
 class TestFaultPlan:
@@ -252,6 +253,38 @@ class TestCheckpointCrashConsistency:
         ckpt.save_async({"w": torch.zeros(2)}, 2)
         ckpt.close()
         assert latest_step(str(tmp_path)) == 2
+
+
+class TestTuneCacheCrashConsistency:
+    """A kill at either point of the tune cache's atomic write leaves the
+    old entry; an injected I/O error degrades to the old entry (a miss at
+    worst), never a failed Create."""
+
+    @pytest.mark.parametrize("point", ["write", "replace"])
+    def test_kill_at_point_readers_see_old_entry(self, tmp_path, point):
+        cache = TuneCache(root=tmp_path)
+        cache.put("k", {"cfg": 1})
+        assert cache.get("k") == {"cfg": 1}
+        plan = chaos.FaultPlan().add(
+            "tune.cache_write", "crash",
+            rate=1.0, match={"point": point}, max_fires=1,
+        )
+        with chaos.injected(plan):
+            with pytest.raises(chaos.InjectedCrash):
+                cache.put("k", {"cfg": 2})
+        assert cache.get("k") == {"cfg": 1}  # old entry, never torn
+        assert [f[:2] for f in plan.fired()] == [("tune.cache_write", "crash")]
+        cache.put("k", {"cfg": 2})  # recovery
+        assert cache.get("k") == {"cfg": 2}
+
+    def test_io_error_degrades_to_miss_not_failure(self, tmp_path):
+        cache = TuneCache(root=tmp_path)
+        cache.put("k", {"cfg": 1})
+        plan = chaos.FaultPlan().add("tune.cache_write", "io_error", at=1)
+        with chaos.injected(plan):
+            cache.put("k", {"cfg": 2})  # swallowed: degrade, don't break
+        assert cache.get("k") == {"cfg": 1}
+        assert list(tmp_path.glob("*.tmp")) == []
 
 
 class TestKernelDispatchInjection:

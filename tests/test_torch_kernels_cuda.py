@@ -822,3 +822,254 @@ def test_served_injected_kernel_failure_degrades(cuda):
     _assert_close(bad.out, kernel, torch.float64, 10)
     assert torch.equal(ok.out, compute(create("biharmonic", (48, 48),
                                               device=cuda), g).cpu())
+
+
+# ---------------------------------------------------------------------------
+# Create-time tuning on the card: every launch geometry a tuned plan or
+# operator may race computes what the default geometry computes, bit for
+# bit, at the path's shapes; tuned fp64 plans and operators equal the
+# untuned ones unless fft wins; a second cached Create measures nothing
+# ---------------------------------------------------------------------------
+
+
+def _cube_lap():
+    return np.array([[0.0, 1, 0], [1, -4, 1], [0, 1, 0]])
+
+
+# name -> (create args, create kwargs, shape)
+_PLAN_CASES = {
+    "2d biharmonic 1024^2": (("biharmonic", (1024, 1024)), {}, (1024, 1024)),
+    "2d 5x3 np 1021x1019": ((np.arange(15.0).reshape(5, 3) - 7.0, (1021, 1019)),
+                            dict(bc="np"), (1021, 1019)),
+    "2d cube 1024^2": ((cube_laplacian_point_fn, (1024, 1024)),
+                       dict(coeffs=_cube_lap().ravel(),
+                            extents=dict(left=1, right=1, top=1, bottom=1)),
+                       (1024, 1024)),
+    "2d user 1024^2": ((mixed_point_fn, (1024, 1024)),
+                       dict(coeffs=np.array([0.5]),
+                            extents=dict(left=1, right=1)), (1024, 1024)),
+    "2d biharmonic float32": (("biharmonic", (1024, 1024)),
+                              dict(dtype="float32"), (1024, 1024)),
+    "batch D4 1024^2": (("biharmonic", (1024, 1024)), dict(mode="batch"),
+                        (1024, 1024)),
+    "batch cube 1024^2": ((cube_laplacian_point_fn, (1024, 1024)),
+                          dict(mode="batch", coeffs=np.array([1.0, -2, 1]),
+                               extents=dict(left=1, right=1)), (1024, 1024)),
+    "batch D2 np (4096, 512)": (("laplacian", (4096, 512)),
+                                dict(mode="batch", bc="np"), (4096, 512)),
+    "3d laplacian 256^3": (("laplacian", (256, 256, 256)), {}, (256,) * 3),
+    "3d laplacian np 61x67x71": (("laplacian", (61, 67, 71)), dict(bc="np"),
+                                 (61, 67, 71)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_PLAN_CASES))
+def test_every_plan_geometry_is_bit_for_bit_the_default(cuda, case):
+    import dataclasses
+
+    args, kw, shape = _PLAN_CASES[case]
+    plan = create(*args, device=cuda, **kw)
+    dtype = plan.coeffs.dtype
+
+    def field(seed):  # in the layout the plan is tuned on
+        if kw.get("mode") == "batch":  # the lines of apply_along_y
+            return _field(shape[::-1], dtype, cuda, seed).T
+        return _field(shape, dtype, cuda, seed)
+
+    data = field(31)
+    init = field(32) if plan.bc == "np" else None
+    want = plan.apply(data, init)
+    geos = plan._geometry_candidates(shape)
+    assert geos, f"{case}: no geometry to race"
+    for g in geos:
+        other = dataclasses.replace(plan, geometry=g)
+        assert other.grid_problems(shape) == []
+        before = dict(_build.LAUNCHES)
+        got = other.apply(data, init)
+        assert _build.LAUNCHES[plan.kernel_name] == \
+            before[plan.kernel_name] + 1
+        assert torch.equal(got, want), (case, g)
+
+
+# (layout, shape) of each sweep at the path's shapes, cyclic and not
+_SWEEP_CASES = {
+    "cols 1024^2": ("cols", (1024, 1024)),
+    "cols 3D z (256, 65536)": ("cols", (256, 256 * 256)),
+    "rows 1024^2": ("rows", (1024, 1024)),
+    "rows 3D x (65536, 256)": ("rows", (256 * 256, 256)),
+    "rows 1021x1019": ("rows", (1021, 1019)),
+    "mid 256^3": ("mid", (256, 256, 256)),
+    "mid 61x67x71": ("mid", (61, 67, 71)),
+}
+
+
+@pytest.mark.parametrize("cyclic", [True, False])
+@pytest.mark.parametrize("case", sorted(_SWEEP_CASES))
+def test_every_sweep_geometry_is_bit_for_bit_the_default(cuda, case, cyclic):
+    layout, shape = _SWEEP_CASES[case]
+    M = {"cols": shape[0], "rows": shape[-1], "mid": shape[1]}[layout]
+    bands = P.hyperdiffusion_diagonals(M, 0.3, torch.float64)
+    fac = (P.cyclic_penta_factor if cyclic else P.penta_factor)(*bands,
+                                                                device=cuda)
+    band, w = (fac.band, fac.w) if cyclic else (fac, None)
+    rhs = _field(shape, torch.float64, cuda, 33)
+    smem, sms = _build.device_info(cuda)
+    if layout == "cols":
+        launch, geos = P.penta_cols_cuda, P.cols_geometries(M, 8, smem)
+    elif layout == "rows":
+        launch = P.penta_rows_cuda
+        geos = P.rows_geometries(M, 8, shape[0], smem, sms, cyclic=cyclic)
+    else:
+        launch, geos = P.penta_mid_cuda, P.mid_geometries(*shape, 8, smem)
+    want = launch(band, rhs, w)
+    assert geos, f"{case}: no geometry to race"
+    for g in geos:
+        assert torch.equal(launch(band, rhs, w, geometry=g), want), (case, g)
+
+
+def test_tuned_plans_and_operators_bit_for_bit_untuned(cuda, tmp_path):
+    """Tuned fp64 plans and operators (``tune='force'``, fft in the race
+    under 'auto') equal the untuned ones bit for bit whenever the winner is
+    not fft, and within the fft scale 50 when it is; a second
+    ``tune='cached'`` Create measures nothing and gets the same winners."""
+    from repro_torch import tune as T
+
+    cases = [
+        (("biharmonic", (1024, 1024)), {}),
+        (("laplacian", (1024, 1024)), dict(mode="batch")),
+        (("laplacian", (128, 128, 128)), {}),
+        (("hyperdiffusion", (1024, 1024)), dict(mode="adi", alpha=0.5)),
+        (("diffusion", (128, 128, 128)), dict(mode="adi", alpha=1.7)),
+    ]
+    for args, kw in cases:
+        shape = args[1]
+        x = _field(shape, torch.float64, cuda, 34)
+        untuned = create(*args, device=cuda, **kw)
+        T.reset_stats()
+        tuned = create(*args, device=cuda, tune="force",
+                       tune_cache=T.TuneCache(tmp_path), **kw)
+        assert T.stats.measure_runs > 0, args
+        assert len(T.stats.races) >= 1
+        cfgs = ([tuned.x_cfg, tuned.y_cfg] + (
+            [tuned.z_cfg] if len(shape) == 3 else [])
+                if kw.get("mode") == "adi" else [dict(backend=tuned.backend)])
+        fft = any(c["backend"] == "fft" for c in cfgs)
+        got, want = compute(tuned, x), compute(untuned, x)
+        if fft:
+            _assert_close(got, want, torch.float64, 50)
+        else:
+            assert torch.equal(got, want), (args, cfgs)
+        T.reset_stats()
+        again = create(*args, device=cuda, tune="cached",
+                       tune_cache=T.TuneCache(tmp_path), **kw)
+        assert T.stats.measure_runs == 0 and T.stats.cache_hits >= 1, args
+        if kw.get("mode") == "adi":
+            assert (again.x_cfg, again.y_cfg) == (tuned.x_cfg, tuned.y_cfg)
+        else:
+            assert (again.backend, again.geometry) == (tuned.backend,
+                                                       tuned.geometry)
+
+
+def test_tuned_streamed_solver_bit_for_bit_untuned(cuda, tmp_path,
+                                                   monkeypatch):
+    """The streamed fused step's (streams x chunk_rows) race on the card:
+    the tuned solver's steps equal the untuned streamed solver's."""
+    from repro_torch import tune as T
+    from repro_torch.core.cahn_hilliard import CahnHilliardADI, CHConfig, ch_evolve
+
+    monkeypatch.setenv(T.ENV_VAR, str(tmp_path))
+    n = 256
+    kw = dict(nx=n, ny=n, streams=4, max_tile_bytes=n * n * 8 // 8,
+              backend="cuda")
+    s0 = CahnHilliardADI(CHConfig(**kw))
+    T.reset_stats()
+    s1 = CahnHilliardADI(CHConfig(**kw, tune="force"))
+    assert any(r["kernel"] == "ch_stream_geometry" for r in T.stats.races)
+    # a smooth start field: grid-scale noise overflows the eq. 3 bootstrap
+    # at this grid (ROADMAP.md, Faults)
+    x = torch.arange(n, device=cuda, dtype=torch.float64) * (2 * np.pi / n)
+    c0 = 0.1 * torch.sin(x)[:, None] * torch.cos(2 * x)[None, :] + 0.05 * \
+        torch.cos(3 * x[:, None] + x[None, :])
+    a0, _ = ch_evolve(s0, c0, 10)
+    a1, _ = ch_evolve(s1, c0, 10)
+    assert bool(torch.isfinite(a0).all())
+    assert torch.equal(a0, a1), (s1._streams_eff, s1._chunk_rows_eff)
+
+
+@pytest.mark.parametrize("family", ["2d", "batch", "3d", "adi", "adi3d"])
+def test_infeasible_tuned_geometry_is_reported(cuda, family):
+    """A geometry the card cannot launch for the shape, on each family, is
+    reported by ``grid_problems`` on the host against the card's own
+    limits, before any launch."""
+    import dataclasses
+
+    if family == "2d":
+        # halos of 450 + 450: a 32 x 932 float64 tile, 238592 bytes
+        plan = create(np.ones((1, 901)), (8, 1024), device=cuda)
+        bad = dataclasses.replace(plan, geometry={"route": "tile"})
+        shape = (8, 1024)
+    elif family == "batch":
+        plan = create(np.ones(11), (4, 512), mode="batch", device=cuda)
+        # a window of 11 is wider than the 'y' route's register march
+        bad = dataclasses.replace(plan, geometry={"route": "y", "param": 16})
+        shape = (4, 512)
+    elif family == "3d":
+        plan = create("laplacian", (8, 8, 8), device=cuda)
+        bad = dataclasses.replace(plan, geometry={"route": "tile", "zc": 0})
+        shape = (8, 8, 8)
+    elif family == "adi":
+        plan = create("hyperdiffusion", (32, 40000), mode="adi", alpha=0.2,
+                      device=cuda)
+        bad = dataclasses.replace(plan, x_cfg={
+            "backend": "auto", "geometry": {"rows": 8, "depth": 2}})
+        shape = (32, 40000)
+    else:
+        plan = create("diffusion", (8, 12, 16), mode="adi", alpha=0.2,
+                      device=cuda)
+        bad = dataclasses.replace(plan, y_cfg={
+            "backend": "auto", "geometry": {"cols": 3}})
+        shape = (8, 12, 16)
+    assert plan.grid_problems(shape) == []
+    problems = bad.grid_problems(shape)
+    assert len(problems) == 1 and "tuned geometry" in problems[0]
+    assert "off the card" not in problems[0]
+
+
+def test_plan_rule_flags_a_geometry_over_shared_memory(cuda):
+    """The reference's infeasible ``tile`` on the card: a tile route whose
+    halo overflows shared memory is flagged by the plan rule at the lint
+    knob's severity; the direct route at the same halo is not."""
+    import dataclasses
+
+    from repro_torch import analysis as an
+
+    plan = create(np.ones((1, 901)), (8, 1024), device=cuda, lint="off")
+    bad = dataclasses.replace(plan, geometry={"route": "tile"})
+    findings = an.check_plan(bad, (8, 1024))
+    assert [f.rule for f in findings] == ["launch_geometry_feasible"]
+    assert "shared memory" in findings[0].message
+    with pytest.raises(an.LintError):
+        an.surface(findings, "error")
+    assert an.check_plan(plan, (8, 1024)) == []
+    ok = dataclasses.replace(plan, geometry={"route": "direct"})
+    assert an.check_plan(ok, (8, 1024)) == []
+
+
+def test_streamed_objects_race_no_geometry(cuda, tmp_path):
+    """A plan or operator whose Compute streams at the Create shape races
+    no launch geometry (the streamed executor ignores one): its races hold
+    the default geometry and fft alone."""
+    from repro_torch import tune as T
+
+    knobs = dict(streams=4, max_tile_bytes=1_100_000, tune="force",
+                 tune_cache=T.TuneCache(tmp_path), device=cuda)
+    T.reset_stats()
+    plan = create("biharmonic", (1024, 1024), **knobs)
+    op = create("hyperdiffusion", (1024, 1024), mode="adi", alpha=0.5,
+                **knobs)
+    for r in T.stats.races:
+        for m in r["measured"]:
+            assert not m["config"].get("geometry"), r
+            assert set(m["config"]) <= {"backend", "geometry"}, r
+    assert plan.geometry is None
+    assert op.x_cfg["geometry"] is None and op.y_cfg["geometry"] is None

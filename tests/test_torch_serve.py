@@ -390,25 +390,30 @@ class TestServeEngine:
             "serve_test_band_only", diagonals=diffusion_diagonals,
             overwrite=True,
         )
-        with ServeEngine(device="cpu") as engine:
-            ones = np.ones((8, 8))
-            for bad in [
-                SolveRequest(field=ones, operator="no_such_op"),
-                SolveRequest(field=ones, operator="laplacian", mode="adi"),
-                SolveRequest(field=ones, operator="laplacian", alpha=0.1),
-                SolveRequest(field=np.ones((2, 2, 2, 2)), operator="laplacian"),
-                SolveRequest(field=ones, operator="laplacian", steps=0),
-                SolveRequest(field=ones, operator="laplacian", bc="reflecting"),
-                SolveRequest(field=np.ones(8), operator="laplacian",
-                             mode="adi", alpha=0.1),
-                SolveRequest(field=ones, operator="serve_test_band_only"),
-                SolveRequest(field=np.ones((8, 8), np.int64), operator="laplacian"),
-                SolveRequest(field=torch.ones((8, 8), dtype=torch.int32),
-                             operator="laplacian"),
-            ]:
-                with pytest.raises(ValueError):
-                    engine.submit(bad)
-            assert engine.stats()["submitted"] == 0  # none reached the queue
+        try:
+            with ServeEngine(device="cpu") as engine:
+                ones = np.ones((8, 8))
+                for bad in [
+                    SolveRequest(field=ones, operator="no_such_op"),
+                    SolveRequest(field=ones, operator="laplacian", mode="adi"),
+                    SolveRequest(field=ones, operator="laplacian", alpha=0.1),
+                    SolveRequest(field=np.ones((2, 2, 2, 2)), operator="laplacian"),
+                    SolveRequest(field=ones, operator="laplacian", steps=0),
+                    SolveRequest(field=ones, operator="laplacian", bc="reflecting"),
+                    SolveRequest(field=np.ones(8), operator="laplacian",
+                                 mode="adi", alpha=0.1),
+                    SolveRequest(field=ones, operator="serve_test_band_only"),
+                    SolveRequest(field=np.ones((8, 8), np.int64), operator="laplacian"),
+                    SolveRequest(field=torch.ones((8, 8), dtype=torch.int32),
+                                 operator="laplacian"),
+                ]:
+                    with pytest.raises(ValueError):
+                        engine.submit(bad)
+                assert engine.stats()["submitted"] == 0  # none reached the queue
+        finally:  # the registry is process-wide
+            from repro_torch.api import _REGISTRY
+
+            _REGISTRY.pop("serve_test_band_only", None)
 
     def test_bucket_failure_isolated(self, monkeypatch):
         req = _mixed_requests(1)[0]
@@ -453,9 +458,30 @@ class TestServeEngine:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ServeEngine()
 
-    def test_unported_tune_refused(self):
-        with pytest.raises(NotImplementedError, match="Tuning"):
-            ServeEngine(tune="cached", device="cpu")
+    def test_unported_tune_refused(self, tmp_path, monkeypatch):
+        """``ServeEngine(tune=...)`` was refused until the port had
+        ``repro_torch.tune``: now it passes through to the Create of every
+        plan the LRU misses on (a second engine's Creates hit the cache),
+        and an invalid value is refused as in the reference."""
+        from repro_torch import tune as T
+
+        monkeypatch.setenv(T.ENV_VAR, str(tmp_path))
+        reqs = [SolveRequest(field=np.ones((16, 16)), operator="biharmonic"),
+                SolveRequest(field=np.ones((16, 16)), operator="hyperdiffusion",
+                             mode="adi", alpha=0.1)]
+        T.reset_stats()
+        with ServeEngine(tune="cached", device="cpu") as engine:
+            assert engine.tune == "cached"
+            first = engine.solve_many(reqs)
+        assert T.stats.cache_misses > 0
+        T.reset_stats()
+        with ServeEngine(tune="cached", device="cpu") as engine:
+            again = engine.solve_many(reqs)
+        assert T.stats.measure_runs == 0 and T.stats.cache_hits > 0
+        for a, b in zip(first, again, strict=True):
+            np.testing.assert_array_equal(np.asarray(a.out), np.asarray(b.out))
+        with pytest.raises(ValueError, match="tune must be one of"):
+            ServeEngine(tune="sometimes", device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -503,6 +529,19 @@ class TestServeCLI:
         assert payload["requests"] == 8 and payload["verified"] is True
         assert payload["stats"]["plan_lru"]["capacity"] == 8
         assert payload["device"] == "cpu"
+
+    def test_main_tune_passes_through(self, tmp_path, monkeypatch, capsys):
+        """``--tune cached`` tunes every plan the engine creates (measured
+        into the cache); ``--no-verify``, since a tuned plan may take fft
+        where the sequential reference does not."""
+        from repro_torch import tune as T
+
+        monkeypatch.setenv(T.ENV_VAR, str(tmp_path))
+        T.reset_stats()
+        rc = main(["--requests", "8", "--device", "cpu", "--tune", "cached",
+                   "--no-verify"])
+        assert rc == 0 and "served 8 requests" in capsys.readouterr().out
+        assert T.stats.cache_misses > 0 and list(tmp_path.glob("*.json"))
 
     def test_main_reports_a_mismatch(self, monkeypatch, capsys):
         import repro_torch.serve.cli as cli

@@ -17,6 +17,8 @@ unless ``convert`` carries the reference's across).  The card-only
 checks the kernels' chunked launches.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -623,20 +625,49 @@ class TestStreamed3D:
             TS.stream_penta_solve_mid(fac, data[0], cyclic=False)
 
 
-# -- what stays refused ------------------------------------------------------
+# -- what stays refused, and the tuning that no longer is --------------------
 
 
-@pytest.mark.parametrize("call, match", [
+@pytest.mark.parametrize("call, want", [
     (lambda: rt.create("laplacian", (8, 8), streams=2, tune="cached",
-                       device="cpu"), "Open items: Tuning"),
+                       device="cpu"), rt.Stencil2D),
     (lambda: rt.create("hyperdiffusion", (8, 8), mode="adi", alpha=0.1,
                        max_tile_bytes=64, tune="force", device="cpu"),
-     "Open items: Tuning"),
+     rt.ADIOperator),
     (lambda: TCH.CahnHilliardADI(TCH.CHConfig(nx=8, ny=8, streams=2,
                                               tune="cached", device="cpu")),
-     "Open items: Tuning"),
+     TCH.CahnHilliardADI),
     (lambda: TS.stream_stencil_apply_dist(), "Open items: Distribution"),
 ], ids=["tune-2d", "tune-adi", "tune-ch", "dist"])
-def test_unported_streaming_is_refused(call, match):
-    with pytest.raises(NotImplementedError, match=match):
-        call()
+def test_unported_streaming_is_refused(call, want, tmp_path, monkeypatch):
+    """The multi-device path stays refused, naming its ROADMAP.md item.
+    Tuning a streamed plan, operator or solver, refused until
+    ``repro_torch.tune`` was ported, now runs (on a cache of its own): the
+    tuner measures the monolithic Compute, and a streamed Compute of the
+    tuned object equals its monolithic one bit for bit."""
+    from repro_torch import tune as T
+
+    monkeypatch.setenv(T.ENV_VAR, str(tmp_path))
+    if isinstance(want, str):
+        with pytest.raises(NotImplementedError, match=want):
+            call()
+        return
+    made = call()
+    assert isinstance(made, want)
+
+    def monolithic(obj):
+        return dataclasses.replace(obj, streams=None, max_tile_bytes=None,
+                                   stream_pool=())
+
+    if isinstance(made, TCH.CahnHilliardADI):
+        # the same tuned operators, unstreamed
+        mono = TCH.CahnHilliardADI(TCH.CHConfig(nx=8, ny=8, device="cpu"))
+        mono.op_full = monolithic(made.op_full)
+        mono.op_half = monolithic(made.op_half)
+        c0 = torch.as_tensor(np.random.default_rng(3).uniform(-0.1, 0.1,
+                                                               (8, 8)))
+        assert torch.equal(TCH.ch_evolve(made, c0, 3)[0],
+                           TCH.ch_evolve(mono, c0, 3)[0])
+        return
+    x = torch.as_tensor(np.random.default_rng(4).standard_normal((8, 8)))
+    assert torch.equal(rt.compute(made, x), rt.compute(monolithic(made), x))
