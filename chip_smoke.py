@@ -166,6 +166,24 @@ printing a result:
       a wrong declared derivative raising
       ``LintError`` under ``lint='error'``, and the concurrency lint of
       ``src/repro_torch`` finding nothing.
+   l. Distribution, in a one-rank NCCL world (``HashStore``; one card, so
+      the halo exchange is the local wrap and a reshard a no-op), on the
+      (1, 1) ``(data, model)`` and (1, 1, 1) ``(pod, data, model)``
+      meshes: ``distributed_stencil_apply`` of the 5x5 biharmonic plan and
+      an x-only (2, 1) plan at 1024^2 float64, periodic and ``np`` with
+      out_init, overlap on and off, each against the plan's single-device
+      Compute (scale 10; bit for bit printed as an observation), with
+      ``stencil2d`` launches asserted (1; the interior plus one a
+      non-empty band with overlap) and no collective counted; an
+      (8, 1024, 1024) ensemble in one stacked launch;
+      ``DistributedCahnHilliard`` at ``CHConfig()`` from 4a's (c1, c0),
+      20 steps against 4a's fused run (scale 20 x 10), the mass summed by
+      ``dist.all_reduce`` kept to 1e-10, one ``ch_rhs``, ``penta_rows``
+      and ``penta_cols`` a step asserted; 8 fields for 5 steps
+      (``penta_mid`` over the stack) against 8 single runs (scale 5 x
+      10); ``stream_stencil_apply_dist`` in chunks of 128 rows on 4
+      streams, bit for bit the unstreamed apply; the distributed step's
+      ms/step beside the fused step's, in turns (an observation).
 5. Timing: ms/step of the fused step over 200 steps after 20 of warm-up,
    of the stencil-mode step on the penta and on the fft sweeps and of the
    batched-1D step, of the 3D LOD step on the kernels, streamed and on
@@ -178,10 +196,13 @@ printing a result:
 6. The ``spectral`` JSON line (phases 4g and 4h and the fft steps'
    timings), the ``tune`` JSON line (phase 4k: each tuned object's
    choices and races, the cached Creates, the streamed ms/step, the
-   checks and the lint), the ``kernels`` JSON line (each kernel's
+   checks and the lint), the ``dist`` JSON line (phase 4l: checks,
+   bit-for-bit observations, mass drift, ms/step, launches), the
+   ``kernels`` JSON line (each kernel's
    launches on the main path, and under ``paths`` on every path that
    launched it, the serving stream, the resilient run and the tuning
-   Creates included; ``stencil2d`` also carries its stacked timings), the
+   Creates and phase 4l's distributed calls included; ``stencil2d`` also
+   carries its stacked timings), the
    card line, and the result line.
 
 A full record goes to ``chiprun_out/chip_smoke.json`` and the nvcc logs to
@@ -1146,6 +1167,227 @@ def tuning_phase(ctx: dict, counts_of) -> dict:
             os.environ.pop(T.ENV_VAR, None)
         else:
             os.environ[T.ENV_VAR] = env_before
+    return out
+
+
+# Distribution (phase 4l): one rank on the card, so the exchange is the
+# local wrap and a reshard is a no-op; the multi-rank paths run on the CPU
+# (tests/test_torch_domain.py).  Tolerances: a distributed apply against
+# the same plan's single-device Compute -> the stencil's scale 10; the
+# distributed CH run (the standalone RHS, then penta_rows, where 4a fuses
+# them) against 4a's fused run -> 20 steps x 10; the ensemble's 5 steps
+# against single runs -> 5 x 10.
+DIST_STEPS = 20
+DIST_ENS = 8
+DIST_ENS_STEPS = 5
+DIST_CHUNK_ROWS = 128
+DIST_TIMED = 200
+
+
+def dist_phase(ctx: dict, counts_of) -> dict:
+    """Phase 4l: ``repro_torch.core.domain``, ``core.dist_ch`` and
+    ``stream_stencil_apply_dist`` in a one-rank NCCL world (a
+    ``HashStore``: no port); every distributed call's launches are summed
+    into ``launches``, the comparisons' are not."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import repro_torch as rt
+    from repro_torch.core import domain as D
+    from repro_torch.core.dist_ch import DistributedCahnHilliard
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.stream import stream_stencil_apply_dist
+    from repro_torch.util import tolerance_for
+
+    compare, solver, c0, c_fused = (ctx[k] for k in ("compare", "solver",
+                                                     "c0", "c_fused"))
+    n = N_MAIN
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = dict(checks={}, bit_for_bit={}, launch_counts={})
+    total = dict.fromkeys(_build.LAUNCHES, 0)
+
+    def run(fn, what, want_launches):
+        """``fn()`` with its launches counted, asserted (``want_launches``
+        names the kernels it launches; the rest must not launch) and added
+        to the phase's total; no collective may be counted at one rank."""
+        D.reset_collectives()
+        res, got = counts_of(fn)
+        want = dict(dict.fromkeys(got, 0), **want_launches)
+        out["launch_counts"][what] = got
+        if got != want:
+            raise PhaseError(f"{what}: launches {got}, expected {want}")
+        if any(D.COLLECTIVES.values()):
+            raise PhaseError(f"{what}: collectives {D.COLLECTIVES} at one rank")
+        for k, v in got.items():
+            total[k] += v
+        return res
+
+    def bitwise(name, a, b):
+        same = bool(torch.equal(a, b))
+        out["bit_for_bit"][name] = same
+        print(f"[dist] {name}: bit for bit {same}")
+        return same
+
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        dd = D.DomainDecomposition(make_mesh_for())
+        dd3 = D.DomainDecomposition(
+            init_device_mesh("cuda", (1, 1, 1),
+                             mesh_dim_names=("pod", "data", "model")),
+            ensemble_axis="pod")
+        gen = torch.Generator(device=dev).manual_seed(11)
+        x = torch.randn((n, n), dtype=torch.float64, device=dev, generator=gen)
+        init = torch.randn((n, n), dtype=torch.float64, device=dev,
+                           generator=gen)
+        w_asym = torch.randn(4, dtype=torch.float64, generator=torch.Generator()
+                             .manual_seed(12)).numpy()
+        tol = tolerance_for("float64", scale=SCALE["stencil2d"])
+
+        # -- the stencils: 5x5 biharmonic and the x-only (2, 1) plan
+        plans = {}
+        for bc in ("periodic", "np"):
+            plans[f"biharmonic {bc}"] = (
+                solver.plan_bih if bc == "periodic" else
+                rt.create("biharmonic", (n, n), mode="xy", bc=bc))
+            plans[f"x-asym {bc}"] = rt.create(
+                w_asym, (n, n), mode="x", bc=bc, lint="off",
+                extents=dict(left=2, right=1))
+        for name, plan in plans.items():
+            ini = init if plan.bc == "np" else None
+            want = plan.apply(x, ini)
+            bands = sum(h > 0 for h in (plan.top, plan.bottom, plan.left,
+                                        plan.right))
+            for overlap in (True, False):
+                got = run(lambda p=plan, i=ini, o=overlap:
+                          D.distributed_stencil_apply(p, x, dd, i, overlap=o),
+                          f"{name} overlap={overlap}",
+                          dict(stencil2d=1 + bands if overlap else 1))
+                label = f"{name} overlap={overlap} vs single-device"
+                compare(label, got.to_local(), want, tol, out["checks"])
+                bitwise(label, got.to_local(), want)
+
+        # the ensemble: one stacked launch (5 with the overlap's bands)
+        ens = torch.randn((DIST_ENS, n, n), dtype=torch.float64, device=dev,
+                          generator=gen)
+        want = solver.plan_bih.apply_stacked(ens)
+        for overlap, k in ((False, 1), (True, 5)):
+            got = run(lambda o=overlap: D.distributed_stencil_apply(
+                solver.plan_bih, ens, dd3, overlap=o),
+                f"ensemble overlap={overlap}", dict(stencil2d=k))
+            label = f"ensemble {tuple(ens.shape)} overlap={overlap}"
+            compare(label, got.to_local(), want, tol, out["checks"])
+            bitwise(label, got.to_local(), want)
+        del ens, want
+
+        # -- the solver: 4a's start, 20 steps, against 4a's fused run
+        dsolver = DistributedCahnHilliard(solver.cfg, dd)
+        c1 = solver.initial_step(c0)
+        step_launches = dict(ch_rhs=1, penta_rows=1, penta_cols=1)
+        run(lambda: dsolver.step(c1, c0), "dist step", step_launches)
+        c_d, _ = run(lambda: dsolver.multi_step(c1, c0, DIST_STEPS),
+                     f"dist CH {DIST_STEPS} steps",
+                     {k: DIST_STEPS for k in step_launches})
+        c_d = c_d.to_local()
+        compare(f"dist CH {DIST_STEPS} steps vs 4a fused", c_d, c_fused,
+                tolerance_for("float64",
+                              scale=DIST_STEPS * SCALE["ch_rhs_xsweep"]),
+                out["checks"])
+        mass = c_d.sum()
+        dist.all_reduce(mass)  # the global sum, over the NCCL group
+        drift = abs(float(mass) - ctx["m0"]) / ctx["a0"]
+        out["mass_drift"] = drift
+        print(f"[dist] CH mass drift (all_reduce) {drift:.3e} <= "
+              f"{MASS_DRIFT_MAX:.0e}")
+        if not drift <= MASS_DRIFT_MAX:
+            raise PhaseError(f"dist CH mass drift {drift:.3e}")
+
+        # the ensemble of 8 fields: penta_mid over the (8, ny, nx) stack
+        e0 = torch.stack([band_limited_quench(n, seed=s)
+                          for s in range(DIST_ENS)])
+        e1 = torch.stack([solver.initial_step(e) for e in e0])
+        dsolver3 = DistributedCahnHilliard(solver.cfg, dd3)
+        e_d, _ = run(lambda: dsolver3.multi_step(e1, e0, DIST_ENS_STEPS),
+                     f"dist CH ensemble {DIST_ENS_STEPS} steps",
+                     dict(ch_rhs=DIST_ENS_STEPS, penta_rows=DIST_ENS_STEPS,
+                          penta_mid=DIST_ENS_STEPS))
+        singles = []
+        for m in range(DIST_ENS):
+            a, b = e1[m], e0[m]
+            for _ in range(DIST_ENS_STEPS):
+                a, b = solver.step(a, b)
+            singles.append(a)
+        compare(f"dist CH ensemble of {DIST_ENS} vs single runs",
+                e_d.to_local(), torch.stack(singles),
+                tolerance_for("float64",
+                              scale=DIST_ENS_STEPS * SCALE["ch_rhs_xsweep"]),
+                out["checks"])
+        del e0, e1, e_d, singles
+
+        # -- streaming: chunks of 128 rows on a pool of 4 streams
+        for bc in ("periodic", "np"):
+            plan = rt.create("biharmonic", (n, n), mode="xy", bc=bc,
+                             streams=STREAMS)
+            ini = init if bc == "np" else None
+            got = run(lambda p=plan, i=ini: stream_stencil_apply_dist(
+                p, x, dd, i, chunk_rows=DIST_CHUNK_ROWS),
+                f"streamed {bc}", dict(stencil2d=n // DIST_CHUNK_ROWS))
+            whole = D.distributed_stencil_apply(plan, x, dd, ini,
+                                                overlap=False)
+            if not bitwise(f"streamed {bc} vs unstreamed distributed apply",
+                           got.to_local(), whole.to_local()):
+                raise PhaseError(f"streamed {bc}: not bit for bit")
+
+        # -- timing: the distributed step beside the fused step, in turns
+        def timed(run_steps, carry):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            carry = run_steps(carry)
+            end.record()
+            t_enq = time.perf_counter()
+            torch.cuda.synchronize()
+            return carry, dict(
+                host=(time.perf_counter() - t0) * 1e3 / DIST_TIMED,
+                events=start.elapsed_time(end) / DIST_TIMED,
+                host_enqueue=(t_enq - t0) * 1e3 / DIST_TIMED)
+
+        evolve = solver.make_evolve(DIST_TIMED)
+        fused = lambda p: evolve(*p)
+        dstep = lambda p: dsolver.multi_step(*p, DIST_TIMED)
+        fused((c1.clone(), c0.clone()))  # warm-up
+        dstep((c1, c0))
+        times = {"fused": [], "dist": []}
+        for name in ("fused", "dist", "dist", "fused"):
+            fn = fused if name == "fused" else dstep
+            _, t = timed(fn, (c1.clone(), c0.clone()))
+            times[name].append(t)
+        out["ms_per_step"] = times
+        for name, ts in times.items():
+            for t in ts:
+                print(f"[dist] {name} step: {t['events']:.4f} ms/step (events), "
+                      f"host {t['host']:.4f}, enqueue {t['host_enqueue']:.4f}")
+        # where a step's device time goes: one profiler window of 20 steps
+        # each, after the timing; an observation (a window may lose
+        # records, so each row keeps its count of 20)
+        out["device_ms"] = {}
+        for name, fn in (("dist", lambda: dsolver.step(c1, c0)),
+                         ("fused", lambda: solver.step(c1, c0))):
+            rows = kernel_rows(fn)
+            out[f"{name}_device_rows"] = rows
+            out["device_ms"][name] = sum(ms for _, _, ms in rows)
+            for k, cnt, ms in rows:
+                print(f"[dist-prof] {name}: {short_name(k)}: {cnt} of 20, "
+                      f"{ms:.4f} ms a step")
+        print(f"[dist] device ms a step (profiler): {out['device_ms']}")
+    finally:
+        dist.destroy_process_group()
+    out["launches"] = total
     return out
 
 
@@ -2483,6 +2725,11 @@ def main() -> int:
         s_fused=s_fused, c_sf=c_sf, compare=compare), counts_of)
     record["tune"] = tuning
 
+    # -- 4l. distribution: a one-rank NCCL world ------------------------------
+    dist_rec = dist_phase(dict(compare=compare, solver=solver, c0=c0,
+                               c_fused=c_fused, m0=m0, a0=a0), counts_of)
+    record["dist"] = dist_rec
+
     # -- 5. timing -----------------------------------------------------------
     def per_step(run, carry, steps):
         """ms/step of ``carry = run(carry)`` (one call does ``steps`` steps):
@@ -2675,7 +2922,7 @@ def main() -> int:
                    lod3d=lod_launches, weno=weno_launches,
                    serve=serve["stream"]["launches"],
                    resilient=resilient["clean"]["launches"],
-                   tune=tuning["launches"])
+                   tune=tuning["launches"], dist=dist_rec["launches"])
     kernels = []
     for name, counts in path_launches.items():
         if not counts[name] > 0:
@@ -2706,9 +2953,13 @@ def main() -> int:
                                      if k.startswith("fft")}
     spectral["fft_device_rows"] = fft_rows
     record["spectral"] = spectral
+    dist_rec["fused_ms_per_step_phase5"] = step_times["fused"]
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"spectral": spectral}))
     print(json.dumps({"tune": tune_summary(tuning)}))
+    print(json.dumps({"dist": {k: dist_rec[k] for k in (
+        "checks", "bit_for_bit", "mass_drift", "ms_per_step", "device_ms",
+        "fused_ms_per_step_phase5", "launches")}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

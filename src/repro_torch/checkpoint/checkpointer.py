@@ -18,7 +18,12 @@ state carries across the two packages in both directions:
   tuples flattened as jax flattens them (dict keys sorted), the path's
   parts joined with ``.``; bfloat16 leaves are stored as the reference
   stores them, two-byte void records with dtype name ``bfloat16``;
-- **restore** onto each template leaf's device, into fresh tensors;
+- **restore** onto each template leaf's device, into fresh tensors; with
+  ``shardings`` (a :class:`~repro_torch.core.domain.DomainDecomposition`
+  a leaf), each rank keeps its block of the leaf as a DTensor: leaves are
+  stored whole, so a checkpoint restores onto a mesh of any shape (the
+  elastic rescale).  A DTensor leaf is saved whole, gathered on every
+  rank, and written by rank 0;
 - **retention**: keep-last-k plus keep-best-by-metric.
 
 The commit fires the chaos site ``checkpoint.write`` at its three
@@ -39,6 +44,8 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.runtime import chaos as _chaos
 
@@ -70,10 +77,28 @@ def _map(tree: Any, fn: Callable) -> Any:
     return fn(tree)
 
 
+def _zip_up_to(tree: Any, other: Any) -> list:
+    """``other``'s entry for each leaf of ``tree``, in :func:`_flatten`'s
+    order; a leaf of ``other`` (None included) stands for the whole subtree
+    of ``tree`` at its place."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _zip_up_to(
+            tree[k], other[k] if isinstance(other, dict) else other)]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _zip_up_to(
+            v, other[i] if isinstance(other, (list, tuple)) else other)]
+    return [] if tree is None else [other]
+
+
 def _to_numpy(leaf: Any, *, copy: bool = False) -> np.ndarray:
     """A leaf on the host as a numpy array (a copy when ``copy``, which a
     tensor on the card always is).  A bfloat16 tensor becomes two-byte
-    void records, as numpy holds the reference's bfloat16."""
+    void records, as numpy holds the reference's bfloat16.  A DTensor is
+    gathered whole (a collective: every rank of its mesh calls this)."""
+    if isinstance(leaf, DTensor):
+        from repro_torch.core.domain import gather
+
+        leaf, copy = gather(leaf), True
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=copy)
         if t.dtype == torch.bfloat16:
@@ -102,7 +127,31 @@ def save_pytree(
     metadata: dict | None = None,
 ) -> str:
     """Synchronous atomic save of a tree of tensors or arrays.  Returns the
-    committed directory."""
+    committed directory.  A tree with DTensor leaves is a collective: every
+    rank gathers them, rank 0 writes, and every rank returns once it
+    committed, or raises if its commit failed."""
+    leaves = _flatten(tree)
+    if not any(isinstance(leaf, DTensor) for _, leaf in leaves):
+        return _write(leaves, directory, step, metadata)
+    arrays = [(key, _to_numpy(leaf)) for key, leaf in leaves]
+    err = None
+    if dist.get_rank() == 0:
+        try:
+            _write(arrays, directory, step, metadata)
+        except BaseException as e:  # re-raised below, after telling the others
+            err = e
+    status = [None if err is None else repr(err)]
+    dist.broadcast_object_list(status, src=0)
+    if err is not None:
+        raise err
+    if status[0] is not None:
+        raise RuntimeError(f"rank 0 failed to commit step {step}: {status[0]}")
+    return os.path.join(directory, f"step_{step:08d}")
+
+
+def _write(leaves: list, directory: str, step: int,
+           metadata: dict | None) -> str:
+    """The atomic commit of :func:`save_pytree` of ``[(key, leaf)]``."""
     os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f"tmp.{step}.{os.getpid()}")
     final = os.path.join(directory, f"step_{step:08d}")
@@ -111,7 +160,7 @@ def save_pytree(
     os.makedirs(tmp)
 
     index = {}
-    for key, leaf in _flatten(tree):
+    for key, leaf in leaves:
         arr = _to_numpy(leaf)
         fname = key.replace("/", "_") + ".npy"
         np.save(os.path.join(tmp, fname), arr)
@@ -161,15 +210,29 @@ def latest_step(directory: str) -> int | None:
         return None
 
 
-def _leaf_tensor(arr: np.ndarray, dtype_name: str, like: Any) -> torch.Tensor:
+def _leaf_tensor(arr: np.ndarray, dtype_name: str, like: Any,
+                 dd: Any = None) -> torch.Tensor:
     """A fresh tensor of ``arr`` on the device of the template leaf ``like``
-    (the host when it is not a tensor)."""
+    (the host when it is not a tensor; the mesh's device for a ``meta``
+    leaf); with a decomposition ``dd``, this rank's block of it as a
+    DTensor laid out as ``dd.field_sharding()``."""
     if arr.dtype.kind == "V":
         if dtype_name != "bfloat16":
             raise ValueError(f"cannot restore a {dtype_name!r} leaf")
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
+    if dd is not None:
+        from repro_torch.core.domain import from_block, to_block
+
+        placements = dd.field_sharding()
+        block = to_block(t, dd.mesh, placements)
+        device = like.to_local().device if isinstance(like, DTensor) else (
+            like.device if isinstance(like, torch.Tensor) else block.device)
+        if device.type == "meta":
+            device = torch.device(dd.mesh.device_type)
+        return from_block(block.to(device, copy=True), dd.mesh, placements,
+                          t.shape)
     if isinstance(like, torch.Tensor):
         t = t.to(like.device)
     return t
@@ -180,12 +243,18 @@ def restore_pytree(
     directory: str,
     *,
     step: int | None = None,
+    shardings: Any = None,
 ) -> tuple[Any, dict]:
     """Restore into the structure of ``template``: ``(tree, manifest)``.
 
     Each leaf is a new tensor, of the checkpoint's dtype, on the device of
     the template's leaf (the host for a leaf that is not a tensor); no
-    restored tensor shares memory with another or with the template."""
+    restored tensor shares memory with another or with the template.
+    ``shardings`` (a tree of the template's structure, or one entry for a
+    whole subtree) gives a leaf a
+    :class:`~repro_torch.core.domain.DomainDecomposition`: the leaf comes
+    back as a DTensor holding this rank's block, for the current mesh
+    whatever the mesh that saved it (leaves are stored whole)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -195,7 +264,8 @@ def restore_pytree(
         manifest = json.load(f)
 
     leaves = []
-    for key, leaf in _flatten(template):
+    for (key, leaf), dd in zip(_flatten(template),
+                               _zip_up_to(template, shardings), strict=True):
         info = manifest["leaves"].get(key)
         if info is None:
             raise KeyError(f"leaf {key!r} missing from checkpoint {d}")
@@ -206,7 +276,7 @@ def restore_pytree(
                 f"shape mismatch for {key}: ckpt {arr.shape} vs template "
                 f"{shape}"
             )
-        leaves.append(_leaf_tensor(arr, info["dtype"], leaf))
+        leaves.append(_leaf_tensor(arr, info["dtype"], leaf, dd))
     it = iter(leaves)
     return _map(template, lambda _: next(it)), manifest
 

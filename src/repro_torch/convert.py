@@ -10,6 +10,9 @@ factorisation.  Each function also carries a reference plan's ``streams``
 and ``max_tile_bytes`` across, and its fft backend's Create-time symbols
 (a plan's ``symbol``, an operator's ``sym_x``/``sym_y``/``sym_z``; complex
 arrays), so the symbols can be held apart from the transforms.
+A reference ``DomainDecomposition`` crosses as its mesh's shape and axis
+names (:func:`mesh_layout`), from which :func:`domain_decomposition`
+builds the port's over the initialised ``torch.distributed`` world.
 """
 
 from __future__ import annotations
@@ -203,3 +206,26 @@ def stencil2d(
         taps=plan_taps_of(coeffs_t, point_fn, halos_2d(left, right, top, bottom)),
         symbol=_symbol(symbol, dev), **stream_fields(streams, max_tile_bytes, dev),
     )
+
+
+def mesh_layout(dd) -> dict:
+    """A reference ``DomainDecomposition``'s layout as plain Python: its
+    mesh's ``shape`` and axis ``names`` (in the mesh's order) and its
+    ``y_axis``, ``x_axis`` and ``ensemble_axis``."""
+    names = tuple(str(n) for n in dd.mesh.axis_names)
+    return dict(shape=tuple(int(dd.mesh.shape[n]) for n in names), names=names,
+                y_axis=dd.y_axis, x_axis=dd.x_axis,
+                ensemble_axis=dd.ensemble_axis)
+
+
+def domain_decomposition(layout: dict):
+    """The port's :class:`~repro_torch.core.domain.DomainDecomposition` of a
+    :func:`mesh_layout`, on a mesh over the initialised world (whose size
+    must be the mesh's)."""
+    from repro_torch.core.domain import DomainDecomposition
+    from repro_torch.launch.mesh import _make_mesh
+
+    return DomainDecomposition(
+        mesh=_make_mesh(tuple(layout["shape"]), tuple(layout["names"])),
+        y_axis=layout["y_axis"], x_axis=layout["x_axis"],
+        ensemble_axis=layout["ensemble_axis"])

@@ -34,13 +34,13 @@ Here:
 The fused RHS + x-sweep's geometry (streams x chunk rows) is tuned at
 Create by ``CHConfig.tune``
 (:meth:`repro_torch.core.cahn_hilliard.CahnHilliardADI._tune_stream_geometry`).
-Not ported yet, and refused where a caller could reach it: the
-multi-device path (:func:`stream_stencil_apply_dist`; ROADMAP.md, Open
-items: Distribution).
+The multi-device path (:func:`stream_stencil_apply_dist`) streams y and
+shards x over a device mesh (:mod:`repro_torch.core.domain`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from collections.abc import Callable, Sequence
 
@@ -647,10 +647,87 @@ def stream_penta_solve_mid(
     return out
 
 
-def stream_stencil_apply_dist(*args, **kwargs):
-    """The multi-device streamed apply (chunks sharded over a mesh) is not
-    ported: it waits for the distribution slice."""
-    raise NotImplementedError(
-        "stream_stencil_apply_dist (multi-device streamed execution) is not "
-        "ported yet (ROADMAP.md, Open items: Distribution)"
+def _copy_rows(dst: torch.Tensor, src: torch.Tensor, a: int) -> None:
+    """Fill ``dst`` with the rows ``a, a + 1, ...`` of ``src``, wrapped."""
+    n, k, i = src.shape[0], dst.shape[0], 0
+    while i < k:
+        r = (a + i) % n
+        m = min(k - i, n - r)
+        dst[i : i + m].copy_(src[r : r + m])
+        i += m
+
+
+def stream_stencil_apply_dist(
+    plan,
+    field: torch.Tensor,
+    dd,
+    out_init: torch.Tensor | None = None,
+    *,
+    streams: int | None = None,
+    max_tile_bytes: int | None = None,
+    chunk_rows: int | None = None,
+):
+    """Streamed apply with each chunk's x extent sharded over the mesh.
+
+    Streaming in y, domain decomposition in x: each rank holds a column
+    block of the field (``field``: a DTensor sharded over ``dd.x_axis``
+    only, or a whole tensor that every rank holds).  For each row chunk it
+    fills a slab of the chunk's rows and its y halo (wrapped) into a
+    buffer made before the chunk loop, exchanges the slab's x halo with
+    its neighbours (:func:`repro_torch.core.domain._exchange_1d`; the
+    local wrap on one shard) and runs ONE ``bc='np'`` row-window launch of
+    the plan's stencil on it, whose valid cells are the chunk; the global
+    ``bc='np'`` mask is applied once after the loop.  Chunk ``k`` goes on
+    stream ``k mod S`` of the plan's pool, with buffer ``k mod S``.  Each
+    point is computed as the unstreamed
+    :func:`~repro_torch.core.domain.distributed_stencil_apply` computes it,
+    so on the card the two agree bit for bit.  ``dd.y_axis`` is ignored: y
+    is streamed, not sharded.  Returns a DTensor laid out like the
+    input."""
+    from repro_torch.core.domain import (
+        _exchange_1d,
+        from_block,
+        np_apply,
+        np_ring,
+        placements_for,
+        to_block,
     )
+
+    ny, nx = field.shape
+    top, bottom, left, right = plan.top, plan.bottom, plan.left, plan.right
+    n_x = dd.n_shards(dd.x_axis)
+    if nx % n_x:
+        raise ValueError(f"mesh x axis ({n_x}) must divide nx={nx}")
+    placements = placements_for(dd.mesh, (None, dd.x_axis))
+    block = to_block(field, dd.mesh, placements)
+    nx_loc = nx // n_x
+    rows = chunk_rows or choose_chunk_rows(
+        ny, nx, block.element_size(), top=top, bottom=bottom, left=left,
+        right=right, max_tile_bytes=max_tile_bytes, streams=streams,
+    )
+    windows = _windows(ny, rows, "rows")
+    pool = plan.stream_pool if block.is_cuda else ()
+    n_buf = max(1, min(len(pool), len(windows)))
+    slab_shape = (rows + top + bottom, nx_loc + left + right)
+    slabs = [block.new_empty(slab_shape) for _ in range(n_buf)]
+    outs = [block.new_empty(slab_shape) for _ in range(n_buf)]
+    out = torch.empty_like(block)
+
+    def launch(item):
+        k, (r0, r1) = item[0] % n_buf, item[1]
+        slab = slabs[k]
+        mid = slab[:, left : left + nx_loc]
+        _copy_rows(mid, block, r0 - top)
+        lf, rt = _exchange_1d(mid, left, right, 1, dd.x_axis, dd.mesh)
+        if lf is not None:
+            slab[:, :left].copy_(lf)
+        if rt is not None:
+            slab[:, left + nx_loc :].copy_(rt)
+        val = np_apply(plan, slab, rows=(top, top + rows), out=outs[k])
+        out[r0:r1].copy_(val[top : top + rows, left : left + nx_loc])
+
+    _issue(list(enumerate(windows)), launch, pool, block.device)
+    if plan.bc == "np":  # y is not sharded: the ring's rows are global
+        out = np_ring(out, plan, dataclasses.replace(dd, y_axis=None),
+                      field.shape, out_init, placements)
+    return from_block(out, dd.mesh, placements, field.shape)

@@ -281,7 +281,7 @@ def test_refusals_name_roadmap_items_that_exist():
     """Every ROADMAP.md item a module of the port names in a refusal or a
     docstring ("Open items: <title>") is a title of ROADMAP.md, so
     renumbering the items cannot break a pointer; the refusals still in
-    the port name Distribution and Rank-3 serve buckets."""
+    the port name Audit and HLO rules and Rank-3 serve buckets."""
     root = Path(__file__).resolve().parents[1]
     titles = set(re.findall(r"^\s*\d+\. \*\*(.+?)\.?\*\*",
                             (root / "ROADMAP.md").read_text(), re.M))
@@ -289,7 +289,7 @@ def test_refusals_name_roadmap_items_that_exist():
     for f in (root / "src" / "repro_torch").rglob("*.py"):
         text = re.sub(r'"\s*\n\s*f?"', "", f.read_text())  # join literals
         named |= set(re.findall(r"Open items: ([^)\n]+)\)", text))
-    assert {"Distribution", "Rank-3 serve buckets"} <= named
+    assert {"Audit and HLO rules", "Rank-3 serve buckets"} <= named
     assert named <= titles, named - titles
 
 
@@ -342,7 +342,10 @@ def test_port_never_imports_jax_or_repro():
             "src/repro_torch/analysis/rules.py",
             "src/repro_torch/tune/cache.py",
             "src/repro_torch/tune/autotuner.py",
-            "src/repro_torch/tune/prior.py"} <= rel
+            "src/repro_torch/tune/prior.py",
+            "src/repro_torch/core/domain.py",
+            "src/repro_torch/core/dist_ch.py",
+            "src/repro_torch/launch/mesh.py"} <= rel
     bad = [(p.name, m) for p in sources for m in _imports(p) if _FORBIDDEN.match(m)]
     assert not bad, bad
     code = (
@@ -360,7 +363,8 @@ def test_port_never_imports_jax_or_repro():
         "        'repro_torch.analysis.concurrency', 'repro_torch.analysis.cost',\n"
         "        'repro_torch.analysis.rules', 'repro_torch.tune',\n"
         "        'repro_torch.tune.cache', 'repro_torch.tune.autotuner',\n"
-        "        'repro_torch.tune.prior'}\n"
+        "        'repro_torch.tune.prior', 'repro_torch.core.domain',\n"
+        "        'repro_torch.core.dist_ch', 'repro_torch.launch.mesh'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print('clean')\n"
     )

@@ -16,6 +16,12 @@ Tolerances as in ``chip_smoke.py`` (norm-wise ``tolerance_for`` scales):
 at Create into its own copy of the stencil libraries.
 """
 
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1073,3 +1079,100 @@ def test_streamed_objects_race_no_geometry(cuda, tmp_path):
             assert set(m["config"]) <= {"backend", "geometry"}, r
     assert plan.geometry is None
     assert op.x_cfg["geometry"] is None and op.y_cfg["geometry"] is None
+
+
+# -- the card: a one-rank NCCL world ----------------------------------------
+
+_NCCL_SCRIPT = textwrap.dedent("""
+    import numpy as np, torch, torch.distributed as dist
+    import repro_torch as rt
+    from repro_torch.core import domain as D
+    from repro_torch.core.cahn_hilliard import CHConfig, CahnHilliardADI
+    from repro_torch.core.dist_ch import DistributedCahnHilliard
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.stream import stream_stencil_apply_dist
+    from repro_torch.util import tolerance_for
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    dd = D.DomainDecomposition(make_mesh_for())
+    rng = np.random.default_rng(0)
+    f = torch.as_tensor(rng.standard_normal((256, 192)), device="cuda")
+    w = np.zeros((5, 5)); w[2, :] += [1, -4, 6, -4, 1]; w[:, 2] += [1, -4, 6, -4, 1]
+    tol = tolerance_for("float64", scale=10)
+    for bc in ("periodic", "np"):
+        plan = rt.create(w, (256, 192), bc=bc, mode="xy")
+        want = plan.apply(f)
+        for overlap, n in ((True, 5), (False, 1)):
+            _build.reset_launches()
+            got = D.distributed_stencil_apply(plan, f, dd, overlap=overlap)
+            assert _build.LAUNCHES["stencil2d"] == n, _build.LAUNCHES
+            err = float((got.to_local() - want).abs().max())
+            assert err <= tol["atol"] + tol["rtol"] * float(want.abs().max())
+        s = stream_stencil_apply_dist(plan, f, dd, chunk_rows=32)
+        one = D.distributed_stencil_apply(plan, f, dd, overlap=False)
+        assert torch.equal(s.to_local(), one.to_local())
+
+    # a cube plan (device tag) and a point function with CUDA source
+    # through the same padded-block launch; a plain Python point function
+    # raises on the card
+    from repro_torch.core.cahn_hilliard import cube_laplacian_point_fn
+    from repro_torch.kernels.stencil2d import cuda_point_fn
+
+    @cuda_point_fn("template <typename T> __device__ T point_fn("
+                   "const T* w, const T* c) { return w[0] * w[1] - c[0] * w[2]; }")
+    def mixed(windows, coeffs):
+        return windows[0] * windows[1] - coeffs[0] * windows[2]
+
+    def plain(windows, coeffs):
+        return windows[0] - coeffs[0] * windows[2]
+
+    ext = dict(left=1, right=1, top=1, bottom=1)
+    for fn, coeffs in ((cube_laplacian_point_fn, np.arange(9.0)),
+                       (mixed, np.array([0.5]))):
+        plan = rt.create(fn, (256, 192), mode="xy", coeffs=coeffs, extents=ext)
+        want = plan.apply(f)
+        for overlap in (True, False):
+            got = D.distributed_stencil_apply(plan, f, dd, overlap=overlap)
+            err = float((got.to_local() - want).abs().max())
+            assert err <= tol["atol"] + tol["rtol"] * float(want.abs().max()), err
+    plan = rt.create(plain, (256, 192), mode="xy", coeffs=np.array([0.5]),
+                     extents=ext)
+    try:
+        D.distributed_stencil_apply(plan, f, dd)
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("a plain Python point function ran on the card")
+    cfg = CHConfig(nx=128, ny=128)
+    c0 = torch.as_tensor(rng.uniform(-0.1, 0.1, (128, 128)), device="cuda")
+    single = CahnHilliardADI(cfg)
+    c1 = single.initial_step(c0)
+    solver = DistributedCahnHilliard(cfg, dd)
+    _build.reset_launches()
+    a, b = solver.step(c1, c0)
+    assert _build.LAUNCHES["ch_rhs"] == 1 and _build.LAUNCHES["penta_rows"] == 1
+    assert _build.LAUNCHES["penta_cols"] == 1, _build.LAUNCHES
+    want, _ = single.step(c1, c0)
+    tol = tolerance_for("float64", scale=100)
+    err = float((a.to_local() - want).abs().max())
+    assert err <= tol["atol"] + tol["rtol"] * float(want.abs().max()), err
+    dist.destroy_process_group()
+    print("NCCL-OK")
+""")
+
+
+def test_one_rank_nccl_world(cuda):
+    """The distribution (``repro_torch.core.domain``, ``core.dist_ch``,
+    ``stream_stencil_apply_dist``) in a one-rank NCCL world, in a
+    subprocess of its own: the distributed stencil (weighted, cube and
+    CUDA-source point functions; a plain Python one raises) and CH step
+    against the single-device kernels, their launches, the streamed apply
+    bit for bit the unstreamed one."""
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-c", _NCCL_SCRIPT], capture_output=True, text=True,
+        timeout=300, cwd=root,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    assert proc.returncode == 0 and "NCCL-OK" in proc.stdout, proc.stderr[-3000:]

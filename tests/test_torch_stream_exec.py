@@ -17,12 +17,15 @@ unless ``convert`` carries the reference's across).  The card-only
 checks the kernels' chunked launches.
 """
 
+import contextlib
 import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 import repro
 import repro_torch as rt
@@ -58,6 +61,33 @@ def _t(a):
 
 def _j(a):
     return None if a is None else jnp.asarray(a)
+
+
+@contextlib.contextmanager
+def _one_rank_world():
+    """A gloo world of this process alone, and its (1, 1) mesh's
+    decomposition (``tests/test_torch_domain.py`` runs the wider ones)."""
+    from repro_torch.core.domain import DomainDecomposition
+    from repro_torch.launch.mesh import make_mesh_for
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield DomainDecomposition(make_mesh_for())
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_plan_and_field():
+    plan = rt.create(np.arange(9.0).reshape(3, 3), (16, 16), mode="xy",
+                     device="cpu")
+    return plan, torch.as_tensor(np.random.default_rng(5).standard_normal((16, 16)))
+
+
+def _streamed_dist_on_one_rank():
+    plan, x = _dist_plan_and_field()
+    with _one_rank_world() as dd:
+        return TS.stream_stencil_apply_dist(plan, x, dd, chunk_rows=4)
 
 
 def _equal(got, want):
@@ -181,9 +211,14 @@ class TestStreamedMatchesMonolithic:
             TS.stream_stencil_apply(data, w, compute="pallas")
         with pytest.raises(ValueError, match="CUDA tensor"):
             TS.stream_stencil_apply(data, w, compute="cuda", chunk_rows=4)
-        with pytest.raises(NotImplementedError,
-                           match="Open items: Distribution"):
-            TS.stream_stencil_apply_dist(None, data, None)
+        # the multi-device path runs (a one-rank world: the local wrap), and
+        # validates its chunking as the single-device executor does
+        plan = rt.create(np.ones((3, 3)), (16, 16), mode="xy", device="cpu")
+        with _one_rank_world() as dd:
+            out = TS.stream_stencil_apply_dist(plan, data, dd, chunk_rows=4)
+            assert torch.equal(out.to_local(), plan.apply(data))
+            with pytest.raises(ValueError, match="must divide"):
+                TS.stream_stencil_apply_dist(plan, data, dd, chunk_rows=5)
 
     def test_launch_windows(self):
         """The kernels' windows: the whole extent by default; a window needs
@@ -637,23 +672,25 @@ class TestStreamed3D:
     (lambda: TCH.CahnHilliardADI(TCH.CHConfig(nx=8, ny=8, streams=2,
                                               tune="cached", device="cpu")),
      TCH.CahnHilliardADI),
-    (lambda: TS.stream_stencil_apply_dist(), "Open items: Distribution"),
+    (_streamed_dist_on_one_rank, DTensor),
 ], ids=["tune-2d", "tune-adi", "tune-ch", "dist"])
 def test_unported_streaming_is_refused(call, want, tmp_path, monkeypatch):
-    """The multi-device path stays refused, naming its ROADMAP.md item.
-    Tuning a streamed plan, operator or solver, refused until
+    """No streamed path stays refused.  The multi-device path, refused
+    until ``repro_torch.core.domain`` was ported, now runs: on a one-rank
+    world its streamed chunks equal the plan's monolithic Compute bit for
+    bit.  Tuning a streamed plan, operator or solver, refused until
     ``repro_torch.tune`` was ported, now runs (on a cache of its own): the
     tuner measures the monolithic Compute, and a streamed Compute of the
     tuned object equals its monolithic one bit for bit."""
     from repro_torch import tune as T
 
     monkeypatch.setenv(T.ENV_VAR, str(tmp_path))
-    if isinstance(want, str):
-        with pytest.raises(NotImplementedError, match=want):
-            call()
-        return
     made = call()
     assert isinstance(made, want)
+    if isinstance(made, DTensor):
+        plan, x = _dist_plan_and_field()
+        assert torch.equal(made.to_local(), plan.apply(x))
+        return
 
     def monolithic(obj):
         return dataclasses.replace(obj, streams=None, max_tile_bytes=None,
