@@ -184,6 +184,17 @@ printing a result:
       10); ``stream_stencil_apply_dist`` in chunks of 128 rows on 4
       streams, bit for bit the unstreamed apply; the distributed step's
       ms/step beside the fused step's, in turns (an observation).
+   m. The audit gate (``repro_torch.analysis``): ``run_audit(device=
+      'cuda')`` over the full matrix of the four built-in operators, 44
+      cells run (15 torch, 14 fft, 14 cuda and the fused CH cell on the
+      kernels) with no violation, the sync-debug call and the profiler's
+      kernel list included; the cost audit's counted vectors at the
+      default shapes within their budgets; the six seeds, each failing
+      closed with its rule on its designated torch cell and on the cuda
+      counterpart; and the cuda cells at the paths' shapes
+      (``CARD_SHAPES``: 1024^2, (1024, 1024) lines, 256^3) with their
+      device time against the floor's time on the H100's peaks
+      (``device_time_budget``), printed with each family's ratio.
 5. Timing: ms/step of the fused step over 200 steps after 20 of warm-up,
    of the stencil-mode step on the penta and on the fft sweeps and of the
    batched-1D step, of the 3D LOD step on the kernels, streamed and on
@@ -198,12 +209,14 @@ printing a result:
    choices and races, the cached Creates, the streamed ms/step, the
    checks and the lint), the ``dist`` JSON line (phase 4l: checks,
    bit-for-bit observations, mass drift, ms/step, launches), the
-   ``kernels`` JSON line (each kernel's
-   launches on the main path, and under ``paths`` on every path that
-   launched it, the serving stream, the resilient run and the tuning
-   Creates and phase 4l's distributed calls included; ``stencil2d`` also
-   carries its stacked timings), the
-   card line, and the result line.
+   ``audit`` JSON line (phase 4m: cells run, each family's worst device
+   time, floor time and ratio, the fitted factors, the seeds' findings,
+   the card and its power limit), the ``kernels`` JSON line (each
+   kernel's launches on the main path, and under ``paths`` on every path
+   that launched it, the serving stream, the resilient run, the tuning
+   Creates, phase 4l's distributed calls and phase 4m's audit included;
+   ``stencil2d`` also carries its stacked timings), the card line, and
+   the result line.
 
 A full record goes to ``chiprun_out/chip_smoke.json`` and the nvcc logs to
 ``chiprun_out/nvcc_build.log`` and ``chiprun_out/nvcc_build_point_fn.log``.
@@ -1389,6 +1402,132 @@ def dist_phase(ctx: dict, counts_of) -> dict:
         dist.destroy_process_group()
     out["launches"] = total
     return out
+
+
+# The audit gate on the card (phase 4m): the four built-in operators (the
+# registry's, before any test registers more)
+AUDIT_OPERATORS = ("biharmonic", "diffusion", "hyperdiffusion", "laplacian")
+
+
+def audit_phase(counts_of) -> dict:
+    """Phase 4m: ``run_audit(device='cuda')`` over the full matrix (44
+    cells run: the 15 torch, 14 fft and 14 cuda cells the reference runs
+    under the backend map, and the fused CH cell on the kernels), the
+    cost audit's counted vectors at the default shapes, the six seeds
+    (``SEED_RULES``) on their designated torch cells and on the cuda
+    counterparts (the launch record must carry the kernels' own work into
+    the vector), and the
+    cost audit of the cuda cells at the paths' shapes (``CARD_SHAPES``)
+    with their device time against the floor's.  Any violation of a clean
+    run (a kernel list that no profiler window recorded among them), and
+    any seed that does not fail closed with its rule, fails the phase.
+    The phase's launches, the seeds' included, are summed into
+    ``launches``."""
+    import torch
+
+    from repro_torch.analysis import audit as A
+    from repro_torch.kernels import _build
+
+    total = dict.fromkeys(_build.LAUNCHES, 0)
+
+    def counted(fn):
+        out, launches = counts_of(fn)
+        for k, v in launches.items():
+            total[k] += v
+        return out
+
+    def problems(report):
+        return [f"{r.family}/{r.operator}/{r.backend}: {f}"
+                for r in report.violations for f in r.findings]
+
+    t0 = time.perf_counter()
+    cache = A.CellArtifacts()
+    report = counted(lambda: A.run_audit(operators=AUDIT_OPERATORS,
+                                         cache=cache, device="cuda"))
+    matrix = [r for r in report.results if r.rules != ("rebuild_budget",)]
+    ran = sorted(f"{r.family}/{r.operator}/{r.backend}" for r in matrix
+                 if r.skipped is None)
+    by_backend = {b: sum(c.endswith("/" + b) for c in ran)
+                  for b in A.BACKENDS}
+    print(f"[audit] run_audit(device='cuda'): {len(ran)} of {len(matrix)} "
+          f"cells run ({by_backend}), {len(report.violations)} violation(s)",
+          flush=True)
+    if problems(report):
+        raise PhaseError(f"the card audit is not clean: {problems(report)}")
+    if len(ran) != 44 or by_backend != {"torch": 15, "cuda": 15, "fft": 14}:
+        raise PhaseError(f"the card audit ran {by_backend}, expected 15 "
+                         "torch, 15 cuda (the fused CH cell included), 14 fft")
+    cost = counted(lambda: A.run_cost_audit(operators=AUDIT_OPERATORS,
+                                            cache=cache, device="cuda"))
+    if problems(cost):
+        raise PhaseError(f"the card's cost audit is not clean: "
+                         f"{problems(cost)}")
+    counted_ratios = {}
+    for r in cost.results:
+        if r.skipped is None:
+            m, e = r.measured, r.expected
+            counted_ratios[r.cell] = dict(
+                flops=m.flops / e.flops, bytes=m.bytes / e.bytes,
+                peak_memory=m.peak_memory / e.peak_memory,
+                step_bytes=max((lp.per_trip_bytes / e.step_bytes
+                                for lp in m.loops), default=None))
+    for cell, v in sorted(counted_ratios.items()):
+        if cell.endswith("/cuda"):
+            print(f"[audit] counted {cell}: " + ", ".join(
+                f"{k} {x:.3f}x" for k, x in v.items() if x is not None))
+
+    seeds = {}
+    for seed, (rule, family, op) in A.SEED_RULES.items():
+        for backend in ("torch", "cuda"):
+            kw = dict(operators=(op,), families=(family,),
+                      backends=(backend,), seed_violation=seed, device="cuda")
+            if seed in A.COST_SEEDS:
+                rep = counted(lambda: A.run_cost_audit(**kw))
+            else:
+                rep = counted(lambda: A.run_audit(retrace=False, **kw))
+            rules = sorted({f.rule for r in rep.results for f in r.findings})
+            seeds[f"{seed}/{backend}"] = rules
+            print(f"[audit] seed {seed} in {family}/{op}/{backend}: "
+                  f"findings {rules}")
+            if rep.ok or rule not in rules:
+                raise PhaseError(f"seed {seed} on {backend} did not fail "
+                                 f"closed with {rule}: {rules}")
+
+    timed = counted(lambda: A.run_cost_audit(
+        operators=AUDIT_OPERATORS, backends=("cuda",), shapes=A.CARD_SHAPES,
+        device="cuda"))
+    device = {}
+    for r in timed.results:
+        if r.skipped is None:
+            d = r.to_dict()
+            device[r.cell] = dict(
+                shape=list(A.CARD_SHAPES[r.family]),
+                device_ms=r.measured.device_ms,
+                floor_ms=d["floor_ms"], ratio=d["device_time_bloat"],
+                factor=A.CARD_FACTORS[r.family])
+            print(f"[audit] device {r.cell} at {A.CARD_SHAPES[r.family]}: "
+                  f"{r.measured.device_ms:.4f} ms (held-stream events) "
+                  f"against the floor's {d['floor_ms']:.4f} ms "
+                  f"({d['device_time_bloat']:.3f}x; factor "
+                  f"{A.CARD_FACTORS[r.family]})")
+    if problems(timed):
+        raise PhaseError(f"the cost audit at the paths' shapes is not clean: "
+                         f"{problems(timed)}")
+    families = {}
+    for cell, v in device.items():
+        fam = cell.split("/")[0]
+        worst = families.get(fam)
+        if worst is None or v["ratio"] > worst["ratio"]:
+            families[fam] = dict(v, cell=cell)
+    seconds = time.perf_counter() - t0
+    print(f"[audit] phase 4m: {seconds:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    return dict(cells_run=len(ran), by_backend=by_backend,
+                violations=len(report.violations),
+                counted=counted_ratios,
+                seeds=seeds, device=device, families=families,
+                factors=dict(A.CARD_FACTORS), meta=timed.meta,
+                launches=total, seconds=seconds)
 
 
 def main() -> int:
@@ -2730,6 +2869,10 @@ def main() -> int:
                                c_fused=c_fused, m0=m0, a0=a0), counts_of)
     record["dist"] = dist_rec
 
+    # -- 4m. the audit gate on the card ---------------------------------------
+    audit_rec = audit_phase(counts_of)
+    record["audit"] = audit_rec
+
     # -- 5. timing -----------------------------------------------------------
     def per_step(run, carry, steps):
         """ms/step of ``carry = run(carry)`` (one call does ``steps`` steps):
@@ -2922,7 +3065,8 @@ def main() -> int:
                    lod3d=lod_launches, weno=weno_launches,
                    serve=serve["stream"]["launches"],
                    resilient=resilient["clean"]["launches"],
-                   tune=tuning["launches"], dist=dist_rec["launches"])
+                   tune=tuning["launches"], dist=dist_rec["launches"],
+                   audit=audit_rec["launches"])
     kernels = []
     for name, counts in path_launches.items():
         if not counts[name] > 0:
@@ -2960,6 +3104,11 @@ def main() -> int:
     print(json.dumps({"dist": {k: dist_rec[k] for k in (
         "checks", "bit_for_bit", "mass_drift", "ms_per_step", "device_ms",
         "fused_ms_per_step_phase5", "launches")}}))
+    print(json.dumps({"audit": {
+        **{k: audit_rec[k] for k in ("cells_run", "by_backend", "families",
+                                     "factors", "seeds")},
+        "card": audit_rec["meta"]["card"],
+        "power_limit": audit_rec["meta"]["power_limit"]}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -112,6 +112,35 @@ _lock = threading.Lock()
 _state: dict = {}
 _point_fn_state: dict = {}  # (point source, NWIN) -> build
 
+# library loads of each build directory in this process (the audit's
+# rebuild_budget rule reads them)
+LOADS: dict[str, int] = {}
+
+# The launch record of repro_torch.analysis.trace, one per thread: a
+# callable ``(name, tensors, args)`` that launch() calls on the thread
+# that set it.  While it is set, ptr() returns a pointer that carries its
+# tensor, and launch() hands its arguments' tensors to the record.
+_record = threading.local()
+
+
+class _Pointer(int):
+    """A launch argument's pointer that carries its tensor (an int to
+    ctypes)."""
+
+
+def set_launch_record(record) -> None:
+    """Set (a callable) or clear (None) this thread's launch record."""
+    _record.on_launch = record
+
+
+def record_launch(name: str, args: tuple) -> None:
+    """Hand one launch to this thread's record, if one is set, with the
+    tensors of its :func:`ptr` arguments."""
+    on_launch = getattr(_record, "on_launch", None)
+    if on_launch is not None:
+        tensors = tuple(a.tensor for a in args if isinstance(a, _Pointer))
+        on_launch(name, tensors, args)
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -237,6 +266,7 @@ def _compile(out_dir: Path, sources: dict, flags=()) -> str:
 def _load(out_dir: Path, sources) -> dict:
     """Load ``lib<stem>.so`` of each source and set its entry points'
     argument types: ``{entry point: (library, function)}``."""
+    LOADS[str(out_dir)] = LOADS.get(str(out_dir), 0) + 1
     libs = {}
     for src in sources:
         lib = ctypes.CDLL(str(out_dir / f"lib{Path(src).stem}.so"))
@@ -397,14 +427,26 @@ def launch(name: str, device: torch.device, *args, libs=None) -> None:
     The chaos site ``'kernel.dispatch'`` (the reference's
     ``'pallas.dispatch'``) fires first, with ``kernel=name``: an injected
     ``backend_error`` raises before the C call, so it leaves no partial
-    output."""
+    output.
+
+    With a launch record set on this thread (:func:`set_launch_record`),
+    the launch is recorded after it succeeds (:func:`record_launch`)."""
     _chaos.fire("kernel.dispatch", kernel=name)
     lib, fn = (build()["libs"] if libs is None else libs)[name]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         _check(lib, fn(*args, stream), f"CUDA kernel {name}")
     LAUNCHES[name] += 1
+    record_launch(name, args)
 
 
 def ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
+    """A launch argument's pointer (None for no tensor); while this thread
+    has a launch record, one that carries ``t``."""
+    if t is None:
+        return None
+    if getattr(_record, "on_launch", None) is None:
+        return t.data_ptr()
+    p = _Pointer(t.data_ptr())
+    p.tensor = t
+    return p

@@ -18,18 +18,28 @@ Conventions (the paper's cuSten API, as in the reference):
 
 from __future__ import annotations
 
-from collections.abc import Callable, Sequence
+from collections.abc import Callable, Iterable, Iterator
 
 import numpy as np
 import torch
 
 
-def weighted_point_fn(windows: Sequence[torch.Tensor], coeffs: torch.Tensor):
-    """The linear-stencil 'function pointer': sum_k coeffs[k] * window_k."""
-    out = coeffs[0] * windows[0]
-    for k in range(1, len(windows)):
-        out = out + coeffs[k] * windows[k]
+def weighted_point_fn(windows: Iterable[torch.Tensor], coeffs: torch.Tensor):
+    """The linear-stencil 'function pointer': sum_k coeffs[k] * window_k,
+    in window order.  ``windows`` may be a generator: the plain stencils
+    hand it one that makes each window when the sum reaches it, so one
+    window at a time is live, not all of them."""
+    it = iter(windows)
+    out = coeffs[0] * next(it)
+    for k, w in enumerate(it, 1):
+        out = out + coeffs[k] * w
     return out
+
+
+def _windows_for(point_fn: Callable, windows: Iterator[torch.Tensor]):
+    """The windows as ``point_fn`` takes them: the generator itself for the
+    weighted sum, a list for any other point function."""
+    return windows if point_fn is weighted_point_fn else list(windows)
 
 
 weighted_point_fn.device_point_fn = "weighted"
@@ -37,17 +47,17 @@ weighted_point_fn.device_point_fn = "weighted"
 
 def shifted_windows(
     data: torch.Tensor, *, left: int, right: int, top: int, bottom: int
-) -> list[torch.Tensor]:
+) -> Iterator[torch.Tensor]:
     """All stencil windows of ``data`` (periodic shifts over its last two
-    axes), row-major order.
+    axes), row-major order, each made when it is reached.
 
     ``window[a*sx+b][..., j, i] == data[..., (j - top + a) % ny, (i - left + b) % nx]``
     """
-    return [
+    return (
         torch.roll(data, shifts=(top - a, left - b), dims=(-2, -1))
         for a in range(top + bottom + 1)
         for b in range(left + right + 1)
-    ]
+    )
 
 
 def interior_mask(shape, *, left: int, right: int, top: int, bottom: int):
@@ -75,7 +85,7 @@ def stencil2d_ref(
     if bc not in ("periodic", "np"):
         raise ValueError(f"bc must be 'periodic' or 'np', got {bc!r}")
     wins = shifted_windows(data, left=left, right=right, top=top, bottom=bottom)
-    out = point_fn(wins, coeffs)
+    out = point_fn(_windows_for(point_fn, wins), coeffs)
     if bc == "np":
         out = _np_mask(out, interior_mask(data.shape[-2:], left=left, right=right,
                                           top=top, bottom=bottom), out_init)
@@ -115,9 +125,9 @@ def stencil1d_batch_ref(
     transposed view applies the stencil along the columns of its base."""
     if bc not in ("periodic", "np"):
         raise ValueError(f"bc must be 'periodic' or 'np', got {bc!r}")
-    wins = [torch.roll(data, shifts=left - b, dims=1)
-            for b in range(left + right + 1)]
-    out = point_fn(wins, coeffs)
+    wins = (torch.roll(data, shifts=left - b, dims=1)
+            for b in range(left + right + 1))
+    out = point_fn(_windows_for(point_fn, wins), coeffs)
     if bc == "np":
         ii = np.arange(data.shape[1])
         out = _np_mask(out, ((ii >= left) & (ii < data.shape[1] - right))[None, :],
@@ -144,13 +154,13 @@ def stencil3d_ref(
     if bc not in ("periodic", "np"):
         raise ValueError(f"bc must be 'periodic' or 'np', got {bc!r}")
     fr, bk, tp, bt, lf, rt = halos
-    wins = [
+    wins = (
         torch.roll(data, shifts=(fr - c, tp - a, lf - b), dims=(0, 1, 2))
         for c in range(fr + bk + 1)
         for a in range(tp + bt + 1)
         for b in range(lf + rt + 1)
-    ]
-    out = point_fn(wins, coeffs)
+    )
+    out = point_fn(_windows_for(point_fn, wins), coeffs)
     if bc == "np":
         nz, ny, nx = data.shape
         kk, jj, ii = np.meshgrid(np.arange(nz), np.arange(ny), np.arange(nx),

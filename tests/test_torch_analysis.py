@@ -419,33 +419,47 @@ class TestGridProblems:
 
 
 # ---------------------------------------------------------------------------
-# the surface: what the port has and what waits for its ROADMAP.md item
+# the surface: every reference name, or its counterpart, or N/A with a reason
 # ---------------------------------------------------------------------------
 
-# the reference's names that read jaxprs, HLO or XLA's cost analysis
-_AUDIT_AND_HLO = (
-    "run_audit", "run_cost_audit", "diff_baseline",
-    "analyze_hlo", "measure_compiled", "memory_stats",
-    "check_jaxpr", "check_hlo", "check_cost",
-    "iter_eqns", "retrace_count", "all_primitives", "BUDGET_FACTORS",
-    "LoopCost", "CostVector",
-)
+# the reference's names that read jaxprs, HLO or XLA's cost analysis, and
+# the port's counterpart of each (None: no counterpart)
+_AUDIT_AND_HLO = {
+    "run_audit": "run_audit",
+    "run_cost_audit": "run_cost_audit",
+    "diff_baseline": "diff_baseline",
+    "analyze_hlo": None,
+    "measure_compiled": "measure",
+    "memory_stats": "memory_stats",
+    "check_jaxpr": "check_trace",
+    "check_hlo": None,
+    "check_cost": "check_cost",
+    "iter_eqns": "iter_ops",
+    "retrace_count": "rebuild_count",
+    "all_primitives": "all_ops",
+    "BUDGET_FACTORS": "BUDGET_FACTORS",
+    "LoopCost": "LoopCost",
+    "CostVector": "CostVector",
+}
 
 
 def test_analysis_surface_against_reference():
     """Every name of the reference's ``repro.analysis`` is exported by the
-    port, but for the Audit and HLO names, which are absent and listed
-    under that ROADMAP.md item."""
+    port under its own name, or under its counterpart's for the names that
+    read jaxprs, HLO or XLA's cost analysis, or is N/A with its reason in
+    the module docstring's table; the port exports no name without a
+    reference counterpart."""
     mine, ref = set(an.__all__), set(ran.__all__)
-    audit_only = {"BACKENDS", "COST_SEEDS", "FAMILIES", "AuditResult",
-                  "CellArtifacts", "CostReport", "CostResult", "Report"}
-    assert ref - mine == set(_AUDIT_AND_HLO) | audit_only
-    assert mine <= ref
-    for name in _AUDIT_AND_HLO:
-        assert not hasattr(an, name), name
-    roadmap = (ROOT / "ROADMAP.md").read_text()
-    item = re.search(r"\d+\. \*\*Audit and HLO rules\.\*\*(.+?)\n\d+\. \*\*",
-                     roadmap, re.S)
-    assert item, "ROADMAP.md has no 'Audit and HLO rules' item"
-    for name in _AUDIT_AND_HLO:
-        assert f"`{name}`" in item.group(1), name
+    assert set(_AUDIT_AND_HLO) <= ref
+    mapped = {_AUDIT_AND_HLO.get(name, name) for name in ref} - {None}
+    assert mine == mapped
+    table = an.__doc__
+    for name, port in _AUDIT_AND_HLO.items():
+        row = re.search(rf"^``{name}``\s+(\S+)\s+(.+)$", table, re.M)
+        assert row, name
+        if port is None:
+            assert row.group(1) == "N/A" and row.group(2).strip(), name
+            assert not hasattr(an, name), name
+        else:
+            assert row.group(1) == f"``{port}``", name
+            assert hasattr(an, port), name

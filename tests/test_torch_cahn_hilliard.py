@@ -280,8 +280,8 @@ def test_unported_knobs_are_refused(call, kind, tmp_path, monkeypatch):
 def test_refusals_name_roadmap_items_that_exist():
     """Every ROADMAP.md item a module of the port names in a refusal or a
     docstring ("Open items: <title>") is a title of ROADMAP.md, so
-    renumbering the items cannot break a pointer; the refusals still in
-    the port name Audit and HLO rules and Rank-3 serve buckets."""
+    renumbering the items cannot break a pointer; the refusal still in
+    the port names Rank-3 serve buckets."""
     root = Path(__file__).resolve().parents[1]
     titles = set(re.findall(r"^\s*\d+\. \*\*(.+?)\.?\*\*",
                             (root / "ROADMAP.md").read_text(), re.M))
@@ -289,7 +289,7 @@ def test_refusals_name_roadmap_items_that_exist():
     for f in (root / "src" / "repro_torch").rglob("*.py"):
         text = re.sub(r'"\s*\n\s*f?"', "", f.read_text())  # join literals
         named |= set(re.findall(r"Open items: ([^)\n]+)\)", text))
-    assert {"Audit and HLO rules", "Rank-3 serve buckets"} <= named
+    assert {"Rank-3 serve buckets"} <= named
     assert named <= titles, named - titles
 
 

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from repro_torch import compute, create
+from repro_torch.analysis.audit import SEED_RULES
 from repro_torch.core.adi import apply_along_x, apply_along_y
 from repro_torch.core.cahn_hilliard import cube_laplacian_point_fn
 from repro_torch.kernels import _build, ops
@@ -1176,3 +1177,88 @@ def test_one_rank_nccl_world(cuda):
         timeout=300, cwd=root,
         env=dict(os.environ, PYTHONPATH=str(root / "src")))
     assert proc.returncode == 0 and "NCCL-OK" in proc.stdout, proc.stderr[-3000:]
+
+
+# ---------------------------------------------------------------------------
+# the audit gate on the card (repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+def test_card_audit_is_clean_on_cuda_cells(cuda):
+    """The invariant and cost audits of a subset of the cuda cells on the
+    card: the kernels' Computes, the fused CH step on the kernel path with
+    its in-place evolve driver, the sync-debug call and the profiler's
+    kernel list of the transpose-free families."""
+    from repro_torch.analysis import audit as A
+
+    kw = dict(operators=("laplacian", "hyperdiffusion"),
+              families=("stencil2d", "adi2d", "fused_ch"), backends=("cuda",),
+              device="cuda")
+    cache = A.CellArtifacts()
+    report = A.run_audit(cache=cache, **kw)
+    ran = [r for r in report.results if r.skipped is None]
+    assert report.ok, [r.to_dict() for r in report.violations]
+    assert {(r.family, r.operator) for r in ran if r.rules[0] != "rebuild_budget"} == {
+        ("stencil2d", "laplacian"), ("stencil2d", "hyperdiffusion"),
+        ("adi2d", "hyperdiffusion"), ("fused_ch", "hyperdiffusion")}
+    cost = A.run_cost_audit(cache=cache, **kw)
+    assert cost.ok, [r.to_dict() for r in cost.violations]
+    for r in cost.results:
+        if r.skipped is None:
+            # a launch counts the floor's flops: the kernels' cells sit at
+            # the closed form
+            assert 0.9 <= r.measured.flops / r.expected.flops <= 1.1, r.cell
+
+
+def test_kernel_list_is_read_in_a_fresh_process(cuda):
+    """Where this process's profiler windows record nothing, the audit
+    reads a cuda cell's kernel list in a process of its own: the ADI
+    step's list there holds its two sweep kernels and no copy."""
+    from repro_torch.analysis import audit as A
+
+    names = A._fresh_kernel_names("adi2d", "hyperdiffusion", "cuda",
+                                  (32, 32), None)
+    assert names is not None
+    assert any("penta" in n for n in names), names
+    assert not any("copy" in n.lower() or "transpose" in n.lower()
+                   for n in names), names
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+@pytest.mark.parametrize("seed", list(SEED_RULES))
+def test_each_seed_fails_closed_on_the_card(cuda, seed, backend):
+    from repro_torch.analysis import audit as A
+
+    rule, family, op = SEED_RULES[seed]
+    kw = dict(operators=(op,), families=(family,), backends=(backend,),
+              seed_violation=seed, device="cuda")
+    if seed in A.COST_SEEDS:
+        rep = A.run_cost_audit(**kw)
+    else:
+        rep = A.run_audit(retrace=False, **kw)
+    assert not rep.ok
+    assert rule in {f.rule for r in rep.results for f in r.findings}
+
+
+def test_in_place_evolve_reads_the_allocator(cuda):
+    """On the card the rule reads the allocator's cumulative count, which
+    a cached block reused still raises: the solver's driver passes, one
+    that allocates a new carry each step fails."""
+    from repro_torch.analysis import RULES
+    from repro_torch.core.cahn_hilliard import (
+        CahnHilliardADI, CHConfig, deep_quench_ic)
+
+    solver = CahnHilliardADI(CHConfig(nx=64, ny=64))
+    c0 = deep_quench_ic(64, 64, seed=0)
+    c1 = solver.initial_step(c0)
+    ctx = {"args": (c1, c0), "steps": 4, "increment": solver._increment}
+    assert RULES["in_place_evolve"].check(solver.make_evolve, ctx) == []
+
+    def make_copying(k):
+        def evolve(a, b):
+            for _ in range(k):
+                a, b = solver.step(a, b)
+            return a, b
+        return evolve
+
+    findings = RULES["in_place_evolve"].check(make_copying, ctx)
+    assert {f.primitive for f in findings} == {"data_ptr", "allocation"}
