@@ -195,6 +195,34 @@ printing a result:
       (``CARD_SHAPES``: 1024^2, (1024, 1024) lines, 256^3) with their
       device time against the floor's time on the H100's peaks
       (``device_time_budget``), printed with each family's ratio.
+   n. LM serving (``repro_torch.models``, ``repro_torch.launch.cells``;
+      no kernel of the nine, 0 launches asserted; run after phase 5's
+      timings): (1) each of the ten reduced configs in float32 on the same
+      weights on the card and on the CPU, prefill logits of 64 tokens and
+      8 decode steps within the CPU tests' logits tolerance, TF32 off
+      (asserted); (2) at the published widths in float32, cut in depth as
+      ``LM_CONFIGS`` says, at the serving shape (4 requests of 128 tokens;
+      RWKV's chunked WKV in the prefill), decode after a chunked prefill
+      against ``prefill_serve``'s last logits, one more token from a cache
+      filled by
+      ``cells.cache_from_prefill`` against the chunked cache's, and
+      nemotron's int8 cache within 5% of the logit range with the same
+      argmax or a near-tie; (3) in each config's bf16 policy at its serving
+      depth (smollm-135m and whisper-base whole, llava-next-mistral-7b and
+      rwkv6-7b at 32 layers, phi3.5-moe and jamba at 8 of 32, nemotron at
+      2 of 96), 4 requests of 128 tokens (random patches for the VLM,
+      zero frames for whisper) through ``make_prefill_step``, 32 greedy
+      tokens each through ``make_serve_step`` (every step's logits finite,
+      every token in the vocabulary), and one request through
+      ``greedy_generate``, gated: the state rebuilt through the decode
+      step (rwkv6, jamba, whisper) against the prefill's logits (jamba's,
+      whose bf16 router may pick another expert on either path, recorded
+      only), and
+      ``greedy_generate``'s tokens against the batched ones up to the
+      first differing token, which must be a near-tie (``LM_BF16_SCALE``);
+      prefill tokens/s, decode ms a step at batch 4 (with the host's
+      enqueue time a step) and 1, peak memory at init and while serving,
+      and seconds a config.
 5. Timing: ms/step of the fused step over 200 steps after 20 of warm-up,
    of the stencil-mode step on the penta and on the fft sweeps and of the
    batched-1D step, of the 3D LOD step on the kernels, streamed and on
@@ -211,7 +239,11 @@ printing a result:
    bit-for-bit observations, mass drift, ms/step, launches), the
    ``audit`` JSON line (phase 4m: cells run, each family's worst device
    time, floor time and ratio, the fitted factors, the seeds' findings,
-   the card and its power limit), the ``kernels`` JSON line (each
+   the card and its power limit), the ``lm`` JSON line (phase 4n: the
+   card and its power limit, the card-against-CPU error, each config's
+   consistency error and limit, its serving numbers and its two bf16
+   cross-checks), the ``kernels``
+   JSON line (each
    kernel's launches on the main path, and under ``paths`` on every path
    that launched it, the serving stream, the resilient run, the tuning
    Creates, phase 4l's distributed calls and phase 4m's audit included;
@@ -1528,6 +1560,504 @@ def audit_phase(counts_of) -> dict:
                 seeds=seeds, device=device, families=families,
                 factors=dict(A.CARD_FACTORS), meta=timed.meta,
                 launches=total, seconds=seconds)
+
+
+# LM serving (phase 4n): the LM substrate's serving path
+# (repro_torch.models, repro_torch.launch.cells).  Each published config runs
+# at its own widths, cut in depth where the table says: (arch, layers served
+# in bf16, layers of the float32 consistency check).  The depth cuts keep a
+# config on one card: bf16 weights (ArchConfig.param_count at the cut depth)
+# of 0.3 GiB (smollm), 0.2 (whisper), 13.5 (llava), 14.1 (rwkv6), 19.9
+# (phi3.5-moe), 24.8 (jamba: one period of 8 layers, the period that the
+# hybrid's stack needs) and 30.4 (nemotron); float32 doubles them, so the
+# 7B-class models run their consistency check at 2 layers.
+LM_CONFIGS = (
+    ("smollm-135m", 30, 30),
+    ("whisper-base", 6, 6),
+    ("llava-next-mistral-7b", 32, 2),
+    ("rwkv6-7b", 32, 2),
+    ("phi3.5-moe-42b-a6.6b", 8, 2),
+    ("jamba-v0.1-52b", 8, 8),
+    ("nemotron-4-340b", 2, 2),
+)
+LM_SEED = 0
+LM_BATCH = 4  # requests served together
+LM_PROMPT = 128  # prompt tokens a request
+LM_NEW = 32  # greedy tokens a request
+# Prompt tokens of the card-against-CPU check: 64 takes RWKV's chunked WKV
+# in the prefill (s % 32 == 0 and s > 32, models/ssm.py), as the serving
+# prompt of 128 does; the decode step takes the per-step recurrence.  The
+# float32 consistency check runs at the serving shape, LM_BATCH x
+# LM_PROMPT.
+LM_CPU_PROMPT = 64
+LM_CPU_STEPS = 8  # decode steps of the card-against-CPU check
+# Tolerances.  Card against CPU (reduced configs, float32): the CPU tests'
+# logits tolerance, tolerance_for(float32, 10) held elementwise
+# (tests/_torch_lm_common.py: up to 8 layers whose products the two
+# devices sum in another order).  Consistency at full width (float32, TF32
+# off): decode after chunked prefill against prefill_serve's last logits,
+# held norm-wise (max|a - b| <= atol + rtol max|b|) at
+# tolerance_for(float32, 100): up to 30 layers of products of length up to
+# 73728 that the two paths sum in another order (flash against decode
+# attention, a (B*S, d) product against a (B, d) one).  The int8 cache
+# (nemotron) against the exact decode: within 5% of the logit range with
+# the same argmax, the reference's test_int8_kv_cache_decode_close, a
+# differing argmax of a request allowed only at a near-tie within that
+# limit (the rule below).
+# bf16 serving (the config's own policy) holds two pairs of paths to each
+# other: the state rebuilt through the decode step against the batched
+# prefill's last logits (rwkv6, jamba, whisper), and greedy_generate
+# (batch 1, the prompt through the decode step) against the batched
+# serving's tokens.  Logits norm-wise at tolerance_for(bfloat16, 5): bf16's
+# 2e-2 baseline, and up to 32 layers whose products and attention the two
+# paths round at another shape (a (B*S, d) product against a (B, d) one,
+# flash against decode attention, the chunked WKV against its per-step
+# recurrence); the float32 check above holds the same pairs tightly, at
+# the same shapes.  Not for an MoE config: its router's logits are bf16
+# (as the reference's, models/moe.py), so two paths can tie and pick
+# another expert for a token, which moves that request's logits by O(1);
+# its rebuilt logits are recorded, and its tokens held by the rule below.
+# A differing argmax is a near-tie (the CPU tests' rule): the logits that
+# chose one token must put the other within that limit of it; past the
+# first differing token the contexts differ and the tokens are not compared.
+LM_SELF_SCALE = 100
+LM_BF16_SCALE = 5
+
+
+def _lm_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _lm_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_lm_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+def _lm_numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_lm_numel(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_lm_numel(v) for v in tree)
+    return tree.numel()
+
+
+def _lm_batch(cfg, rng, B, S, device, dtype=None):
+    """Token ids from a numpy seed; random ``patches`` for the VLM, zero
+    ``frames`` for whisper (as ``greedy_generate`` uses them)."""
+    import torch
+
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(1, cfg.vocab, (B, S)).astype("int32"), device=device)}
+    dt = dtype or cfg.dtype_policy.cdt
+    if cfg.family == "vlm":
+        batch["patches"] = (torch.as_tensor(rng.standard_normal(
+            (B, cfg.img_tokens, cfg.d_model)).astype("float32"),
+            device=device) * 0.1).to(dt)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros((B, cfg.enc_seq, cfg.d_model),
+                                      dtype=torch.float32, device=device)
+    return batch
+
+
+def _lm_limit(ref, tol) -> float:
+    """The norm-wise limit ``atol + rtol max|ref|``."""
+    return tol["atol"] + tol["rtol"] * float(ref.abs().max())
+
+
+def _lm_near_tie(chose, other, limit) -> tuple[bool, float]:
+    """``chose`` are the logits (V,) that picked their argmax; the other path
+    picked ``other``.  A near-tie when ``other``'s logit lies within
+    ``limit`` of the maximum.  Returns (near tie, gap)."""
+    gap = float(chose.max() - chose[other])
+    return gap <= limit, gap
+
+
+def _lm_cross(model, params, batch, cache):
+    """whisper: the encoder's cross K/V into the cache."""
+    _, (xk, xv) = model.prefill_serve(params, batch)
+    return dict(cache, xk=xk, xv=xv)
+
+
+def _lm_free():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_phase(counts_of) -> dict:
+    """Phase 4n: the LM serving path on the card.  (1) Each of the ten
+    reduced configs in float32 on the same weights on the card and on the
+    CPU: prefill logits of ``LM_CPU_PROMPT`` tokens and 8 decode steps
+    within the CPU tests' logits tolerance (TF32 off, asserted).  (2) At
+    the published widths, float32, at ``LM_CONFIGS``' check depth and the
+    serving shape (4 x 128; RWKV's chunked WKV against its per-step
+    recurrence): decode after chunked prefill against prefill_serve's last
+    logits; for the attention
+    families, one more token decoded from a cache filled by
+    ``cells.cache_from_prefill`` against the chunked cache's; nemotron's
+    int8 cache against its exact one.  (3) In each config's bf16 policy at
+    ``LM_CONFIGS``' serving depth: 4 requests of 128 tokens through
+    ``make_prefill_step``, 32 greedy tokens each through
+    ``make_serve_step`` (every step's logits finite, checked on the card),
+    one request through ``greedy_generate``; the rebuilt state's logits
+    against the prefill's (not gated for an MoE config) and both paths'
+    tokens under the near-tie rule at ``LM_BF16_SCALE``; prefill tokens/s,
+    decode ms a step at batch 4 and 1, peak memory, seconds.  The nine
+    kernels are launched 0 times (asserted).  Any failure raises."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.launch import cells
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.api import build_model
+    from repro_torch.models.layers import DTypePolicy
+    from repro_torch.runtime.sharding import Shardings
+    from repro_torch.util import tolerance_for
+
+    t_phase = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise PhaseError("phase 4n needs torch.backends.cuda.matmul."
+                         "allow_tf32 False")
+    print(f"[lm] allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"allow_bf16_reduced_precision_reduction="
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}",
+          flush=True)
+    sh = Shardings.none()
+    dev = torch.device("cuda")
+    card = card_line()
+    rec: dict = dict(card=card, cpu_vs_card=[], consistency=[], serving=[])
+
+    def run():
+        # -- (1) card against CPU, reduced configs, float32 --------------------
+        tol = tolerance_for(torch.float32, scale=10)
+        for arch in list_archs():
+            cfg = get_config(arch).reduced()
+            mc, mg = build_model(cfg, device="cpu"), build_model(cfg,
+                                                                 device=dev)
+            pc = mc.init(LM_SEED)
+            pg = _lm_to(pc, dev)
+            bc = _lm_batch(cfg, np.random.default_rng(LM_SEED), 2,
+                           LM_CPU_PROMPT, "cpu")
+            bg = _lm_to(bc, dev)
+            pairs = [(mc.prefill_logits(pc, bc), mg.prefill_logits(pg, bg))]
+            cc, cg = mc.init_cache(2, LM_CPU_STEPS), mg.init_cache(
+                2, LM_CPU_STEPS)
+            if cfg.family == "encdec":
+                cc, cg = _lm_cross(mc, pc, bc, cc), _lm_cross(mg, pg, bg, cg)
+            for i in range(LM_CPU_STEPS):
+                lc, cc = mc.decode(pc, bc["tokens"][:, i], i, cc)
+                lg, cg = mg.decode(pg, bg["tokens"][:, i], i, cg)
+                pairs.append((lc, lg))
+            worst, ok = 0.0, True
+            for cpu, card_out in pairs:
+                g = card_out.cpu()
+                worst = max(worst, float((g - cpu).abs().max()))
+                ok &= bool(torch.isclose(g, cpu, **tol).all())
+            rec["cpu_vs_card"].append(dict(arch=arch, max_abs_err=worst,
+                                           ok=ok))
+            print(f"[lm] card vs CPU {arch} (reduced, float32): prefill of "
+                  f"{LM_CPU_PROMPT} tokens + {LM_CPU_STEPS} decode steps, "
+                  f"max|err| {worst:.3e} "
+                  f"({'ok' if ok else 'FAIL'} at rtol=atol={tol['rtol']:.0e})",
+                  flush=True)
+            if not ok:
+                raise PhaseError(f"{arch}: card logits differ from the CPU's")
+
+        # -- (2) consistency at full width, float32 ----------------------------
+        f32 = DTypePolicy("float32", "float32", "float32")
+        stol = tolerance_for(torch.float32, scale=LM_SELF_SCALE)
+        for arch, _, depth in LM_CONFIGS:
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(get_config(arch), n_layers=depth,
+                                      dtype_policy=f32)
+            int8 = cfg.cache_dtype == "int8"
+            if cfg.moe is not None:  # no capacity drop in the prefill
+                cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                    cfg.moe, capacity_factor=8.0))
+            exact = dataclasses.replace(cfg, cache_dtype="bfloat16")
+            model = build_model(exact, device=dev)
+            params = model.init(LM_SEED)
+            B, S = LM_BATCH, LM_PROMPT
+            batch = _lm_batch(exact, np.random.default_rng(LM_SEED + 1), B,
+                              S, dev)
+            toks = batch["tokens"]
+            if exact.family == "vlm":  # the decode step takes no image
+                ref, kvs = tf.prefill(params, exact, toks)
+            else:
+                ref, kvs = cells.make_prefill_step(model, sh=sh)(params,
+                                                                 batch)
+            cache = model.init_cache(B, S + 2)
+            if exact.family == "encdec":
+                cache = _lm_cross(model, params, batch, cache)
+            for i in range(S):
+                lg, cache = model.decode(params, toks[:, i], i, cache)
+            scale = float(ref.abs().max())
+            err = float((lg - ref).abs().max())
+            limit = stol["atol"] + stol["rtol"] * scale
+            row = dict(arch=arch, layers=depth, batch=B, prompt=S,
+                       max_abs_err=err, limit=limit, max_abs_logit=scale)
+            ok = err <= limit and bool(torch.isfinite(lg).all())
+            nxt = torch.argmax(lg, dim=-1)
+            if exact.family in ("dense", "moe", "vlm"):
+                filled = cells.cache_from_prefill(
+                    model, model.init_cache(B, S + 2), kvs)
+                la, _ = model.decode(params, nxt, S, filled)
+                lb, _ = model.decode(params, nxt, S, cache)
+                row["prefill_cache_err"] = float((la - lb).abs().max())
+                ok &= row["prefill_cache_err"] <= (
+                    stol["atol"] + stol["rtol"] * float(lb.abs().max()))
+            if int8:
+                mq = build_model(cfg, device=dev)
+                cq = mq.init_cache(B, S + 2)
+                for i in range(S):
+                    lq, cq = mq.decode(params, toks[:, i], i, cq)
+                rng_ = float(ref.max() - ref.min())
+                row["int8_max_abs_err"] = float((lq - ref).abs().max())
+                row["int8_limit"] = 0.05 * rng_
+                picked = lq.argmax(-1)
+                row["int8_argmax_same"] = int((picked == ref.argmax(-1))
+                                              .sum())
+                ties = [_lm_near_tie(ref[b], int(picked[b]),
+                                     row["int8_limit"]) for b in range(B)]
+                row["int8_gaps"] = [gap for _, gap in ties]
+                ok &= (row["int8_max_abs_err"] < row["int8_limit"]
+                       and all(tie for tie, _ in ties))
+                del mq, cq
+            row["seconds"] = time.perf_counter() - t0
+            row["ok"] = ok
+            rec["consistency"].append(row)
+            print(f"[lm] consistency {arch} ({depth} of "
+                  f"{get_config(arch).n_layers} layers, float32, {B}x{S}): "
+                  f"decode vs prefill_serve max|err| {err:.3e} (limit "
+                  f"{limit:.3e})"
+                  + (f", prefill-filled cache {row['prefill_cache_err']:.3e}"
+                     if "prefill_cache_err" in row else "")
+                  + (f", int8 cache {row['int8_max_abs_err']:.3e} (limit "
+                     f"{row['int8_limit']:.3e}, argmax same "
+                     f"{row['int8_argmax_same']} of {B})" if int8 else "")
+                  + f"; {row['seconds']:.1f} s", flush=True)
+            del model, params, cache, kvs, batch
+            _lm_free()
+            if not ok:
+                raise PhaseError(f"{arch}: decode disagrees with prefill at "
+                                 f"full width: {row}")
+
+        # -- (3) serving in each config's bf16 policy --------------------------
+        for arch, depth, _ in LM_CONFIGS:
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+            model = build_model(cfg, device=dev)
+            params = model.init(LM_SEED)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            peak_init = torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+            weights_gib = _lm_numel(params) * 2 / 2**30
+            rng = np.random.default_rng(LM_SEED + 2)
+            batch = _lm_batch(cfg, rng, LM_BATCH, LM_PROMPT, dev)
+            toks = batch["tokens"]
+            prefill = cells.make_prefill_step(model, sh=sh)
+            n_pos = LM_PROMPT + (cfg.img_tokens if cfg.family == "vlm" else 0)
+            prefill_s = []
+            for _ in range(2):  # the first call includes cuBLAS set-up
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                logits, kvs = prefill(params, batch)
+                torch.cuda.synchronize()
+                prefill_s.append(time.perf_counter() - t1)
+            finite = torch.isfinite(logits).all()
+            # the decode cache: from the prefill's K/V, or rebuilt through
+            # the decode step (recurrent and encoder-decoder families)
+            max_seq = n_pos + LM_NEW + 1
+            cache = model.init_cache(LM_BATCH, max_seq)
+            checked = {"finite": torch.ones((), dtype=torch.bool,
+                                            device=dev)}
+
+            def decode(p, token, pos, c, sh_=sh, _m=model, _ok=checked):
+                lg, c = _m.decode(p, token, pos, c, sh_)
+                _ok["finite"] &= torch.isfinite(lg).all()
+                _ok["last"] = lg
+                return lg, c
+
+            serve = cells.make_serve_step(
+                dataclasses.replace(model, decode=decode), sh=sh)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rebuilt_s = None
+            if cfg.family in ("dense", "moe", "vlm"):
+                cache = cells.cache_from_prefill(model, cache, kvs)
+                token = torch.argmax(logits, dim=-1).to(torch.int32)
+                first = logits
+            else:
+                if cfg.family == "encdec":
+                    cache = dict(cache, xk=kvs[0], xv=kvs[1])
+                for i in range(LM_PROMPT):
+                    token, cache = serve(params, cache, toks[:, i], i)
+                torch.cuda.synchronize()
+                rebuilt_s = time.perf_counter() - t1
+                first = checked["last"]
+            rebuilt_token = token
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out, chose = [token], [first[0]]  # the logits behind each token
+            for j in range(LM_NEW):
+                token, cache = serve(params, cache, token, n_pos + j)
+                out.append(token)
+                chose.append(checked["last"][0])
+            enqueue_b4 = (time.perf_counter() - t1) / LM_NEW
+            torch.cuda.synchronize()
+            decode_b4 = (time.perf_counter() - t1) / LM_NEW
+            gen = torch.stack(out, dim=1)
+            del cache, kvs
+            prompt1 = [int(t) for t in toks[0].tolist()]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            g1 = cells.greedy_generate(arch=cfg, prompt_tokens=prompt1,
+                                       max_new_tokens=LM_NEW, params=params,
+                                       device=dev)
+            greedy_s = time.perf_counter() - t1
+            peak_serving = torch.cuda.max_memory_allocated() / 2**30
+
+            # -- the bf16 cross-checks, untimed.  The MoE decode step is
+            # dropless and the prefill drops what overflows capacity_factor,
+            # so an MoE config is held to a prefill at capacity_factor 8.0
+            # (none dropped), as the float32 check above and the CPU tests
+            # do; how far the drops move the prefill's logits is recorded.
+            bf16_tol = tolerance_for(torch.bfloat16, scale=LM_BF16_SCALE)
+            drop_effect = None
+            ref_logits = logits
+            if cfg.moe is not None:
+                check = build_model(dataclasses.replace(
+                    cfg, moe=dataclasses.replace(cfg.moe,
+                                                 capacity_factor=8.0)),
+                    device=dev)
+                ref_logits, ref_kvs = cells.make_prefill_step(check, sh=sh)(
+                    params, batch)
+                drop_effect = float((ref_logits.float() - logits.float())
+                                    .abs().max())
+                if cfg.family == "moe":  # its batched tokens, none dropped
+                    cache = cells.cache_from_prefill(
+                        check, check.init_cache(LM_BATCH, max_seq), ref_kvs)
+                    token = torch.argmax(ref_logits, -1).to(torch.int32)
+                    out, chose = [token], [ref_logits[0]]
+                    for j in range(LM_NEW):
+                        token, cache = serve(params, cache, token, n_pos + j)
+                        out.append(token)
+                        chose.append(checked["last"][0])
+                    gen = torch.stack(out, dim=1)
+                    del cache
+                del ref_kvs
+            ok = bool(finite) and bool(checked["finite"])
+            in_vocab = bool(((gen >= 0) & (gen < cfg.vocab)).all())
+            in_vocab &= all(0 <= t < cfg.vocab for t in g1)
+            ok &= in_vocab and len(g1) == LM_PROMPT + LM_NEW
+            rebuild = None
+            if rebuilt_s is not None:
+                # the rebuilt state's last logits against the prefill's
+                pre, reb = ref_logits.float(), first.float()
+                limit = _lm_limit(pre, bf16_tol)
+                ties = [_lm_near_tie(pre[b], int(rebuilt_token[b]), limit)
+                        for b in range(LM_BATCH)]
+                rebuild = dict(
+                    seconds=rebuilt_s,
+                    max_abs_err=float((reb - pre).abs().max()), limit=limit,
+                    argmax_same=int((rebuilt_token == pre.argmax(-1)).sum()),
+                    gaps=[gap for _, gap in ties])
+                rebuild["logits_gated"] = cfg.moe is None
+                rebuild["ok"] = ((rebuild["max_abs_err"] <= limit
+                                  or cfg.moe is not None)
+                                 and all(tie for tie, _ in ties))
+                ok &= rebuild["ok"]
+            # greedy_generate against the batched serving's first request, up
+            # to their first differing token (the VLM's greedy_generate takes
+            # no image, so its tokens are not the batched ones')
+            greedy = None
+            if cfg.family != "vlm":
+                batched = [int(t) for t in gen[0, :LM_NEW].tolist()]
+                diff = [j for j in range(LM_NEW)
+                        if g1[LM_PROMPT + j] != batched[j]]
+                greedy = dict(first_difference=diff[0] if diff else None,
+                              ok=True)
+                if diff:
+                    j = diff[0]
+                    row_j = chose[j].float()
+                    limit = _lm_limit(row_j, bf16_tol)
+                    tie, gap = _lm_near_tie(row_j, g1[LM_PROMPT + j], limit)
+                    greedy.update(gap=gap, limit=limit, ok=tie)
+                ok &= greedy["ok"]
+            del logits, first, checked, chose, ref_logits
+            row = dict(
+                arch=arch, family=cfg.family, layers=depth,
+                published_layers=get_config(arch).n_layers,
+                cut=depth != get_config(arch).n_layers,
+                weights_gib=weights_gib, batch=LM_BATCH, prompt=LM_PROMPT,
+                positions=n_pos, new_tokens=LM_NEW, init_s=init_s,
+                prefill_s=prefill_s,
+                prefill_tokens_per_s=LM_BATCH * n_pos / prefill_s[1],
+                state_rebuild=rebuild,
+                decode_ms_b4=decode_b4 * 1e3,
+                decode_enqueue_ms_b4=enqueue_b4 * 1e3,
+                decode_tokens_per_s_b4=LM_BATCH / decode_b4,
+                greedy_s=greedy_s,
+                decode_ms_b1=greedy_s / (LM_PROMPT + LM_NEW) * 1e3,
+                greedy_vs_batched=greedy,
+                capacity_drop_max_abs=drop_effect,
+                peak_gib=peak_serving, peak_init_gib=peak_init,
+                seconds=time.perf_counter() - t0, ok=ok, card=card)
+            rec["serving"].append(row)
+            print(f"[lm] serve {arch} ({depth} of {row['published_layers']} "
+                  f"layers, {cfg.dtype_policy.params}, {weights_gib:.1f} GiB "
+                  f"weights): prefill {LM_BATCH}x{n_pos} "
+                  f"{row['prefill_tokens_per_s']:.0f} tokens/s "
+                  f"({prefill_s[1] * 1e3:.2f} ms; first call "
+                  f"{prefill_s[0] * 1e3:.1f} ms)"
+                  + (f", state rebuilt through decode in "
+                     f"{rebuild['seconds']:.2f} s (last logits vs prefill "
+                     f"max|err| {rebuild['max_abs_err']:.3e}, limit "
+                     f"{rebuild['limit']:.3e}"
+                     f"{'' if rebuild['logits_gated'] else ' (not gated: MoE)'}"
+                     f"; argmax same "
+                     f"{rebuild['argmax_same']} of {LM_BATCH}, gaps "
+                     f"{', '.join(f'{g:.3e}' for g in rebuild['gaps'])})"
+                     if rebuild is not None else "")
+                  + (f"; capacity drops move the prefill's logits by "
+                     f"{drop_effect:.3e}" if drop_effect is not None else "")
+                  + f"; decode {row['decode_ms_b4']:.2f} ms/step at batch "
+                  f"{LM_BATCH} (host enqueue {row['decode_enqueue_ms_b4']:.2f}"
+                  f"), {row['decode_ms_b1']:.2f} ms/step at batch 1 "
+                  f"(greedy_generate, {LM_PROMPT}+{LM_NEW} steps"
+                  + ("" if greedy is None else
+                     ", its tokens the batched ones'" if greedy[
+                         "first_difference"] is None else
+                     f", first differs from the batched at new token "
+                     f"{greedy['first_difference']}: gap {greedy['gap']:.3e}"
+                     f", limit {greedy['limit']:.3e}")
+                  + f"); peak {row['peak_gib']:.1f} GiB serving, "
+                  f"{peak_init:.1f} GiB at init; {row['seconds']:.1f} s "
+                  f"[{card}]", flush=True)
+            del model, params, batch, toks, gen
+            _lm_free()
+            if not ok:
+                raise PhaseError(f"{arch}: serving gate failed: {row}")
+
+    def run_inference():
+        with torch.inference_mode():
+            run()
+
+    _, launches = counts_of(run_inference)
+    if any(launches.values()):
+        raise PhaseError(f"the LM path launched kernels: {launches}")
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"[lm] phase 4n: {rec['seconds']:.1f} s; kernel launches "
+          f"{sum(launches.values())}", flush=True)
+    return rec
 
 
 def main() -> int:
@@ -3050,6 +3580,12 @@ def main() -> int:
               f"{t['host_enqueue']:.4f} ms/step; {t['steps']} steps after "
               f"warm-up")
 
+    # -- 4n. LM serving, after phase 5's timings -------------------------------
+    # (its seconds of large bf16 products and host-bound decode loops would
+    # otherwise run just before the host-bound steps timed above)
+    lm_rec = lm_phase(counts_of)
+    record["lm"] = lm_rec
+
     # -- 6. result lines -----------------------------------------------------
     # launches: each kernel's count from the run of the path it serves
     path_launches = dict(
@@ -3109,6 +3645,25 @@ def main() -> int:
                                      "factors", "seeds")},
         "card": audit_rec["meta"]["card"],
         "power_limit": audit_rec["meta"]["power_limit"]}}))
+    print(json.dumps({"lm": {
+        "card": lm_rec["card"], "seconds": lm_rec["seconds"],
+        "launches": sum(lm_rec["launches"].values()),
+        "cpu_vs_card_max_abs_err": max(
+            r["max_abs_err"] for r in lm_rec["cpu_vs_card"]),
+        "consistency": {r["arch"]: {k: r[k] for k in (
+            "layers", "prompt", "max_abs_err", "limit")}
+            for r in lm_rec["consistency"]},
+        "serving": {r["arch"]: {
+            **{k: r[k] for k in (
+                "layers", "published_layers", "weights_gib",
+                "prefill_tokens_per_s", "decode_ms_b4",
+                "decode_enqueue_ms_b4", "decode_ms_b1", "peak_gib",
+                "peak_init_gib", "seconds", "greedy_vs_batched")},
+            "state_rebuild": None if r["state_rebuild"] is None else {
+                k: r["state_rebuild"][k] for k in (
+                    "max_abs_err", "limit", "logits_gated", "argmax_same",
+                    "gaps", "ok")}}
+            for r in lm_rec["serving"]}}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,9 @@ and ``max_tile_bytes`` across, and its fft backend's Create-time symbols
 arrays), so the symbols can be held apart from the transforms.
 A reference ``DomainDecomposition`` crosses as its mesh's shape and axis
 names (:func:`mesh_layout`), from which :func:`domain_decomposition`
-builds the port's over the initialised ``torch.distributed`` world.
+builds the port's over the initialised ``torch.distributed`` world.  An LM
+parameter tree crosses leaf for leaf (:func:`lm_params`; :func:`lm_numpy`
+goes back).
 """
 
 from __future__ import annotations
@@ -229,3 +231,61 @@ def domain_decomposition(layout: dict):
         mesh=_make_mesh(tuple(layout["shape"]), tuple(layout["names"])),
         y_axis=layout["y_axis"], x_axis=layout["x_axis"],
         ensemble_axis=layout["ensemble_axis"])
+
+
+def _leaf(a, device) -> torch.Tensor:
+    """One numpy leaf as a tensor; bfloat16 (``ml_dtypes``, as
+    ``jax.device_get`` gives it) crosses through its 16-bit pattern."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.array(a, copy=True, order="C").view(np.uint16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return _tensor(a, device)
+
+
+def lm_params(tree, cfg, *, device="cuda"):
+    """The port's LM parameters from the reference's parameter tree (numpy
+    leaves, e.g. ``jax.device_get(model.init(key))``).
+
+    The tree keeps its layout leaf for leaf: stacked layers with their
+    leading scan-step axis, a list of period stacks for hybrids, the
+    encoder-decoder's ``enc_blocks``/``dec_blocks``.  Names, shapes and
+    dtypes are held to the port's own tree for ``cfg``
+    (:func:`repro_torch.models.api.param_shapes`); a mismatch raises
+    ``ValueError`` naming the leaf."""
+    from repro_torch.models.api import param_shapes
+
+    dev = resolve_device(device)
+
+    def conv(t, want, path):
+        if isinstance(want, dict):
+            if not isinstance(t, dict) or set(t) != set(want):
+                raise ValueError(f"lm_params: {path or '/'} has keys "
+                                 f"{sorted(t) if isinstance(t, dict) else t!r}"
+                                 f", expected {sorted(want)}")
+            return {k: conv(t[k], want[k], f"{path}/{k}") for k in want}
+        if isinstance(want, (list, tuple)):
+            if not isinstance(t, (list, tuple)) or len(t) != len(want):
+                raise ValueError(f"lm_params: {path} is not a sequence of "
+                                 f"{len(want)} stacks")
+            return type(want)(conv(a, w, f"{path}/{i}")
+                              for i, (a, w) in enumerate(zip(t, want)))
+        x = _leaf(t, dev)
+        if tuple(x.shape) != tuple(want.shape) or x.dtype != want.dtype:
+            raise ValueError(f"lm_params: {path} is {tuple(x.shape)} "
+                             f"{x.dtype}, expected {tuple(want.shape)} "
+                             f"{want.dtype}")
+        return x
+
+    return conv(tree, param_shapes(cfg), "")
+
+
+def lm_numpy(tree):
+    """The port's LM parameters (or any tree of tensors) as numpy, leaf for
+    leaf in the same layout; bfloat16 leaves come back as float32 (exact)."""
+    if isinstance(tree, dict):
+        return {k: lm_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(lm_numpy(v) for v in tree)
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

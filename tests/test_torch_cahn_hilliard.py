@@ -345,7 +345,20 @@ def test_port_never_imports_jax_or_repro():
             "src/repro_torch/tune/prior.py",
             "src/repro_torch/core/domain.py",
             "src/repro_torch/core/dist_ch.py",
-            "src/repro_torch/launch/mesh.py"} <= rel
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/configs/__init__.py",
+            "src/repro_torch/configs/jamba_v01_52b.py",
+            "src/repro_torch/configs/nemotron_4_340b.py",
+            "src/repro_torch/models/layers.py",
+            "src/repro_torch/models/attention.py",
+            "src/repro_torch/models/moe.py",
+            "src/repro_torch/models/ssm.py",
+            "src/repro_torch/models/transformer.py",
+            "src/repro_torch/models/encdec.py",
+            "src/repro_torch/models/api.py",
+            "src/repro_torch/runtime/sharding.py",
+            "src/repro_torch/launch/cells.py",
+            "src/repro_torch/launch/serve.py"} <= rel
     bad = [(p.name, m) for p in sources for m in _imports(p) if _FORBIDDEN.match(m)]
     assert not bad, bad
     code = (
@@ -364,7 +377,13 @@ def test_port_never_imports_jax_or_repro():
         "        'repro_torch.analysis.rules', 'repro_torch.tune',\n"
         "        'repro_torch.tune.cache', 'repro_torch.tune.autotuner',\n"
         "        'repro_torch.tune.prior', 'repro_torch.core.domain',\n"
-        "        'repro_torch.core.dist_ch', 'repro_torch.launch.mesh'}\n"
+        "        'repro_torch.core.dist_ch', 'repro_torch.launch.mesh',\n"
+        "        'repro_torch.configs', 'repro_torch.configs.whisper_base',\n"
+        "        'repro_torch.models.layers', 'repro_torch.models.attention',\n"
+        "        'repro_torch.models.moe', 'repro_torch.models.ssm',\n"
+        "        'repro_torch.models.transformer', 'repro_torch.models.encdec',\n"
+        "        'repro_torch.models.api', 'repro_torch.runtime.sharding',\n"
+        "        'repro_torch.launch.cells', 'repro_torch.launch.serve'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print('clean')\n"
     )
