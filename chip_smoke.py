@@ -223,6 +223,30 @@ printing a result:
       prefill tokens/s, decode ms a step at batch 4 (with the host's
       enqueue time a step) and 1, peak memory at init and while serving,
       and seconds a config.
+   o. LM training (``repro_torch.optim``, ``repro_torch.data``,
+      ``cells.make_train_step``, ``launch.train.train_loop``; no kernel of
+      the nine, 0 launches asserted; run after 4n): (a) the ten reduced
+      configs in float32 (TF32 off) at 2x64 on the same weights and batch
+      on the card and the CPU: loss, every gradient leaf, params and
+      state after one ``make_train_step`` (accum 2), and one update of
+      each of adamw, adafactor and adamw8bit on the CPU's grads, each leaf
+      within ``tolerance_for(float32, 10)`` norm-wise, adamw8bit's int8
+      codes equal or one apart at a rounding tie (counted); (b)
+      smollm-135m at its published widths and depth in bf16 with remat
+      'full': 10 steps of ``train_loop`` at 8x4096 (accum 2), every loss
+      finite and in (0, 3 ln V), and a learning gate (30 steps of a
+      constant-lr adamw on one repeated 4x512 batch halve the loss); (c)
+      remat 'full', 'dots' and 'none' at 4x512: losses and grads within
+      ``tolerance_for(bfloat16)`` of each other, peak memory full < none
+      and dots <= none; (d) exact resume, bit for bit, in a fresh
+      process (``--lm-resume``) with ``CUBLAS_WORKSPACE_CONFIG=:4096:8``
+      and deterministic algorithms; (e) whisper-base whole and
+      llava-next-mistral-7b, rwkv6-7b and phi3.5-moe at 2 of 32 layers,
+      3 steps of ``train_loop`` each at train_4k's sequence (nemotron and
+      jamba recorded as not trained, by the memory reckoning in the
+      phase's comment); tokens/s, ms a step (host clock and CUDA
+      events), host enqueue, peak GiB and model FLOP/s as a share of 989
+      TFLOP/s bf16 for each config.
 5. Timing: ms/step of the fused step over 200 steps after 20 of warm-up,
    of the stencil-mode step on the penta and on the fft sweeps and of the
    batched-1D step, of the 3D LOD step on the kernels, streamed and on
@@ -242,7 +266,10 @@ printing a result:
    the card and its power limit), the ``lm`` JSON line (phase 4n: the
    card and its power limit, the card-against-CPU error, each config's
    consistency error and limit, its serving numbers and its two bf16
-   cross-checks), the ``kernels``
+   cross-checks), the ``lm_train`` JSON line (phase 4o: the card, the
+   worst card-against-CPU share of its limit, the adamw8bit ties, the
+   learning gate, the remat peaks, the resume and each trained config's
+   numbers), the ``kernels``
    JSON line (each
    kernel's launches on the main path, and under ``paths`` on every path
    that launched it, the serving stream, the resilient run, the tuning
@@ -2060,6 +2087,565 @@ def lm_phase(counts_of) -> dict:
     return rec
 
 
+# LM training (phase 4o): the LM substrate's training path
+# (repro_torch.optim, repro_torch.data, repro_torch.launch.cells'
+# make_train_step, repro_torch.launch.train's train_loop).  No kernel of
+# the nine is on it: 0 launches asserted.
+#
+# (a) Card against CPU: the ten reduced configs in float32 (TF32 off) at
+# B=2, S=64 (RWKV's chunked WKV), the same weights and step-keyed batch:
+# loss, every gradient leaf, and the params and optimizer state after one
+# make_train_step with accum=2, each leaf norm-wise within
+# tolerance_for(float32, 10) of the CPU's (the CPU tests' gradient
+# tolerance, tests/test_torch_lm_train.py); then one update of each
+# optimizer on the CPU's grads, the same tolerance, adamw8bit's int8 codes
+# equal or one apart at a rounding tie (the value before rounding within
+# LM_TIE of a half-integer, on the CPU), ties counted.
+# (b) smollm-135m at its published widths and depth (30 layers, d_model
+# 576, vocab 49152), bf16, remat 'full', at train_4k's sequence of 4096:
+# global batch 8 (train_4k's 256 cut to 8: one card, and the phase's time),
+# accum 2, 10 steps of train_loop; then the learning gate.
+# (c) remat 'full', 'dots' and 'none' at seq 512, batch 4 on the same
+# smollm: loss and grads within tolerance_for(bfloat16) norm-wise, peaks
+# full < none and dots <= none.
+# (d) exact resume, bit for bit: reduced smollm in float32, 4 straight
+# steps against 2, a checkpoint, a restore and 2 more, in a fresh process
+# with CUBLAS_WORKSPACE_CONFIG=:4096:8 set before CUDA starts and
+# torch.use_deterministic_algorithms(True) (the embedding's backward
+# scatters with atomics otherwise).
+# (e) The other configs the card can hold, at their widths and train_4k's
+# sequence (whisper: 448 tokens and 1500 frames; llava: 4096 - 576 = 3520
+# text tokens after its 576 patches), 3 steps of train_loop each with the
+# config's own optimizer and remat.  Depth is cut by
+#   params(depth) x (2 weights + 2 grads + optimizer bytes: adamw 8,
+#   adafactor ~0, adamw8bit 2) + accumulation buffer (params x 4 in
+#   float32, x 2 in bf16) + activations <= 70 GiB,
+# params counted on the config's tree at the cut depth, embeddings included:
+#   whisper-base full (6 + 6): 0.087 B x 12 = 1.0 GiB, accum 1;
+#   llava-next-mistral-7b 2 of 32: 0.698 B x 12 = 7.8 GiB + 2.6 GiB;
+#   rwkv6-7b 2 of 32: 0.977 B x 12 = 10.9 GiB + 3.6 GiB;
+#   phi3.5-moe 2 of 32: 2.863 B x 12 = 32.0 GiB + 10.7 GiB;
+#   nemotron-4-340b 1 of 96: 12.891 B x 4 = 48.0 GiB + 24.0 GiB of bf16
+#   accumulation = 72 GiB before activations: not trained;
+#   jamba-v0.1-52b, one period of 8 layers (its smallest unit): 13.295 B x
+#   12 = 148.6 GiB: not trained (waits for LM sharding and more than one
+#   card).
+# The 7B-class models would fit deeper (llava about 24 of 32 layers by the
+# same reckoning); 2 layers keep the phase near its time target, as the
+# host-bound steps grow with the layers.  Batch 2, accum 2 where the config
+# accumulates (its own 4, 8 or 16 need a batch of that many).
+LM_TRAIN_SEQ = 4096  # train_4k's sequence (cells.SHAPES)
+LM_TRAIN_BATCH = 8
+LM_TRAIN_ACCUM = 2
+LM_TRAIN_STEPS = 10
+LM_LEARN = dict(steps=30, batch=4, seq=512, lr=1e-3)
+LM_REMAT = dict(seq=512, batch=4)
+LM_TRAIN_CONFIGS = (  # (arch, layers or None for all, batch, accum)
+    ("whisper-base", None, 2, 1),
+    ("llava-next-mistral-7b", 2, 2, 2),
+    ("rwkv6-7b", 2, 2, 2),
+    ("phi3.5-moe-42b-a6.6b", 2, 2, 2),
+)
+LM_NOT_TRAINED = {
+    "nemotron-4-340b": "1 of 96 layers: 12.891 B params x (2 + 2 + 0 "
+                       "adafactor) = 48.0 GiB + 24.0 GiB bf16 accumulation "
+                       "> 70 GiB before activations",
+    "jamba-v0.1-52b": "one period of 8 layers: 13.295 B params x 12 = "
+                      "148.6 GiB under adamw; waits for LM sharding and "
+                      "more than one card",
+}
+LM_TRAIN_STEPS_E = 3
+LM_TIE = 1e-3
+H100_BF16_FLOPS = 989e12  # dense bf16, NVIDIA's H100 SXM data sheet
+
+
+def _lm_train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6 x active params x positions,
+    plus attention's two block products as the port computes them
+    (unmasked; forward and the backward's two: 3 x 4 B H S^2 hd a layer).
+    whisper: the encoder's positions (enc_seq frames) and the decoder's
+    (``seq`` tokens) apart, with the decoder's cross attention."""
+    h, hd = cfg.n_heads, cfg.hd
+    if cfg.family == "encdec":
+        d, ff = cfg.d_model, cfg.d_ff
+        attn = 4 * d * h * hd
+        mlp = d * ff * (3 if cfg.gated_mlp else 2)
+        n_enc = cfg.enc_layers * (attn + mlp)
+        n_dec = cfg.n_layers * (2 * attn + mlp) + cfg.vocab * d
+        t_enc = cfg.enc_seq
+        return (6 * batch * (n_enc * t_enc + n_dec * seq)
+                + 12 * batch * h * hd * (cfg.enc_layers * t_enc**2
+                                         + cfg.n_layers * (seq**2
+                                                           + seq * t_enc)))
+    pos = seq + (cfg.img_tokens if cfg.family == "vlm" else 0)
+    n_attn = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}.get(
+        cfg.family, cfg.n_layers)
+    return (6 * cfg.active_param_count() * batch * pos
+            + 12 * n_attn * batch * h * hd * pos**2)
+
+
+def _lm_timed_train_loop(**kw):
+    """``train_loop(**kw)`` with each step timed: CUDA events around the
+    step and the host's enqueue (until the step returned, before the loss
+    is read), beside the loop's own host-clock ``dt``.  Returns (metrics,
+    [(event ms, enqueue ms)])."""
+    import torch
+
+    from repro_torch.launch import train as train_mod
+
+    marks = []
+    make = train_mod.make_train_step
+
+    def timed_make(model, **k):
+        step = make(model, **k)
+
+        def timed(params, state, batch):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            out = step(params, state, batch)
+            e1.record()
+            marks.append((e0, e1, (time.perf_counter() - t0) * 1e3))
+            return out
+
+        timed.optimizer = step.optimizer
+        return timed
+
+    train_mod.make_train_step = timed_make
+    try:
+        metrics = train_mod.train_loop(**kw)
+    finally:
+        train_mod.make_train_step = make
+    torch.cuda.synchronize()
+    return metrics, [(e0.elapsed_time(e1), enq) for e0, e1, enq in marks]
+
+
+def _lm_train_row(arch, cfg, metrics, marks, *, published_layers, batch,
+                  seq, accum, peak, seconds, card):
+    """The numbers of one config's run: steady steps (the first one,
+    with cuBLAS set-up and the allocator's growth, apart)."""
+    steady = slice(1, None) if len(metrics) > 1 else slice(None)
+    host_ms = statistics.mean(m["dt"] * 1e3 for m in metrics[steady])
+    event_ms = statistics.mean(e for e, _ in marks[steady])
+    enqueue_ms = statistics.mean(q for _, q in marks[steady])
+    flops = _lm_train_flops(cfg, batch, seq)
+    return dict(
+        arch=arch, family=cfg.family, layers=cfg.n_layers,
+        published_layers=published_layers, batch=batch, seq=seq, accum=accum,
+        optimizer=cfg.optimizer, remat=cfg.remat,
+        dtype=cfg.dtype_policy.params,
+        losses=[m["loss"] for m in metrics],
+        first_step_ms=metrics[0]["dt"] * 1e3, ms_host=host_ms,
+        ms_events=event_ms, enqueue_ms=enqueue_ms,
+        tokens_per_s=batch * seq / (host_ms / 1e3),
+        model_flops=flops, flops_share=flops / (event_ms / 1e3)
+        / H100_BF16_FLOPS, peak_gib=peak, seconds=seconds, card=card)
+
+
+def _lm_print_train(row, what):
+    print(f"[lm_train] {what}: {row['tokens_per_s']:.0f} tokens/s, "
+          f"{row['ms_host']:.1f} ms/step (host clock; CUDA events "
+          f"{row['ms_events']:.1f}, host enqueue {row['enqueue_ms']:.1f}; "
+          f"first step {row['first_step_ms']:.0f} ms), model FLOP/s "
+          f"{row['flops_share'] * 100:.2f}% of 989 TFLOP/s bf16, peak "
+          f"{row['peak_gib']:.2f} GiB; losses "
+          f"{', '.join(f'{x:.4f}' for x in row['losses'])}; "
+          f"{row['seconds']:.1f} s [{row['card']}]", flush=True)
+
+
+def lm_resume_worker(out_path: str) -> int:
+    """Phase 4o (d), run as ``chip_smoke.py --lm-resume OUT``: in a fresh
+    process, deterministic algorithms on, reduced smollm-135m in float32,
+    4 straight steps against 2, a checkpoint, a restore and 2 more (the
+    reference's tests/test_checkpoint.py::TestExactResume).  Writes
+    {"bit_for_bit", "leaves", "differing"} to ``out_path``."""
+    import shutil
+
+    import torch
+
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.checkpoint import restore_pytree, save_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_source
+    from repro_torch.launch.cells import value_and_grad
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import get_optimizer
+    from repro_torch.runtime.sharding import Shardings
+    from repro_torch.util import tree_leaves
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = get_config("smollm-135m").reduced()
+    model = build_model(cfg, device=dev)
+    opt = get_optimizer("adamw", 1e-3)
+    src = make_source(cfg, global_batch=4, seq_len=16, seed=0)
+
+    def step(params, state, i):
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in src.get_batch(i).items()}
+        _, g = value_and_grad(model, params, batch, Shardings.none())
+        return opt.update(g, state, params)
+
+    p0 = model.init(0)
+    s0 = opt.init(p0)
+    p, s = p0, s0
+    for i in range(4):
+        p, s = step(p, s, i)
+    q, t = p0, s0
+    for i in range(2):
+        q, t = step(q, t, i)
+    ckpt = OUT / "lm_resume_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        save_pytree({"params": q, "opt": t}, str(ckpt), 2)
+        restored, _ = restore_pytree({"params": q, "opt": t}, str(ckpt))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    q, t = restored["params"], restored["opt"]
+    for i in range(2, 4):
+        q, t = step(q, t, i)
+    a, b = tree_leaves({"p": p, "s": s}), tree_leaves({"p": q, "s": t})
+    differing = [i for i, (x, y) in enumerate(zip(a, b, strict=True))
+                 if not torch.equal(x, y)]
+    Path(out_path).write_text(json.dumps(dict(
+        bit_for_bit=not differing, leaves=len(a), differing=differing)))
+    return 0
+
+
+def lm_train_phase(counts_of) -> dict:
+    """Phase 4o: LM training on the card, (a) to (e) as the comment above
+    says.  Every gate raises ``PhaseError``; the nine kernels are launched
+    0 times (asserted)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.data import make_source
+    from repro_torch.launch import cells
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import get_optimizer
+    from repro_torch.optim import optimizers as optim_mod
+    from repro_torch.runtime.sharding import Shardings
+    from repro_torch.util import tolerance_for, tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise PhaseError("phase 4o needs torch.backends.cuda.matmul."
+                         "allow_tf32 False")
+    sh = Shardings.none()
+    dev = torch.device("cuda")
+    card = card_line()
+    rec: dict = dict(card=card, cpu_vs_card=[], not_trained=LM_NOT_TRAINED)
+
+    def normwise(got, want, tol):
+        """(max|got - want|, its limit atol + rtol max|want|), on the CPU."""
+        got, want = got.detach().float().cpu(), want.detach().float().cpu()
+        err = float((got - want).abs().max()) if want.numel() else 0.0
+        return err, tol["atol"] + tol["rtol"] * (
+            float(want.abs().max()) if want.numel() else 0.0)
+
+    def trees_close(got, want, tol, what):
+        worst = 0.0
+        for i, (x, y) in enumerate(zip(tree_leaves(got), tree_leaves(want),
+                                       strict=True)):
+            if x.dtype == torch.int8:
+                continue
+            err, limit = normwise(x, y, tol)
+            worst = max(worst, err / limit)
+            if not (err <= limit and bool(torch.isfinite(x).all())):
+                raise PhaseError(f"{what} leaf {i}: card differs from the "
+                                 f"CPU by {err:.3e} (limit {limit:.3e})")
+        return worst
+
+    def quantized_inputs(fn):
+        """``fn()`` with every ``_quantize`` input recorded, in order."""
+        seen = []
+        quantize = optim_mod._quantize
+
+        def recording(x):
+            seen.append(x.detach().float().cpu())
+            return quantize(x)
+
+        optim_mod._quantize = recording
+        try:
+            out = fn()
+        finally:
+            optim_mod._quantize = quantize
+        return out, seen
+
+    def codes_ties(q_card, q_cpu, x_cpu, s_cpu):
+        """Codes equal, or one apart where the CPU's value before rounding
+        is within ``LM_TIE`` of a half-integer; returns the ties."""
+        d = q_card.cpu().int() - q_cpu.int()
+        off = d != 0
+        if not off.any():
+            return 0
+        n = x_cpu.numel()
+        xf = torch.nn.functional.pad(x_cpu.reshape(-1), (0, (-n) % 256))
+        r = (xf.reshape(-1, 256) / torch.clamp(s_cpu, min=1e-20)).abs()
+        near = ((r - r.floor()) - 0.5).abs() < LM_TIE
+        if d.abs().max() > 1 or not bool(near[off].all()):
+            raise PhaseError("adamw8bit: int8 codes differ away from a "
+                             "rounding tie")
+        return int(off.sum())
+
+    def run():
+        # -- (a) card against CPU, reduced configs, float32 --------------------
+        tol = tolerance_for(torch.float32, scale=10)
+        ties_total = 0
+        for arch in list_archs():
+            t0 = time.perf_counter()
+            cfg = get_config(arch).reduced()
+            host = build_model(cfg, device="cpu").init(LM_SEED)
+            batch = make_source(cfg, global_batch=2, seq_len=64,
+                                seed=LM_SEED).get_batch(0)
+            def on(d):
+                model = build_model(cfg, device=d)
+                params = tree_map(lambda p: p.to(d), host)
+                b = {k: torch.as_tensor(v, device=d)
+                     for k, v in batch.items()}
+                loss, grads = cells.value_and_grad(model, params, b, sh)
+                step = cells.make_train_step(model, sh=sh, accum=2, lr=1e-3)
+                stepped = step(params, step.optimizer.init(params), b)
+                return dict(params=params, loss=loss, grads=grads,
+                            stepped=stepped)
+
+            c, g = on("cpu"), on(dev)
+            row = dict(arch=arch, ties=0)
+            err, limit = normwise(g["loss"], c["loss"], tol)
+            if not err <= limit:
+                raise PhaseError(f"{arch}: loss {err:.3e} off the CPU's")
+            row["loss_err"] = err
+            row["grads_worst_share"] = trees_close(g["grads"], c["grads"],
+                                                   tol, f"{arch} grads")
+            row["step_worst_share"] = max(
+                trees_close(g["stepped"][0], c["stepped"][0], tol,
+                            f"{arch} stepped params"),
+                trees_close(g["stepped"][1], c["stepped"][1], tol,
+                            f"{arch} stepped state"))
+            # one update of each optimizer on the CPU's grads
+            for name in ("adamw", "adafactor", "adamw8bit"):
+                opt = get_optimizer(name, 1e-3)
+                s_cpu, s_card = opt.init(c["params"]), opt.init(g["params"])
+                (pc, sc), xc = quantized_inputs(lambda: opt.update(
+                    c["grads"], s_cpu, c["params"]))
+                (pg, sg), _ = quantized_inputs(lambda: opt.update(
+                    tree_map(lambda x: x.to(dev), c["grads"]), s_card,
+                    g["params"]))
+                row[f"{name}_worst_share"] = max(
+                    trees_close(pg, pc, tol, f"{arch} {name} params"),
+                    trees_close(sg, sc, tol, f"{arch} {name} state"))
+                if name == "adamw8bit":
+                    # a moment's leaves are each param's (q, s); _quantize
+                    # saw each param's m, then its sqrt(v), in that order
+                    mc, vc = tree_leaves(sc["m"]), tree_leaves(sc["v"])
+                    mg, vg = tree_leaves(sg["m"]), tree_leaves(sg["v"])
+                    for j in range(len(mc) // 2):
+                        row["ties"] += codes_ties(mg[2 * j], mc[2 * j],
+                                                  xc[2 * j], mc[2 * j + 1])
+                        row["ties"] += codes_ties(vg[2 * j], vc[2 * j],
+                                                  xc[2 * j + 1], vc[2 * j + 1])
+            ties_total += row["ties"]
+            row["seconds"] = time.perf_counter() - t0
+            rec["cpu_vs_card"].append(row)
+            print(f"[lm_train] card vs CPU {arch} (reduced, float32, 2x64): "
+                  f"loss |err| {row['loss_err']:.3e}; worst leaf err/limit "
+                  f"grads {row['grads_worst_share']:.3f}, make_train_step "
+                  f"accum 2 {row['step_worst_share']:.3f}, adamw "
+                  f"{row['adamw_worst_share']:.3f}, adafactor "
+                  f"{row['adafactor_worst_share']:.3f}, adamw8bit "
+                  f"{row['adamw8bit_worst_share']:.3f} (int8 codes one apart "
+                  f"at a tie: {row['ties']}); {row['seconds']:.1f} s",
+                  flush=True)
+            del c, g
+        rec["adamw8bit_ties"] = ties_total
+        print(f"[lm_train] adamw8bit rounding ties over the ten configs: "
+              f"{ties_total}", flush=True)
+        _lm_free()
+
+        # -- (b) smollm-135m at full width and depth, seq 4096 ------------------
+        t0 = time.perf_counter()
+        full = get_config("smollm-135m")
+        torch.cuda.reset_peak_memory_stats()
+        metrics, marks = _lm_timed_train_loop(
+            arch=full, steps=LM_TRAIN_STEPS, global_batch=LM_TRAIN_BATCH,
+            seq_len=LM_TRAIN_SEQ, accum=LM_TRAIN_ACCUM, log_every=0,
+            seed=LM_SEED, device=dev)
+        row = _lm_train_row(
+            "smollm-135m", full, metrics, marks,
+            published_layers=full.n_layers, batch=LM_TRAIN_BATCH,
+            seq=LM_TRAIN_SEQ, accum=LM_TRAIN_ACCUM,
+            peak=torch.cuda.max_memory_allocated() / 2**30,
+            seconds=time.perf_counter() - t0, card=card)
+        row["cut"] = (f"global batch {LM_TRAIN_BATCH} of train_4k's 256 "
+                      f"(accum {LM_TRAIN_ACCUM}); depth and widths published")
+        _lm_print_train(row, f"smollm-135m ({full.n_layers} of "
+                        f"{full.n_layers} layers, bf16, remat "
+                        f"full, {LM_TRAIN_BATCH}x{LM_TRAIN_SEQ}, accum "
+                        f"{LM_TRAIN_ACCUM}, {LM_TRAIN_STEPS} steps of "
+                        "train_loop)")
+        bound = 3 * math.log(full.vocab)
+        if not all(math.isfinite(x) and 0 < x < bound for x in row["losses"]):
+            raise PhaseError(f"smollm-135m: a loss outside (0, {bound:.2f}): "
+                             f"{row['losses']}")
+        rec["smollm"] = row
+        _lm_free()
+
+        # the learning gate: a constant-lr adamw on one repeated batch
+        t0 = time.perf_counter()
+        model = build_model(full, device=dev)
+        params = model.init(LM_SEED)
+        opt = get_optimizer("adamw", LM_LEARN["lr"])
+        state = opt.init(params)
+        toks = torch.arange(LM_LEARN["seq"], dtype=torch.int32,
+                            device=dev).tile(LM_LEARN["batch"], 1) + 5
+        batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+        losses = []
+        for _ in range(LM_LEARN["steps"]):
+            loss, g = cells.value_and_grad(model, params, batch, sh)
+            params, state = opt.update(g, state, params)
+            losses.append(loss)
+        losses = [float(x) for x in losses]
+        learn = dict(losses=losses, first=losses[0], last=losses[-1],
+                     ok=losses[-1] < 0.5 * losses[0],
+                     seconds=time.perf_counter() - t0, **LM_LEARN)
+        rec["learning"] = learn
+        print(f"[lm_train] learning gate smollm-135m (full width, bf16, "
+              f"adamw lr {LM_LEARN['lr']} constant, one repeated "
+              f"{LM_LEARN['batch']}x{LM_LEARN['seq']} batch): loss "
+              f"{learn['first']:.4f} -> {learn['last']:.4f} in "
+              f"{LM_LEARN['steps']} steps ({'ok' if learn['ok'] else 'FAIL'}"
+              f": below half the first); {learn['seconds']:.1f} s",
+              flush=True)
+        if not learn["ok"]:
+            raise PhaseError(f"smollm-135m did not learn: {losses}")
+        del model, params, state, g, opt
+        _lm_free()
+
+        # -- (c) remat modes -----------------------------------------------------
+        bf16 = tolerance_for(torch.bfloat16)
+        host = build_model(full, device=dev).init(LM_SEED + 1)
+        b = make_source(full, global_batch=LM_REMAT["batch"],
+                        seq_len=LM_REMAT["seq"], seed=LM_SEED).get_batch(0)
+        b = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+        remat = {}
+        base_peak = None
+        for mode in ("none", "full", "dots"):
+            model = build_model(dataclasses.replace(full, remat=mode),
+                                device=dev)
+            _lm_free()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loss, grads = cells.value_and_grad(model, host, b, sh)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            remat[mode] = dict(loss=loss, grads=grads, peak_gib=peak)
+            base_peak = base / 2**30
+        def share(x, y):
+            err, limit = normwise(x, y, bf16)
+            return err / limit
+
+        worst = {m: max(share(x, y) for x, y in zip(
+            tree_leaves(remat[m]["grads"]), tree_leaves(remat["none"]["grads"])))
+            for m in ("full", "dots")}
+        loss_ok = all(share(remat[m]["loss"], remat["none"]["loss"]) <= 1.0
+                      for m in ("full", "dots"))
+        peaks = {m: remat[m]["peak_gib"] for m in remat}
+        rec["remat"] = dict(peaks_gib=peaks, grads_worst_share=worst,
+                            losses={m: float(remat[m]["loss"])
+                                    for m in remat},
+                            resident_gib=base_peak, **LM_REMAT)
+        print(f"[lm_train] remat smollm-135m {LM_REMAT['batch']}x"
+              f"{LM_REMAT['seq']} bf16: peak above the resident "
+              f"{base_peak:.2f} GiB: none {peaks['none']:.3f} GiB, full "
+              f"{peaks['full']:.3f}, dots {peaks['dots']:.3f}; grads' worst "
+              f"err/limit against none at tolerance_for(bfloat16): full "
+              f"{worst['full']:.3f}, dots {worst['dots']:.3f}", flush=True)
+        if not (loss_ok and max(worst.values()) <= 1.0):
+            raise PhaseError(f"remat changed the loss or grads: {worst}")
+        if not (peaks["full"] < peaks["none"]
+                and peaks["dots"] <= peaks["none"]):
+            raise PhaseError(f"remat peaks out of order: {peaks}")
+        del remat, host, model, loss, grads
+        _lm_free()
+
+        # -- (d) exact resume in a deterministic process ------------------------
+        t0 = time.perf_counter()
+        out_json = OUT / "lm_resume.json"
+        out_json.unlink(missing_ok=True)
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        res = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--lm-resume",
+             str(out_json)], env=env, capture_output=True, text=True,
+            timeout=600)
+        if res.returncode != 0 or not out_json.exists():
+            raise PhaseError(f"the resume process failed: {res.stderr[-2000:]}")
+        resume = json.loads(out_json.read_text())
+        resume["seconds"] = time.perf_counter() - t0
+        rec["resume"] = resume
+        print(f"[lm_train] exact resume (reduced smollm-135m, float32, "
+              f"deterministic algorithms, CUBLAS_WORKSPACE_CONFIG=:4096:8): 4 "
+              f"straight steps against 2 + checkpoint + restore + 2: "
+              f"{'bit for bit' if resume['bit_for_bit'] else 'DIFFER'} over "
+              f"{resume['leaves']} leaves; {resume['seconds']:.1f} s",
+              flush=True)
+        if not resume["bit_for_bit"]:
+            raise PhaseError(f"the resumed run differs: {resume}")
+
+        # -- (e) the other configs the card holds -------------------------------
+        rec["configs"] = []
+        for arch, layers, B, accum in LM_TRAIN_CONFIGS:
+            t0 = time.perf_counter()
+            pub = get_config(arch)
+            cfg = pub if layers is None else dataclasses.replace(
+                pub, n_layers=layers)
+            seq = {"encdec": 448, "vlm": LM_TRAIN_SEQ - cfg.img_tokens}.get(
+                cfg.family, LM_TRAIN_SEQ)
+            torch.cuda.reset_peak_memory_stats()
+            metrics, marks = _lm_timed_train_loop(
+                arch=cfg, steps=LM_TRAIN_STEPS_E, global_batch=B,
+                seq_len=seq, accum=accum, log_every=0, seed=LM_SEED,
+                device=dev)
+            row = _lm_train_row(
+                arch, cfg, metrics, marks, published_layers=pub.n_layers,
+                batch=B, seq=seq, accum=accum,
+                peak=torch.cuda.max_memory_allocated() / 2**30,
+                seconds=time.perf_counter() - t0, card=card)
+            rec["configs"].append(row)
+            _lm_print_train(
+                row, f"{arch} ({cfg.n_layers} of {pub.n_layers} layers, "
+                f"{cfg.dtype_policy.params}, {cfg.optimizer}, remat "
+                f"{cfg.remat}, {B}x{seq}"
+                + (f" + {cfg.enc_seq} frames" if cfg.family == "encdec"
+                   else f" after {cfg.img_tokens} patches"
+                   if cfg.family == "vlm" else "")
+                + f", accum {accum}, {LM_TRAIN_STEPS_E} steps of train_loop)")
+            bound = 3 * math.log(cfg.vocab)
+            if not all(math.isfinite(x) and 0 < x < bound
+                       for x in row["losses"]):
+                raise PhaseError(f"{arch}: a loss outside (0, {bound:.2f}): "
+                                 f"{row['losses']}")
+            _lm_free()
+        for arch, why in LM_NOT_TRAINED.items():
+            print(f"[lm_train] {arch}: not trained ({why})", flush=True)
+
+    _, launches = counts_of(run)
+    if any(launches.values()):
+        raise PhaseError(f"the LM training path launched kernels: {launches}")
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"[lm_train] phase 4o: {rec['seconds']:.1f} s; kernel launches "
+          f"{sum(launches.values())}", flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3586,6 +4172,10 @@ def main() -> int:
     lm_rec = lm_phase(counts_of)
     record["lm"] = lm_rec
 
+    # -- 4o. LM training -----------------------------------------------------
+    train_rec = lm_train_phase(counts_of)
+    record["lm_train"] = train_rec
+
     # -- 6. result lines -----------------------------------------------------
     # launches: each kernel's count from the run of the path it serves
     path_launches = dict(
@@ -3664,6 +4254,25 @@ def main() -> int:
                     "max_abs_err", "limit", "logits_gated", "argmax_same",
                     "gaps", "ok")}}
             for r in lm_rec["serving"]}}}))
+    print(json.dumps({"lm_train": {
+        "card": train_rec["card"], "seconds": train_rec["seconds"],
+        "launches": sum(train_rec["launches"].values()),
+        "cpu_vs_card_worst_share": max(
+            max(v for k, v in r.items() if k.endswith("_share"))
+            for r in train_rec["cpu_vs_card"]),
+        "adamw8bit_ties": train_rec["adamw8bit_ties"],
+        "learning": {k: train_rec["learning"][k] for k in (
+            "first", "last", "ok", "steps", "batch", "seq", "lr")},
+        "remat": {k: train_rec["remat"][k] for k in (
+            "peaks_gib", "grads_worst_share", "resident_gib")},
+        "resume": train_rec["resume"],
+        "configs": {r["arch"]: {k: r[k] for k in (
+            "layers", "published_layers", "batch", "seq", "accum",
+            "optimizer", "remat", "tokens_per_s", "ms_host", "ms_events",
+            "enqueue_ms", "first_step_ms", "flops_share", "peak_gib",
+            "losses", "seconds")}
+            for r in [train_rec["smollm"], *train_rec["configs"]]},
+        "not_trained": train_rec["not_trained"]}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3673,4 +4282,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--lm-resume"]:
+        sys.exit(lm_resume_worker(sys.argv[2]))
     sys.exit(main())

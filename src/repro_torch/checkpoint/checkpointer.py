@@ -39,7 +39,6 @@ import queue
 import shutil
 import threading
 import time
-from collections.abc import Callable
 from typing import Any
 
 import numpy as np
@@ -48,6 +47,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from repro_torch.runtime import chaos as _chaos
+from repro_torch.util import tree_map
 
 _MANIFEST = "manifest.json"
 _LATEST = "LATEST"
@@ -63,18 +63,6 @@ def _flatten(tree: Any, path: tuple = ()) -> list[tuple[str, Any]]:
     if tree is None:
         return []
     return [(".".join(path), tree)]
-
-
-def _map(tree: Any, fn: Callable) -> Any:
-    """``tree`` with each leaf replaced by ``fn(leaf)``, in :func:`_flatten`'s
-    order (dicts rebuilt with sorted keys)."""
-    if isinstance(tree, dict):
-        return {k: _map(tree[k], fn) for k in sorted(tree)}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(v, fn) for v in tree)
-    if tree is None:
-        return None
-    return fn(tree)
 
 
 def _zip_up_to(tree: Any, other: Any) -> list:
@@ -278,7 +266,7 @@ def restore_pytree(
             )
         leaves.append(_leaf_tensor(arr, info["dtype"], leaf, dd))
     it = iter(leaves)
-    return _map(template, lambda _: next(it)), manifest
+    return tree_map(lambda _: next(it), template), manifest
 
 
 class Checkpointer:
@@ -307,7 +295,7 @@ class Checkpointer:
     def save_async(self, tree: Any, step: int, metadata: dict | None = None):
         """Copy every leaf to host memory now, on the caller's thread; write
         in the background."""
-        host_tree = _map(tree, lambda x: _to_numpy(x, copy=True))
+        host_tree = tree_map(lambda x: _to_numpy(x, copy=True), tree)
         self._q.put(("save", host_tree, step, metadata))
 
     def wait(self):

@@ -14,7 +14,7 @@ A reference ``DomainDecomposition`` crosses as its mesh's shape and axis
 names (:func:`mesh_layout`), from which :func:`domain_decomposition`
 builds the port's over the initialised ``torch.distributed`` world.  An LM
 parameter tree crosses leaf for leaf (:func:`lm_params`; :func:`lm_numpy`
-goes back).
+goes back), and so does an optimizer state (:func:`opt_state`).
 """
 
 from __future__ import annotations
@@ -243,6 +243,30 @@ def _leaf(a, device) -> torch.Tensor:
     return _tensor(a, device)
 
 
+def _like(tree, want, dev, what: str, path: str = ""):
+    """``tree`` (numpy leaves) as tensors on ``dev``, held leaf for leaf to
+    the template ``want`` (names, shapes, dtypes); a mismatch raises
+    ``ValueError`` naming the leaf."""
+    if isinstance(want, dict):
+        if not isinstance(tree, dict) or set(tree) != set(want):
+            raise ValueError(f"{what}: {path or '/'} has keys "
+                             f"{sorted(tree) if isinstance(tree, dict) else tree!r}"
+                             f", expected {sorted(want)}")
+        return {k: _like(tree[k], want[k], dev, what, f"{path}/{k}")
+                for k in want}
+    if isinstance(want, (list, tuple)):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(want):
+            raise ValueError(f"{what}: {path} is not a sequence of "
+                             f"{len(want)} stacks")
+        return type(want)(_like(a, w, dev, what, f"{path}/{i}")
+                          for i, (a, w) in enumerate(zip(tree, want)))
+    x = _leaf(tree, dev)
+    if tuple(x.shape) != tuple(want.shape) or x.dtype != want.dtype:
+        raise ValueError(f"{what}: {path} is {tuple(x.shape)} {x.dtype}, "
+                         f"expected {tuple(want.shape)} {want.dtype}")
+    return x
+
+
 def lm_params(tree, cfg, *, device="cuda"):
     """The port's LM parameters from the reference's parameter tree (numpy
     leaves, e.g. ``jax.device_get(model.init(key))``).
@@ -255,29 +279,40 @@ def lm_params(tree, cfg, *, device="cuda"):
     ``ValueError`` naming the leaf."""
     from repro_torch.models.api import param_shapes
 
-    dev = resolve_device(device)
+    return _like(tree, param_shapes(cfg), resolve_device(device),
+                 "lm_params")
 
-    def conv(t, want, path):
-        if isinstance(want, dict):
-            if not isinstance(t, dict) or set(t) != set(want):
-                raise ValueError(f"lm_params: {path or '/'} has keys "
-                                 f"{sorted(t) if isinstance(t, dict) else t!r}"
-                                 f", expected {sorted(want)}")
-            return {k: conv(t[k], want[k], f"{path}/{k}") for k in want}
-        if isinstance(want, (list, tuple)):
-            if not isinstance(t, (list, tuple)) or len(t) != len(want):
-                raise ValueError(f"lm_params: {path} is not a sequence of "
-                                 f"{len(want)} stacks")
-            return type(want)(conv(a, w, f"{path}/{i}")
-                              for i, (a, w) in enumerate(zip(t, want)))
-        x = _leaf(t, dev)
-        if tuple(x.shape) != tuple(want.shape) or x.dtype != want.dtype:
-            raise ValueError(f"lm_params: {path} is {tuple(x.shape)} "
-                             f"{x.dtype}, expected {tuple(want.shape)} "
-                             f"{want.dtype}")
-        return x
 
-    return conv(tree, param_shapes(cfg), "")
+def opt_state(tree, cfg_or_params, *, device="cuda"):
+    """The port's optimizer state from the reference's (numpy leaves, e.g.
+    ``jax.device_get(opt.init(params))`` or a state after updates), so that
+    both packages take a step from the same state; it pairs with
+    :func:`lm_params`.
+
+    The optimizer is read from the layout: ``{"stats", "step"}`` is
+    ``adafactor``, ``{"m", "v", "step"}`` with int8 codes ``adamw8bit``,
+    else ``adamw``.  The state is held leaf for leaf to that optimizer's
+    ``init`` over the parameters: those of an ``ArchConfig``
+    (:func:`repro_torch.models.api.param_shapes`) or a parameter tree; a
+    mismatch raises ``ValueError`` naming the leaf."""
+    from repro_torch.configs import ArchConfig
+    from repro_torch.models.api import param_shapes
+    from repro_torch.optim import get_optimizer
+    from repro_torch.util import tree_leaves, tree_map
+
+    if isinstance(cfg_or_params, ArchConfig):
+        params = param_shapes(cfg_or_params)
+    else:
+        params = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype,
+                                                device="meta"), cfg_or_params)
+    if "stats" in tree:
+        name = "adafactor"
+    elif any(np.asarray(x).dtype == np.int8 for x in tree_leaves(tree["m"])):
+        name = "adamw8bit"
+    else:
+        name = "adamw"
+    want = get_optimizer(name, 0.0).init(params)
+    return _like(tree, want, resolve_device(device), f"opt_state ({name})")
 
 
 def lm_numpy(tree):

@@ -1,7 +1,7 @@
-"""(architecture x input-shape) cells of the LM substrate, the serve half
-(the counterpart of part of ``repro.launch.cells``): the assigned shapes,
-which cells an architecture supports, the prefill and serve steps, and the
-greedy decode loop.
+"""(architecture x input-shape) cells of the LM substrate (the counterpart
+of part of ``repro.launch.cells``): the assigned shapes, which cells an
+architecture supports, the train step, the prefill and serve steps, and
+the greedy decode loop.
 
 Shapes:
 
@@ -11,8 +11,9 @@ Shapes:
 - ``long_500k``    cache 524288, batch 1         -> serve step; only for
   sub-quadratic archs (rwkv6, jamba).
 
-The cell assembly over a mesh (``build_cell``), the train step and the
-input spec trees are not ported (ROADMAP.md, Open items: LM dry-run cells).
+The train step runs on one device.  The cell assembly over a mesh
+(``build_cell``) and the input spec trees are not ported (ROADMAP.md, Open
+items: LM dry-run cells).
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ import torch
 from repro_torch.configs import ArchConfig, get_config
 from repro_torch.models.api import Model, build_model
 from repro_torch.models.attention import quantize_kv
-from repro_torch.runtime.sharding import Shardings
+from repro_torch.optim import get_optimizer, warmup_cosine
+from repro_torch.runtime.sharding import _REFUSED, Shardings
+from repro_torch.util import torch_dtype, tree_leaves, tree_map
 
 SHAPES = {
     "train_4k": dict(kind="train", seq=4096, batch=256),
@@ -44,6 +47,71 @@ def cell_supported(cfg: ArchConfig, shape_name: str) -> tuple[bool, str]:
     if info["kind"] == "decode" and not cfg.decode_supported:
         return False, "encoder-only arch has no decode step"
     return True, ""
+
+
+def value_and_grad(model: Model, params, batch, sh: Shardings):
+    """``(loss, grads)`` of ``model.loss`` at ``params``: the loss detached,
+    the grads a tree of the params' layout and dtypes (zeros for a leaf
+    the loss does not reach), by ``torch.autograd.grad``."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    it = iter(leaves)
+    loss = model.loss(tree_map(lambda _: next(it), params), batch, sh)
+    grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True,
+                                     materialize_grads=True))
+    return loss.detach(), tree_map(lambda _: next(grads), params)
+
+
+def make_train_step(
+    model: Model,
+    *,
+    sh: Shardings,
+    accum: int | None = None,
+    lr: float = 3e-4,
+    param_specs=None,
+    donate: bool = False,
+) -> Callable:
+    """(params, opt_state, batch) -> (params, opt_state, metrics).
+
+    Gradient accumulation: the global batch is split into ``accum``
+    microbatches (contiguous slices of the batch's rows), each one's
+    gradient added into a buffer of ``cfg.accum_dtype``, which is divided
+    by ``accum`` in float32; the loss is the microbatches' mean.  Then the
+    config's optimizer with ``warmup_cosine(lr)``; with ``donate`` the
+    step updates the params and state it is given in place and returns
+    them (the reference's jit with ``donate_argnums=(0, 1)``).  One
+    device: the reference's sharding constraints (``param_specs``) are the
+    identity, and a ``param_specs`` is refused until the port shards the
+    LM."""
+    if param_specs is not None:
+        raise NotImplementedError(_REFUSED)
+    cfg = model.cfg
+    accum = accum if accum is not None else cfg.grad_accum_train4k
+    opt = get_optimizer(cfg.optimizer, warmup_cosine(lr))
+
+    def train_step(params, opt_state, batch):
+        if accum == 1:
+            loss, grads = value_and_grad(model, params, batch, sh)
+        else:
+            adt = torch_dtype(cfg.accum_dtype)
+            n = next(iter(batch.values())).shape[0] // accum
+            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=adt,
+                                                  device=p.device), params)
+            lsum = 0.0
+            for i in range(accum):
+                mbatch = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                l, g = value_and_grad(model, params, mbatch, sh)
+                tree_map(lambda a, x: a.add_(x.to(adt)), gsum, g)
+                lsum = lsum + l
+                del g  # freed before the next microbatch's backward
+            # in place on the buffer (a float32 buffer is the grads)
+            grads = tree_map(lambda g: g.float().div_(accum), gsum)
+            loss = lsum / accum
+        params, opt_state = opt.update(grads, opt_state, params,
+                                       donate=donate)
+        return params, opt_state, {"loss": loss}
+
+    train_step.optimizer = opt
+    return train_step
 
 
 def make_prefill_step(model: Model, *, sh: Shardings) -> Callable:
@@ -130,8 +198,9 @@ def greedy_generate(
 
         frames = torch.zeros((1, cfg.enc_seq, cfg.d_model),
                              dtype=torch.float32, device=dev)
-        enc = em.encode(params, cfg, frames, sh)
-        xk, xv = em.prefill_cross(params, cfg, enc)
+        with torch.inference_mode():
+            enc = em.encode(params, cfg, frames, sh)
+            xk, xv = em.prefill_cross(params, cfg, enc)
         cache = dict(cache, xk=xk, xv=xv)
 
     def step(t, i, c):

@@ -20,11 +20,12 @@ import math
 
 import torch
 
+from repro_torch.models.layers import remat
+
 _NEG_INF = -1e30
 
 _SHARDED = ("sharded decode over a sequence-sharded cache needs a mesh of "
-            "more than one card (ROADMAP.md, Open items: LM training and "
-            "sharding)")
+            "more than one card (ROADMAP.md, Open items: LM sharding)")
 
 
 def _expand_kv(k, n_rep: int):
@@ -82,34 +83,40 @@ def flash_attention(
     nk = sk // kv_chunk
     dev = q.device
     qb = q.reshape(b, nq, q_chunk, kvh, g, hd)
-    kb = k.reshape(b, nk, kv_chunk, kvh, hd)
-    vb = v.reshape(b, nk, kv_chunk, kvh, hd)
-    outs = []
-    for qi in range(nq):
-        qblk = qb[:, qi].float()
+    # K and V in float32 once (the products accumulate in float32), and a
+    # block's causal pattern: key index minus query index, held against
+    # each block's offset (kpos <= qpos)
+    kf = k.reshape(b, nk, kv_chunk, kvh, hd).float()
+    vf = v.reshape(b, nk, kv_chunk, kvh, hd).float()
+    rel = (torch.arange(kv_chunk, device=dev)[None]
+           - torch.arange(q_chunk, device=dev)[:, None])
+
+    def per_q_block(qi, qblk):
+        qblk = qblk.float()
         m = torch.full((b, kvh, g, q_chunk), _NEG_INF, dtype=torch.float32,
                        device=dev)
         l = torch.zeros((b, kvh, g, q_chunk), dtype=torch.float32, device=dev)
         acc = torch.zeros((b, kvh, g, q_chunk, hd), dtype=torch.float32,
                           device=dev)
         for ki in range(nk):
-            vblk = vb[:, ki]
-            s = torch.einsum("bqkgd,bskd->bkgqs", qblk, kb[:, ki].float())
+            s = torch.einsum("bqkgd,bskd->bkgqs", qblk, kf[:, ki])
             s = s * scale
             if causal:
-                qpos = (qi * q_chunk + q_offset
-                        + torch.arange(q_chunk, device=dev)[:, None])
-                kpos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)[None]
-                s = torch.where(kpos <= qpos, s, _NEG_INF)
+                offset = qi * q_chunk + q_offset - ki * kv_chunk
+                s = torch.where(rel <= offset, s, _NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
             acc = acc * corr[..., None] + torch.einsum(
-                "bkgqs,bskd->bkgqd", p.to(vblk.dtype).float(), vblk.float())
+                "bkgqs,bskd->bkgqd", p.to(v.dtype).float(), vf[:, ki])
             m = m_new
         out = acc / torch.clamp(l, min=1e-30)[..., None]
-        outs.append(out.permute(0, 3, 1, 2, 4))  # (B, qc, KV, G, hd)
+        return out.permute(0, 3, 1, 2, 4)  # (B, qc, KV, G, hd)
+
+    # flash backward: each q block is recomputed, so autograd keeps no
+    # (q, kv) block's float32 scores, as the reference's jax.checkpoint
+    outs = [remat(per_q_block, qi, qb[:, qi]) for qi in range(nq)]
     return torch.cat(outs, dim=1).reshape(b, sq, h, hd).to(q.dtype)
 
 

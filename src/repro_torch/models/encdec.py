@@ -22,9 +22,11 @@ from repro_torch.models.layers import (
     layernorm_init,
     mlp_apply,
     mlp_init,
+    remat,
     sinusoidal_positions,
     softmax_cross_entropy,
     stack_trees,
+    unstack_tree,
 )
 from repro_torch.models.transformer import layer_at
 from repro_torch.runtime.sharding import Shardings
@@ -90,32 +92,37 @@ def _mha(p, xq, xkv, cfg, *, causal, q_offset=0):
     return o.reshape(b, sq, h * hd) @ p["wo"]
 
 
-@torch.inference_mode()
 def encode(params, cfg: ArchConfig, frames, sh: Shardings = Shardings.none()):
-    """frames: (B, enc_seq, d_model) stub embeddings."""
+    """frames: (B, enc_seq, d_model) stub embeddings.  Each layer is
+    rematerialised in the backward (:func:`remat`), as the reference's
+    scan of ``jax.checkpoint(body)``."""
     x = frames.to(cfg.dtype_policy.cdt)
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                  device=x.device)[None].to(x.dtype)
     x = sh.act_btd(x)
-    for i in range(cfg.enc_layers):
-        lp = layer_at(params["enc_blocks"], i)
+
+    def body(x, lp):
         xn = layernorm(lp["ln1"], x)
         x = sh.act_btd(x + _mha(lp["attn"], xn, xn, cfg, causal=False))
         m = mlp_apply(lp["mlp"], layernorm(lp["ln2"], x),
                       activation=cfg.activation)
-        x = sh.act_btd(x + m)
+        return sh.act_btd(x + m)
+
+    for lp in unstack_tree(params["enc_blocks"]):
+        x = remat(body, x, lp)
     return layernorm(params["ln_enc"], x)
 
 
 def decode_train(params, cfg: ArchConfig, enc_out, tokens,
                  sh: Shardings = Shardings.none()):
-    """Teacher-forced decoder over ``tokens``: (B, S, V) logits."""
+    """Teacher-forced decoder over ``tokens``: (B, S, V) logits.  Each layer
+    is rematerialised in the backward, as in :func:`encode`."""
     x = embed_lookup(params["embed"], tokens).to(cfg.dtype_policy.cdt)
     s = tokens.shape[1]
     x = x + params["pos_embed"][:s][None].to(x.dtype)
     x = sh.act_btd(x)
-    for i in range(cfg.n_layers):
-        lp = layer_at(params["dec_blocks"], i)
+
+    def body(x, lp):
         xn = layernorm(lp["ln1"], x)
         x = sh.act_btd(x + _mha(lp["attn"], xn, xn, cfg, causal=True))
         c = _mha(lp["xattn"], layernorm(lp["ln_x"], x), enc_out, cfg,
@@ -123,7 +130,10 @@ def decode_train(params, cfg: ArchConfig, enc_out, tokens,
         x = sh.act_btd(x + c)
         m = mlp_apply(lp["mlp"], layernorm(lp["ln2"], x),
                       activation=cfg.activation)
-        x = sh.act_btd(x + m)
+        return sh.act_btd(x + m)
+
+    for lp in unstack_tree(params["dec_blocks"]):
+        x = remat(body, x, lp)
     x = layernorm(params["ln_f"], x)
     return torch.einsum("bsd,vd->bsv", x, params["embed"])  # tied unembed
 

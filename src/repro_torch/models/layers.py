@@ -13,10 +13,16 @@ reference scans it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.util import resolve_device, torch_dtype
 
@@ -101,6 +107,33 @@ def dense_init(rng: ParamRNG, d_in: int, d_out: int, dtype, *,
     return rng.trunc_normal((d_in, d_out), std, dtype)
 
 
+def _save_mm(ctx, op, *args, **kwargs):
+    """'dots': keep the outputs of the unbatched products (``aten.mm``,
+    which ``x @ W`` folds to), recompute the rest, the batched ``bmm``s of
+    attention included."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS = functools.partial(create_selective_checkpoint_contexts, _save_mm)
+
+
+def remat(fn, *args, policy: str = "full"):
+    """``fn(*args)`` under the reference's ``jax.checkpoint``: while
+    autograd records, the backward recomputes what ``fn`` computed instead
+    of keeping it (``policy='dots'``: all but the unbatched products, the
+    counterpart of ``checkpoint_dots_with_no_batch_dims``).  Values and
+    gradients are those of the plain call, which is what runs when nothing
+    is recorded (serving, ``torch.no_grad``)."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    kw = {"context_fn": _DOTS} if policy == "dots" else {}
+    # the models draw no random numbers, so no RNG state is kept
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
 def stack_trees(trees: list):
     """Stack a list of equally shaped trees leaf by leaf along a new leading
     axis (the reference's ``jax.tree.map(lambda *xs: jnp.stack(xs), ...)``)."""
@@ -108,6 +141,17 @@ def stack_trees(trees: list):
     if isinstance(first, dict):
         return {k: stack_trees([t[k] for t in trees]) for k in first}
     return torch.stack(trees)
+
+
+def unstack_tree(tree) -> list:
+    """A stacked tree as the list of its steps (views, by ``torch.unbind``,
+    whose backward stacks the steps' gradients once, where indexing each
+    step would add a zero-filled stack per step)."""
+    if isinstance(tree, dict):
+        cols = {k: unstack_tree(v) for k, v in tree.items()}
+        n = len(next(iter(cols.values())))
+        return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+    return list(torch.unbind(tree))
 
 
 # -- norms -------------------------------------------------------------------
@@ -225,11 +269,13 @@ def chunked_softmax_cross_entropy(
     hidden, table, labels, *, z_loss: float = 0.0, chunk: int = 512,
     transpose_table: bool = False,
 ):
-    """Mean CE over sequence chunks without materialising (B, S, V) logits
-    (value only: the reference's ``jax.checkpoint`` shapes its backward).
+    """Mean CE over sequence chunks without materialising (B, S, V) logits.
 
     ``hidden``: (B, S, D); ``table``: (D, V) (or (V, D) with
-    ``transpose_table`` for tied embeddings)."""
+    ``transpose_table`` for tied embeddings).  Each chunk's logits are
+    reduced to its per-token loss and dropped; :func:`remat` makes the
+    backward recompute them chunk by chunk, as the reference's
+    ``jax.checkpoint`` does."""
     b, s, d = hidden.shape
 
     def logits_of(h):
@@ -238,11 +284,14 @@ def chunked_softmax_cross_entropy(
     if s % chunk:
         return softmax_cross_entropy(logits_of(hidden), labels,
                                      z_loss=z_loss)
+
+    def one(h, lab):
+        return softmax_cross_entropy(logits_of(h), lab, z_loss=z_loss)
+
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c in range(s // chunk):
         sl = slice(c * chunk, (c + 1) * chunk)
-        tot = tot + softmax_cross_entropy(
-            logits_of(hidden[:, sl]), labels[:, sl], z_loss=z_loss).sum()
+        tot = tot + remat(one, hidden[:, sl], labels[:, sl]).sum()
     return tot / (b * s)
 
 

@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import (
-    ParamRNG, dense_init, mlp_apply, mlp_init, stack_trees,
+    ParamRNG, dense_init, mlp_apply, mlp_init, remat, stack_trees,
 )
 
 
@@ -56,11 +56,16 @@ def moe_apply(params, x, cfg: MoEConfig, *, activation: str,
     group = cfg.group_tokens
     if not dropless and t > group and t % group == 0:
         xg = x.reshape(t // group, group, d)
+
+        def per_group(xs):
+            return _moe_dense_dispatch(params, xs[None], cfg,
+                                       activation=activation, dropless=False)
+
+        # each group's dispatch and expert stacks are recomputed in the
+        # backward instead of kept, as the reference's jax.checkpoint
         outs, auxs = [], []
         for xs in xg:
-            out, aux = _moe_dense_dispatch(
-                params, xs[None], cfg, activation=activation, dropless=False
-            )
+            out, aux = remat(per_group, xs)
             outs.append(out[0])
             auxs.append(aux)
         return torch.stack(outs).reshape(b, s, d), torch.stack(auxs).mean()

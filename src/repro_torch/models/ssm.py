@@ -14,21 +14,38 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import ParamRNG, dense_init, rmsnorm, rmsnorm_init
+from repro_torch.models.layers import (
+    ParamRNG, dense_init, remat, rmsnorm, rmsnorm_init,
+)
 
 
-def chunked_scan(step, init, xs):
-    """``lax.scan`` over the leading (time) axis of the tensors in ``xs``:
-    ``carry, y_t = step(carry, x_t)``, returning the final carry and the
-    stacked ``y``.  The reference cuts scans of more than 256 steps into
-    256-step pieces only to rematerialise them in its backward pass; the
-    steps computed are the same, so the port runs one loop."""
-    carry = init
+_TIME_CHUNK = 256
+
+
+def _scan(step, carry, xs):
     ys = []
     for t in range(xs[0].shape[0]):
         carry, y = step(carry, tuple(x[t] for x in xs))
         ys.append(y)
     return carry, torch.stack(ys)
+
+
+def chunked_scan(step, init, xs, *, chunk: int = _TIME_CHUNK):
+    """``lax.scan`` over the leading (time) axis of the tensors in ``xs``:
+    ``carry, y_t = step(carry, x_t)``, returning the final carry and the
+    stacked ``y``.  Scans of more than ``chunk`` steps that it divides run
+    in ``chunk``-step pieces under :func:`remat`, as the reference's: the
+    backward keeps only the carry at the pieces' boundaries and recomputes
+    each piece, instead of keeping every step's residuals."""
+    S = xs[0].shape[0]
+    if S <= chunk or S % chunk:
+        return _scan(step, init, xs)
+    carry, ys = init, []
+    for c in range(S // chunk):
+        piece = tuple(x[c * chunk:(c + 1) * chunk] for x in xs)
+        carry, y = remat(_scan, step, carry, piece)
+        ys.append(y)
+    return carry, torch.cat(ys)
 
 
 # ---------------------------------------------------------------------------

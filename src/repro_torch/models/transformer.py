@@ -3,19 +3,20 @@ counterpart of ``repro.models.transformer``).
 
 Layer stacks keep the reference's layout: each leaf has a leading axis of
 scan steps (one layer a step; for hybrids one pattern period a step, with a
-list of stacks, one per position in the period), and the forward indexes it
-in a Python loop where the reference scans it.
+list of stacks, one per position in the period), and the forward runs the
+steps in a Python loop where the reference scans them.
 
 Three entry points per model:
 
-- ``loss_fn``     — next-token CE (value only: training is not ported);
+- ``loss_fn``     — next-token CE, differentiable by autograd;
 - ``prefill``     — full-sequence forward returning the last position's
   logits and the per-layer K/V;
 - ``decode_step`` — single-token step against caches, updated in place.
 
 ``prefill`` and ``decode_step`` run under ``torch.inference_mode()``.
-The reference's ``remat`` settings shape only its backward pass and are
-ignored here.
+The config's ``remat`` ('full', 'dots', 'group:N' or 'none') checkpoints
+the layer loop as the reference's does; it shapes only the backward's
+memory, never a value.
 """
 
 from __future__ import annotations
@@ -38,11 +39,13 @@ from repro_torch.models.layers import (
     embed_lookup,
     mlp_apply,
     mlp_init,
+    remat,
     rmsnorm,
     rmsnorm_init,
     softmax_cross_entropy,
     stack_trees,
     unembed_logits,
+    unstack_tree,
 )
 from repro_torch.runtime.sharding import Shardings
 from repro_torch.util import resolve_device
@@ -194,6 +197,27 @@ def _block(p, x, cfg, sh, *, positions, kind, mk):
     return x, aux, kv
 
 
+def _remat(fn, cfg: ArchConfig):
+    """The layer loop's checkpoint for ``cfg.remat``: 'none' keeps every
+    activation; 'dots' keeps the unbatched products' outputs; 'full' (and
+    the inner layers of 'group:N') keeps only each layer's input."""
+    if cfg.remat == "none":
+        return fn
+    policy = "dots" if cfg.remat == "dots" else "full"
+    return lambda *args: remat(fn, *args, policy=policy)
+
+
+def _remat_group_size(cfg: ArchConfig) -> int:
+    """remat='group:N' => nested checkpointing: the layers run in groups of
+    N; only group *inputs* are kept across the stack (L/N residuals
+    instead of L), and the layers within a group are themselves
+    rematerialised during the group's backward recompute.  Memory ~ L/N
+    layer-inputs + 1 layer working set; compute ~ one extra forward."""
+    if cfg.remat.startswith("group:"):
+        return int(cfg.remat.split(":")[1])
+    return 1
+
+
 def _stack_kvs(kvs: list):
     """Per-step (k, v) pairs -> (k stacked over steps, v stacked)."""
     return torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs])
@@ -226,19 +250,41 @@ def forward(
     positions = torch.arange(s, device=x.device)[None, :]
 
     period = _stack_period(cfg)
-    n_steps = cfg.n_layers // period
-    aux = 0.0
     blocks = params["blocks"] if period > 1 else [params["blocks"]]
-    kvs_by_pos: list[list] = [[] for _ in range(period)]
-    for step in range(n_steps):
+    # steps[i][pos]: the layer at position pos of scan step i
+    steps = list(zip(*(unstack_tree(stack) for stack in blocks)))
+
+    def body(x, aux, lps):
+        kvs_step = []
         for pos in range(period):
             x, a, kv = _block(
-                layer_at(blocks[pos], step), x, cfg, sh, positions=positions,
+                lps[pos], x, cfg, sh, positions=positions,
                 kind=layer_kind(cfg, pos), mk=mlp_kind(cfg, pos),
             )
             aux = aux + a
-            if collect_kv and kv is not None:
-                kvs_by_pos[pos].append(kv)
+            kvs_step.append(kv)
+        return x, aux, kvs_step
+
+    aux = 0.0
+    kvs_by_pos: list[list] = [[] for _ in range(period)]
+    G = _remat_group_size(cfg)
+    if (period == 1 and G > 1 and cfg.n_layers % G == 0
+            and not collect_kv):
+        def group_body(x, aux, group):
+            for lps in group:
+                x, aux, _ = remat(body, x, aux, lps)
+            return x, aux
+
+        for g in range(cfg.n_layers // G):
+            x, aux = remat(group_body, x, aux, steps[g * G:(g + 1) * G])
+    else:
+        step_fn = _remat(body, cfg)
+        for lps in steps:
+            x, aux, kvs_step = step_fn(x, aux, lps)
+            if collect_kv:
+                for pos, kv in enumerate(kvs_step):
+                    if kv is not None:
+                        kvs_by_pos[pos].append(kv)
     kvs = None
     if collect_kv:
         stacked = tuple(_stack_kvs(k) for k in kvs_by_pos if k)
@@ -270,7 +316,7 @@ def loss_fn(
     extra_embeds=None,
     z_loss: float = 1e-4,
 ):
-    """Mean next-token CE (labels already shifted), value only.
+    """Mean next-token CE (labels already shifted).
 
     Sequences of 2048 tokens and more use the sequence-chunked CE so the
     (B, S, V) logits tensor never exists, as in the reference."""

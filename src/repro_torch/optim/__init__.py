@@ -1,0 +1,21 @@
+"""Optimizers and schedules (the counterpart of ``repro.optim``).
+
+Three second-moment tiers:
+
+- ``adamw``     — f32 moments (default; 8 bytes/param extra);
+- ``adafactor`` — factored second moment (~0 extra per matrix dim);
+- ``adamw8bit`` — block-quantised int8 moments (2 bytes/param extra).
+
+The state trees are the reference's leaf for leaf.  ``state_specs`` (the
+optimizer state's shardings) is refused until the port shards the LM over
+a mesh.
+"""
+
+from repro_torch.optim.optimizers import (  # noqa: F401
+    Optimizer,
+    get_optimizer,
+    global_norm,
+    clip_by_global_norm,
+    state_specs,
+)
+from repro_torch.optim.schedule import warmup_cosine  # noqa: F401

@@ -15,7 +15,7 @@ import dataclasses
 from typing import Any
 
 _REFUSED = ("LM sharding over a mesh is not ported yet (ROADMAP.md, Open "
-            "items: LM training and sharding)")
+            "items: LM sharding)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -109,3 +109,28 @@ def tolerance_for(dtype, scale: float = 1.0) -> dict:
     if scale != 1.0:
         tol = {k: v * scale for k, v in tol.items()}
     return tol
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of nested dicts, lists and tuples in jax's
+    order: dict keys sorted, sequences by index, ``None`` an empty
+    subtree."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn(leaf, *others)`` at each leaf of ``tree``, where ``others`` are
+    the entries of the trees in ``rest`` at the same place: a whole subtree
+    where ``tree`` has a leaf, as jax's ``flatten_up_to``.  Dicts are
+    rebuilt with sorted keys; ``None`` stays ``None``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return None if tree is None else fn(tree, *rest)

@@ -358,7 +358,14 @@ def test_port_never_imports_jax_or_repro():
             "src/repro_torch/models/api.py",
             "src/repro_torch/runtime/sharding.py",
             "src/repro_torch/launch/cells.py",
-            "src/repro_torch/launch/serve.py"} <= rel
+            "src/repro_torch/launch/serve.py",
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/optim/__init__.py",
+            "src/repro_torch/optim/optimizers.py",
+            "src/repro_torch/optim/schedule.py",
+            "src/repro_torch/data/__init__.py",
+            "src/repro_torch/data/pipeline.py",
+            "examples/torch_train_lm.py"} <= rel
     bad = [(p.name, m) for p in sources for m in _imports(p) if _FORBIDDEN.match(m)]
     assert not bad, bad
     code = (
@@ -383,7 +390,10 @@ def test_port_never_imports_jax_or_repro():
         "        'repro_torch.models.moe', 'repro_torch.models.ssm',\n"
         "        'repro_torch.models.transformer', 'repro_torch.models.encdec',\n"
         "        'repro_torch.models.api', 'repro_torch.runtime.sharding',\n"
-        "        'repro_torch.launch.cells', 'repro_torch.launch.serve'}\n"
+        "        'repro_torch.launch.cells', 'repro_torch.launch.serve',\n"
+        "        'repro_torch.launch.train', 'repro_torch.optim',\n"
+        "        'repro_torch.optim.optimizers', 'repro_torch.optim.schedule',\n"
+        "        'repro_torch.data', 'repro_torch.data.pipeline'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print('clean')\n"
     )

@@ -2,10 +2,11 @@
 async writer, retention, exact resume, and the reference's on-disk layout
 in both directions.
 
-Mirrors ``tests/test_checkpoint.py``; its exact-resume test trains the LM
-substrate, which is not ported, so the port's resumes the Cahn–Hilliard
-solver instead.  The cross-package tests write with one package and read
-with the other, bit for bit, leaf keys and dtypes included.
+Mirrors ``tests/test_checkpoint.py``, whose exact-resume test trains the
+LM substrate: the port's trains the LM the same way, and resumes the
+Cahn–Hilliard solver besides.  The cross-package tests write with one
+package and read with the other, bit for bit, leaf keys and dtypes
+included; an LM run trained by the reference resumes in the port.
 """
 
 import json
@@ -204,6 +205,107 @@ class TestExactResume:
         resumed = solver.make_evolve(4)(r["c"], r["c_prev"])
         for a, b in zip(straight, resumed, strict=True):
             assert torch.equal(a, b)
+
+
+    def test_training_resume_bit_exact(self, tmp_path):
+        """train 4 steps straight == train 2, checkpoint, restore, train 2
+        (the reference's test on the port: reduced smollm-135m, adamw,
+        the step-keyed source)."""
+        from repro_torch.configs import get_config
+        from repro_torch.data import make_source
+        from repro_torch.launch.cells import value_and_grad
+        from repro_torch.models.api import build_model
+        from repro_torch.optim import get_optimizer
+        from repro_torch.runtime.sharding import Shardings
+
+        cfg = get_config("smollm-135m").reduced()
+        model = build_model(cfg, device="cpu")
+        opt = get_optimizer("adamw", 1e-3)
+        src = make_source(cfg, global_batch=4, seq_len=16, seed=0)
+
+        def step(params, state, batch):
+            loss, g = value_and_grad(model, params, batch, Shardings.none())
+            params, state = opt.update(g, state, params)
+            return params, state, loss
+
+        def batches(s):
+            return {k: torch.as_tensor(v) for k, v in src.get_batch(s).items()}
+
+        p0 = model.init(0)
+        s0 = opt.init(p0)
+        p, s = p0, s0
+        for i in range(4):
+            p, s, _ = step(p, s, batches(i))
+        q, t = p0, s0
+        for i in range(2):
+            q, t, _ = step(q, t, batches(i))
+        save_pytree({"params": q, "opt": t}, str(tmp_path), 2)
+        restored, _ = restore_pytree({"params": q, "opt": t}, str(tmp_path))
+        q, t = restored["params"], restored["opt"]
+        for i in range(2, 4):
+            q, t, _ = step(q, t, batches(i))
+        for a, b in zip(_flatten({"p": p, "s": s}), _flatten({"p": q, "s": t}),
+                        strict=True):
+            assert a[0] == b[0] and torch.equal(a[1], b[1]), a[0]
+
+    def test_reference_training_resumes_in_the_port(self, tmp_path):
+        """The reference trains 2 steps and checkpoints; the port restores
+        params and optimizer state and trains 2 more: within tolerance of
+        the reference's 4 straight steps (float32, norm-wise per leaf at
+        ``tolerance_for(float32, 10)``: the two steps' grads agree to that
+        limit, as in ``tests/test_torch_lm_train.py``)."""
+        import jax
+
+        from repro.configs import get_config as ref_config
+        from repro.data import make_source as ref_source
+        from repro.models.api import build_model as ref_build
+        from repro.optim import get_optimizer as ref_optimizer
+        from repro_torch import convert
+        from repro_torch.configs import get_config
+        from repro_torch.launch.cells import value_and_grad
+        from repro_torch.models.api import build_model
+        from repro_torch.optim import get_optimizer
+        from repro_torch.runtime.sharding import Shardings
+        from repro_torch.util import tolerance_for, tree_leaves
+
+        rcfg = ref_config("smollm-135m").reduced()
+        rmodel, ropt = ref_build(rcfg), ref_optimizer("adamw", 1e-3)
+        src = ref_source(rcfg, global_batch=4, seq_len=16, seed=0)
+
+        @jax.jit
+        def rstep(params, state, batch):
+            g = jax.grad(lambda q: rmodel.loss(q, batch))(params)
+            return ropt.update(g, state, params)
+
+        p = rmodel.init(jax.random.PRNGKey(0))
+        s = ropt.init(p)
+        for i in range(2):
+            p, s = rstep(p, s, {k: jnp.asarray(v)
+                                for k, v in src.get_batch(i).items()})
+        ref_save({"params": p, "opt": s}, str(tmp_path), 2)
+        for i in range(2, 4):
+            p, s = rstep(p, s, {k: jnp.asarray(v)
+                                for k, v in src.get_batch(i).items()})
+
+        cfg = get_config("smollm-135m").reduced()
+        model, opt = build_model(cfg, device="cpu"), get_optimizer("adamw",
+                                                                   1e-3)
+        template = model.init(1)
+        got, manifest = restore_pytree(
+            {"params": template, "opt": opt.init(template)}, str(tmp_path))
+        assert manifest["step"] == 2 and int(got["opt"]["step"]) == 2
+        q, t = got["params"], got["opt"]
+        for i in range(2, 4):
+            b = {k: torch.as_tensor(v) for k, v in src.get_batch(i).items()}
+            _, g = value_and_grad(model, q, b, Shardings.none())
+            q, t = opt.update(g, t, q)
+        tol = tolerance_for(torch.float32, scale=10)
+        want = convert.lm_numpy(convert.lm_params(jax.device_get(p), cfg,
+                                                  device="cpu"))
+        for a, b in zip(tree_leaves(q), tree_leaves(want), strict=True):
+            err = float((a - torch.as_tensor(b)).abs().max())
+            assert err <= tol["atol"] + tol["rtol"] * float(np.abs(b).max())
+        assert int(t["step"]) == int(s["step"]) == 4
 
 
 class TestReferenceLayout:

@@ -58,6 +58,27 @@ def _run_reference(name, args, monkeypatch, capsys):
     return capsys.readouterr().out
 
 
+def test_train_lm_example_trains_on_the_cpu(tmp_path, capsys):
+    """``torch_train_lm.py --device cpu``: a few steps of the reduced
+    smollm-135m, checkpointed, its first and last losses printed; run again
+    on the same directory it resumes from the last checkpoint.  (Its
+    losses are not the reference script's: the two packages draw their
+    random weights differently.)"""
+    mod = _load("torch_train_lm")
+    args = ["--steps", "4", "--global-batch", "2", "--seq-len", "16",
+            "--checkpoint-dir", str(tmp_path), "--device", "cpu"]
+    mod.main(args)
+    out = capsys.readouterr().out
+    assert "[train] step 0 loss" in out and "[train] step 3 loss" in out
+    losses = [float(x) for x in _NUMBER.findall(
+        out.strip().splitlines()[-1])[-2:]]
+    assert all(np.isfinite(losses)) and 0 < losses[1] < 3 * np.log(256)
+    mod.main([*args[:1], "6", *args[2:]])
+    out = capsys.readouterr().out
+    assert "[train] resumed from step 4" in out
+    assert "[train] step 5 loss" in out and "step 3 loss" not in out
+
+
 def _run_port(name, args, capsys):
     mod = _load(f"torch_{name}")
     capsys.readouterr()
@@ -141,15 +162,18 @@ def test_diffusion3d_fft_backend_prints_the_references_quantities(monkeypatch,
     _same_quantities(got, want)
 
 
-def test_port_scripts_exit_0_without_jax():
+def test_port_scripts_exit_0_without_jax(tmp_path):
     scripts = sorted(EXAMPLES.glob("torch_*.py"))
     assert [p.name for p in scripts] == [
         "torch_cahn_hilliard_adi.py", "torch_diffusion3d_adi.py",
-        "torch_quickstart.py", "torch_weno_advection.py"]
+        "torch_quickstart.py", "torch_train_lm.py", "torch_weno_advection.py"]
     small = {
         "torch_quickstart.py": ["--nx", "32", "--ny", "8", "--batch", "4"],
         "torch_cahn_hilliard_adi.py": ["--n", "16", "--t", "0.01"],
         "torch_diffusion3d_adi.py": ["--n", "8", "--steps", "2", "--backend", "fft"],
+        "torch_train_lm.py": ["--steps", "3", "--global-batch", "2",
+                              "--seq-len", "16", "--checkpoint-dir",
+                              str(tmp_path / "ckpt")],
         "torch_weno_advection.py": ["--n", "16", "--revolutions", "0.05"],
     }
     code = (
@@ -166,7 +190,7 @@ def test_port_scripts_exit_0_without_jax():
                          text=True, env=env, timeout=300)
     assert res.returncode == 0, res.stderr
     for label in ("[weights ] interior max|err|", "# power-law fits",
-                  "amp/exact_discrete", "L2 error after"):
+                  "amp/exact_discrete", "L2 error after", "mean loss: first 3"):
         assert label in res.stdout, label
 
 

@@ -1262,3 +1262,37 @@ def test_in_place_evolve_reads_the_allocator(cuda):
 
     findings = RULES["in_place_evolve"].check(make_copying, ctx)
     assert {f.primitive for f in findings} == {"data_ptr", "allocation"}
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "whisper-base",
+                                  "jamba-v0.1-52b"])
+def test_lm_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One ``make_train_step`` (accum 2) of a reduced config on the card
+    and on the CPU from the same weights, float32, TF32 off: loss and every
+    param leaf within ``tolerance_for(float32, 10)`` norm-wise (the CPU
+    tests' gradient tolerance; no kernel of the port is on this path)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_source
+    from repro_torch.launch.cells import make_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.runtime.sharding import Shardings
+    from repro_torch.util import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, device=dev)
+        step = make_train_step(model, sh=Shardings.none(), accum=2, lr=1e-3)
+        params = tree_map(lambda p: p.to(dev),
+                          build_model(cfg, device="cpu").init(0))
+        state = step.optimizer.init(params)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in make_source(
+            cfg, global_batch=4, seq_len=64, seed=0).get_batch(0).items()}
+        params, state, m = step(params, state, batch)
+        out[str(dev)] = (m["loss"].cpu(), [x.cpu() for x in
+                                          tree_leaves(params)])
+    (lc, pc), (lg, pg) = out["cpu"], out["cuda"]
+    _assert_close(lg, lc, torch.float32, 10)
+    for a, b in zip(pg, pc, strict=True):
+        _assert_close(a, b, torch.float32, 10)

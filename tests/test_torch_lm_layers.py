@@ -488,5 +488,5 @@ def test_mesh_and_sharded_decode_are_refused_with_a_roadmap_title():
         with pytest.raises(NotImplementedError) as err:
             call()
         named = re.search(r"Open items: ([^)]+)\)", str(err.value)).group(1)
-        assert named == "LM training and sharding"
+        assert named == "LM sharding"
         assert named in titles
