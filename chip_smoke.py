@@ -247,6 +247,16 @@ printing a result:
       phase's comment); tokens/s, ms a step (host clock and CUDA
       events), host enqueue, peak GiB and model FLOP/s as a share of 989
       TFLOP/s bf16 for each config.
+   p. LM sharding in a one-rank NCCL world (re-initialised after 4l's
+      is torn down) on a (1, 1) data x model mesh: smollm-135m whole and
+      phi3.5-moe at 1 of 32 layers in bf16, the sharded train step
+      (params by the inferred specs, state by ``state_specs``, accum 2)
+      and the decode with the cache over ('model',) against the
+      unsharded ones, each timed; DTensor's collective counts; 0 kernel
+      launches.
+   q. The dry-run: ``python -m repro_torch.launch.dryrun`` in
+      subprocesses, three cells on the fake 256- and 512-rank worlds;
+      every record ``ok`` and fitting 80 GiB.
 5. Timing: ms/step of the fused step over 200 steps after 20 of warm-up,
    of the stencil-mode step on the penta and on the fft sweeps and of the
    batched-1D step, of the 3D LOD step on the kernels, streamed and on
@@ -269,7 +279,17 @@ printing a result:
    cross-checks), the ``lm_train`` JSON line (phase 4o: the card, the
    worst card-against-CPU share of its limit, the adamw8bit ties, the
    learning gate, the remat peaks, the resume and each trained config's
-   numbers), the ``kernels``
+   numbers), the ``lm_shard`` JSON line (phase 4p: LM sharding in a
+   one-rank NCCL world on a (1, 1) mesh, smollm-135m whole and
+   phi3.5-moe at 1 layer in bf16: the sharded train step and the
+   sequence-sharded decode against the unsharded ones, each path's ms
+   a step, tokens/s and decode ms a token, the worst share of each
+   tolerance, DTensor's collective counts, 0 kernel launches), the
+   ``dryrun`` JSON line (phase 4q: ``python -m repro_torch.launch.dryrun``
+   in subprocesses for smollm-135m x {train_4k, decode_32k} and rwkv6-7b
+   x long_500k on the fake 256- and 512-rank worlds: each record's peak
+   a device against 80 GiB, flops, bytes, collective bytes and roofline
+   terms, records under ``chiprun_out/dryrun/``), the ``kernels``
    JSON line (each
    kernel's launches on the main path, and under ``paths`` on every path
    that launched it, the serving stream, the resilient run, the tuning
@@ -289,6 +309,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2646,6 +2667,327 @@ def lm_train_phase(counts_of) -> dict:
     return rec
 
 
+# LM sharding (phase 4p): repro_torch.runtime.sharding, the models on
+# DTensors, the sequence-sharded flash decode and make_train_step with
+# param_specs, in a one-rank NCCL world (a HashStore; phase 4l's world is
+# torn down first) on a (1, 1) data x model mesh.  One card is one rank:
+# every redistribution is local and no collective moves data; the
+# multi-rank checks run on the CPU's gloo worlds
+# (tests/test_torch_sharding_*.py).  What the phase measures is the
+# layer's own cost on one rank: the sharded step beside the unsharded one
+# at the same shape, each timed over LM_SHARD_TIMED steps after its first
+# (one after the other: phi3.5-moe's two copies of params and state do not
+# fit together).
+#   smollm-135m, published widths and depth, bf16: train step at 4o's
+#   shape, batch 8 x 4096 tokens (train_4k's sequence), accum 2; decode of
+#   8 tokens at batch 4 at the end of a 32768-position cache (decode_32k's
+#   length and layout: the cache over ('model',)), its earlier positions
+#   filled with random keys and values from the seed as a prefill would;
+#   phi3.5-moe cut to 1 of 32 layers, bf16: train step at batch 2 x 512,
+#   accum 2; decode as smollm's at batch 2.  (At 4o's 2 layers the
+#   unsharded step takes ~60 GiB and the sharded one ran out of the 80 in
+#   an earlier version that copied each product's weight: phi3.5-moe stays
+#   at 1 layer and 2 x 512.)
+# Gates: sharded against unsharded norm-wise, the loss and every param
+# after the step within tolerance_for(bfloat16) (the one-rank sharded
+# path runs the same products through other code: the local regions, the
+# vocab-parallel cross entropy).  Decode: the same decode in float32 (the
+# bf16 weights and cache cast up), sharded against unsharded, within
+# tolerance_for(float32, 10) (the flash decode's merge of partial maxima
+# and sums against one softmax; a key masked wrongly among the random
+# positions would miss by orders more); in bf16 both decodes finite and
+# the sharded one's largest distance from the float32 logits at most
+# LM_SHARD_BF16_RATIO times the unsharded one's.  (The two bf16 decodes
+# round in different places, the sequence-sharded flash decode its
+# unnormalised weights and the unsharded decode the softmax, as the
+# reference's two paths do; over 30 bf16 layers against a random cache
+# each lies about as far from the float32 logits as
+# tolerance_for(bfloat16, 2) allows, on either side of it, so the bf16
+# gate compares the two distances, which the phase prints.)  0 launches
+# of the nine kernels.
+LM_SHARD_CONFIGS = (  # (arch, layers or None, batch, seq, decode batch)
+    ("smollm-135m", None, 8, 4096, 4),
+    ("phi3.5-moe-42b-a6.6b", 1, 2, 512, 2),
+)
+LM_SHARD_CACHE = 32768  # decode_32k's cache length
+LM_SHARD_DECODE = 8  # tokens decoded at the cache's end
+LM_SHARD_TIMED = 2
+LM_SHARD_BF16_RATIO = 1.5
+LM_SHARD_ACCUM = 2
+
+
+def lm_shard_phase(counts_of) -> dict:
+    """Phase 4p (the comment above): every gate raises ``PhaseError``."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import dp_axes_of, make_mesh_for
+    from repro_torch.models.api import build_model
+    from repro_torch.models.layers import DTypePolicy
+    from repro_torch.runtime.sharding import (
+        P, Shardings, distribute, infer_param_specs, map_with_path,
+        shard_params, spec_placements,
+    )
+    from repro_torch.util import tolerance_for, tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    tol = tolerance_for(torch.bfloat16)
+    f32_tol = tolerance_for(torch.float32, scale=10)
+    rec: dict = dict(card=card, configs=[], tolerance=tol,
+                     decode_f32_tolerance=f32_tol,
+                     decode_bf16_ratio=LM_SHARD_BF16_RATIO)
+    launches = {}
+
+    def normwise(got, want, what, tol=tol):
+        got, want = got.detach().float().cpu(), want.detach().float().cpu()
+        err = float((got - want).abs().max())
+        limit = tol["atol"] + tol["rtol"] * float(want.abs().max())
+        if not (err <= limit and bool(torch.isfinite(got).all())):
+            raise PhaseError(f"{what}: differs by {err:.3e} "
+                             f"(limit {limit:.3e})")
+        return err / limit
+
+    def whole(x):
+        return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+    def timed(fn, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n, out
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh_for()
+        n_tok = LM_SHARD_DECODE
+        for arch, layers, batch, seq, dec_b in LM_SHARD_CONFIGS:
+            t0 = time.perf_counter()
+            cfg = get_config(arch)
+            if layers is not None:
+                cfg = dataclasses.replace(cfg, n_layers=layers)
+            model = build_model(cfg, device="cuda")
+            sh = Shardings(mesh=mesh, dp_axes=dp_axes_of(mesh))
+            specs = infer_param_specs(model.init(LM_SEED), mesh)
+            gen = torch.Generator(device="cpu").manual_seed(LM_SEED)
+            toks = torch.randint(1, cfg.vocab, (batch, seq + 1),
+                                 generator=gen, dtype=torch.int32)
+            plain_batch = {"tokens": toks[:, :-1].cuda(),
+                           "labels": toks[:, 1:].cuda()}
+            dbatch = {k: distribute_tensor(v, mesh, spec_placements(
+                P(sh.dp_axes), mesh)) for k, v in plain_batch.items()}
+            # donated, as train_loop's step (one copy of params and state)
+            plain = cells.make_train_step(model, sh=Shardings.none(),
+                                          accum=LM_SHARD_ACCUM, donate=True)
+            sharded = cells.make_train_step(model, sh=sh,
+                                            accum=LM_SHARD_ACCUM,
+                                            param_specs=specs, donate=True)
+            # the unsharded step, its params kept on the host, then timed
+            p0 = model.init(LM_SEED)
+            s0 = plain.optimizer.init(p0)
+            (q0, _, m0), got0 = counts_of(lambda: plain(p0, s0, plain_batch))
+            loss0 = m0["loss"].detach().cpu()
+            host0 = [x.detach().cpu() for x in tree_leaves(q0)]
+            ms = {}
+            ms["plain"], _ = timed(lambda: plain(q0, s0, plain_batch),
+                                   LM_SHARD_TIMED)
+            del p0, s0, q0, m0
+            torch.cuda.empty_cache()
+            p1 = shard_params(model.init(LM_SEED), mesh, specs)
+            s1 = sharded.optimizer.init(p1)
+            comm = CommDebugMode()
+            with comm:
+                (q1, _, m1), got1 = counts_of(
+                    lambda: sharded(p1, s1, dbatch))
+            worst = normwise(whole(m1["loss"]), loss0, f"{arch} loss")
+            for i, (a, b) in enumerate(zip(tree_leaves(q1), host0,
+                                           strict=True)):
+                worst = max(worst, normwise(whole(a), b, f"{arch} param {i}"))
+            train_counts = {str(k): v for k, v in
+                            comm.get_comm_counts().items()}
+            ms["sharded"], _ = timed(lambda: sharded(q1, s1, dbatch),
+                                     LM_SHARD_TIMED)
+            del q1, s1, p1, m1, host0
+            torch.cuda.empty_cache()
+            # decode: the cache over ('model',), the batch over dp
+            dsh = cells.make_shardings(cfg, mesh, "decode_32k")
+            params = model.init(LM_SEED)
+            dparams = shard_params(model.init(LM_SEED), mesh, specs)
+            # the cache's positions before the decoded ones as a prefill
+            # leaves them: random keys and values from the seed
+            cgen = torch.Generator(device="cuda").manual_seed(LM_SEED)
+            cache = tree_map(lambda x: torch.randn(
+                x.shape, generator=cgen, dtype=x.dtype, device=x.device)
+                if x.is_floating_point() else x,
+                model.init_cache(dec_b, LM_SHARD_CACHE))
+            dcache = distribute(tree_map(torch.clone, cache), map_with_path(
+                lambda n, x: cells._cache_spec_for(n, x, dsh, mesh), cache),
+                mesh)
+            # the same decode in float32 (the bf16 weights and cache cast
+            # up), unsharded and sharded
+            f32 = build_model(dataclasses.replace(
+                cfg, dtype_policy=DTypePolicy("float32", "float32",
+                                              "float32")), device="cuda")
+
+            def up(x):
+                return x.float() if x.is_floating_point() else x
+
+            params32, cache32 = tree_map(up, params), tree_map(up, cache)
+            dparams32 = shard_params(tree_map(up, params), mesh, specs)
+            dcache32 = distribute(tree_map(up, cache), map_with_path(
+                lambda n, x: cells._cache_spec_for(n, x, dsh, mesh), cache),
+                mesh)
+            dec_ms = {"plain": 0.0, "sharded": 0.0}
+            f32_worst, bf16_err = 0.0, {"plain": 0.0, "sharded": 0.0}
+            dec_gap = 0.0
+            dcomm = CommDebugMode()
+            for i in range(n_tok):
+                pos = LM_SHARD_CACHE - n_tok + i
+                tok = toks[:dec_b, i].cuda()
+                dtok = distribute_tensor(tok, mesh, spec_placements(
+                    P(dsh.dp_axes), mesh))
+                t, (lg0, cache) = timed(
+                    lambda: model.decode(params, tok, pos, cache), 1)
+                dec_ms["plain"] += t
+                with dcomm:
+                    t, ((lg1, dcache), got) = timed(lambda: counts_of(
+                        lambda: model.decode(dparams, dtok, pos, dcache,
+                                             dsh)), 1)
+                dec_ms["sharded"] += t
+                got1 = {k: got1.get(k, 0) + v for k, v in got.items()}
+                lg32, cache32 = f32.decode(params32, tok, pos, cache32)
+                dlg32, dcache32 = f32.decode(dparams32, dtok, pos, dcache32,
+                                             dsh)
+                f32_worst = max(f32_worst, normwise(
+                    whole(dlg32), lg32, f"{arch} float32 decode's logits "
+                    f"at {pos}", f32_tol))
+                for name, lg in (("plain", lg0), ("sharded", whole(lg1))):
+                    if not bool(torch.isfinite(lg).all()):
+                        raise PhaseError(f"{arch} {name} decode: not finite")
+                    bf16_err[name] = max(bf16_err[name], float(
+                        (lg.float() - lg32).abs().max()))
+                dec_gap = max(dec_gap, float(
+                    (whole(lg1).float() - lg0.float()).abs().max()))
+            if bf16_err["sharded"] > LM_SHARD_BF16_RATIO * bf16_err["plain"]:
+                raise PhaseError(
+                    f"{arch} sharded bf16 decode: {bf16_err['sharded']:.3e} "
+                    f"from the float32 decode, over {LM_SHARD_BF16_RATIO}x "
+                    f"the unsharded one's {bf16_err['plain']:.3e}")
+            del f32, params32, cache32, dparams32, dcache32
+            for k, v in list(got0.items()) + list(got1.items()):
+                launches[k] = launches.get(k, 0) + v
+            tokens = batch * seq
+            row = dict(
+                arch=arch, layers=cfg.n_layers, batch=batch, seq=seq,
+                accum=LM_SHARD_ACCUM, dtype=cfg.dtype_policy.params,
+                train_worst_share=worst, decode_f32_worst_share=f32_worst,
+                decode_bf16_err_plain=bf16_err["plain"],
+                decode_bf16_err_sharded=bf16_err["sharded"],
+                decode_bf16_gap=dec_gap,
+                ms_plain=ms["plain"], ms_sharded=ms["sharded"],
+                tokens_per_s_plain=tokens / (ms["plain"] / 1e3),
+                tokens_per_s_sharded=tokens / (ms["sharded"] / 1e3),
+                decode_tokens=n_tok, decode_batch=dec_b,
+                decode_cache=LM_SHARD_CACHE,
+                decode_ms_plain=dec_ms["plain"] / n_tok,
+                decode_ms_sharded=dec_ms["sharded"] / n_tok,
+                train_comm_counts=train_counts,
+                decode_comm_counts={str(k): v for k, v in
+                                    dcomm.get_comm_counts().items()},
+                seconds=time.perf_counter() - t0)
+            rec["configs"].append(row)
+            print(f"[lm_shard] {arch} ({cfg.n_layers} layers, bf16) on a "
+                  f"(1, 1) mesh: train step at {batch}x{seq} accum "
+                  f"{LM_SHARD_ACCUM}: sharded {row['ms_sharded']:.1f} ms "
+                  f"({row['tokens_per_s_sharded']:.0f} tokens/s) vs "
+                  f"unsharded {row['ms_plain']:.1f} ms "
+                  f"({row['tokens_per_s_plain']:.0f} tokens/s); decode "
+                  f"{row['decode_ms_sharded']:.2f} vs "
+                  f"{row['decode_ms_plain']:.2f} ms a token at batch "
+                  f"{dec_b} against {LM_SHARD_CACHE} positions; worst "
+                  f"share of the limit: train {worst:.3f}, float32 decode "
+                  f"{f32_worst:.3f}; bf16 decode from float32's: unsharded "
+                  f"{bf16_err['plain']:.3e}, sharded "
+                  f"{bf16_err['sharded']:.3e}; collectives "
+                  f"{train_counts} / {row['decode_comm_counts']}; "
+                  f"{row['seconds']:.1f} s [{card}]", flush=True)
+            del params, dparams, cache, dcache, model
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    if any(launches.values()):
+        raise PhaseError(f"LM sharding launched kernels: {launches}")
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"[lm_shard] phase 4p: {rec['seconds']:.1f} s; kernel launches "
+          f"{sum(launches.values())}", flush=True)
+    return rec
+
+
+# The LM dry-run (phase 4q): python -m repro_torch.launch.dryrun in a
+# subprocess (a fake process group of 256 and 512 ranks in one process,
+# FakeTensorMode; nothing runs on the card), three cells on both production
+# meshes: smollm-135m x {train_4k, decode_32k}, rwkv6-7b x long_500k.  The
+# records go to chiprun_out/dryrun/ and their summary on the `dryrun` JSON
+# line.  Gates: exit 0, every record `ok` and fitting 80 GiB.
+DRYRUN_CELLS = (("smollm-135m", "train_4k"), ("smollm-135m", "decode_32k"),
+                ("rwkv6-7b", "long_500k"))
+
+
+def dryrun_phase() -> dict:
+    t0 = time.perf_counter()
+    out = OUT / "dryrun"
+    if out.exists():
+        shutil.rmtree(out)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    records = []
+    for arch, shape in DRYRUN_CELLS:
+        cell_out = out / f"{arch}_{shape}"
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--both-meshes", "--out", str(cell_out)],
+            capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+        (OUT / f"dryrun_{arch}_{shape}.log").write_text(
+            proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise PhaseError(f"dryrun {arch} x {shape} exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+        (path,) = cell_out.glob("dryrun_*.json")
+        records.extend(json.loads(path.read_text()))
+    summary = []
+    for r in records:
+        if r["status"] != "ok" or not r["memory"]["fits_h100"]:
+            raise PhaseError(f"dryrun record {r}")
+        summary.append(dict(
+            arch=r["arch"], shape=r["shape"], mesh=r["mesh"],
+            trace_s=round(r["trace_s"], 2),
+            peak_gib=r["memory"]["peak_per_device"] / 2**30,
+            flops_per_device=r["hlo_costs"]["flops_per_device"],
+            bytes_per_device=r["hlo_costs"]["bytes_per_device"],
+            collective_bytes_per_device=r["hlo_costs"][
+                "collective_bytes_per_device"],
+            dominant=r["roofline"]["dominant"],
+            t_compute=r["roofline"]["t_compute"],
+            t_memory=r["roofline"]["t_memory"],
+            t_collective=r["roofline"]["t_collective"]))
+        print(f"[dryrun] {r['arch']} x {r['shape']} @ {r['mesh']}: peak "
+              f"{summary[-1]['peak_gib']:.2f} GiB/device, dominant "
+              f"{r['roofline']['dominant']}, traced in "
+              f"{r['trace_s']:.1f} s", flush=True)
+    rec = dict(cells=summary, seconds=time.perf_counter() - t0)
+    print(f"[dryrun] phase 4q: {rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -4176,6 +4518,14 @@ def main() -> int:
     train_rec = lm_train_phase(counts_of)
     record["lm_train"] = train_rec
 
+    # -- 4p. LM sharding on a one-rank NCCL world ------------------------------
+    shard_rec = lm_shard_phase(counts_of)
+    record["lm_shard"] = shard_rec
+
+    # -- 4q. the LM dry-run in a subprocess ------------------------------------
+    dry_rec = dryrun_phase()
+    record["dryrun"] = dry_rec
+
     # -- 6. result lines -----------------------------------------------------
     # launches: each kernel's count from the run of the path it serves
     path_launches = dict(
@@ -4273,6 +4623,18 @@ def main() -> int:
             "losses", "seconds")}
             for r in [train_rec["smollm"], *train_rec["configs"]]},
         "not_trained": train_rec["not_trained"]}}))
+    print(json.dumps({"lm_shard": {
+        "card": shard_rec["card"], "seconds": shard_rec["seconds"],
+        "launches": sum(shard_rec["launches"].values()),
+        "configs": {r["arch"]: {k: r[k] for k in (
+            "layers", "batch", "seq", "accum", "ms_plain", "ms_sharded",
+            "tokens_per_s_plain", "tokens_per_s_sharded",
+            "decode_ms_plain", "decode_ms_sharded", "decode_batch",
+            "decode_cache", "train_worst_share", "decode_f32_worst_share",
+            "decode_bf16_err_plain", "decode_bf16_err_sharded",
+            "train_comm_counts", "decode_comm_counts")}
+            for r in shard_rec["configs"]}}}))
+    print(json.dumps({"dryrun": dry_rec}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -221,6 +221,14 @@ def _leaf_tensor(arr: np.ndarray, dtype_name: str, like: Any,
             device = torch.device(dd.mesh.device_type)
         return from_block(block.to(device, copy=True), dd.mesh, placements,
                           t.shape)
+    if isinstance(like, DTensor):  # back to the template's layout
+        from torch.distributed.tensor import Replicate
+
+        mesh = like.device_mesh
+        t = t.to(like.to_local().device, copy=True)
+        return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False).redistribute(
+            mesh, like.placements)
     if isinstance(like, torch.Tensor):
         t = t.to(like.device)
     return t
@@ -242,7 +250,9 @@ def restore_pytree(
     whole subtree) gives a leaf a
     :class:`~repro_torch.core.domain.DomainDecomposition`: the leaf comes
     back as a DTensor holding this rank's block, for the current mesh
-    whatever the mesh that saved it (leaves are stored whole)."""
+    whatever the mesh that saved it (leaves are stored whole).  A DTensor
+    leaf of the template without an entry there comes back as a DTensor
+    of the template leaf's mesh and placements."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -318,6 +328,11 @@ class Checkpointer:
                 self._err = e
             finally:
                 self._q.task_done()
+
+    def prune(self):
+        """Apply the retention policy now (after a save made elsewhere,
+        such as a collective :func:`save_pytree` of DTensors)."""
+        self._gc()
 
     # -- retention -------------------------------------------------------------
     def _all_steps(self):

@@ -267,7 +267,7 @@ def _like(tree, want, dev, what: str, path: str = ""):
     return x
 
 
-def lm_params(tree, cfg, *, device="cuda"):
+def lm_params(tree, cfg, *, device="cuda", mesh=None):
     """The port's LM parameters from the reference's parameter tree (numpy
     leaves, e.g. ``jax.device_get(model.init(key))``).
 
@@ -276,14 +276,18 @@ def lm_params(tree, cfg, *, device="cuda"):
     encoder-decoder's ``enc_blocks``/``dec_blocks``.  Names, shapes and
     dtypes are held to the port's own tree for ``cfg``
     (:func:`repro_torch.models.api.param_shapes`); a mismatch raises
-    ``ValueError`` naming the leaf."""
+    ``ValueError`` naming the leaf.  With ``mesh`` (a ``DeviceMesh``; every
+    rank passes the same tree) the parameters come back as DTensors of the
+    inferred specs, each rank holding its shard (``shard_params``)."""
     from repro_torch.models.api import param_shapes
+    from repro_torch.runtime.sharding import shard_params
 
-    return _like(tree, param_shapes(cfg), resolve_device(device),
-                 "lm_params")
+    params = _like(tree, param_shapes(cfg), resolve_device(device),
+                   "lm_params")
+    return params if mesh is None else shard_params(params, mesh)
 
 
-def opt_state(tree, cfg_or_params, *, device="cuda"):
+def opt_state(tree, cfg_or_params, *, device="cuda", mesh=None):
     """The port's optimizer state from the reference's (numpy leaves, e.g.
     ``jax.device_get(opt.init(params))`` or a state after updates), so that
     both packages take a step from the same state; it pairs with
@@ -294,7 +298,9 @@ def opt_state(tree, cfg_or_params, *, device="cuda"):
     else ``adamw``.  The state is held leaf for leaf to that optimizer's
     ``init`` over the parameters: those of an ``ArchConfig``
     (:func:`repro_torch.models.api.param_shapes`) or a parameter tree; a
-    mismatch raises ``ValueError`` naming the leaf."""
+    mismatch raises ``ValueError`` naming the leaf.  With ``mesh`` the
+    state comes back as DTensors of ``state_specs`` over the parameters'
+    inferred specs, as :func:`lm_params` shards the parameters."""
     from repro_torch.configs import ArchConfig
     from repro_torch.models.api import param_shapes
     from repro_torch.optim import get_optimizer
@@ -312,7 +318,14 @@ def opt_state(tree, cfg_or_params, *, device="cuda"):
     else:
         name = "adamw"
     want = get_optimizer(name, 0.0).init(params)
-    return _like(tree, want, resolve_device(device), f"opt_state ({name})")
+    state = _like(tree, want, resolve_device(device), f"opt_state ({name})")
+    if mesh is None:
+        return state
+    from repro_torch.optim import state_specs
+    from repro_torch.runtime.sharding import distribute, infer_param_specs
+
+    specs = state_specs(name, infer_param_specs(params, mesh), params)
+    return distribute(state, specs, mesh)
 
 
 def lm_numpy(tree):

@@ -61,13 +61,15 @@ class DistCHLayouts:
     ysweep: list  # x fully sharded, y local
 
 
-def make_layouts(dd: DomainDecomposition) -> DistCHLayouts:
+def make_layouts(dd: DomainDecomposition, rank: int = 2) -> DistCHLayouts:
+    """The three layouts of a (ny, nx) field, or of an (E, ny, nx)
+    ensemble (``rank=3``; the members over the ensemble axis, or whole on
+    every rank without one)."""
     ya, xa, ea = dd.y_axis, dd.x_axis, dd.ensemble_axis
     flat = tuple(a for a in (ya, xa) if a is not None)
-    if ea:
-        specs = ((ea, ya, xa), (ea, flat, None), (ea, None, flat))
-    else:
-        specs = ((ya, xa), (flat, None), (None, flat))
+    specs = ((ya, xa), (flat, None), (None, flat))
+    if ea or rank == 3:
+        specs = tuple((ea,) + s for s in specs)
     return DistCHLayouts(*(placements_for(dd.mesh, s) for s in specs))
 
 
@@ -189,6 +191,8 @@ class DistributedCahnHilliard:
         (DTensors laid out as :meth:`field_sharding`, or whole tensors that
         every rank holds): returns ``(c_{n+1}, c_n)`` as DTensors."""
         lay, mesh, cfg = self.layouts, self.dd.mesh, self.cfg
+        if c_n.ndim == 3 and not self.dd.ensemble_axis:
+            lay = make_layouts(self.dd, rank=3)
         shape = tuple(c_n.shape)
         a = to_block(c_n, mesh, lay.block)
         b = to_block(c_nm1, mesh, lay.block)

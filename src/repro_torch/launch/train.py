@@ -9,9 +9,15 @@ CLI:
 ``--supervise`` wraps the loop in the restart supervisor: any failure
 restores from the last committed checkpoint and continues.  The data
 pipeline is step-keyed, so the resume is exact.  The device is the card
-unless ``--device cpu`` (``device='cpu'``) asks for the CPU.  A mesh
-(``model_parallel > 1``, or a ``torch.distributed`` world of more than one
-rank) is refused until the port shards the LM.
+unless ``--device cpu`` (``device='cpu'``) asks for the CPU.
+
+In an initialised ``torch.distributed`` world of more than one rank (or
+with ``model_parallel > 1``) the loop runs on a ``(data, model)`` mesh of
+the whole world (``make_mesh_for``): params sharded by the inferred specs,
+optimizer state by ``state_specs``, each rank taking its rows of the
+step-keyed global batch (so a resume stays exact), and checkpoints saved
+and restored whole through the DTensor-aware ``save_pytree`` /
+``restore_pytree``.
 """
 
 from __future__ import annotations
@@ -25,13 +31,26 @@ import time
 import torch
 import torch.distributed as dist
 
-from repro_torch.checkpoint import Checkpointer, latest_step, restore_pytree
+from repro_torch.checkpoint import (
+    Checkpointer, latest_step, restore_pytree, save_pytree,
+)
 from repro_torch.configs import ArchConfig, get_config
 from repro_torch.data import make_source
 from repro_torch.launch.cells import make_train_step
-from repro_torch.models.api import build_model
+from repro_torch.launch.mesh import dp_axes_of, make_mesh_for
+from repro_torch.models.api import build_model, param_shapes
 from repro_torch.runtime.fault import Heartbeat, StragglerMonitor, supervise
-from repro_torch.runtime.sharding import _REFUSED, Shardings
+from repro_torch.runtime.sharding import (
+    P, Shardings, infer_param_specs, shard_params, spec_placements,
+)
+
+
+def _rows(x: torch.Tensor, mesh, dp):
+    """This rank's rows of a global batch leaf (every rank holds the same
+    whole leaf), as a DTensor sharded over the batch axes ``dp``."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(x, mesh, spec_placements(P(dp), mesh))
 
 
 def train_loop(
@@ -58,27 +77,35 @@ def train_loop(
     loss read included).  ``arch`` is a name, as in the reference, or an
     :class:`ArchConfig` used as it is (a published config cut in depth)."""
     multi = dist.is_available() and dist.is_initialized() and (
-        dist.get_world_size() > 1)
-    if model_parallel > 1 or multi:
-        raise NotImplementedError(_REFUSED)
+        dist.get_world_size() > 1 or model_parallel > 1)
     cfg = arch if isinstance(arch, ArchConfig) else get_config(arch)
     if reduced:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, grad_accum_train4k=accum)
     model = build_model(cfg, device=device)
-    sh = Shardings.none()
+
+    mesh = make_mesh_for(model_parallel=model_parallel) if multi else None
+    sh = (Shardings(mesh=mesh, dp_axes=dp_axes_of(mesh)) if mesh is not None
+          else Shardings.none())
+    pspecs = None
+    if mesh is not None:
+        pspecs = infer_param_specs(param_shapes(cfg), mesh)
 
     # donated, as the reference's jit(step_fn, donate_argnums=(0, 1))
-    step_fn = make_train_step(model, sh=sh, accum=accum, lr=lr, donate=True)
+    step_fn = make_train_step(model, sh=sh, accum=accum, lr=lr,
+                              param_specs=pspecs, donate=True)
     opt = step_fn.optimizer
 
     src = make_source(cfg, global_batch=global_batch, seq_len=seq_len,
                       seed=seed)
 
     params = model.init(seed)
+    if mesh is not None:
+        params = shard_params(params, mesh, pspecs)
     opt_state = opt.init(params)
     start = 0
     ckpt = None
+    lead = mesh is None or dist.get_rank() == 0
     if checkpoint_dir:
         # made now: the heartbeat beats there before the first save
         os.makedirs(checkpoint_dir, exist_ok=True)
@@ -97,7 +124,9 @@ def train_loop(
         )
     )
     hb = Heartbeat(
-        os.path.join(checkpoint_dir or tempfile.gettempdir(), "heartbeat"),
+        os.path.join(checkpoint_dir or tempfile.gettempdir(),
+                     "heartbeat" if lead else
+                     f"heartbeat.rank{dist.get_rank()}"),
         interval=30.0,
     )
 
@@ -107,6 +136,9 @@ def train_loop(
             t0 = time.time()
             batch = {k: torch.as_tensor(v, device=model.device)
                      for k, v in src.get_batch(i).items()}
+            if mesh is not None:
+                batch = {k: _rows(v, mesh, sh.dp_axes)
+                         for k, v in batch.items()}
             params, opt_state, m = step_fn(params, opt_state, batch)
             loss = float(m["loss"])
             dt = time.time() - t0
@@ -116,10 +148,14 @@ def train_loop(
             if log_every and (i % log_every == 0 or i == steps - 1):
                 print(f"[train] step {i} loss {loss:.4f} ({dt*1e3:.1f} ms)")
             if ckpt and ((i + 1) % checkpoint_every == 0 or i == steps - 1):
-                ckpt.save_async(
-                    {"params": params, "opt": opt_state}, i + 1,
-                    metadata={"loss": loss},
-                )
+                tree = {"params": params, "opt": opt_state}
+                if mesh is None:
+                    ckpt.save_async(tree, i + 1, metadata={"loss": loss})
+                else:  # a collective: rank 0 writes once all gathered
+                    save_pytree(tree, checkpoint_dir, i + 1,
+                                metadata={"loss": loss})
+                    if lead:
+                        ckpt.prune()
             if fail_at_step is not None and i == fail_at_step:
                 raise RuntimeError("injected failure (test hook)")
     finally:

@@ -26,7 +26,7 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf_mod
-from repro_torch.models.layers import ParamRNG
+from repro_torch.models.layers import ParamRNG, serving
 from repro_torch.runtime.sharding import Shardings
 from repro_torch.util import resolve_device
 
@@ -64,65 +64,61 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
 
     def decode(params, token, pos, cache, sh=Shardings.none()):
         mod = encdec_mod if fam == "encdec" else tf_mod
-        return mod.decode_step(params, cfg, token, pos, cache, sh)
+        with sh.scope():
+            return mod.decode_step(params, cfg, token, pos, cache, sh)
 
     common = dict(cfg=cfg, init=init, init_cache=init_cache, decode=decode,
                   device=dev)
 
     if fam == "encdec":
         def loss(params, batch, sh=Shardings.none()):
-            return encdec_mod.loss_fn(
-                params, cfg, batch["frames"], batch["tokens"],
-                batch["labels"], sh)
+            with sh.scope():
+                return encdec_mod.loss_fn(
+                    params, cfg, batch["frames"], batch["tokens"],
+                    batch["labels"], sh)
 
-        @torch.inference_mode()
+        @serving
         def prefill_logits(params, batch, sh=Shardings.none()):
-            enc = encdec_mod.encode(params, cfg, batch["frames"], sh)
-            return encdec_mod.decode_train(params, cfg, enc, batch["tokens"],
-                                           sh)
+            with sh.scope():
+                enc = encdec_mod.encode(params, cfg, batch["frames"], sh)
+                return encdec_mod.decode_train(params, cfg, enc,
+                                               batch["tokens"], sh)
 
-        @torch.inference_mode()
+        @serving
         def prefill_serve(params, batch, sh=Shardings.none()):
-            enc = encdec_mod.encode(params, cfg, batch["frames"], sh)
-            xk, xv = encdec_mod.prefill_cross(params, cfg, enc)
-            logits = encdec_mod.decode_train(
-                params, cfg, enc, batch["tokens"], sh)[:, -1, :]
+            with sh.scope():
+                enc = encdec_mod.encode(params, cfg, batch["frames"], sh)
+                xk, xv = encdec_mod.prefill_cross(params, cfg, enc)
+                logits = encdec_mod.decode_train(
+                    params, cfg, enc, batch["tokens"], sh)[:, -1, :]
             return logits, (xk, xv)
 
         return Model(loss=loss, prefill_logits=prefill_logits,
                      prefill_serve=prefill_serve, **common)
 
-    if fam == "vlm":
-        def loss(params, batch, sh=Shardings.none()):
+    extra = "patches" if fam == "vlm" else None
+
+    def embeds(batch):
+        return None if extra is None else batch[extra]
+
+    # decoder-only families: dense / moe / ssm / hybrid, and the vlm
+    def loss(params, batch, sh=Shardings.none()):
+        with sh.scope():
             return tf_mod.loss_fn(params, cfg, batch["tokens"],
                                   batch["labels"], sh,
-                                  extra_embeds=batch["patches"])
+                                  extra_embeds=embeds(batch))
 
-        @torch.inference_mode()
-        def prefill_logits(params, batch, sh=Shardings.none()):
-            logits, _, _ = tf_mod.forward(params, cfg, batch["tokens"], sh,
-                                          extra_embeds=batch["patches"])
-            return logits
-
-        def prefill_serve(params, batch, sh=Shardings.none()):
-            return tf_mod.prefill(params, cfg, batch["tokens"], sh,
-                                  extra_embeds=batch["patches"])
-
-        return Model(loss=loss, prefill_logits=prefill_logits,
-                     prefill_serve=prefill_serve, **common)
-
-    # decoder-only families: dense / moe / ssm / hybrid
-    def loss(params, batch, sh=Shardings.none()):
-        return tf_mod.loss_fn(params, cfg, batch["tokens"], batch["labels"],
-                              sh)
-
-    @torch.inference_mode()
+    @serving
     def prefill_logits(params, batch, sh=Shardings.none()):
-        logits, _, _ = tf_mod.forward(params, cfg, batch["tokens"], sh)
+        with sh.scope():
+            logits, _, _ = tf_mod.forward(params, cfg, batch["tokens"], sh,
+                                          extra_embeds=embeds(batch))
         return logits
 
     def prefill_serve(params, batch, sh=Shardings.none()):
-        return tf_mod.prefill(params, cfg, batch["tokens"], sh)
+        with sh.scope():
+            return tf_mod.prefill(params, cfg, batch["tokens"], sh,
+                                  extra_embeds=embeds(batch))
 
     return Model(loss=loss, prefill_logits=prefill_logits,
                  prefill_serve=prefill_serve, **common)

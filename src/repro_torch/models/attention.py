@@ -21,11 +21,50 @@ import math
 import torch
 
 from repro_torch.models.layers import remat
+from repro_torch.runtime import spmd
 
 _NEG_INF = -1e30
 
-_SHARDED = ("sharded decode over a sequence-sharded cache needs a mesh of "
-            "more than one card (ROADMAP.md, Open items: LM sharding)")
+
+def _heads_local(fn, q, k, v, kv_head_dim: int):
+    """``fn(q, k, v)`` on DTensors, per rank on its batch rows and heads.
+
+    The batch keeps ``q``'s sharding; the heads are sharded over the other
+    mesh axes when they divide ``H``.  K/V heads are sharded with them when
+    they divide ``KV``; otherwise each rank takes the K/V heads of its
+    query heads from replicated K/V (GQA: a query head's group is whole on
+    one rank), and their gradients are partial sums over the head axes.
+    Where neither fits, the heads stay whole on every rank."""
+    mesh = q.device_mesh
+    bat = spmd.sharded_axes(q, 0)
+    hax = tuple(a for a in mesh.mesh_dim_names if a not in bat)
+    h, kvh = q.shape[2], k.shape[kv_head_dim]
+    g = h // kvh
+    n = spmd.axes_size(mesh, hax)
+    h_loc = h // n
+    if h % n or not (kvh % n == 0 or h_loc % g == 0 or g % h_loc == 0):
+        hax, n, h_loc = (), 1, h
+    kv_split = kvh % n == 0
+    r = spmd.shard_index(mesh, hax)
+    lo, hi = (r * h_loc) // g, ((r + 1) * h_loc - 1) // g + 1
+
+    q_pl = spmd.placements_of(mesh, **{a: 0 for a in bat},
+                              **{a: 2 for a in hax})
+    kv_pl = spmd.placements_of(mesh, **{a: 0 for a in bat},
+                               **{a: kv_head_dim for a in hax if kv_split})
+    kv_grad = spmd.placements_of(
+        mesh, **{a: 0 for a in bat},
+        **{a: (kv_head_dim if kv_split else "P") for a in hax})
+
+    def local(ql, kl, vl):
+        if not kv_split:
+            idx = [slice(None)] * kl.ndim
+            idx[kv_head_dim] = slice(lo, hi)
+            kl, vl = kl[tuple(idx)], vl[tuple(idx)]
+        return fn(ql, kl, vl)
+
+    return spmd.local_call(local, mesh, (q, k, v), (q_pl, kv_pl, kv_pl),
+                           q_pl, (None, kv_grad, kv_grad))
 
 
 def _expand_kv(k, n_rep: int):
@@ -40,6 +79,10 @@ def _expand_kv(k, n_rep: int):
 def plain_attention(q, k, v, *, causal: bool, q_offset: int = 0):
     """Reference attention (materialises the score matrix).  Oracle for the
     flash path and its fallback at ragged lengths."""
+    if spmd.is_dtensor(q):
+        return _heads_local(
+            lambda a, b_, c: plain_attention(a, b_, c, causal=causal,
+                                             q_offset=q_offset), q, k, v, 2)
     b, sq, h, hd = q.shape
     kv = k.shape[2]
     k = _expand_kv(k, h // kv)
@@ -68,7 +111,13 @@ def flash_attention(
     memory instead of O(S^2).  GQA is handled inside the products (q
     reshaped to (KV, group) heads), so the K/V blocks are never repeated.
     Lengths that the chunks do not divide fall back to
-    :func:`plain_attention`, as in the reference."""
+    :func:`plain_attention`, as in the reference.  On DTensors each rank
+    runs the loop on its batch rows and heads (:func:`_heads_local`)."""
+    if spmd.is_dtensor(q):
+        return _heads_local(
+            lambda a, b_, c: flash_attention(
+                a, b_, c, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                q_offset=q_offset), q, k, v, 2)
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
     g = h // kvh
@@ -127,7 +176,18 @@ def flash_attention(
 
 def decode_attention(q, k_cache, v_cache, pos):
     """Single-token decode against a (B, KV, S_max, hd) cache.  ``pos`` is the
-    index of the *current* token (attends to cache[<= pos])."""
+    index of the *current* token (attends to cache[<= pos]).  On DTensors
+    each rank attends with its batch rows and heads; a cache sharded along
+    S takes :func:`sharded_decode_attention`."""
+    if spmd.is_dtensor(k_cache):
+        seq = spmd.sharded_axes(k_cache, 2)
+        if seq:
+            return sharded_decode_attention(
+                q, k_cache, v_cache, pos, mesh=k_cache.device_mesh,
+                seq_axes=seq, batch_axes=spmd.sharded_axes(k_cache, 0))
+        return _heads_local(
+            lambda a, b_, c: decode_attention(a, b_, c, pos), q, k_cache,
+            v_cache, 1)
     b, kvh, smax, hd = k_cache.shape
     h = q.shape[2]
     g = h // kvh
@@ -142,19 +202,97 @@ def decode_attention(q, k_cache, v_cache, pos):
     return o.reshape(b, q.shape[1], h, hd).to(q.dtype)
 
 
+def _seq_sharded_decode(q, caches, pos, *, mesh, seq_axes, batch_axes,
+                        dequant):
+    """Flash-decoding over caches whose S axis is sharded over
+    ``seq_axes``: each rank scores its slice of S (the global key index is
+    its shard index, flattened over ``seq_axes`` in their order, times the
+    slice's length plus the local index) and keeps partial statistics,
+    merged by an all-reduce MAX of the maxima and all-reduce SUMs of the
+    exponentials' sums and the weighted values (the reference's
+    ``pmax``/``psum``).  Only those (B, H, hd)-sized partials move: the
+    cache is never gathered.  ``dequant(local caches)`` gives the local
+    K and V."""
+    seq_axes, batch_axes = tuple(seq_axes), tuple(batch_axes or ())
+    b, h, hd = q.shape[0], q.shape[2], q.shape[3]
+    kvh, smax = caches[0].shape[1], caches[0].shape[2]
+    s_loc = smax // spmd.axes_size(mesh, seq_axes)
+    start = spmd.shard_index(mesh, seq_axes) * s_loc
+    g = h // kvh
+    bdims = {a: 0 for a in batch_axes}
+    q_pl = spmd.placements_of(mesh, **bdims)
+    c_pl = [spmd.placements_of(mesh, **bdims, **{a: 2 for a in seq_axes})
+            for _ in caches]
+    part = {a: "P" for a in seq_axes}
+
+    def scores(ql, *cl):
+        k, _ = dequant(*cl)
+        qg = ql.reshape(ql.shape[0], ql.shape[1], kvh, g, hd)
+        s = torch.einsum("bqkgd,bksd->bkgqs", qg.float(), k.float())
+        s = s / math.sqrt(hd)
+        gk = start + torch.arange(s_loc, device=s.device)
+        return torch.where(gk <= pos, s, _NEG_INF)
+
+    m = spmd.local_call(
+        lambda ql, *cl: scores(ql, *cl).amax(dim=-1), mesh, (q, *caches),
+        (q_pl, *c_pl), spmd.placements_of(
+            mesh, **bdims, **{a: "P:max" for a in seq_axes}))
+    m = m.redistribute(mesh, q_pl)
+
+    def partials(ql, ml, *cl):
+        _, v = dequant(*cl)
+        p = torch.exp(scores(ql, *cl) - ml[..., None])
+        o = torch.einsum("bkgqs,bksd->bkgqd", p.to(v.dtype).float(),
+                         v.float())
+        return p.sum(dim=-1), o
+
+    out_pl = spmd.placements_of(mesh, **bdims, **part)
+    l, o = spmd.local_call(partials, mesh, (q, m, *caches),
+                           (q_pl, q_pl, *c_pl), (out_pl, out_pl))
+    l, o = l.redistribute(mesh, q_pl), o.redistribute(mesh, q_pl)
+    out = o / torch.clamp(l, min=1e-30)[..., None]
+    # (B, KV, G, 1, hd) -> (B, 1, H, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, q.shape[1], h, hd).to(
+        q.dtype)
+
+
 def sharded_decode_attention(q, k_cache, v_cache, pos, *, mesh, seq_axes,
                              batch_axes=None):
-    """Flash-decoding over a sequence-sharded cache: refused until the port
-    has the mesh it needs."""
-    raise NotImplementedError(_SHARDED)
+    """Flash-decoding over a *sequence-sharded* KV cache (DTensors of
+    layout (B, KV, S_max, hd), S sharded over ``seq_axes``, B over
+    ``batch_axes``); see :func:`_seq_sharded_decode`.
+
+    q: (B, 1, H, hd) with B possibly sharded over ``batch_axes``."""
+    return _seq_sharded_decode(
+        q, (k_cache, v_cache), pos, mesh=mesh, seq_axes=seq_axes,
+        batch_axes=batch_axes, dequant=lambda k, v: (k, v))
+
+
+def _write_token(cache, new, pos):
+    """``cache[:, :, pos] = new``, in place; on a DTensor cache only the
+    rank whose slice of S holds ``pos`` writes, into its local shard (the
+    rows of its batch shard), and nothing moves between ranks."""
+    if not spmd.is_dtensor(cache):
+        cache[:, :, pos] = new.to(cache.dtype)
+        return
+    mesh = cache.device_mesh
+    seq, bat = spmd.sharded_axes(cache, 2), spmd.sharded_axes(cache, 0)
+    s_loc = cache.shape[2] // spmd.axes_size(mesh, seq)
+    start = spmd.shard_index(mesh, seq) * s_loc
+    if spmd.is_dtensor(new):
+        new = new.redistribute(
+            mesh, spmd.placements_of(mesh, **{a: 0 for a in bat}))
+    local_new = new.to_local() if spmd.is_dtensor(new) else new
+    if start <= pos < start + s_loc:
+        cache.to_local()[:, :, pos - start] = local_new.to(cache.dtype)
 
 
 def cache_update(k_cache, v_cache, k_new, v_new, pos):
     """Insert the new token's K/V at ``pos``, in place.  Cache layout
     (B, KV, S, hd); new values arrive as (B, 1, KV, hd) from the
     projection.  Returns the caches."""
-    k_cache[:, :, pos] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, :, pos] = v_new[:, 0].to(v_cache.dtype)
+    _write_token(k_cache, k_new[:, 0], pos)
+    _write_token(v_cache, v_new[:, 0], pos)
     return k_cache, v_cache
 
 
@@ -177,12 +315,17 @@ def cache_update_q(cache, k_new, v_new, pos):
     """Quantised-cache insert, in place.  cache: dict(k, v int8
     (B, KV, S, hd); k_s, v_s f32 (B, KV, S)).  Returns a new dict of the
     same tensors."""
+    if spmd.is_dtensor(k_new):  # the (B, 1, KV, hd) token, whole a rank
+        bat = spmd.sharded_axes(cache["k"], 0)
+        rows = spmd.placements_of(k_new.device_mesh, **{a: 0 for a in bat})
+        k_new = k_new.redistribute(k_new.device_mesh, rows).to_local()
+        v_new = v_new.redistribute(v_new.device_mesh, rows).to_local()
     kq, ks = quantize_kv(k_new)
     vq, vs = quantize_kv(v_new)
-    cache["k"][:, :, pos] = kq[:, :, 0]
-    cache["v"][:, :, pos] = vq[:, :, 0]
-    cache["k_s"][:, :, pos] = ks[:, :, 0]
-    cache["v_s"][:, :, pos] = vs[:, :, 0]
+    _write_token(cache["k"], kq[:, :, 0], pos)
+    _write_token(cache["v"], vq[:, :, 0], pos)
+    _write_token(cache["k_s"], ks[:, :, 0], pos)
+    _write_token(cache["v_s"], vs[:, :, 0], pos)
     return dict(cache)
 
 
@@ -191,7 +334,14 @@ def _dequant(q, s, dtype):
 
 
 def decode_attention_q(q, cache, pos, compute_dtype=torch.bfloat16):
-    """decode_attention over an int8-quantised cache (dequant on the fly)."""
+    """decode_attention over an int8-quantised cache (dequant on the fly;
+    on DTensors each rank dequantises its own shard)."""
+    if spmd.is_dtensor(cache["k"]):
+        return sharded_decode_attention_q(
+            q, cache, pos, mesh=cache["k"].device_mesh,
+            seq_axes=spmd.sharded_axes(cache["k"], 2),
+            batch_axes=spmd.sharded_axes(cache["k"], 0),
+            compute_dtype=compute_dtype)
     k = _dequant(cache["k"], cache["k_s"], compute_dtype)
     v = _dequant(cache["v"], cache["v_s"], compute_dtype)
     return decode_attention(q, k, v, pos)
@@ -199,6 +349,11 @@ def decode_attention_q(q, cache, pos, compute_dtype=torch.bfloat16):
 
 def sharded_decode_attention_q(q, cache, pos, *, mesh, seq_axes,
                                batch_axes=None, compute_dtype=torch.bfloat16):
-    """Flash-decode over the sequence-sharded int8 cache: refused until the
-    port has the mesh it needs."""
-    raise NotImplementedError(_SHARDED)
+    """Flash-decode over the sequence-sharded int8 cache: each shard
+    dequantises only its local slice (the whole cache is never resident in
+    ``compute_dtype``)."""
+    return _seq_sharded_decode(
+        q, (cache["k"], cache["k_s"], cache["v"], cache["v_s"]), pos,
+        mesh=mesh, seq_axes=seq_axes, batch_axes=batch_axes,
+        dequant=lambda kq, ks, vq, vs: (_dequant(kq, ks, compute_dtype),
+                                        _dequant(vq, vs, compute_dtype)))

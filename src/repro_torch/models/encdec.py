@@ -20,16 +20,21 @@ from repro_torch.models.layers import (
     embed_lookup,
     layernorm,
     layernorm_init,
+    matmul,
     mlp_apply,
     mlp_init,
     remat,
+    serving,
+    split_heads,
     sinusoidal_positions,
     softmax_cross_entropy,
     stack_trees,
+    unembed_logits,
     unstack_tree,
 )
 from repro_torch.models.transformer import layer_at
 from repro_torch.runtime.sharding import Shardings
+from repro_torch.runtime.spmd import is_dtensor
 from repro_torch.util import resolve_device
 
 _MAX_DEC_POS = 32768  # learned decoder positions (the 32k decode cache)
@@ -85,11 +90,11 @@ def init_params(rng: ParamRNG, cfg: ArchConfig):
 def _mha(p, xq, xkv, cfg, *, causal, q_offset=0):
     b, sq, d = xq.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (xq @ p["wq"]).reshape(b, sq, h, hd)
-    k = (xkv @ p["wk"]).reshape(b, xkv.shape[1], kv, hd)
-    v = (xkv @ p["wv"]).reshape(b, xkv.shape[1], kv, hd)
+    q = split_heads(matmul(xq, p["wq"]), h, hd)
+    k = split_heads(matmul(xkv, p["wk"]), kv, hd)
+    v = split_heads(matmul(xkv, p["wv"]), kv, hd)
     o = att.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
-    return o.reshape(b, sq, h * hd) @ p["wo"]
+    return matmul(o.reshape(b, sq, h * hd), p["wo"])
 
 
 def encode(params, cfg: ArchConfig, frames, sh: Shardings = Shardings.none()):
@@ -135,7 +140,15 @@ def decode_train(params, cfg: ArchConfig, enc_out, tokens,
     for lp in unstack_tree(params["dec_blocks"]):
         x = remat(body, x, lp)
     x = layernorm(params["ln_f"], x)
-    return torch.einsum("bsd,vd->bsv", x, params["embed"])  # tied unembed
+    return _tied_logits(x, params["embed"])
+
+
+def _tied_logits(x, embed):
+    """The tied unembedding; on DTensors the Megatron-placed product of
+    :func:`unembed_logits` (the vocab stays sharded)."""
+    if is_dtensor(embed):
+        return unembed_logits(x, embed)
+    return torch.einsum("bsd,vd->bsv", x, embed)
 
 
 def loss_fn(params, cfg, frames, tokens, labels, sh=Shardings.none(), *,
@@ -165,21 +178,21 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype=None, *,
             "xk": zeros(cfg.enc_seq), "xv": zeros(cfg.enc_seq)}
 
 
-@torch.inference_mode()
+@serving
 def prefill_cross(params, cfg, enc_out):
     """Cross-attention K/V of every decoder layer: (L, B, KV, T, hd) each."""
     b, t, _ = enc_out.shape
     ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = layer_at(params["dec_blocks"], i)["xattn"]
-        k = (enc_out @ lp["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.hd)
-        v = (enc_out @ lp["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.hd)
+        k = split_heads(matmul(enc_out, lp["wk"]), cfg.n_kv_heads, cfg.hd)
+        v = split_heads(matmul(enc_out, lp["wv"]), cfg.n_kv_heads, cfg.hd)
         ks.append(k.transpose(1, 2))
         vs.append(v.transpose(1, 2))
     return torch.stack(ks), torch.stack(vs)
 
 
-@torch.inference_mode()
+@serving
 def decode_step(params, cfg: ArchConfig, token, pos: int, cache,
                 sh: Shardings = Shardings.none()):
     """Single decoder token step against the self-attention cache (updated
@@ -189,25 +202,28 @@ def decode_step(params, cfg: ArchConfig, token, pos: int, cache,
     x = embed_lookup(params["embed"], token[:, None]).to(cfg.dtype_policy.cdt)
     x = x + params["pos_embed"][pos: pos + 1][None].to(x.dtype)
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    if sh.use_sharded_decode:
-        raise NotImplementedError(att._SHARDED)
     for i in range(cfg.n_layers):
         lp = layer_at(params["dec_blocks"], i)
         xk, xv = cache["xk"][i], cache["xv"][i]
         xin = layernorm(lp["ln1"], x)
-        q = (xin @ lp["attn"]["wq"]).reshape(b, 1, h, hd)
-        k = (xin @ lp["attn"]["wk"]).reshape(b, 1, kvh, hd)
-        v = (xin @ lp["attn"]["wv"]).reshape(b, 1, kvh, hd)
+        q = split_heads(matmul(xin, lp["attn"]["wq"]), h, hd)
+        k = split_heads(matmul(xin, lp["attn"]["wk"]), kvh, hd)
+        v = split_heads(matmul(xin, lp["attn"]["wv"]), kvh, hd)
         kc, vc = att.cache_update(cache["k"][i], cache["v"][i], k, v, pos)
-        o = att.decode_attention(q, kc, vc, pos)
-        x = x + o.reshape(b, 1, h * hd) @ lp["attn"]["wo"]
+        if sh.use_sharded_decode:
+            o = att.sharded_decode_attention(
+                q, kc, vc, pos, mesh=sh.mesh, seq_axes=sh.cache_seq_axes,
+                batch_axes=sh.dp_axes)
+        else:
+            o = att.decode_attention(q, kc, vc, pos)
+        x = x + matmul(o.reshape(b, 1, h * hd), lp["attn"]["wo"])
         # cross attention against the precomputed encoder KV
         xin = layernorm(lp["ln_x"], x)
-        qx = (xin @ lp["xattn"]["wq"]).reshape(b, 1, h, hd)
+        qx = split_heads(matmul(xin, lp["xattn"]["wq"]), h, hd)
         ox = att.decode_attention(qx, xk, xv, xk.shape[2] - 1)
-        x = x + ox.reshape(b, 1, h * hd) @ lp["xattn"]["wo"]
+        x = x + matmul(ox.reshape(b, 1, h * hd), lp["xattn"]["wo"])
         x = x + mlp_apply(lp["mlp"], layernorm(lp["ln2"], x),
                           activation=cfg.activation)
     x = layernorm(params["ln_f"], x)
-    logits = torch.einsum("bsd,vd->bsv", x, params["embed"])[:, 0, :]
+    logits = _tied_logits(x, params["embed"])[:, 0, :]
     return logits, cache

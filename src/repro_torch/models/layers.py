@@ -24,6 +24,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from repro_torch.runtime import spmd
 from repro_torch.util import resolve_device, torch_dtype
 
 
@@ -101,6 +102,52 @@ class ParamRNG:
         return torch.full(shape, value, dtype=dtype, device=self.device)
 
 
+def matmul(x, w):
+    """``x @ w`` for a weight matrix ``w`` (d_in, d_out).  On DTensors the
+    product is placed as Megatron and ZeRO-3 place it: ``x``'s batch rows
+    stay on their ranks; a weight sharded along d_out over non-batch axes
+    is column-parallel (``x`` whole along d_in, the output sharded along
+    d_out), one sharded along d_in is row-parallel (``x`` sharded along
+    d_in, the output a ``Partial`` sum), and whatever else shards the
+    weight (the FSDP axis) is gathered for the product."""
+    if not spmd.is_dtensor(w):
+        return x @ w
+    mesh = w.device_mesh
+    bat = spmd.sharded_axes(x, 0) if spmd.is_dtensor(x) else ()
+    col = tuple(a for a in spmd.sharded_axes(w, 1) if a not in bat)
+    row = () if col else tuple(
+        a for a in spmd.sharded_axes(w, 0) if a not in bat)
+    last = x.ndim - 1
+    rows = {a: 0 for a in bat}
+    w_pl = spmd.placements_of(mesh, **{a: 1 for a in col},
+                              **{a: 0 for a in row})
+    w_grad = spmd.placements_of(mesh, **{a: 1 for a in col},
+                                **{a: 0 for a in row},
+                                **{a: "P" for a in bat})
+    x_pl = spmd.placements_of(mesh, **rows, **{a: last for a in row})
+    x_grad = spmd.placements_of(mesh, **rows, **{a: "P" for a in col},
+                                **{a: last for a in row})
+    out_pl = spmd.placements_of(mesh, **rows, **{a: last for a in col},
+                                **{a: "P" for a in row})
+    return spmd.local_call(torch.matmul, mesh, (x, w), (x_pl, w_pl), out_pl,
+                           (x_grad, w_grad))
+
+
+def split_heads(x, h: int, hd: int):
+    """``x`` (..., h * hd) as (..., h, hd).  On a DTensor whose last dim is
+    sharded over axes that do not divide ``h`` (a head would straddle two
+    ranks), those axes are gathered first."""
+    if spmd.is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+
+        last = x.ndim - 1
+        if h % spmd.axes_size(x.device_mesh, spmd.sharded_axes(x, last)):
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if isinstance(p, Shard) and p.dim % x.ndim == last
+                else p for p in x.placements])
+    return x.reshape(*x.shape[:-1], h, hd)
+
+
 def dense_init(rng: ParamRNG, d_in: int, d_out: int, dtype, *,
                std: float | None = None):
     std = (d_in**-0.5) if std is None else std
@@ -132,6 +179,25 @@ def remat(fn, *args, policy: str = "full"):
     # the models draw no random numbers, so no RNG state is kept
     return checkpoint(fn, *args, use_reentrant=False,
                       preserve_rng_state=False, **kw)
+
+
+def serving(fn):
+    """Run ``fn`` without autograd: under ``torch.inference_mode()``, or
+    ``torch.no_grad()`` when its first argument (the params) holds DTensors
+    (DTensor's views cannot be made of inference tensors)."""
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        first = args[0] if args else None
+        while isinstance(first, (dict, list, tuple)) and first:
+            first = (next(iter(first.values())) if isinstance(first, dict)
+                     else first[0])
+        ctx = torch.no_grad if spmd.is_dtensor(first) else \
+            torch.inference_mode
+        with ctx():
+            return fn(*args, **kwargs)
+
+    return run
 
 
 def stack_trees(trees: list):
@@ -232,9 +298,9 @@ def mlp_apply(params, x, *, activation: str):
     """activation: 'silu' (gated SwiGLU), 'gelu' (tanh approximation, as
     ``jax.nn.gelu``), 'relu2' (squared ReLU, Nemotron-4), 'relu'.  Leaves
     with leading expert axes apply per expert (batched products)."""
-    up = x @ params["w_up"]
+    up = matmul(x, params["w_up"])
     if activation == "silu":
-        h = F.silu(x @ params["w_gate"]) * up
+        h = F.silu(matmul(x, params["w_gate"])) * up
     elif activation == "gelu":
         h = F.gelu(up, approximate="tanh")
     elif activation == "relu2":
@@ -243,7 +309,7 @@ def mlp_apply(params, x, *, activation: str):
         h = F.relu(up)
     else:
         raise ValueError(f"unknown activation {activation!r}")
-    return h @ params["w_down"]
+    return matmul(h, params["w_down"])
 
 
 # -- embeddings / unembedding ---------------------------------------------------
@@ -256,13 +322,47 @@ def embed_init(rng: ParamRNG, vocab: int, d: int, dtype):
 def embed_lookup(table, tokens):
     """Rows of ``table`` at ``tokens``.  The reference multiplies a one-hot
     by the table (its vocab-sharded form); with one 1 and zeros a row, that
-    product is the row exactly, so a gather gives the same values."""
+    product is the row exactly, so a gather gives the same values.  On a
+    DTensor table each rank looks up the rows of its vocab shard and the
+    sum over the vocab axes (a ``Partial`` output) is the lookup."""
+    if spmd.is_dtensor(table):
+        return _embed_lookup_sharded(table, tokens)
     return F.embedding(tokens.long(), table)
+
+
+def _vocab_axes(x, dim: int, other=None) -> tuple[str, ...]:
+    """The axes over which ``x`` shards its vocab dim ``dim``, less those
+    sharding ``other``'s batch (dim 0)."""
+    taken = spmd.sharded_axes(other, 0) if spmd.is_dtensor(other) else ()
+    return tuple(a for a in spmd.sharded_axes(x, dim) if a not in taken)
+
+
+def _embed_lookup_sharded(table, tokens):
+    mesh = table.device_mesh
+    bat = spmd.sharded_axes(tokens, 0) if spmd.is_dtensor(tokens) else ()
+    voc = _vocab_axes(table, 0, tokens)
+    v_loc = table.shape[0] // spmd.axes_size(mesh, voc)
+    start = spmd.shard_index(mesh, voc) * v_loc
+    tok_pl = spmd.placements_of(mesh, **{a: 0 for a in bat})
+    tab_pl = spmd.placements_of(mesh, **{a: 0 for a in voc})
+    tab_grad = spmd.placements_of(mesh, **{a: 0 for a in voc},
+                                  **{a: "P" for a in bat})
+    out_pl = spmd.placements_of(mesh, **{a: 0 for a in bat},
+                                **{a: "P" for a in voc})
+
+    def local(tab, tok):
+        idx = tok.long() - start
+        hit = (idx >= 0) & (idx < v_loc)
+        rows = F.embedding(torch.where(hit, idx, 0), tab)
+        return rows * hit[..., None].to(rows.dtype)
+
+    return spmd.local_call(local, mesh, (table, tokens), (tab_pl, tok_pl),
+                           out_pl, (tab_grad, None))
 
 
 def unembed_logits(x, table):
     """Tied or untied output projection: (..., d) @ (V, d)^T."""
-    return x @ table.transpose(0, 1)
+    return matmul(x, table.transpose(0, 1))
 
 
 def chunked_softmax_cross_entropy(
@@ -279,7 +379,8 @@ def chunked_softmax_cross_entropy(
     b, s, d = hidden.shape
 
     def logits_of(h):
-        return unembed_logits(h, table) if transpose_table else h @ table
+        return (unembed_logits(h, table) if transpose_table
+                else matmul(h, table))
 
     if s % chunk:
         return softmax_cross_entropy(logits_of(hidden), labels,
@@ -297,14 +398,51 @@ def chunked_softmax_cross_entropy(
 
 def softmax_cross_entropy(logits, labels, *, z_loss: float = 0.0):
     """Per-token loss: logsumexp minus the label's logit (picked by an
-    index compare, as the reference's vocab-parallel form)."""
-    lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    iota = torch.arange(lf.shape[-1], device=lf.device)
-    label_logit = torch.sum(
-        torch.where(iota == labels[..., None], lf, 0.0), dim=-1
-    )
+    index compare, as the reference's vocab-parallel form).  On DTensor
+    logits each rank reduces its vocab shard: the max by an all-reduce
+    MAX, the sum of exponentials and the label's logit by all-reduce SUMs,
+    as XLA partitions the reference's."""
+
+    def terms(x, lab, mx, start):
+        lf = x.float()
+        se = torch.exp(lf - mx[..., None]).sum(dim=-1)
+        iota = torch.arange(lf.shape[-1], device=lf.device) + start
+        hit = torch.where(iota == lab[..., None].long(), lf, 0.0).sum(dim=-1)
+        return se, hit
+
+    # the max only steadies the exponentials: no gradient flows through it
+    if spmd.is_dtensor(logits):
+        mx, se, label_logit = _cross_entropy_sharded(logits, labels, terms)
+    else:
+        mx = logits.detach().float().amax(dim=-1)
+        se, label_logit = terms(logits, labels, mx, 0)
+    lse = mx + torch.log(se)
     loss = lse - label_logit
     if z_loss:
         loss = loss + z_loss * torch.square(lse)
     return loss
+
+
+def _cross_entropy_sharded(logits, labels, terms):
+    """:func:`softmax_cross_entropy`'s max, sum of exponentials and label
+    logit of DTensor logits, each rank's terms from its vocab shard."""
+    mesh = logits.device_mesh
+    bat = spmd.sharded_axes(logits, 0)
+    voc = _vocab_axes(logits, logits.ndim - 1, logits)
+    start = spmd.shard_index(mesh, voc) * (
+        logits.shape[-1] // spmd.axes_size(mesh, voc))
+    x_pl = spmd.placements_of(mesh, **{a: 0 for a in bat},
+                              **{a: logits.ndim - 1 for a in voc})
+    row_pl = spmd.placements_of(mesh, **{a: 0 for a in bat})
+    with torch.no_grad():
+        mx = spmd.local_call(
+            lambda x: x.float().amax(dim=-1), mesh, (logits.detach(),),
+            (x_pl,), spmd.placements_of(mesh, **{a: 0 for a in bat},
+                                        **{a: "P:max" for a in voc}))
+        mx = mx.redistribute(mesh, row_pl)
+    part = spmd.placements_of(mesh, **{a: 0 for a in bat},
+                              **{a: "P" for a in voc})
+    se, hit = spmd.local_call(
+        lambda x, lab, m: terms(x, lab, m, start), mesh, (logits, labels, mx),
+        (x_pl, row_pl, row_pl), (part, part))
+    return mx, se.redistribute(mesh, row_pl), hit.redistribute(mesh, row_pl)

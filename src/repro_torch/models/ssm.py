@@ -9,14 +9,17 @@ the reference's exact chunkwise-parallel form for prompts of more than one
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import (
-    ParamRNG, dense_init, remat, rmsnorm, rmsnorm_init,
+    ParamRNG, dense_init, matmul, remat, rmsnorm, rmsnorm_init, split_heads,
 )
+from repro_torch.runtime import spmd
 
 
 _TIME_CHUNK = 256
@@ -30,22 +33,48 @@ def _scan(step, carry, xs):
     return carry, torch.stack(ys)
 
 
-def chunked_scan(step, init, xs, *, chunk: int = _TIME_CHUNK):
+def chunked_scan(step, init, xs, *, chunk: int = _TIME_CHUNK,
+                 max_pieces: int | None = None):
     """``lax.scan`` over the leading (time) axis of the tensors in ``xs``:
     ``carry, y_t = step(carry, x_t)``, returning the final carry and the
     stacked ``y``.  Scans of more than ``chunk`` steps that it divides run
     in ``chunk``-step pieces under :func:`remat`, as the reference's: the
     backward keeps only the carry at the pieces' boundaries and recomputes
-    each piece, instead of keeping every step's residuals."""
+    each piece, instead of keeping every step's residuals.
+
+    ``max_pieces`` (by default that of :func:`traced_pieces`' scope, else
+    every piece) runs only the first pieces and repeats the last one's
+    outputs for the rest: the pieces do identical work, so a cost trace of
+    ``k`` pieces scales by the trip count; the values are then not the
+    scan's."""
+    if max_pieces is None:
+        max_pieces = _MAX_PIECES.get()
     S = xs[0].shape[0]
     if S <= chunk or S % chunk:
         return _scan(step, init, xs)
+    n = S // chunk
     carry, ys = init, []
-    for c in range(S // chunk):
+    for c in range(n if max_pieces is None else min(max_pieces, n)):
         piece = tuple(x[c * chunk:(c + 1) * chunk] for x in xs)
         carry, y = remat(_scan, step, carry, piece)
         ys.append(y)
-    return carry, torch.cat(ys)
+    return carry, torch.cat(ys + ys[-1:] * (n - len(ys)))
+
+
+_MAX_PIECES: contextvars.ContextVar[int | None] = contextvars.ContextVar(
+    "max_pieces", default=None)
+
+
+@contextlib.contextmanager
+def traced_pieces(k: int | None):
+    """The scope in which :func:`chunked_scan` runs at most ``k`` pieces
+    (None: every piece), for cost traces that scale a scan by its trip
+    count."""
+    token = _MAX_PIECES.set(k)
+    try:
+        yield
+    finally:
+        _MAX_PIECES.reset(token)
 
 
 # ---------------------------------------------------------------------------
@@ -96,15 +125,23 @@ def _ddlerp(p, x, x_prev):
     dx = x_prev - x
     base = x + dx * p["mu_x"].to(x.dtype)
     r = p["lora_a"].shape[1] // 5
-    lo = torch.tanh(base @ p["lora_a"])  # (..., 5r)
+    lo = torch.tanh(matmul(base, p["lora_a"]))  # (..., 5r)
     lo = lo.reshape(*lo.shape[:-1], 5, r)
-    adj = torch.einsum("...nr,nrd->...nd", lo, p["lora_b"].to(x.dtype))
+    if spmd.is_dtensor(lo):
+        adj = spmd.batch_local(_lora_mix, lo, p["lora_b"])
+    else:
+        adj = _lora_mix(lo, p["lora_b"])
     mu = p["mu"].to(x.dtype) + adj  # (..., 5, d)
     return [x + dx * mu[..., i, :] for i in range(5)]
 
 
+def _lora_mix(lo, lora_b):
+    return torch.einsum("...nr,nrd->...nd", lo, lora_b.to(lo.dtype))
+
+
 def _rwkv_decay(p, xw):
-    lo = torch.tanh(xw @ p["decay_a"]) @ p["decay_b"].to(xw.dtype)
+    lo = matmul(torch.tanh(matmul(xw, p["decay_a"])),
+                p["decay_b"].to(xw.dtype))
     wt = p["decay_base"].float() + lo.float()
     return torch.exp(-torch.exp(wt))  # in (0, 1), data-dependent per channel
 
@@ -171,20 +208,38 @@ def rwkv_time_mix(p, x, cfg: RWKVConfig, state: tuple | None = None):
 
     if state is None:
         x_prev_seq = torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
-        wkv_state = torch.zeros((b, h, hd, hd), dtype=torch.float32,
-                                device=x.device)
+        wkv_state = None
     else:
         xp, wkv_state = state
         x_prev_seq = xp[:, None, :] if s == 1 else torch.cat(
             [xp[:, None, :], x[:, :-1]], dim=1)
 
     xw, xk, xv, xr, xg = _ddlerp(p, x, x_prev_seq)
-    rr = (xr @ p["w_r"]).reshape(b, s, h, hd)
-    kk = (xk @ p["w_k"]).reshape(b, s, h, hd)
-    vv = (xv @ p["w_v"]).reshape(b, s, h, hd)
-    gg = F.silu(xg @ p["w_g"])
-    ww = _rwkv_decay(p, xw).reshape(b, s, h, hd)  # f32 decay in (0,1)
-    u = p["bonus"].float()
+    rr = split_heads(matmul(xr, p["w_r"]), h, hd)
+    kk = split_heads(matmul(xk, p["w_k"]), h, hd)
+    vv = split_heads(matmul(xv, p["w_v"]), h, hd)
+    gg = F.silu(matmul(xg, p["w_g"]))
+    ww = split_heads(_rwkv_decay(p, xw), h, hd)  # f32 decay in (0,1)
+    if spmd.is_dtensor(rr):
+        ys, wkv_state = _wkv_sharded(rr, kk, vv, ww, p["bonus"], wkv_state)
+    else:
+        ys, wkv_state = _wkv(rr, kk, vv, ww, p["bonus"], wkv_state)
+    y = ys.reshape(b, s, d)
+    y = rmsnorm(p["ln_out"], y)
+    out = matmul(y * gg, p["w_o"])
+    return out, (x[:, -1, :], wkv_state)
+
+
+def _wkv(rr, kk, vv, ww, bonus, state):
+    """The WKV6 recurrence over (B, S, H, hd) streams from ``state``
+    (B, H, hd, hd) float32, zeros if None: the chunkwise-parallel form for
+    sequences of more than one 32-step chunk that it divides, else the
+    recurrent one.  Returns (ys (B, S, H, hd), final state)."""
+    b, s, h, hd = rr.shape
+    u = bonus.float()
+    if state is None:
+        state = torch.zeros((b, h, hd, hd), dtype=torch.float32,
+                            device=rr.device)
 
     def step(S, inp):
         r_t, k_t, v_t, w_t = inp  # (B, H, hd)
@@ -196,13 +251,31 @@ def rwkv_time_mix(p, x, cfg: RWKVConfig, state: tuple | None = None):
 
     xs = tuple(t.transpose(0, 1) for t in (rr, kk, vv, ww))
     if s % _WKV_CHUNK == 0 and s > _WKV_CHUNK:
-        wkv_state, ys = _wkv_chunked(*xs, u, wkv_state)
+        state, ys = _wkv_chunked(*xs, u, state)
     else:
-        wkv_state, ys = chunked_scan(step, wkv_state, xs)
-    y = ys.transpose(0, 1).reshape(b, s, d)
-    y = rmsnorm(p["ln_out"], y)
-    out = (y * gg) @ p["w_o"]
-    return out, (x[:, -1, :], wkv_state)
+        state, ys = chunked_scan(step, state, xs)
+    return ys.transpose(0, 1), state
+
+
+def _wkv_sharded(rr, kk, vv, ww, bonus, state):
+    """:func:`_wkv` on DTensors: each rank runs the recurrence for its batch
+    rows and heads (heads over the non-batch axes where they divide);
+    nothing moves between ranks."""
+    mesh = rr.device_mesh
+    bat = spmd.sharded_axes(rr, 0)
+    hax = tuple(a for a in mesh.mesh_dim_names if a not in bat)
+    if rr.shape[2] % spmd.axes_size(mesh, hax):
+        hax = ()
+    rows = {a: 0 for a in bat}
+    x_pl = spmd.placements_of(mesh, **rows, **{a: 2 for a in hax})
+    u_pl = spmd.placements_of(mesh, **{a: 0 for a in hax})
+    u_grad = spmd.placements_of(mesh, **{a: 0 for a in hax},
+                                **{a: "P" for a in bat})
+    s_pl = spmd.placements_of(mesh, **rows, **{a: 1 for a in hax})
+    return spmd.local_call(
+        _wkv, mesh, (rr, kk, vv, ww, bonus, state),
+        (x_pl,) * 4 + (u_pl, s_pl), (x_pl, s_pl),
+        (None,) * 4 + (u_grad, None))
 
 
 def rwkv_channel_mix(p, x, state=None):
@@ -215,9 +288,9 @@ def rwkv_channel_mix(p, x, state=None):
     dx = x_prev - x
     xk = x + dx * p["mu_k"].to(x.dtype)
     xr = x + dx * p["mu_r"].to(x.dtype)
-    k = torch.square(F.relu(xk @ p["w_k"]))
-    r = torch.sigmoid(xr @ p["w_r"])
-    return r * (k @ p["w_v"]), x[:, -1, :]
+    k = torch.square(F.relu(matmul(xk, p["w_k"])))
+    r = torch.sigmoid(matmul(xr, p["w_r"]))
+    return r * matmul(k, p["w_v"]), x[:, -1, :]
 
 
 # ---------------------------------------------------------------------------
@@ -254,31 +327,52 @@ def mamba_init(rng: ParamRNG, d: int, cfg: MambaConfig, dtype):
 def mamba_apply(p, x, cfg: MambaConfig, state: tuple | None = None):
     """x: (B, S, D).  state (decode): (conv_buf (B, d_conv-1, din),
     h (B, din, d_state)).  Returns (out, new_state)."""
-    b, s, d = x.shape
-    din = cfg.expand * d
+    if spmd.is_dtensor(x):
+        return _mamba_sharded(p, x, cfg, state)
+    u, z, proj, new_conv_buf = _mamba_in(
+        x, p["in_proj"], p["conv_w"], p["conv_b"], p["x_proj"],
+        None if state is None else state[0], cfg=cfg)
+    y, h_fin = _mamba_scan(
+        u, z, proj, p["dt_proj"], p["dt_bias"], p["a_log"], p["d_skip"],
+        None if state is None else state[1], cfg=cfg)
+    out = matmul(y, p["out_proj"])
+    return out, (new_conv_buf, h_fin)
 
-    xz = x @ p["in_proj"]
+
+def _mamba_in(x, in_proj, conv_w, conv_b, x_proj, conv_buf, *, cfg):
+    """The input projection, the causal depthwise conv along S and the
+    projection to (dt_low, B, C): returns (u, z, proj, new conv buffer).
+    On a rank's channels, ``in_proj`` holds its xin columns and then its
+    z columns, ``conv_w``, ``conv_b``, ``x_proj`` and ``conv_buf`` its
+    channels, and ``proj`` is their part of the sum."""
+    b, s, _ = x.shape
+    xz = x @ in_proj
     xin, z = torch.chunk(xz, 2, dim=-1)  # (B, S, din) each
+    width = xin.shape[-1]
 
     # causal depthwise conv along S
-    if state is None:
-        conv_buf = torch.zeros((b, cfg.d_conv - 1, din), dtype=xin.dtype,
+    if conv_buf is None:
+        conv_buf = torch.zeros((b, cfg.d_conv - 1, width), dtype=xin.dtype,
                                device=x.device)
-    else:
-        conv_buf = state[0]
     xpad = torch.cat([conv_buf, xin], dim=1)
     new_conv_buf = xpad[:, -(cfg.d_conv - 1):, :]
     conv = sum(
-        xpad[:, k: k + s, :] * p["conv_w"][k][None, None, :]
+        xpad[:, k: k + s, :] * conv_w[k][None, None, :]
         for k in range(cfg.d_conv)
-    ) + p["conv_b"]
+    ) + conv_b
     u = F.silu(conv)  # (B, S, din)
+    return u, z, u @ x_proj, new_conv_buf
 
-    proj = u @ p["x_proj"]
+
+def _mamba_scan(u, z, proj, dt_proj, dt_bias, a_log, d_skip, h0, *, cfg):
+    """The selective scan from state ``h0`` (zeros if None) and the gated
+    output: returns (y (B, S, din), final state)."""
+    b = u.shape[0]
+    din = u.shape[-1]
     dt_low, Bmat, Cmat = torch.split(
         proj, [cfg.dt_rank, cfg.d_state, cfg.d_state], dim=-1)
-    dt = F.softplus(dt_low @ p["dt_proj"] + p["dt_bias"])  # (B, S, din)
-    A = -torch.exp(p["a_log"].float())  # (din, n) f32
+    dt = F.softplus(dt_low @ dt_proj + dt_bias)  # (B, S, din)
+    A = -torch.exp(a_log.float())  # (din, n) f32
 
     def step(h, inp):
         u_t, dt_t, b_t, c_t = inp  # (B, din), (B, din), (B, n), (B, n)
@@ -288,13 +382,94 @@ def mamba_apply(p, x, cfg: MambaConfig, state: tuple | None = None):
         y = torch.einsum("bdn,bn->bd", h_new, c_t.float())
         return h_new, y.to(u_t.dtype)
 
-    h0 = (torch.zeros((b, din, cfg.d_state), dtype=torch.float32,
-                      device=x.device)
-          if state is None else state[1])
+    if h0 is None:
+        h0 = torch.zeros((b, din, cfg.d_state), dtype=torch.float32,
+                         device=u.device)
     xs = tuple(t.transpose(0, 1) for t in (u, dt, Bmat, Cmat))
     h_fin, ys = chunked_scan(step, h0, xs)
-    y = ys.transpose(0, 1).to(x.dtype)
-    y = y + u * p["d_skip"]
+    y = ys.transpose(0, 1).to(z.dtype)
+    y = y + u * d_skip
     y = y * F.silu(z)
-    out = y @ p["out_proj"]
-    return out, (new_conv_buf, h_fin)
+    return y, h_fin
+
+
+def _channel_columns(w, mesh, cax):
+    """A rank's xin and z columns of ``in_proj`` (D, 2 din), from its block
+    of ``2 din / n`` consecutive columns over the channel axis ``cax``: the
+    blocks' halves move between ranks in one all-to-all (autograd runs it
+    backwards), so no rank holds more than its share."""
+    if not cax:
+        return w
+    if len(cax) > 1:
+        raise ValueError(f"Mamba's channels over {cax}: one axis expected")
+    from torch.distributed._functional_collectives import (
+        all_to_all_single_autograd,
+    )
+
+    dim = mesh.mesh_dim_names.index(cax[0])
+    n, j = mesh.size(dim), mesh.get_local_rank(cax[0])
+    if n == 1:
+        return w
+    m = w.shape[1] // 2
+    # global block b of m columns is xin's (b < n) or z's block b mod n
+    halves = sorted(((2 * j + t) % n, t) for t in range(2))
+    send = torch.cat([w[:, t * m:(t + 1) * m] for _, t in halves], dim=1)
+    in_splits, out_splits = [0] * n, [0] * n
+    for dest, _ in halves:
+        in_splits[dest] += m
+    for b in (j, n + j):  # xin's block first: its sender ranks lower
+        out_splits[b // 2] += m
+    got = all_to_all_single_autograd(send.t().contiguous(), out_splits,
+                                     in_splits, (mesh, dim))
+    return got.t()
+
+
+def _mamba_sharded(p, x, cfg: MambaConfig, state):
+    """:func:`mamba_apply` on DTensors: the inner channels (din) over the
+    axes that shard ``conv_b`` (less the batch axes), the batch rows over
+    the batch axes.  Each rank projects (its xin and z columns of
+    ``in_proj`` moved to it by :func:`_channel_columns`), convolves and
+    scans its channels; the one sum across channels, the projection to
+    (dt_low, B, C), is a ``Partial`` that one all-reduce completes; the
+    output projection is a DTensor product.  The states stay sharded as
+    the caches are."""
+    mesh = x.device_mesh
+    bat = spmd.sharded_axes(x, 0)
+    cax = tuple(a for a in spmd.sharded_axes(p["conv_b"], 0) if a not in bat)
+    rows = {a: 0 for a in bat}
+    part = {a: "P" for a in bat}
+
+    def pl(**dims):
+        return spmd.placements_of(mesh, **dims)
+
+    x_pl = pl(**rows)
+    ch3 = pl(**rows, **{a: 2 for a in cax})  # (B, S|k, din)
+    ch_last = pl(**{a: 1 for a in cax})  # (k|r|D, din)
+    ch_first = pl(**{a: 0 for a in cax})  # (din, ...)
+    h_pl = pl(**rows, **{a: 1 for a in cax})  # (B, din, n)
+
+    def grad(**dims):
+        return pl(**dims, **part)
+
+    def project(xl, w, *rest):
+        return _mamba_in(xl, _channel_columns(w, mesh, cax), *rest, cfg=cfg)
+
+    conv_buf, h0 = (None, None) if state is None else state
+    u, z, proj, new_buf = spmd.local_call(
+        project, mesh,
+        (x, p["in_proj"], p["conv_w"], p["conv_b"], p["x_proj"], conv_buf),
+        (x_pl, ch_last, ch_last, ch_first, ch_first, ch3),
+        (ch3, ch3, pl(**rows, **{a: "P" for a in cax}), ch3),
+        (pl(**rows, **{a: "P" for a in cax}), grad(**{a: 1 for a in cax}),
+         grad(**{a: 1 for a in cax}), grad(**{a: 0 for a in cax}),
+         grad(**{a: 0 for a in cax}), None))
+    proj = proj.redistribute(mesh, x_pl)
+    y, h_fin = spmd.local_call(
+        lambda *a: _mamba_scan(*a, cfg=cfg), mesh,
+        (u, z, proj, p["dt_proj"], p["dt_bias"], p["a_log"], p["d_skip"], h0),
+        (ch3, ch3, x_pl, ch_last, ch_first, ch_first, ch_first, h_pl),
+        (ch3, h_pl),
+        (None, None, pl(**rows, **{a: "P" for a in cax}),
+         grad(**{a: 1 for a in cax}), grad(**{a: 0 for a in cax}),
+         grad(**{a: 0 for a in cax}), grad(**{a: 0 for a in cax}), None))
+    return matmul(y, p["out_proj"]), (new_buf, h_fin)

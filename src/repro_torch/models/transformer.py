@@ -13,7 +13,7 @@ Three entry points per model:
   logits and the per-layer K/V;
 - ``decode_step`` — single-token step against caches, updated in place.
 
-``prefill`` and ``decode_step`` run under ``torch.inference_mode()``.
+``prefill`` and ``decode_step`` run without autograd (:func:`serving`).
 The config's ``remat`` ('full', 'dots', 'group:N' or 'none') checkpoints
 the layer loop as the reference's does; it shapes only the backward's
 memory, never a value.
@@ -37,12 +37,15 @@ from repro_torch.models.layers import (
     dense_init,
     embed_init,
     embed_lookup,
+    matmul,
     mlp_apply,
     mlp_init,
     remat,
     rmsnorm,
     rmsnorm_init,
+    serving,
     softmax_cross_entropy,
+    split_heads,
     stack_trees,
     unembed_logits,
     unstack_tree,
@@ -153,14 +156,14 @@ def layer_at(tree, i: int):
 def _run_attn(p, x, cfg, sh: Shardings, *, positions, causal=True):
     b, s, d = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
-    k = (x @ p["wk"]).reshape(b, s, kv, hd)
-    v = (x @ p["wv"]).reshape(b, s, kv, hd)
+    q = split_heads(matmul(x, p["wq"]), h, hd)
+    k = split_heads(matmul(x, p["wk"]), kv, hd)
+    v = split_heads(matmul(x, p["wv"]), kv, hd)
     q = sh.act_bthd(apply_rope(q, positions, theta=cfg.rope_theta))
     k = apply_rope(k, positions, theta=cfg.rope_theta)
     o = att.flash_attention(q, k, v, causal=causal)
     o = sh.act_bthd(o)
-    out = o.reshape(b, s, h * hd) @ p["wo"]
+    out = matmul(o.reshape(b, s, h * hd), p["wo"])
     return out, (k, v)
 
 
@@ -301,7 +304,7 @@ def forward(
     if cfg.tie_embeddings:
         logits = unembed_logits(x, params["embed"])
     else:
-        logits = x @ params["unembed"]
+        logits = matmul(x, params["unembed"])
     logits = sh.act_btv(logits)
     return logits, aux, kvs
 
@@ -405,24 +408,34 @@ def _decode_mixer(p, xtok, cfg, sh, cache_layer, pos, kind):
     b = xtok.shape[0]
     if kind == "attn":
         h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        q = (xtok @ p["attn"]["wq"]).reshape(b, 1, h, hd)
-        k = (xtok @ p["attn"]["wk"]).reshape(b, 1, kv, hd)
-        v = (xtok @ p["attn"]["wv"]).reshape(b, 1, kv, hd)
+        q = split_heads(matmul(xtok, p["attn"]["wq"]), h, hd)
+        k = split_heads(matmul(xtok, p["attn"]["wk"]), kv, hd)
+        v = split_heads(matmul(xtok, p["attn"]["wv"]), kv, hd)
         pp = torch.full((b, 1), pos, device=xtok.device)
         q = apply_rope(q, pp, theta=cfg.rope_theta)
         k = apply_rope(k, pp, theta=cfg.rope_theta)
-        if sh.use_sharded_decode:
-            raise NotImplementedError(att._SHARDED)
+        batch_axes = sh.dp_axes if b > 1 else None
         if cfg.cache_dtype == "int8":
             new_cache = att.cache_update_q(cache_layer, k, v, pos)
-            o = att.decode_attention_q(
-                q, new_cache, pos, compute_dtype=cfg.dtype_policy.cdt)
+            if sh.use_sharded_decode:
+                o = att.sharded_decode_attention_q(
+                    q, new_cache, pos, mesh=sh.mesh,
+                    seq_axes=sh.cache_seq_axes, batch_axes=batch_axes,
+                    compute_dtype=cfg.dtype_policy.cdt)
+            else:
+                o = att.decode_attention_q(
+                    q, new_cache, pos, compute_dtype=cfg.dtype_policy.cdt)
         else:
             kc, vc = att.cache_update(cache_layer["k"], cache_layer["v"],
                                       k, v, pos)
-            o = att.decode_attention(q, kc, vc, pos)
+            if sh.use_sharded_decode:
+                o = att.sharded_decode_attention(
+                    q, kc, vc, pos, mesh=sh.mesh, seq_axes=sh.cache_seq_axes,
+                    batch_axes=batch_axes)
+            else:
+                o = att.decode_attention(q, kc, vc, pos)
             new_cache = {"k": kc, "v": vc}
-        out = o.reshape(b, 1, h * hd) @ p["attn"]["wo"]
+        out = matmul(o.reshape(b, 1, h * hd), p["attn"]["wo"])
         return out, new_cache
     if kind == "mamba":
         out, (conv, hstate) = ssm_mod.mamba_apply(
@@ -460,16 +473,16 @@ def _decode_block(p, x, cfg, sh, cache_layer, pos, kind, mk):
     return x, new_cache
 
 
-def _write_layer(stacked: dict, step: int, new: dict) -> None:
+def _write_layer(stacked: dict, step: int, old: dict, new: dict) -> None:
     """Write a layer's new cache entries into step ``step`` of the stacked
-    cache (entries already updated in place are the views themselves)."""
+    cache; entries updated in place (``new[name] is old[name]``, the view
+    into the stack) are there already."""
     for name, value in new.items():
-        dst = stacked[name][step]
-        if value.data_ptr() != dst.data_ptr():
-            dst.copy_(value)
+        if value is not old.get(name):
+            stacked[name][step].copy_(value)
 
 
-@torch.inference_mode()
+@serving
 def decode_step(
     params,
     cfg: ArchConfig,
@@ -492,23 +505,23 @@ def decode_step(
     caches = cache if period > 1 else (cache,)
     for step in range(n_steps):
         for p_pos in range(period):
+            old = layer_at(caches[p_pos], step)
             x, new = _decode_block(
-                layer_at(blocks[p_pos], step), x, cfg, sh,
-                layer_at(caches[p_pos], step), pos,
+                layer_at(blocks[p_pos], step), x, cfg, sh, old, pos,
                 layer_kind(cfg, p_pos), mlp_kind(cfg, p_pos),
             )
-            _write_layer(caches[p_pos], step, new)
+            _write_layer(caches[p_pos], step, old, new)
 
     x = rmsnorm(params["ln_f"], x, eps=cfg.norm_eps)
     logits = (
         unembed_logits(x, params["embed"])
         if cfg.tie_embeddings
-        else x @ params["unembed"]
+        else matmul(x, params["unembed"])
     )
     return logits[:, 0, :], cache
 
 
-@torch.inference_mode()
+@serving
 def prefill(
     params,
     cfg: ArchConfig,

@@ -6,9 +6,9 @@ Three second-moment tiers:
 - ``adafactor`` — factored second moment (~0 extra per matrix dim);
 - ``adamw8bit`` — block-quantised int8 moments (2 bytes/param extra).
 
-The state trees are the reference's leaf for leaf.  ``state_specs`` (the
-optimizer state's shardings) is refused until the port shards the LM over
-a mesh.
+The state trees are the reference's leaf for leaf; ``state_specs`` gives
+their partition specs from the params' (DTensor params get their state
+made with those placements).
 """
 
 from repro_torch.optim.optimizers import (  # noqa: F401

@@ -5,6 +5,12 @@ and the batches both packages see."""
 from __future__ import annotations
 
 import functools
+import os
+import pickle
+import subprocess
+import sys
+import time
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -108,3 +114,47 @@ LAYER = tolerance_for(torch.float32, scale=2)
 RECURRENT = tolerance_for(torch.float32, scale=5)
 LOGITS = tolerance_for(torch.float32, scale=10)
 SELF = tolerance_for(torch.float32, scale=20)
+
+
+# The sharded runs: a gloo world of 8 ranks on a (pod, data, model) =
+# (2, 2, 2) mesh, spawned like tests/_torch_dist_worker.py's (a file://
+# store under tmp_path, one thread a rank, never a fixed port).
+WORLD = 8
+WORLD_TIMEOUT_S = 600
+
+
+def run_lm_world(tmp: Path, group: str, inp: dict):
+    """Run ``group`` of ``tests/_torch_lm_dist_worker.py`` on 8 ranks with
+    the inputs ``inp``: (rank 0's gathered results, each rank's report)."""
+    root = Path(__file__).resolve().parents[1]
+    with open(tmp / "in.pkl", "wb") as f:
+        pickle.dump(inp, f)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    worker = Path(__file__).with_name("_torch_lm_dist_worker.py")
+    procs = [subprocess.Popen(
+        [sys.executable, str(worker), str(r), str(WORLD), str(tmp / "init"),
+         group, str(tmp / "in.pkl"), str(tmp)], env=env, cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(WORLD)]
+    deadline = time.monotonic() + WORLD_TIMEOUT_S
+    errors = []
+    try:
+        for r, p in enumerate(procs):
+            _, err = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            if p.returncode != 0:
+                errors.append(f"rank {r} exited {p.returncode}:\n"
+                              f"{err[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert not errors, "\n".join(errors)
+    with open(tmp / "out.pkl", "rb") as f:
+        out = pickle.load(f)
+    import json
+
+    reports = [json.loads((tmp / f"rank{r}.json").read_text())
+               for r in range(WORLD)]
+    return out, reports

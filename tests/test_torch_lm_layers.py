@@ -476,17 +476,60 @@ def _roadmap_titles():
 
 
 def test_mesh_and_sharded_decode_are_refused_with_a_roadmap_title():
-    titles = _roadmap_titles()
-    calls = [
-        lambda: Shardings(mesh=object()),
-        lambda: TA.sharded_decode_attention(None, None, None, 0, mesh=None,
-                                            seq_axes=("model",)),
-        lambda: TA.sharded_decode_attention_q(None, None, 0, mesh=None,
-                                              seq_axes=("model",)),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError) as err:
-            call()
-        named = re.search(r"Open items: ([^)]+)\)", str(err.value)).group(1)
-        assert named == "LM sharding"
-        assert named in titles
+    """LM sharding is ported (the name is kept): on a one-rank gloo world's
+    (1, 1) mesh a handle constrains DTensors and refuses a plain tensor
+    with ``TypeError``, and the sequence-sharded decode (bf16 cache and
+    int8 cache) equals the unsharded one; "LM sharding" is no longer
+    named by a refusal, and the titles still named are ROADMAP.md's."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.runtime.sharding import P, spec_placements
+
+    assert "LM sharding" not in "".join(
+        f.read_text() for f in (ROOT / "src" / "repro_torch").rglob("*.py"))
+    assert "Rank-3 serve buckets" in _roadmap_titles()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh_for()
+        sh = Shardings(mesh=mesh, dp_axes=("data",),
+                       cache_seq_axes=("model",))
+        assert sh.use_sharded_decode
+        x = torch.arange(24.0).reshape(2, 3, 4)
+        with pytest.raises(TypeError):
+            sh.act_btd(x)
+        rng = np.random.default_rng(0)
+        q = torch.as_tensor(rng.standard_normal((2, 1, 4, 8)), dtype=torch.float32)
+        kc = torch.as_tensor(rng.standard_normal((2, 2, 16, 8)), dtype=torch.float32)
+        vc = torch.as_tensor(rng.standard_normal((2, 2, 16, 8)), dtype=torch.float32)
+        pl = spec_placements(P("data", None, "model", None), mesh)
+        dk, dv = (distribute_tensor(t, mesh, pl) for t in (kc, vc))
+        dq = distribute_tensor(q, mesh, spec_placements(P("data"), mesh))
+        with sh.scope():
+            got = TA.sharded_decode_attention(dq, dk, dv, 9, mesh=mesh,
+                                              seq_axes=("model",),
+                                              batch_axes=("data",))
+        assert_close(got.full_tensor(), TA.decode_attention(q, kc, vc, 9),
+                     LAYER)
+        cache = {"k": torch.zeros(2, 2, 16, 8, dtype=torch.int8),
+                 "v": torch.zeros(2, 2, 16, 8, dtype=torch.int8),
+                 "k_s": torch.zeros(2, 2, 16), "v_s": torch.zeros(2, 2, 16)}
+        dcache = {k: distribute_tensor(
+            v, mesh, spec_placements(P("data", None, "model"), mesh))
+            for k, v in cache.items()}
+        kn = torch.as_tensor(rng.standard_normal((2, 1, 2, 8)), dtype=torch.float32)
+        vn = torch.as_tensor(rng.standard_normal((2, 1, 2, 8)), dtype=torch.float32)
+        TA.cache_update_q(cache, kn, vn, 3)
+        with sh.scope():
+            TA.cache_update_q(dcache, kn, vn, 3)
+            got = TA.sharded_decode_attention_q(
+                dq, dcache, 3, mesh=mesh, seq_axes=("model",),
+                batch_axes=("data",), compute_dtype=torch.float32)
+        for k in cache:
+            assert torch.equal(dcache[k].full_tensor(), cache[k]), k
+        assert_close(got.full_tensor(),
+                     TA.decode_attention_q(q, cache, 3, torch.float32), LAYER)
+    finally:
+        dist.destroy_process_group()

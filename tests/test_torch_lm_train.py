@@ -46,7 +46,7 @@ import pytest
 import torch
 
 from _torch_lm_common import (
-    LOGITS, RECURRENT, jax_batch, leaves, make_batch, ref_params, to_np,
+    LOGITS, RECURRENT, assert_close, jax_batch, leaves, make_batch, ref_params, to_np,
     torch_batch, tree_np, tree_torch,
 )
 from repro.configs import get_config as ref_config
@@ -68,7 +68,7 @@ from repro_torch.models import moe as TM
 from repro_torch.models import ssm as TS
 from repro_torch.models.api import build_model
 from repro_torch.runtime.fault import supervise
-from repro_torch.runtime.sharding import Shardings
+from repro_torch.runtime.sharding import P, Shardings
 from repro_torch.util import tolerance_for, tree_leaves, tree_map
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -443,10 +443,39 @@ def test_entry_points_default_to_the_card():
 
 
 def test_mesh_training_is_refused_with_a_roadmap_title():
-    with pytest.raises(NotImplementedError, match="Open items: LM sharding"):
-        train_mod.train_loop(arch="smollm-135m", reduced=True, steps=1,
-                             global_batch=2, seq_len=8, model_parallel=2,
-                             device="cpu")
-    model = build_model(get_config("smollm-135m").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Open items: LM sharding"):
-        cells.make_train_step(model, sh=SH, param_specs={})
+    """LM sharding is ported (the name is kept): a mesh the world cannot
+    hold is refused with ``ValueError``, and on a one-rank gloo world's
+    (1, 1) mesh the sharded train step (params by the inferred specs,
+    state by ``state_specs``) equals the unsharded one."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import dp_axes_of, make_mesh_for
+    from repro_torch.runtime.sharding import infer_param_specs, shard_params
+
+    cfg = get_config("smollm-135m").reduced()
+    model = build_model(cfg, device="cpu")
+    batch = torch_batch(make_batch(cfg, np.random.default_rng(0), B=4, S=8))
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        with pytest.raises(ValueError, match="divisible"):
+            train_mod.train_loop(arch="smollm-135m", reduced=True, steps=1,
+                                 global_batch=2, seq_len=8,
+                                 model_parallel=2, device="cpu")
+        mesh = make_mesh_for()
+        sh = Shardings(mesh=mesh, dp_axes=dp_axes_of(mesh))
+        specs = infer_param_specs(model.init(0), mesh)
+        step = cells.make_train_step(model, sh=sh, accum=2, param_specs=specs)
+        params = shard_params(model.init(0), mesh, specs)
+        state = step.optimizer.init(params)
+        dbatch = {k: shard_params({"embed": v}, mesh, {"embed": P("data")})
+                  ["embed"] for k, v in batch.items()}
+        p1, _, m1 = step(params, state, dbatch)
+        plain = cells.make_train_step(model, sh=SH, accum=2)
+        params0 = model.init(0)
+        p0, _, m0 = plain(params0, plain.optimizer.init(params0), batch)
+        assert_close(m1["loss"].full_tensor(), m0["loss"], SAME)
+        _trees_close_normwise(tree_map(lambda x: x.full_tensor(), p1), p0,
+                              GRAD, "params")
+    finally:
+        dist.destroy_process_group()

@@ -156,11 +156,25 @@ class TestAdafactor:
         assert n_state < 256 * 512 * 0.02  # ~(256+512) vs 131072
 
     def test_state_specs_refused_until_lm_sharding(self):
-        """The reference derives the stats' PartitionSpecs; the port has no
-        mesh for the LM yet and says which ROADMAP item brings it."""
-        with pytest.raises(NotImplementedError,
-                           match="Open items: LM sharding"):
-            state_specs("adafactor", {"w": None}, {"w": torch.zeros(8, 16)})
+        """The stats' partition specs are the reference's: the factored
+        rows drop the last entry, the columns the one before it, a vector
+        keeps its own (LM sharding is ported; the name is kept)."""
+        from jax.sharding import PartitionSpec as RP
+
+        from repro.optim import state_specs as ref_state_specs
+        from repro_torch.runtime.sharding import P
+
+        specs = {"w": P("data", "model"), "b": P("model"), "e": P()}
+        shapes = {"w": torch.zeros(8, 16), "b": torch.zeros(16),
+                  "e": torch.zeros(4, 2, 6)}
+        ref = ref_state_specs(
+            "adafactor", {k: RP(*v) for k, v in specs.items()},
+            {k: jnp.zeros(tuple(v.shape)) for k, v in shapes.items()})
+        got = state_specs("adafactor", specs, shapes)
+        for k in specs:
+            assert {n: tuple(x) for n, x in got["stats"][k].items()} == {
+                n: tuple(x) for n, x in ref["stats"][k].items()}, k
+        assert tuple(got["step"]) == tuple(ref["step"]) == ()
 
 
 class TestAdamW8bit:
