@@ -257,6 +257,18 @@ printing a result:
    q. The dry-run: ``python -m repro_torch.launch.dryrun`` in
       subprocesses, three cells on the fake 256- and 512-rank worlds;
       every record ``ok`` and fitting 80 GiB.
+   r. Python point functions on the card: the reference tests' and
+      examples' point functions with no CUDA source (the cube sums,
+      ``c w w``, quickstart's central difference, ``mixed_point_fn``
+      bare), translated at Create (``repro_torch.kernels.point_fn``) and
+      built side by side, through the 2D, batched-1D and 3D plans at
+      1024^2 and 256^3 float64, periodic and np with out_init, each
+      within scale 10 of its plain version, one launch each (asserted),
+      streamed bit for bit its monolithic launch, and timed (device ms,
+      bound) beside the hand-written ``MIXED_SOURCE`` and the
+      ``cube_laplacian`` tag at the same shapes; a function the
+      translator refuses raises at Create and at a launch, launching
+      nothing.
 5. Timing: ms/step of the fused step over 200 steps after 20 of warm-up,
    of the stencil-mode step on the penta and on the fft sweeps and of the
    batched-1D step, of the 3D LOD step on the kernels, streamed and on
@@ -289,7 +301,11 @@ printing a result:
    in subprocesses for smollm-135m x {train_4k, decode_32k} and rwkv6-7b
    x long_500k on the fake 256- and 512-rank worlds: each record's peak
    a device against 80 GiB, flops, bytes, collective bytes and roofline
-   terms, records under ``chiprun_out/dryrun/``), the ``kernels``
+   terms, records under ``chiprun_out/dryrun/``), the ``point_fn`` JSON
+   line (phase 4r: each case's checks, device ms, event ms, plain ms,
+   bound and operations a point, its build seconds at Create; the
+   translated cases beside the hand-written source and the library tag;
+   the build's wall time; the refusal), the ``kernels``
    JSON line (each
    kernel's launches on the main path, and under ``paths`` on every path
    that launched it, the serving stream, the resilient run, the tuning
@@ -298,7 +314,8 @@ printing a result:
    the result line.
 
 A full record goes to ``chiprun_out/chip_smoke.json`` and the nvcc logs to
-``chiprun_out/nvcc_build.log`` and ``chiprun_out/nvcc_build_point_fn.log``.
+``chiprun_out/nvcc_build.log``, ``chiprun_out/nvcc_build_point_fn.log``
+and ``chiprun_out/nvcc_build_point_fn_translated.log``.
 """
 
 from __future__ import annotations
@@ -2988,6 +3005,260 @@ def dryrun_phase() -> dict:
     return rec
 
 
+# Python point functions on the card (phase 4r): plain PyTorch point
+# functions with no CUDA source, translated at Create into the stencil
+# kernels' point function (repro_torch.kernels.point_fn): the reference's
+# tests' and examples' own (the cube sums of tests/test_kernels_allclose.py
+# and tests/test_stencil1d_batch.py, c w w of tests/test_stencil3d.py,
+# quickstart's central difference) and mixed_point_fn without its source,
+# each through its kernel's plan at the main paths' shapes (1024^2, 256^3,
+# float64), periodic and np with out_init, against its plain version
+# (scale 10, as the stencils), a streamed plan bit for bit its monolithic
+# launch, the launch counts asserted, timed (device ms) against its bound.
+# Beside them, at the same shapes and coefficients: the hand-written
+# MIXED_SOURCE (the same expression) and the cube_laplacian tag (the cube
+# sum over the non-zero taps only).  The builds of the translated sources
+# are made ahead of the Creates, side by side.  A function the translator
+# refuses raises on the card, at Create and at a launch, launching nothing.
+# the operations a point of a translated source does: its calls, its
+# comparisons and selects, counted on the lines of its nodes
+POINT_FN_OPS = re.compile(
+    r"\b(pf_add|pf_sub|pf_mul|pf_div|pf_maximum|pf_minimum|pf_clamp\w*|sqrt|"
+    r"rsqrt|exp|log|sin|cos|tanh|pow|fabs)\(|[<>=!]=|[<>?]")
+
+
+def central_difference(windows, coe):  # examples/quickstart.py:57
+    return coe[0] * (windows[0] - 2.0 * windows[1] + windows[2])
+
+
+def cube_sum(windows, coe):  # tests/test_kernels_allclose.py:85
+    return sum(c * (w * w * w - w) for c, w in zip(coe, windows, strict=True))
+
+
+def square_sum(windows, coe):  # tests/test_stencil3d.py:77
+    return sum(c * w * w for c, w in zip(coe, windows, strict=True))
+
+
+def window_sum(windows, coeffs):  # a reduction: the translator refuses it
+    return windows[0].sum() * coeffs[0]
+
+
+def point_fn_phase(counts_of) -> dict:
+    import types
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    import repro_torch as rt
+    from repro_torch.core.cahn_hilliard import cube_laplacian_point_fn
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.stencil2d import cuda_point_fn, user_point_source
+    from repro_torch.util import tolerance_for
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+
+    def copy_of_mixed():
+        return types.FunctionType(mixed_point_fn.__code__, globals(),
+                                  "mixed_point_fn")
+
+    bare = copy_of_mixed()  # no CUDA source: translated
+    if hasattr(bare, "device_point_source"):
+        raise PhaseError("the bare mixed_point_fn carries CUDA source")
+    hand = cuda_point_fn(MIXED_SOURCE)(copy_of_mixed())
+    g = torch.Generator().manual_seed(27)
+    c27 = (torch.rand(27, generator=g, dtype=torch.float64) + 0.5).tolist()
+    lap9 = [0.0, 1.0, 0.0, 1.0, -4.0, 1.0, 0.0, 1.0, 0.0]
+    h = 2.0 * math.pi / N_MAIN
+    n2, n3 = (N_MAIN, N_MAIN), (N3,) * 3
+    ext2 = dict(left=1, right=0, top=2, bottom=1)  # phase 3's user plans
+    ext_b = dict(left=2, right=1)
+    ext3 = dict(front=1, back=0, top=0, bottom=1, left=1, right=1)
+    box9 = dict(left=1, right=1, top=1, bottom=1)
+    box27 = dict(front=1, back=1, top=1, bottom=1, left=1, right=1)
+    # label -> (kernel, fn, shape, mode, extents, coeffs, translated,
+    #           the case it is timed beside)
+    cases = {
+        "mixed 2d": ("stencil2d", bare, n2, None, ext2, [0.7, -1.3], True,
+                     "mixed 2d MIXED_SOURCE"),
+        "mixed 2d MIXED_SOURCE": ("stencil2d", hand, n2, None, ext2,
+                                  [0.7, -1.3], False, None),
+        "mixed batch": ("stencil1d_batch", bare, n2, "batch", ext_b,
+                        [0.7, -1.3], True, "mixed batch MIXED_SOURCE"),
+        "mixed batch MIXED_SOURCE": ("stencil1d_batch", hand, n2, "batch",
+                                     ext_b, [0.7, -1.3], False, None),
+        "mixed 3d": ("stencil3d", bare, n3, None, ext3, [0.7, -1.3], True,
+                     "mixed 3d MIXED_SOURCE"),
+        "mixed 3d MIXED_SOURCE": ("stencil3d", hand, n3, None, ext3,
+                                  [0.7, -1.3], False, None),
+        "cube sum 2d": ("stencil2d", cube_sum, n2, None, box9, lap9, True,
+                        "cube sum 2d cube_laplacian tag"),
+        "cube sum 2d cube_laplacian tag": (
+            "stencil2d", cube_laplacian_point_fn, n2, None, box9, lap9,
+            False, None),
+        "cube sum 1d": ("stencil1d_batch", cube_sum, n2, "batch",
+                        dict(left=1, right=1), [1.0, -2.0, 1.0], True,
+                        "cube sum 1d cube_laplacian tag"),
+        "cube sum 1d cube_laplacian tag": (
+            "stencil1d_batch", cube_laplacian_point_fn, n2, "batch",
+            dict(left=1, right=1), [1.0, -2.0, 1.0], False, None),
+        "c w w 3d": ("stencil3d", square_sum, n3, None, box27, c27, True,
+                     None),
+        "central difference 2d": ("stencil2d", central_difference, n2, "x",
+                                  dict(left=1, right=1), [h**-2], True, None),
+    }
+
+    def nwin_of(extents):
+        n = 1
+        vals = list(extents.values())
+        for lo, hi in zip(vals[::2], vals[1::2]):
+            n *= lo + hi + 1
+        return n
+
+    # the translations, then their builds side by side
+    sources = {}
+    for label, (_, fn, _, _, ext, coeffs, translated, _) in cases.items():
+        if translated:
+            sources[label] = (user_point_source(fn, nwin_of(ext), len(coeffs)),
+                              nwin_of(ext))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(set(sources.values()))) as pool:
+        builds = dict(zip(set(sources.values()), pool.map(
+            lambda key: _build.point_fn_build(*key), set(sources.values()))))
+    build_wall = time.perf_counter() - t0
+    (OUT / "nvcc_build_point_fn_translated.log").write_text(
+        "\n".join(b["log"] for b in builds.values()))
+    print(f"[point_fn] {len(builds)} translated sources built side by side "
+          f"in {build_wall:.1f} s (3 libraries each)", flush=True)
+
+    fields = {}
+    for shape in (n2, n3):
+        gf = torch.Generator(device=dev).manual_seed(len(shape))
+        fields[shape] = [(2.0 * torch.rand(shape, generator=gf, device=dev,
+                                           dtype=torch.float64) - 1.0)
+                         for _ in range(2)]
+    tol = tolerance_for("float64", scale=10)
+    rows, launches = {}, {}
+    names = {"stencil2d": "stencil2d_", "stencil1d_batch": "batch_",
+             "stencil3d": "stencil3d_"}
+
+    def kernel_ms(fn, kernel, n=20):
+        """Device ms a call of ``kernel``'s launches (the profiler's rows
+        of its kernels), from the first of five windows that recorded all
+        ``n`` launches; None when none did."""
+        for _ in range(3):
+            fn()
+        for _ in range(5):
+            got = [(c, ms) for name, c, ms in kernel_rows(fn, n)
+                   if names[kernel] in name]
+            if sum(c for c, _ in got) == n:
+                return sum(ms for _, ms in got)
+        return None
+
+    for label, (kernel, fn, shape, mode, ext, coeffs, translated,
+                _) in cases.items():
+        data, init = fields[shape]
+        row = dict(kernel=kernel, translated=translated, nwin=nwin_of(ext),
+                   ncoeffs=len(coeffs), shape=list(shape), checks={})
+        tile = TILE_BYTES_3D if len(shape) == 3 else TILE_BYTES
+        for bc in ("periodic", "np"):
+            kw = dict(bc=bc, mode=mode, coeffs=coeffs, extents=ext)
+            t0 = time.perf_counter()
+            plan = rt.create(fn, shape, **kw)
+            create_s = time.perf_counter() - t0
+            plain = rt.create(fn, shape, backend="torch", **kw)
+            streamed = rt.create(fn, shape, streams=STREAMS,
+                                 max_tile_bytes=tile, **kw)
+            oi = init if bc == "np" else None
+            got, n = counts_of(lambda p=plan: p.apply(data, oi))
+            if n[kernel] != 1 or sum(n.values()) != 1:
+                raise PhaseError(f"point_fn {label} {bc}: launches {n}")
+            launches[kernel] = launches.get(kernel, 0) + 1
+            want = plain.apply(data, oi)
+            err = float((got - want).abs().max())
+            limit = tol["atol"] + tol["rtol"] * float(want.abs().max())
+            chunked, ns = counts_of(lambda p=streamed: p.apply(data, oi))
+            same = bool(torch.equal(chunked, got))
+            ok = bool(torch.isfinite(got).all()) and err <= limit and same \
+                and ns[kernel] > 1
+            row["checks"][bc] = dict(
+                max_abs_err=err, limit=limit,
+                bit_for_bit_plain=bool(torch.equal(got, want)),
+                streamed_chunks=ns[kernel], streamed_bit_for_bit=same,
+                create_s=create_s, ok=ok)
+            print(f"[point_fn] {'ok ' if ok else 'BAD'} {label} {bc}: "
+                  f"max|err| {err:.3e} <= {limit:.3e}, bit for bit the plain "
+                  f"version {row['checks'][bc]['bit_for_bit_plain']}; "
+                  f"streamed ({ns[kernel]} launches) bit for bit {same}; "
+                  f"Create {create_s:.3f} s", flush=True)
+            if not ok:
+                raise PhaseError(f"point_fn {label} {bc}: {row['checks'][bc]}")
+            if bc == "periodic":
+                row["ms"] = kernel_ms(lambda p=plan: p.apply(data), kernel)
+                row["event_ms"] = time_ms(lambda p=plan: p.apply(data))
+                row["plain_ms"] = time_ms(lambda p=plain: p.apply(data), n=5,
+                                          warmup=1)
+            del plan, plain, streamed, got, want, chunked
+        npts = data.numel()
+        if translated:
+            source = sources[label][0]
+            row["build_seconds"] = builds[sources[label]]["seconds"]
+            ops_pt = sum(len(POINT_FN_OPS.findall(line))
+                         for line in source.splitlines()
+                         if line.startswith("  const "))
+        elif fn is hand:
+            source = MIXED_SOURCE
+            row["build_seconds"] = _build.point_fn_build(
+                MIXED_SOURCE, row["nwin"])["seconds"]
+            ops_pt = 3
+        else:  # the cube tag: c (w^3 - w) a non-zero tap, summed
+            taps = sum(1 for c in coeffs if c != 0.0)
+            source, ops_pt = None, 5 * taps - 1
+        t_bytes = 2 * npts * 8 / HBM_BYTES_PER_S * 1e3
+        t_ops = ops_pt * npts / PEAK_FLOPS["float64"] * 1e3
+        row.update(ops_per_point=ops_pt, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        rows[label] = row
+        ms = "not measured" if row["ms"] is None else f"{row['ms']:.4f}"
+        print(f"[point_fn] {label}: {ms} ms (events {row['event_ms']:.4f}; "
+              f"plain {row['plain_ms']:.3f}) against a bound of "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+              f"({ops_pt} operations a point)", flush=True)
+    pairs = {label: dict(ms=rows[label]["ms"], beside=other,
+                         beside_ms=rows[other]["ms"])
+             for label, (*_, other) in cases.items() if other}
+
+    # a function the translator refuses: at Create, and at a launch
+    data, _ = fields[n2]
+    try:
+        rt.create(window_sum, n2, coeffs=[1.0], extents=dict(left=1, right=1))
+    except NotImplementedError as e:
+        refused = str(e)
+    else:
+        raise PhaseError("a refused point function was made into a plan")
+    if "aten.sum.default" not in refused:
+        raise PhaseError(f"the refusal does not name its op: {refused}")
+
+    def launch_refused():
+        try:
+            ops.stencil_apply(data, torch.ones(1, dtype=torch.float64,
+                                               device=dev),
+                              point_fn=window_sum, left=1, right=1)
+        except NotImplementedError:
+            return True
+        return False
+
+    raised, n = counts_of(launch_refused)
+    if not raised or sum(n.values()):
+        raise PhaseError(f"a refused point function launched: {n}")
+    rec = dict(cases=rows, pairs=pairs, build_wall_seconds=build_wall,
+               refused=refused.split(".  ")[0], launches=launches,
+               seconds=time.perf_counter() - t_phase)
+    print(f"[point_fn] phase 4r: {rec['seconds']:.1f} s; refused on the "
+          f"card: {rec['refused']}", flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -4526,6 +4797,10 @@ def main() -> int:
     dry_rec = dryrun_phase()
     record["dryrun"] = dry_rec
 
+    # -- 4r. Python point functions translated for the stencil kernels --------
+    pf_rec = point_fn_phase(counts_of)
+    record["point_fn"] = pf_rec
+
     # -- 6. result lines -----------------------------------------------------
     # launches: each kernel's count from the run of the path it serves
     path_launches = dict(
@@ -4635,6 +4910,7 @@ def main() -> int:
             "train_comm_counts", "decode_comm_counts")}
             for r in shard_rec["configs"]}}}))
     print(json.dumps({"dryrun": dry_rec}))
+    print(json.dumps({"point_fn": pf_rec}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -50,6 +50,7 @@ from repro_torch.kernels.stencil1d_batch import (
     stencil1d_batch_geometry,
 )
 from repro_torch.kernels.stencil2d import (
+    library_point_fn_id,
     stencil2d_geometries,
     stencil2d_geometry,
     user_point_source,
@@ -307,14 +308,17 @@ class PlanCore:
                                    geometry=best.get("geometry"))
 
 
-def _build_point_fn(point_fn: Callable, nwin: int, device, backend: str) -> None:
+def _build_point_fn(point_fn: Callable, nwin: int, ncoeffs: int, device,
+                    backend: str) -> None:
     """Create's build of a user's point function for a plan on a card: its
-    CUDA source compiled into the stencil libraries for ``nwin`` windows
-    (``_build.point_fn_build``), so a compile error raises here."""
-    source = user_point_source(point_fn)
-    if (source is not None and backend in ("auto", "cuda")
+    CUDA source, given or translated from the Python function, compiled
+    into the stencil libraries for ``nwin`` windows
+    (``_build.point_fn_build``), so a refused function or a compile error
+    raises here."""
+    if (library_point_fn_id(point_fn) is None
+            and backend in ("auto", "cuda")
             and resolve_device(device).type == "cuda"):
-        point_fn_build(source, nwin)
+        point_fn_build(user_point_source(point_fn, nwin, ncoeffs), nwin)
 
 
 def _finish_plan(plan: PlanCore, shape, tune: str = "off",
@@ -347,7 +351,7 @@ def plan_taps_of(coeffs_t: torch.Tensor, point_fn: Callable, halos):
     kernel sums (:func:`repro_torch.kernels.taps.plan_taps`; halos in the
     3D order)."""
     return plan_taps(coeffs_t, halos,
-                     user=user_point_source(point_fn) is not None)
+                     user=library_point_fn_id(point_fn) is None)
 
 
 def plan_destroy(plan) -> None:
@@ -528,8 +532,8 @@ def _create_2d(
         if coeffs is None:
             coeffs = np.zeros((1,), np.float32)
         coeffs_t, point_fn = tensor(_host(coeffs)), func
-        _build_point_fn(func, (left + right + 1) * (top + bottom + 1), device,
-                        backend)
+        _build_point_fn(func, (left + right + 1) * (top + bottom + 1),
+                        coeffs_t.numel(), device, backend)
 
     plan = Stencil2D(
         direction=direction, bc=bc, left=left, right=right, top=top,
@@ -656,7 +660,8 @@ def _create_1d_batch(
         if coeffs is None:
             coeffs = np.zeros((1,), np.float32)
         coeffs_t, point_fn = tensor(_host(coeffs)), func
-        _build_point_fn(func, left + right + 1, device, backend)
+        _build_point_fn(func, left + right + 1, coeffs_t.numel(), device,
+                        backend)
     plan = StencilBatch1D(
         bc=bc, left=left, right=right, coeffs=coeffs_t, point_fn=point_fn,
         backend=backend, op_name=op_name,
@@ -816,7 +821,7 @@ def _create_3d(
         coeffs_t, point_fn = tensor(_host(coeffs)), func
     halos = (front, back, top, bottom, left, right)
     nwin = (front + back + 1) * (top + bottom + 1) * (left + right + 1)
-    _build_point_fn(point_fn, nwin, device, backend)
+    _build_point_fn(point_fn, nwin, coeffs_t.numel(), device, backend)
     plan = Stencil3D(
         direction=direction, bc=bc, front=front, back=back, top=top,
         bottom=bottom, left=left, right=right, coeffs=coeffs_t,

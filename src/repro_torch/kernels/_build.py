@@ -111,6 +111,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 _lock = threading.Lock()
 _state: dict = {}
 _point_fn_state: dict = {}  # (point source, NWIN) -> build
+_point_fn_locks: dict = {}  # (point source, NWIN) -> its build's lock
 
 # library loads of each build directory in this process (the audit's
 # rebuild_budget rule reads them)
@@ -297,15 +298,20 @@ def _build_and_load() -> dict:
 
 def point_fn_build(source: str, nwin: int) -> dict:
     """Build (once per process, point source and NWIN) and load the three
-    stencil libraries with a user's point function; returns ``{'libs',
-    'seconds', 'log', 'dir'}`` as :func:`build` does.  Raises
+    stencil libraries with a user's point function (builds of other
+    sources and NWIN may run at the same time, from other threads);
+    returns ``{'libs', 'seconds', 'log', 'dir'}`` as :func:`build` does.
+    Raises
     ``RuntimeError`` with nvcc's output when the source does not
     compile."""
     key = (source, int(nwin))
     got = _point_fn_state.get(key)
     if got is not None:
         return got
+    # one lock a build, so that builds of other sources run side by side
     with _lock:
+        key_lock = _point_fn_locks.setdefault(key, threading.Lock())
+    with key_lock:
         if key not in _point_fn_state:
             t0 = time.perf_counter()
             out_dir = BUILD_ROOT / point_fn_key(source, nwin)

@@ -12,7 +12,7 @@ y each thread marches down one line holding its window in registers
 (:func:`stencil1d_batch_geometry`).  A weighted or cube plan is reduced at
 Create to its non-zero taps (:mod:`repro_torch.kernels.taps`).  Point
 functions are selected by their ``device_point_fn`` tag or run from their
-CUDA source, as for the 2D stencil.
+CUDA source, given or translated from Python, as for the 2D stencil.
 """
 
 from __future__ import annotations
@@ -175,7 +175,8 @@ def stencil1d_batch_cuda(
     if min(left, right) < 0:
         raise ValueError("stencil extents must be >= 0")
     B, M = data.shape
-    fn_id, libs = device_point_fn(point_fn, left + right + 1)
+    fn_id, libs = device_point_fn(point_fn, left + right + 1,
+                                  coeffs.numel())
     rows = data.is_contiguous()
     base = data if rows else data.T
     _build.check_cuda(base, "data (or its transpose)", like=data,

@@ -12,10 +12,11 @@ kernel takes as a launch parameter.  The function-pointer mode runs a
 compile-time device point function.  A
 Python ``point_fn`` names its device counterpart with a
 ``device_point_fn`` tag (see :data:`DEVICE_POINT_FNS`), or carries the
-CUDA C++ source of its own (:func:`cuda_point_fn`), which the stencil
-libraries are built with (``_build.point_fn_build``); the Python function
-stays the plain version.  A point function with neither is refused on the
-card.
+CUDA C++ source of its own (:func:`cuda_point_fn`), or is translated into
+such source (:mod:`repro_torch.kernels.point_fn`); the stencil libraries
+are built with the source (``_build.point_fn_build``), and the Python
+function stays the plain version.  A point function the translator
+refuses, with neither tag nor source, is refused on the card.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.point_fn import translated_source
 from repro_torch.kernels.ref import stencil2d_ref, weighted_point_fn
 from repro_torch.kernels.taps import Taps, c_taps, halos_2d
 from repro_torch.util import ceil_div
@@ -116,41 +118,51 @@ def cuda_point_fn(source: str) -> Callable:
     return attach
 
 
-def user_point_source(point_fn: Callable) -> str | None:
-    """The CUDA source a point function runs from on the card (one given
-    with :func:`cuda_point_fn` and without a library tag), else None."""
-    if getattr(point_fn, "device_point_fn", None) in DEVICE_POINT_FNS:
+def library_point_fn_id(point_fn: Callable) -> int | None:
+    """The kernel's own id of a point function with a library tag
+    (:data:`DEVICE_POINT_FNS`), else None."""
+    return DEVICE_POINT_FNS.get(getattr(point_fn, "device_point_fn", None))
+
+
+def user_point_source(point_fn: Callable, nwin: int,
+                      ncoeffs: int) -> str | None:
+    """The CUDA source a point function over ``nwin`` windows and
+    ``ncoeffs`` coefficients runs from on the card: None for one with a
+    library tag, the source given with :func:`cuda_point_fn`, else the
+    Python function translated
+    (:func:`repro_torch.kernels.point_fn.translated_source`), which raises
+    ``NotImplementedError`` for a function the translator refuses."""
+    if library_point_fn_id(point_fn) is not None:
         return None
     source = getattr(point_fn, "device_point_source", None)
-    return source if isinstance(source, str) else None
+    if isinstance(source, str):
+        return source
+    return translated_source(point_fn, nwin, ncoeffs)
 
 
-def device_point_fn_id(point_fn: Callable) -> int:
+def device_point_fn_id(point_fn: Callable, nwin: int, ncoeffs: int) -> int:
     """The CUDA kernel's id for ``point_fn``: its tag's, or
-    ``_build.USER_POINT_FN`` for one with CUDA source; raises for one
-    with neither."""
-    tag = getattr(point_fn, "device_point_fn", None)
-    if tag in DEVICE_POINT_FNS:
-        return DEVICE_POINT_FNS[tag]
-    if user_point_source(point_fn) is not None:
-        return _build.USER_POINT_FN
-    raise NotImplementedError(
-        f"point_fn {getattr(point_fn, '__name__', point_fn)!r} has no "
-        f"CUDA counterpart (device_point_fn tag {tag!r}; the kernel "
-        f"knows {sorted(DEVICE_POINT_FNS)}, or give its CUDA source with "
-        "cuda_point_fn)"
-    )
+    ``_build.USER_POINT_FN`` for a user's (its CUDA source, given or
+    translated); raises ``NotImplementedError`` for a function with
+    neither tag nor source that the translator refuses."""
+    fn_id = library_point_fn_id(point_fn)
+    if fn_id is not None:
+        return fn_id
+    user_point_source(point_fn, nwin, ncoeffs)
+    return _build.USER_POINT_FN
 
 
-def device_point_fn(point_fn: Callable, nwin: int) -> tuple[int, dict | None]:
+def device_point_fn(point_fn: Callable, nwin: int,
+                    ncoeffs: int) -> tuple[int, dict | None]:
     """``(id, libraries)`` a launch of ``point_fn`` over ``nwin`` windows
-    takes: a user point function's own build (made on first use; a plan
-    makes it at Create), else None for the library's own."""
-    fn_id = device_point_fn_id(point_fn)
-    if fn_id != _build.USER_POINT_FN:
+    and ``ncoeffs`` coefficients takes: a user point function's own build
+    (made on first use; a plan makes it at Create), else None for the
+    library's own."""
+    fn_id = library_point_fn_id(point_fn)
+    if fn_id is not None:
         return fn_id, None
-    return fn_id, _build.point_fn_build(user_point_source(point_fn),
-                                        nwin)["libs"]
+    return _build.USER_POINT_FN, _build.point_fn_build(
+        user_point_source(point_fn, nwin, ncoeffs), nwin)["libs"]
 
 
 def coeffs_shape(fn_id: int, n_sten: int, coeffs: torch.Tensor) -> tuple:
@@ -201,7 +213,7 @@ def stencil2d_cuda(
     if nb < 1:
         raise ValueError("a stack holds at least one field")
     n_sten = (left + right + 1) * (top + bottom + 1)
-    fn_id, libs = device_point_fn(point_fn, n_sten)
+    fn_id, libs = device_point_fn(point_fn, n_sten, coeffs.numel())
     _build.check_cuda(data, "data", like=data, shape=data.shape)
     _build.check_cuda(coeffs, "coeffs", like=data,
                       shape=coeffs_shape(fn_id, n_sten, coeffs))

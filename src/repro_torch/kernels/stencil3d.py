@@ -9,8 +9,8 @@ take a direct route, one point a thread.  A weighted or cube plan is
 reduced at Create to its non-zero taps
 (:func:`repro_torch.kernels.taps.nonzero_taps`), which the kernel takes as
 a launch parameter.  Point functions are selected by
-their ``device_point_fn`` tag or run from their CUDA source, as for the
-2D stencil.  A launch may compute a window of planes ``[k0, k1)`` into a
+their ``device_point_fn`` tag or run from their CUDA source, given or
+translated from Python, as for the 2D stencil.  A launch may compute a window of planes ``[k0, k1)`` into a
 given output, its halo planes read from the whole field: the z-slabs of
 :func:`repro_torch.launch.stream.stream_stencil3d_apply`.
 """
@@ -159,7 +159,7 @@ def stencil3d_cuda(
         raise ValueError(f"data must be (nz, ny, nx), got shape {tuple(data.shape)}")
     shape = tuple(data.shape)
     n_sten = (fr + bk + 1) * (tp + bt + 1) * (lf + rt + 1)
-    fn_id, libs = device_point_fn(point_fn, n_sten)
+    fn_id, libs = device_point_fn(point_fn, n_sten, coeffs.numel())
     _build.check_cuda(data, "data", like=data, shape=shape)
     _build.check_cuda(coeffs, "coeffs", like=data,
                       shape=coeffs_shape(fn_id, n_sten, coeffs))

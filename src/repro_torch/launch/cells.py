@@ -90,10 +90,11 @@ def make_shardings(cfg: ArchConfig, mesh, shape_name: str) -> Shardings:
 def stand_in(shape, dtype, mesh, spec: P):
     """A DTensor of ``shape`` and ``dtype`` with ``spec``'s placements on
     ``mesh`` whose local shard is made by the tensor mode in force (a fake
-    tensor under ``FakeTensorMode``)."""
+    tensor under ``FakeTensorMode``).  ``spec`` is taken as given: where
+    its axes do not divide a dim, this rank's shard is a short one
+    (:func:`~repro_torch.runtime.sharding.local_shape`)."""
     from torch.distributed.tensor import DTensor
 
-    spec = _fit_spec(spec, len(shape), tuple(shape), mesh)
     local = torch.empty(local_shape(shape, spec, mesh), dtype=dtype)
     return DTensor.from_local(local, mesh, spec_placements(spec, mesh),
                               run_check=False, shape=torch.Size(shape),
@@ -412,7 +413,9 @@ def build_cell(arch: str | ArchConfig, shape_name: str, mesh, *,
             step = make_train_step(model, sh=sh, lr=lr, param_specs=pspecs,
                                    donate=True)
             oshapes = step.optimizer.init(pshapes)
-            ospecs = state_specs(cfg.optimizer, pspecs, pshapes)
+            ospecs = zip_specs(
+                lambda x, sp: _fit_spec(sp, x.ndim, tuple(x.shape), mesh),
+                oshapes, state_specs(cfg.optimizer, pspecs, pshapes))
             ostate = stand_ins(oshapes, ospecs)
             return Cell(name, shape_name, step, (params, ostate, bspecs),
                         donate=(0, 1), model=model, sh=sh, mode=mode)

@@ -191,6 +191,10 @@ def _moe_sharded(params, x, cfg: MoEConfig, *, activation: str,
     b, s, _ = x.shape
     e = cfg.num_experts
     bat = spmd.sharded_axes(x, 0)
+    if b % spmd.axes_size(mesh, bat):
+        # an uneven batch (short or empty shards): the GShard groups span
+        # ranks, so every rank routes the whole batch instead
+        bat = ()
     eax = tuple(a for a in spmd.sharded_axes(params["experts"]["w_up"], 0)
                 if a not in bat)
     t_loc = b * s // spmd.axes_size(mesh, bat)

@@ -17,8 +17,13 @@ A spec is the reference's ``PartitionSpec``: one entry a tensor dim, each
 ``None``, a mesh-axis name or a tuple of names (:class:`P`).  On the mesh it
 becomes DTensor placements, one a mesh dim (:func:`spec_placements`).
 Param specs are inferred from leaf *path names* by the reference's regex
-table; unmatched leaves are replicated.  An axis that does not divide its
-dim is dropped (:func:`_fit_spec`), so no shard is uneven.
+table; unmatched leaves are replicated.  In the specs of params, optimizer
+state and caches an axis that does not divide its dim is dropped
+(:func:`_fit_spec`), as in the reference.  The activations' batch entry is
+not fitted, as the reference's is not: a batch that the data-parallel
+axes do not divide is sharded unevenly (DTensor's ``Shard`` splits as
+``torch.chunk`` does, so ranks past the data hold short or empty shards;
+XLA pads them instead, which gives each device the same peak).
 
 ``Shardings`` is the runtime handle passed into the model functions; with
 ``Shardings.none()`` every constraint is the identity (single-device runs
@@ -220,12 +225,17 @@ def placements_spec(placements, mesh, ndim: int) -> P:
 
 
 def local_shape(shape, spec: P, mesh) -> tuple[int, ...]:
-    """The shape of one rank's shard of a tensor of ``shape`` under
-    ``spec`` (every axis divides, as :func:`_fit_spec` makes it)."""
+    """The shape of this rank's shard of a tensor of ``shape`` under
+    ``spec``.  A dim is split over its axes in the mesh's order, each split
+    as DTensor's ``Shard`` does (``torch.chunk``): where the axes do not
+    divide the dim, the ranks past the data hold short or empty shards."""
+    coord = mesh.get_coordinate()
     out = list(shape)
-    for d, ent in enumerate(spec):
-        for a in _axes(ent):
-            out[d] //= axis_size(mesh, a)
+    for i, name in enumerate(mesh.mesh_dim_names):
+        for d, ent in enumerate(spec):
+            if name in _axes(ent):
+                full = -(-out[d] // mesh.size(i))
+                out[d] = max(0, min(full, out[d] - coord[i] * full))
     return tuple(out)
 
 
@@ -334,7 +344,12 @@ class Shardings:
                 "a Shardings with a mesh constrains DTensors; got a "
                 f"{type(x).__name__} (shard the params and inputs first)")
         spec = P(*entries, *([None] * (x.ndim - len(entries))))
-        spec = _fit_spec(spec, x.ndim, tuple(x.shape), self.mesh)
+        # the batch as given (an uneven shard where its axes do not divide
+        # it); the other dims fitted: DTensor cannot flatten an unevenly
+        # sharded dim, as the heads are flattened back after attention
+        fitted = list(_fit_spec(spec, x.ndim, tuple(x.shape), self.mesh))
+        fitted += [None] * (x.ndim - len(fitted))
+        spec = P(spec[0], *fitted[1:])
         return x.redistribute(self.mesh, spec_placements(spec, self.mesh))
 
     # logical constraint points used by the models

@@ -90,7 +90,7 @@ def local_call(fn, mesh, args, in_placements, out_placements,
     tensor)."""
     from torch.distributed.tensor import DTensor, Replicate
 
-    locs = []
+    locs, known = [], {}
     for i, (a, pl) in enumerate(zip(args, in_placements)):
         if pl is None or not isinstance(a, torch.Tensor):
             locs.append(a)
@@ -107,14 +107,51 @@ def local_call(fn, mesh, args, in_placements, out_placements,
             gp = [c if o else g for c, g, o in zip(a.placements, gp, one)]
         a = a.redistribute(mesh, pl)
         locs.append(a.to_local(grad_placements=gp))
+        for d in range(a.ndim):
+            known.setdefault(_mesh_dims(a.placements, d, a.ndim), []).append(
+                (locs[-1].shape[d], a.shape[d]))
     out = fn(*locs)
     single = not isinstance(out, tuple)
     outs = (out,) if single else out
     pls = (out_placements,) if single else out_placements
     wrapped = tuple(
-        o if pl is None else DTensor.from_local(o, mesh, pl, run_check=False)
+        o if pl is None else _from_local(o, mesh, pl, known)
         for o, pl in zip(outs, pls))
     return wrapped[0] if single else wrapped
+
+
+def _mesh_dims(placements, dim: int, ndim: int) -> tuple[int, ...]:
+    """The mesh dims over which ``placements`` shard tensor dim ``dim``."""
+    from torch.distributed.tensor import Shard
+
+    return tuple(i for i, p in enumerate(placements)
+                 if isinstance(p, Shard) and p.dim % ndim == dim)
+
+
+def _from_local(o, mesh, placements, known):
+    """``o``, this rank's shard, as a DTensor of ``placements``.  A dim
+    sharded over the same mesh dims as an argument's dim of the same local
+    size (the batch rows a local region keeps) takes that dim's global
+    size, which may be uneven (:func:`local_call`'s arguments as DTensor
+    shards them: short or empty shards past the data); any other sharded
+    dim is taken as even, as ``DTensor.from_local`` takes every dim."""
+    from torch.distributed.tensor import DTensor
+
+    shape, even = list(o.shape), list(o.shape)
+    for d in range(o.ndim):
+        dims = _mesh_dims(placements, d, o.ndim)
+        if dims:
+            for i in dims:
+                even[d] *= mesh.size(i)
+            same = [g for n, g in known.get(dims, ()) if n == o.shape[d]]
+            shape[d] = same[0] if same else even[d]
+    if shape == even:
+        return DTensor.from_local(o, mesh, placements, run_check=False)
+    stride = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * shape[d + 1]
+    return DTensor.from_local(o, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
 
 
 def batch_local(fn, x, *weights):

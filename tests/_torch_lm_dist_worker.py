@@ -3,7 +3,7 @@
 Run as ``python _torch_lm_dist_worker.py RANK WORLD INIT_FILE GROUP IN_PKL
 OUT_DIR``: joins the world on a ``file://`` store, builds the ``(pod, data,
 model) = (2, 2, 2)`` mesh, runs the cases of ``GROUP`` (``grads``,
-``train`` or ``decode``) on the inputs pickled in ``IN_PKL`` (the
+``train`` with the uneven batches, or ``decode``) on the inputs pickled in ``IN_PKL`` (the
 reference's weights as numpy, the batches) and writes, on rank 0, the
 gathered results to ``OUT_DIR/out.pkl``; every rank writes its checks
 (local shapes against its specs' shards, the decode's writes, collective
@@ -126,6 +126,50 @@ def train_group(inp, mesh, report, out, tmp):
                                         **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class _RowsSeen(Shardings):
+    """A handle that records, at each activation constraint, this rank's
+    rows and the global rows of the constrained batch dim."""
+
+    seen: list = dataclasses.field(default_factory=list, compare=False)
+
+    def _c(self, x, *entries):
+        out = super()._c(x, *entries)
+        self.seen.append((out.to_local().shape[0], out.shape[0]))
+        return out
+
+
+def uneven_group(inp, mesh, report, out):
+    """Batches that ``pod x data`` (4 ranks) does not divide: the loss and
+    grads of a batch of 3 (ranks hold 1, 1, 1 and 0 rows) for a dense, an
+    MoE and a recurrent arch, and yi-9b's train step (accum 2) on a batch
+    of 6, whose microbatches of 3 are sharded so."""
+    dp = ("pod", "data")
+    for arch, case in inp["uneven"].items():
+        cfg = get_config(arch).reduced()
+        model = build_model(cfg, device="cpu")
+        params = convert.lm_params(case["params"], cfg, device="cpu",
+                                   mesh=mesh)
+        sh = _RowsSeen(mesh=mesh, dp_axes=dp)
+        loss, grads = cells.value_and_grad(model, params,
+                                           _rows(case["batch"], mesh, dp), sh)
+        out[f"uneven/{arch}"] = {"loss": loss.full_tensor().numpy(),
+                                 "grads": _full(grads)}
+        report[f"uneven/{arch}"] = {"rows": sh.seen}
+        if "train_batch" in case:
+            specs = infer_param_specs(param_shapes(cfg), mesh)
+            sh = _RowsSeen(mesh=mesh, dp_axes=dp)
+            step = cells.make_train_step(model, sh=sh, accum=2,
+                                         param_specs=specs)
+            state = step.optimizer.init(params)
+            params, state, m = step(params, state,
+                                    _rows(case["train_batch"], mesh, dp))
+            out[f"uneven/{arch}/train"] = {
+                "loss": m["loss"].full_tensor().numpy(),
+                "params": _full(params)}
+            report[f"uneven/{arch}/train"] = {"rows": sh.seen}
+
+
 def _blocks_check(mesh):
     """adamw8bit's blocks of leaves on each layout a spec can give,
     against the whole leaf's: {layout: codes, scales and values equal}."""
@@ -236,6 +280,7 @@ def main(rank, world, init_file, group, in_pkl, out_dir):
         grads_group(inp, mesh, report, out)
     elif group == "train":
         train_group(inp, mesh, report, out, out_dir)
+        uneven_group(inp, mesh, report, out)
     else:
         decode_group(inp, mesh, report, out)
     with open(f"{out_dir}/rank{rank}.json", "w") as f:

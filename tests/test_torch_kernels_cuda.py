@@ -12,8 +12,9 @@ need not have.)
 ``chip_smoke.py`` runs the same comparisons at the main path's sizes.
 Tolerances as in ``chip_smoke.py`` (norm-wise ``tolerance_for`` scales):
 10 for the 2D, batched-1D and 3D stencils, the two RHS kernels and WENO,
-100 for the recurrences.  A user's point function (CUDA source) is built
-at Create into its own copy of the stencil libraries.
+100 for the recurrences.  A user's point function (CUDA source, or a
+plain PyTorch function translated by ``repro_torch.kernels.point_fn``) is
+built at Create into its own copy of the stencil libraries.
 """
 
 import os
@@ -258,11 +259,96 @@ def test_user_point_fn_in_every_stencil_kernel(cuda, bc, dtype):
             streamed = create(mixed_point_fn, shape, streams=2,
                               max_tile_bytes=4096, **kw)
             assert torch.equal(streamed.apply(data, init), got), kernel
-    # a plain callable is still refused on the card
-    plan = create(lambda w, c: w[0], (8, 8), coeffs=coeffs,
-                  extents=dict(left=1, right=1), dtype=dtype)
-    with pytest.raises(NotImplementedError, match="no CUDA counterpart"):
-        plan.apply(_field((8, 8), dtype, cuda, 23))
+    # a plain callable the translator refuses raises on the card, at
+    # Create and at a launch; none runs the plain version
+    with pytest.raises(NotImplementedError,
+                       match="no CUDA counterpart: aten.sum.default"):
+        create(_window_sum, (8, 8), coeffs=coeffs,
+               extents=dict(left=1, right=1), dtype=dtype)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(NotImplementedError,
+                       match="no CUDA counterpart: aten.sum.default"):
+        ops.stencil_apply(_field((8, 8), dtype, cuda, 23),
+                          torch.ones(1, dtype=dtype, device=cuda),
+                          point_fn=_window_sum, left=1, right=1)
+    assert _build.LAUNCHES == before
+
+
+def _window_sum(windows, coeffs):
+    """Not a point function the translator takes: a reduction."""
+    return windows[0].sum() * coeffs[0]
+
+
+def _central_difference(windows, coe):  # examples/quickstart.py
+    return coe[0] * (windows[0] - 2.0 * windows[1] + windows[2])
+
+
+def _cube_sum(windows, coe):  # tests/test_kernels_allclose.py
+    return sum(c * (w * w * w - w) for c, w in zip(coe, windows, strict=True))
+
+
+def _square_sum(windows, coe):  # tests/test_stencil3d.py
+    return sum(c * w * w for c, w in zip(coe, windows, strict=True))
+
+
+def _bare_mixed(windows, coeffs):  # mixed_point_fn without its source
+    return windows[0] * windows[1] - coeffs[0] * windows[2]
+
+
+def _where_pow_sin(windows, coe):
+    w0, w1, w2 = windows[0], windows[1], windows[2]
+    return (coe[0] * (w0 - 2.0 * w1 + w2)
+            + torch.where(w1 > 0, w1 ** 3, -w1) + torch.sin(w0))
+
+
+# (kernel, shape, mode, extents) of the three plan families, and the
+# translated functions with their coefficient count (None: one a window)
+TRANSLATED_PLANS = [
+    ("stencil2d", (37, 29), "x", dict(left=1, right=1)),
+    ("stencil2d", (37, 29), None, dict(left=1, right=1, top=1, bottom=1)),
+    ("stencil1d_batch", (37, 29), "batch", dict(left=1, right=1)),
+    ("stencil3d", (11, 13, 35), "z", dict(front=1, back=1)),
+    ("stencil3d", (11, 13, 35), None,
+     dict(front=1, back=1, top=1, bottom=1, left=1, right=1)),
+]
+TRANSLATED_FNS = [(_central_difference, 1), (_cube_sum, None),
+                  (_square_sum, None), (_bare_mixed, 1), (_where_pow_sin, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("bc", ["periodic", "np"])
+@pytest.mark.parametrize("fn", [f for f, _ in TRANSLATED_FNS],
+                         ids=[f.__name__ for f, _ in TRANSLATED_FNS])
+def test_translated_point_fn_in_every_stencil_kernel(cuda, fn, bc, dtype):
+    """A plain Python point function with no CUDA source through rank-2,
+    batch and rank-3 plans: translated and built at Create, launched on
+    the card (the counters say so), within the stencil tolerance of the
+    plain path; np with out_init; a streamed plan bit for bit its
+    monolithic launch."""
+    ncoeffs = dict(TRANSLATED_FNS)[fn]
+    for kernel, shape, mode, extents in TRANSLATED_PLANS:
+        nwin = 1
+        for lo, hi in zip(list(extents.values())[::2],
+                          list(extents.values())[1::2]):
+            nwin *= lo + hi + 1
+        coeffs = np.random.default_rng(nwin).uniform(
+            0.5, 1.5, ncoeffs or nwin)
+        kw = dict(bc=bc, mode=mode, coeffs=coeffs, extents=extents,
+                  dtype=dtype)
+        plan = create(fn, shape, **kw)
+        plain = create(fn, shape, backend="torch", **kw)
+        data = _field(shape, dtype, cuda, 24)
+        init = _field(shape, dtype, cuda, 25) if bc == "np" else None
+        before = _build.LAUNCHES[kernel]
+        got = plan.apply(data, init)
+        assert _build.LAUNCHES[kernel] == before + 1, kernel
+        _assert_close(got, plain.apply(data, init), dtype, 10)
+        per_chunk = data[0].numel() * data.element_size() * 3
+        streamed = create(fn, shape, streams=2, max_tile_bytes=per_chunk,
+                          **kw)
+        before = _build.LAUNCHES[kernel]
+        assert torch.equal(streamed.apply(data, init), got), kernel
+        assert _build.LAUNCHES[kernel] > before + 1, kernel
 
 
 def test_user_point_fn_compile_error_raises_at_create(cuda):
@@ -1085,6 +1171,7 @@ def test_streamed_objects_race_no_geometry(cuda, tmp_path):
 # -- the card: a one-rank NCCL world ----------------------------------------
 
 _NCCL_SCRIPT = textwrap.dedent("""
+    import dataclasses
     import numpy as np, torch, torch.distributed as dist
     import repro_torch as rt
     from repro_torch.core import domain as D
@@ -1126,26 +1213,34 @@ _NCCL_SCRIPT = textwrap.dedent("""
     def mixed(windows, coeffs):
         return windows[0] * windows[1] - coeffs[0] * windows[2]
 
-    def plain(windows, coeffs):
-        return windows[0] - coeffs[0] * windows[2]
+    def plain(windows, coeffs):  # translated at Create
+        return windows[0] - coeffs[0] * windows[2] ** 3
+
+    def refused(windows, coeffs):
+        return windows[0].sum() * coeffs[0]
 
     ext = dict(left=1, right=1, top=1, bottom=1)
     for fn, coeffs in ((cube_laplacian_point_fn, np.arange(9.0)),
-                       (mixed, np.array([0.5]))):
+                       (mixed, np.array([0.5])), (plain, np.array([0.5]))):
         plan = rt.create(fn, (256, 192), mode="xy", coeffs=coeffs, extents=ext)
         want = plan.apply(f)
         for overlap in (True, False):
+            _build.reset_launches()
             got = D.distributed_stencil_apply(plan, f, dd, overlap=overlap)
+            assert _build.LAUNCHES["stencil2d"] >= 1, _build.LAUNCHES
             err = float((got.to_local() - want).abs().max())
             assert err <= tol["atol"] + tol["rtol"] * float(want.abs().max()), err
-    plan = rt.create(plain, (256, 192), mode="xy", coeffs=np.array([0.5]),
-                     extents=ext)
+    # Create refuses it on the card; a plan made for the plain path and
+    # asked for the kernel raises at the launch
+    plan = rt.create(refused, (256, 192), mode="xy", coeffs=np.array([0.5]),
+                     extents=ext, backend="torch")
     try:
-        D.distributed_stencil_apply(plan, f, dd)
-    except NotImplementedError:
-        pass
+        D.distributed_stencil_apply(dataclasses.replace(plan, backend="auto"),
+                                    f, dd)
+    except NotImplementedError as e:
+        assert "aten.sum.default" in str(e), e
     else:
-        raise AssertionError("a plain Python point function ran on the card")
+        raise AssertionError("a refused point function ran on the card")
     cfg = CHConfig(nx=128, ny=128)
     c0 = torch.as_tensor(rng.uniform(-0.1, 0.1, (128, 128)), device="cuda")
     single = CahnHilliardADI(cfg)
@@ -1167,8 +1262,9 @@ _NCCL_SCRIPT = textwrap.dedent("""
 def test_one_rank_nccl_world(cuda):
     """The distribution (``repro_torch.core.domain``, ``core.dist_ch``,
     ``stream_stencil_apply_dist``) in a one-rank NCCL world, in a
-    subprocess of its own: the distributed stencil (weighted, cube and
-    CUDA-source point functions; a plain Python one raises) and CH step
+    subprocess of its own: the distributed stencil (weighted, cube,
+    CUDA-source and translated point functions; one the translator
+    refuses raises) and CH step
     against the single-device kernels, their launches, the streamed apply
     bit for bit the unstreamed one."""
     root = Path(__file__).resolve().parents[1]

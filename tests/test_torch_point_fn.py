@@ -81,14 +81,19 @@ def test_user_point_fn_plain_path_matches_reference(family, bc):
 
 
 def test_point_fn_ids_and_refusal():
-    assert device_point_fn_id(weighted_point_fn) == 0
-    assert device_point_fn_id(cube_laplacian_point_fn) == 1
-    assert device_point_fn_id(mixed_cuda) == _build.USER_POINT_FN == 2
-    assert user_point_source(mixed_cuda) == SOURCE
+    assert device_point_fn_id(weighted_point_fn, 9, 9) == 0
+    assert device_point_fn_id(cube_laplacian_point_fn, 9, 9) == 1
+    assert device_point_fn_id(mixed_cuda, 3, 1) == _build.USER_POINT_FN == 2
+    assert user_point_source(mixed_cuda, 3, 1) == SOURCE
     # a library tag wins over source; the library's own have none
-    assert user_point_source(weighted_point_fn) is None
-    with pytest.raises(NotImplementedError, match="no CUDA counterpart"):
-        device_point_fn_id(mixed)
+    assert user_point_source(weighted_point_fn, 9, 9) is None
+    # a plain Python point function is translated; one the translator
+    # refuses (a reduction over a window) has no CUDA counterpart
+    assert device_point_fn_id(mixed, 3, 1) == _build.USER_POINT_FN
+    assert "point_fn(const T* w, const T* c)" in user_point_source(mixed, 3, 1)
+    with pytest.raises(NotImplementedError,
+                       match="no CUDA counterpart: aten.sum.default"):
+        device_point_fn_id(lambda windows, coeffs: windows[0].sum(), 3, 1)
     with pytest.raises(ValueError, match="must define point_fn"):
         cuda_point_fn("template <typename T> __device__ T f(const T* w);")
 

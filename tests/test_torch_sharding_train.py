@@ -44,6 +44,13 @@ SHARDED = tolerance_for(torch.float32, scale=10)
 REFERENCE = tolerance_for(torch.float32, scale=10)
 
 
+# batches that pod x data (4 ranks) does not divide: a dense, an MoE and a
+# recurrent arch (the flash loops and cross entropy, the MoE dispatch, the
+# WKV recurrence on short and empty shards)
+UNEVEN = ["yi-9b", "phi3.5-moe-42b-a6.6b", "rwkv6-7b"]
+DP = 4
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("lm_train")
@@ -73,9 +80,29 @@ def world(tmp_path_factory):
             rp, rs, rm = jstep(rp, rs, jax_batch(batch))
         ref[name] = (np.asarray(rm["loss"]), jax.device_get(rp),
                      jax.device_get(rs))
+    uneven = {}
+    for i, arch in enumerate(UNEVEN):
+        rcfg = ref_config(arch).reduced()
+        rmodel = ref_build(rcfg)
+        utree = tree if arch == ARCH else ref_params(rmodel, seed=10 + i)
+        rng = np.random.default_rng(10 + i)
+        b3 = make_batch(get_config(arch).reduced(), rng, B=3, S=16)
+        uneven[arch] = {"params": utree, "batch": b3}
+        loss, grads = jax.jit(jax.value_and_grad(rmodel.loss))(
+            utree, jax_batch(b3))
+        ref[f"uneven/{arch}"] = (np.asarray(loss), jax.device_get(grads))
+        if arch == ARCH:
+            b6 = make_batch(get_config(arch).reduced(), rng, B=6, S=16)
+            uneven[arch]["train_batch"] = b6
+            rstep = ref_cells.make_train_step(rmodel, sh=RefShardings.none(),
+                                              accum=2)
+            rp, _, rm = jax.jit(rstep)(utree, rstep.optimizer.init(utree),
+                                       jax_batch(b6))
+            ref[f"uneven/{arch}/train"] = (np.asarray(rm["loss"]),
+                                           jax.device_get(rp))
     out, reports = run_lm_world(
         tmp, "train", {"train": {"arch": ARCH, "params": tree,
-                                 "batch": batch}})
+                                 "batch": batch}, "uneven": uneven})
     return out, reports, want, ref
 
 
@@ -139,3 +166,43 @@ def test_train_loop_resumes_bit_for_bit(world):
     assert [m["step"] for m in out["resumed"]] == [0, 1, 2, 3]
     assert resumed == straight
     assert np.isfinite(straight).all()
+
+
+def _rows_held(reports, key):
+    return [(n, g) for rep in reports for n, g in rep[key]["rows"]]
+
+
+@pytest.mark.parametrize("arch", UNEVEN)
+def test_uneven_batch_matches_reference(world, arch):
+    """A batch of 3 on the 4 batch ranks: the activations' batch dim is
+    sharded as the reference's spec gives it, each rank holding at most
+    ceil(3 / 4) = 1 row and one of every four none; the loss and grads
+    are the reference's."""
+    out, reports, _, ref = world
+    rloss, rgrads = ref[f"uneven/{arch}"]
+    got = out[f"uneven/{arch}"]
+    _normwise(got["loss"], rloss, REFERENCE, "loss")
+    g, e = list(leaves(got["grads"])), list(leaves(tree_np(rgrads)))
+    assert [p for p, _ in g] == [p for p, _ in e]
+    for (path, a), (_, b) in zip(g, e):
+        _normwise(a, b, REFERENCE, f"{arch} grad {path}")
+    rows = _rows_held(reports, f"uneven/{arch}")
+    assert rows and all(n <= -(-g // DP) for n, g in rows), rows
+    assert any(n == 0 for n, g in rows if g == 3), rows
+
+
+def test_uneven_microbatch_train_step_matches_reference(world):
+    """yi-9b's train step on a batch of 6 in two microbatches of 3, each
+    sharded unevenly over the 4 batch ranks: the loss and the updated
+    params are the reference's jitted step's."""
+    out, reports, _, ref = world
+    rloss, rparams = ref[f"uneven/{ARCH}/train"]
+    got = out[f"uneven/{ARCH}/train"]
+    _normwise(got["loss"], rloss, REFERENCE, "loss")
+    g, e = list(leaves(got["params"])), list(leaves(tree_np(rparams)))
+    assert [p for p, _ in g] == [p for p, _ in e]
+    for (path, a), (_, b) in zip(g, e):
+        _normwise(a, b, REFERENCE, f"param {path}")
+    rows = _rows_held(reports, f"uneven/{ARCH}/train")
+    assert any(g == 3 for n, g in rows), rows
+    assert all(n <= -(-g // DP) for n, g in rows), rows

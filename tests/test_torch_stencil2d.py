@@ -127,7 +127,9 @@ def test_convert_stencil_round_trip(ref_solver):
 
 
 def test_device_point_functions():
-    assert device_point_fn_id(weighted_point_fn) == 0
-    assert device_point_fn_id(cube_laplacian_point_fn) == 1
-    with pytest.raises(NotImplementedError, match="no CUDA counterpart"):
-        device_point_fn_id(lambda windows, coeffs: windows[0])
+    assert device_point_fn_id(weighted_point_fn, 9, 9) == 0
+    assert device_point_fn_id(cube_laplacian_point_fn, 9, 9) == 1
+    with pytest.raises(NotImplementedError,
+                       match="no CUDA counterpart: aten.stack.default"):
+        device_point_fn_id(lambda windows, coeffs: torch.stack(
+            windows).amax(0), 9, 1)
