@@ -35,6 +35,7 @@ import torch
 from repro_torch.core import adi as _adi
 from repro_torch.core import stencil as _stencil
 from repro_torch.kernels.penta import diffusion_diagonals, hyperdiffusion_diagonals
+from repro_torch.runtime import spans as _spans
 
 __all__ = [
     "OperatorDef",
@@ -482,7 +483,14 @@ def compute(plan, field, *extra):
     """Apply any plan to ``field`` — the single Compute path.  Stencil plans
     take an optional ``out_init`` extra; ADI plans apply the full implicit
     solve, ``L_y^{-1} L_x^{-1}`` in 2D and ``L_z^{-1} L_y^{-1} L_x^{-1}``
-    in 3D."""
+    in 3D.  Span ``'repro.compute'``, with the plan's class as ``plan``."""
+    if _spans.ON:
+        with _spans.span("repro.compute", plan=type(plan).__name__):
+            return _compute(plan, field, *extra)
+    return _compute(plan, field, *extra)
+
+
+def _compute(plan, field, *extra):
     if getattr(plan, "_destroyed", False):
         raise ValueError("plan has been destroyed; create a new one")
     if isinstance(plan, _stencil.PlanCore):

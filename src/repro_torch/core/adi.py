@@ -47,6 +47,7 @@ from repro_torch.kernels import spectral
 from repro_torch.kernels._build import check_backend, device_info
 from repro_torch.core.stencil import StencilBatch1D
 from repro_torch.launch import stream as _stream
+from repro_torch.runtime import spans as _spans
 from repro_torch.kernels.penta import (
     CyclicPentaFactors,
     PentaFactors,
@@ -151,7 +152,13 @@ class ADIOperator:
 
     def solve_x(self, rhs: torch.Tensor) -> torch.Tensor:
         """Solve ``L_x w = rhs`` along the x (last) axis of an (ny, nx)
-        field — row layout, transpose-free."""
+        field — row layout, transpose-free (span ``'repro.adi.solve_x'``)."""
+        if _spans.ON:
+            with _spans.span("repro.adi.solve_x"):
+                return self._solve_x(rhs)
+        return self._solve_x(rhs)
+
+    def _solve_x(self, rhs: torch.Tensor) -> torch.Tensor:
         backend, geometry = _cfg(self, self.x_cfg)
         if backend == "fft":
             return _fft_sweep(self.sym_x, rhs, axis=-1)
@@ -169,7 +176,13 @@ class ADIOperator:
 
     def solve_y(self, rhs: torch.Tensor) -> torch.Tensor:
         """Solve ``L_y v = rhs`` along the y (first) axis of an (ny, nx)
-        field — column layout."""
+        field — column layout (span ``'repro.adi.solve_y'``)."""
+        if _spans.ON:
+            with _spans.span("repro.adi.solve_y"):
+                return self._solve_y(rhs)
+        return self._solve_y(rhs)
+
+    def _solve_y(self, rhs: torch.Tensor) -> torch.Tensor:
         backend, geometry = _cfg(self, self.y_cfg)
         if backend == "fft":
             return _fft_sweep(self.sym_y, rhs, axis=0)
@@ -517,7 +530,13 @@ class ADIOperator3D:
 
     def solve_x(self, rhs: torch.Tensor) -> torch.Tensor:
         """Solve ``L_x w = rhs`` along the x (last) axis — row layout on the
-        flattened ``(nz*ny, nx)`` batch."""
+        flattened ``(nz*ny, nx)`` batch (span ``'repro.adi.solve_x'``)."""
+        if _spans.ON:
+            with _spans.span("repro.adi.solve_x"):
+                return self._solve_x(rhs)
+        return self._solve_x(rhs)
+
+    def _solve_x(self, rhs: torch.Tensor) -> torch.Tensor:
         backend, geometry = _cfg(self, self.x_cfg)
         if backend == "fft":
             return _fft_sweep(self.sym_x, rhs, axis=-1)
@@ -535,7 +554,14 @@ class ADIOperator3D:
         return out.reshape(rhs.shape)
 
     def solve_y(self, rhs: torch.Tensor) -> torch.Tensor:
-        """Solve ``L_y v = rhs`` along the y (middle) axis — plane layout."""
+        """Solve ``L_y v = rhs`` along the y (middle) axis — plane layout
+        (span ``'repro.adi.solve_y'``)."""
+        if _spans.ON:
+            with _spans.span("repro.adi.solve_y"):
+                return self._solve_y(rhs)
+        return self._solve_y(rhs)
+
+    def _solve_y(self, rhs: torch.Tensor) -> torch.Tensor:
         backend, geometry = _cfg(self, self.y_cfg)
         if backend == "fft":
             return _fft_sweep(self.sym_y, rhs, axis=-2)
@@ -550,7 +576,13 @@ class ADIOperator3D:
 
     def solve_z(self, rhs: torch.Tensor) -> torch.Tensor:
         """Solve ``L_z u = rhs`` along the z (first) axis — column layout on
-        the ``(nz, ny*nx)`` view."""
+        the ``(nz, ny*nx)`` view (span ``'repro.adi.solve_z'``)."""
+        if _spans.ON:
+            with _spans.span("repro.adi.solve_z"):
+                return self._solve_z(rhs)
+        return self._solve_z(rhs)
+
+    def _solve_z(self, rhs: torch.Tensor) -> torch.Tensor:
         backend, geometry = _cfg(self, self.z_cfg)
         if backend == "fft":
             return _fft_sweep(self.sym_z, rhs, axis=-3)

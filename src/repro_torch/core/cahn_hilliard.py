@@ -63,6 +63,7 @@ from repro_torch.core.adi import apply_along_x, apply_along_y
 from repro_torch.kernels import ops as _ops
 from repro_torch.launch import stream as _stream
 from repro_torch.runtime import chaos as _chaos
+from repro_torch.runtime import spans as _spans
 from repro_torch.util import resolve_device, torch_dtype
 
 # Stencil weight tables (paper eq. 4; §V.B stencil shapes), from the registry
@@ -338,12 +339,22 @@ class CahnHilliardADI:
         """``v = L_y^{-1} L_x^{-1} rhs(c_n, c_nm1)``: the fused path
         assembles the RHS straight into the x-sweep (one kernel, or one per
         row chunk when streamed); both sweeps consume their Create-time
-        factors in their native layout."""
-        if self.cfg.rhs_mode == "fused":
-            w = self._fused_xsweep(c_n, c_nm1)
+        factors in their native layout.  The RHS (with the x-sweep, when
+        fused) is the span ``'repro.ch.rhs'``."""
+        if _spans.ON:
+            with _spans.span("repro.ch.rhs", mode=self.cfg.rhs_mode):
+                w = self._rhs_stage(c_n, c_nm1)
         else:
-            w = self.op_full.solve_x(self.rhs(c_n, c_nm1))
+            w = self._rhs_stage(c_n, c_nm1)
+        if self.cfg.rhs_mode != "fused":
+            w = self.op_full.solve_x(w)
         return self.op_full.solve_y(w)
+
+    def _rhs_stage(self, c_n: torch.Tensor, c_nm1: torch.Tensor) -> torch.Tensor:
+        """The fused x-sweep of the RHS, or the RHS alone."""
+        if self.cfg.rhs_mode == "fused":
+            return self._fused_xsweep(c_n, c_nm1)
+        return self.rhs(c_n, c_nm1)
 
     def _fused_xsweep(self, c_n: torch.Tensor, c_nm1: torch.Tensor) -> torch.Tensor:
         """``L_x^{-1} rhs(c_n, c_nm1)`` in one fused pass, streamed in row
@@ -401,14 +412,26 @@ class CahnHilliardADI:
         ``c_{n+1} = 2 c_n - c_{n-1} + v`` over the buffer that held
         ``c_{n-1}`` and swaps the pair (cuSten's pointer Swap), so the two
         buffers passed in hold the result.  The arithmetic is that of
-        :meth:`step`, rounding for rounding."""
+        :meth:`step`, rounding for rounding.  Spans: the chunk is
+        ``'repro.ch.chunk'`` (``steps=chunk``), each update
+        ``'repro.ch.update'``."""
 
-        def evolve(c_n: torch.Tensor, c_nm1: torch.Tensor):
+        def steps(c_n: torch.Tensor, c_nm1: torch.Tensor):
             for _ in range(chunk):
                 v = self._increment(c_n, c_nm1)
-                c_nm1.neg_().add_(c_n, alpha=2.0).add_(v)
+                if _spans.ON:
+                    with _spans.span("repro.ch.update"):
+                        _update(c_n, c_nm1, v)
+                else:
+                    _update(c_n, c_nm1, v)
                 c_n, c_nm1 = c_nm1, c_n
             return c_n, c_nm1
+
+        def evolve(c_n: torch.Tensor, c_nm1: torch.Tensor):
+            if _spans.ON:
+                with _spans.span("repro.ch.chunk", steps=chunk):
+                    return steps(c_n, c_nm1)
+            return steps(c_n, c_nm1)
 
         return evolve
 
@@ -419,6 +442,11 @@ class CahnHilliardADI:
         return ch_evolve(
             self, c0, n_steps, save_every=save_every, metrics_fn=metrics_fn
         )
+
+
+def _update(c_n: torch.Tensor, c_nm1: torch.Tensor, v: torch.Tensor) -> None:
+    """``c_{n+1} = 2 c_n - c_{n-1} + v``, written over ``c_nm1``."""
+    c_nm1.neg_().add_(c_n, alpha=2.0).add_(v)
 
 
 def poison_at_chunk(carry: tuple, step: int) -> tuple:
@@ -485,13 +513,20 @@ def deep_quench_ic(
 
 
 def coarsening_metrics(cfg: CHConfig):
-    """metrics_fn for :meth:`CahnHilliardADI.run` returning (s, 1/k1, F, M)."""
+    """metrics_fn for :meth:`CahnHilliardADI.run` returning (s, 1/k1, F, M);
+    each call is the span ``'repro.ch.diagnostics'``."""
 
-    def fn(c):
+    def metrics(c):
         s = _metrics.s_metric(c, cfg.lx, cfg.ly)
         k1 = _metrics.k1_metric(c, cfg.lx, cfg.ly)
         F = _metrics.free_energy(c, cfg.gamma, cfg.lx, cfg.ly)
         m = _metrics.mass(c, cfg.lx, cfg.ly)
         return s, 1.0 / k1, F, m
+
+    def fn(c):
+        if _spans.ON:
+            with _spans.span("repro.ch.diagnostics"):
+                return metrics(c)
+        return metrics(c)
 
     return fn

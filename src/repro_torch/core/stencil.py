@@ -58,6 +58,7 @@ from repro_torch.kernels.stencil2d import (
 from repro_torch.kernels.stencil3d import stencil3d_geometries, stencil3d_geometry
 from repro_torch.kernels.taps import Taps, halos_1d, halos_2d, plan_taps
 from repro_torch.launch import stream as _stream
+from repro_torch.runtime import spans as _spans
 from repro_torch.util import deprecated_shim, resolve_device, torch_dtype
 
 _DIRECTIONS = ("x", "y", "xy")
@@ -212,7 +213,14 @@ class PlanCore:
     ) -> torch.Tensor:
         """Apply the stencil to ``data`` (the Compute call).  For
         ``bc='np'`` the cells within the halo of the domain edge are copied
-        from ``out_init`` (zeros if not given)."""
+        from ``out_init`` (zeros if not given).  Span ``'repro.plan.apply'``,
+        with the plan's class as ``plan``."""
+        if _spans.ON:
+            with _spans.span("repro.plan.apply", plan=type(self).__name__):
+                return self._apply(data, out_init)
+        return self._apply(data, out_init)
+
+    def _apply(self, data: torch.Tensor, out_init: torch.Tensor | None):
         if self.backend == "fft":
             # one symbol multiply over the whole periodic extent: never
             # streamed (Create validated the boundary mode)

@@ -46,6 +46,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.runtime import chaos as _chaos
+from repro_torch.runtime import spans as _spans
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -436,7 +437,16 @@ def launch(name: str, device: torch.device, *args, libs=None) -> None:
     output.
 
     With a launch record set on this thread (:func:`set_launch_record`),
-    the launch is recorded after it succeeds (:func:`record_launch`)."""
+    the launch is recorded after it succeeds (:func:`record_launch`).
+    With the spans on (:mod:`repro_torch.runtime.spans`), the whole call
+    is the span ``'repro.launch'``, with ``kernel=name``."""
+    if _spans.ON:
+        with _spans.span("repro.launch", kernel=name):
+            return _launch(name, device, args, libs)
+    return _launch(name, device, args, libs)
+
+
+def _launch(name: str, device: torch.device, args: tuple, libs) -> None:
     _chaos.fire("kernel.dispatch", kernel=name)
     lib, fn = (build()["libs"] if libs is None else libs)[name]
     with torch.cuda.device(device):
