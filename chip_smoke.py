@@ -374,6 +374,9 @@ TILE_BYTES = 1_100_000
 N_CHUNKS = 8
 RAGGED_3D = (61, 67, 71)
 LONG_M = (40000, 64)  # a column sweep whose (M, C) tile fits no block
+# column sweeps on the cluster route, each line split across 4 blocks (the
+# benchmark's 4096^2 y-sweep) and 8 blocks
+CLUSTER_COLS = ((4096, 4096), (8192, 384))
 LONG_ROWS = (3, 40000)  # a row sweep whose row fits no block beside the factors
 LONG_MID = (2, 6000, 16)  # a plane sweep whose one-column tile fits no block
 N_TIMED_3D = 20
@@ -3315,9 +3318,9 @@ def main() -> int:
     print(f"[build] opt-in shared memory {smem} B per block, {sms} SMs")
 
     def cols_geometry(M, isz):
-        L = P.segment_length(M)
-        return dict(M=M, L=L, S=ceil_div(M, L),
-                    C=P.cols_per_block(M, isz, smem))
+        geo = P.cols_geometry(M, isz, smem)
+        return dict(M=M, S=ceil_div(geo.rows, geo.seg) * geo.cluster,
+                    **geo._asdict())
 
     def rows_geometry(nx, isz, n_rows):
         L = P.segment_length(nx)
@@ -3362,6 +3365,8 @@ def main() -> int:
         f"penta_cols ({N3}, {N3 * N3}) float64, 3D z-sweep":
             cols_geometry(N3, 8),
         f"penta_cols {LONG_M} float64, long M": cols_geometry(LONG_M[0], 8),
+        **{f"penta_cols {shape} float64, cluster route":
+           cols_geometry(shape[0], 8) for shape in CLUSTER_COLS},
         "ch_rhs_xsweep 1024^2 float64": rows_geometry(N_MAIN, 8, N_MAIN),
         "ch_rhs_xsweep 1021x1019 float64": rows_geometry(RAGGED[1], 8,
                                                          RAGGED[0]),
@@ -3579,6 +3584,32 @@ def main() -> int:
 
     cases.append(("penta_cols", f"cyclic cols long M {LONG_M[0]}x{LONG_M[1]}",
                   "float64", long_cols))
+
+    # the column sweep on its cluster route (4 and 8 blocks a line), each
+    # launch counted once under 'cluster' in P.ROUTES
+    cluster_launches = {}  # label -> P.ROUTES['cluster'] moved by the launch
+    for shape, K in zip(CLUSTER_COLS, (4, 8)):
+        geo = P.cols_geometry(shape[0], 8, smem)
+        if (geo.route, geo.cluster) != ("cluster", K):
+            raise PhaseError(f"penta_cols {shape}: {geo.route} route with "
+                             f"{geo.cluster} blocks a line, not cluster {K}")
+        fac_c = P.cyclic_penta_factor(
+            *P.hyperdiffusion_diagonals(shape[0], beta_full), device=dev)
+        rhs_c = (torch.rand(shape, generator=torch.Generator().manual_seed(5),
+                            dtype=torch.float64) * 2 - 1).to(dev)
+        for cyclic in (True, False):
+            label = (f"{'cyclic' if cyclic else 'plain-band'} cols cluster "
+                     f"{shape[0]}x{shape[1]}")
+
+            def cluster_cols(b, f=fac_c, r=rhs_c, cyc=cyclic, label=label):
+                n0 = P.ROUTES["cluster"]
+                got = (P.cyclic_penta_solve_factored(f, r, backend=b) if cyc
+                       else P.penta_solve_factored(f.band, r, backend=b))
+                if b == "cuda":
+                    cluster_launches[label] = P.ROUTES["cluster"] - n0
+                return got
+
+            cases.append(("penta_cols", label, "float64", cluster_cols))
 
     # the row and plane sweeps at a long M: neither a row nor a one-column
     # tile fits a block beside the factors, so each line is solved in
@@ -3851,6 +3882,14 @@ def main() -> int:
               flush=True)
         if not ok:
             failures.append(f"{kernel} {label}")
+    for label, moved in cluster_launches.items():
+        checks.append(dict(kernel="penta_cols", label=f"{label} route",
+                           dtype="float64", cluster_launches=moved,
+                           ok=moved == 1))
+        print(f"[check] {'ok ' if moved == 1 else 'BAD'} penta_cols     "
+              f"{label}: {moved} cluster launch(es) counted", flush=True)
+        if moved != 1:
+            failures.append(f"penta_cols {label}: {moved} cluster launches")
     for kernel, label, run in streamed:
         got, want = run()
         torch.cuda.synchronize()

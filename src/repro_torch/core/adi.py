@@ -52,7 +52,7 @@ from repro_torch.kernels.penta import (
     CyclicPentaFactors,
     PentaFactors,
     cols_geometries,
-    cols_per_block,
+    cols_geometry,
     cyclic_penta_factor,
     cyclic_penta_solve_factored,
     cyclic_penta_solve_factored_mid,
@@ -247,7 +247,7 @@ def _layout_geometry(layout: str, M: int, batch: int, itemsize: int,
         return rows_geometry(M, itemsize, batch, smem_optin, n_sms,
                              cyclic=cyclic, **over)
     if layout == "cols":
-        return cols_per_block(M, itemsize, smem_optin, cols=g.get("cols"))
+        return cols_geometry(M, itemsize, smem_optin, cols=g.get("cols"))
     return mid_geometry(planes, M, batch, itemsize, smem_optin,
                         cols=g.get("cols"))
 

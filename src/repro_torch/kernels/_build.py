@@ -79,7 +79,7 @@ _L = ctypes.c_longlong
 # c_void_p, so ctypes does not cut them to 32 bits.
 _ENTRY_POINTS = {
     "penta.cu": (
-        ("penta_cols", [_I] + [_P] * 5 + [_P, _P, _P] + [_I] * 7 + [_P]),
+        ("penta_cols", [_I] + [_P] * 5 + [_P, _P, _P] + [_I] * 8 + [_P]),
         ("penta_rows", [_I] + [_P] * 5 + [_P, _P, _P] + [_I] * 8 + [_P]),
         ("penta_mid", [_I] + [_P] * 5 + [_P, _P, _P] + [_I] * 6 + [_P]),
         ("penta_rows_occupancy", [_I, _I, _P]),
@@ -425,7 +425,8 @@ def out_like(out: torch.Tensor | None, like: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def launch(name: str, device: torch.device, *args, libs=None) -> None:
+def launch(name: str, device: torch.device, *args, libs=None,
+           route: str | None = None) -> None:
     """Call the C entry point ``name`` on ``device``'s current stream (the
     stream is appended to ``args``), raise if the launch failed, and count
     the launch.  ``libs`` are a user point function's libraries
@@ -439,9 +440,12 @@ def launch(name: str, device: torch.device, *args, libs=None) -> None:
     With a launch record set on this thread (:func:`set_launch_record`),
     the launch is recorded after it succeeds (:func:`record_launch`).
     With the spans on (:mod:`repro_torch.runtime.spans`), the whole call
-    is the span ``'repro.launch'``, with ``kernel=name``."""
+    is the span ``'repro.launch'``, with ``kernel=name`` and, where the
+    wrapper names the kernel's route, ``route``."""
     if _spans.ON:
-        with _spans.span("repro.launch", kernel=name):
+        fields = {"kernel": name} if route is None else {"kernel": name,
+                                                         "route": route}
+        with _spans.span("repro.launch", **fields):
             return _launch(name, device, args, libs)
     return _launch(name, device, args, libs)
 

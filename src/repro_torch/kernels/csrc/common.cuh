@@ -220,12 +220,10 @@ struct SegmentMap {
 
 // Inclusive scan of the 32 lanes' segment maps, lane order (kReverse:
 // from lane 31 down), Hillis-Steele with warp shuffles: after it, each
-// lane holds the composition of its own map after those of all the lanes
-// before it.  Returns, in (s0, s1), the state entering the lane's segment:
-// the previous lane's composed end state, zero for the first lane.
+// lane's m is the composition of its own map after those of all the lanes
+// before it.
 template <typename T, bool kReverse>
-__device__ __forceinline__ void segment_carry(SegmentMap<T> m, int lane,
-                                              T& s0, T& s1) {
+__device__ __forceinline__ void segment_scan(SegmentMap<T>& m, int lane) {
 #pragma unroll
   for (int d = 1; d < kWarp; d <<= 1) {
     T b00, b01, b10, b11, q0, q1;
@@ -255,12 +253,36 @@ __device__ __forceinline__ void segment_carry(SegmentMap<T> m, int lane,
       m = SegmentMap<T>{a00, a01, a10, a11, p0, p1};
     }
   }
+}
+
+// The carry of a line held by one warp: segment_scan, then, in (s0, s1),
+// the state entering the lane's segment: the previous lane's composed end
+// state, zero for the first lane.
+template <typename T, bool kReverse>
+__device__ __forceinline__ void segment_carry(SegmentMap<T> m, int lane,
+                                              T& s0, T& s1) {
+  segment_scan<T, kReverse>(m, lane);
   s0 = kReverse ? __shfl_down_sync(kFullMask, m.p0, 1)
                 : __shfl_up_sync(kFullMask, m.p0, 1);
   s1 = kReverse ? __shfl_down_sync(kFullMask, m.p1, 1)
                 : __shfl_up_sync(kFullMask, m.p1, 1);
   if (lane == (kReverse ? kWarp - 1 : 0)) s0 = s1 = T(0);
 }
+
+// Step B of substitute_segmented for a line that one warp holds whole:
+// segment_carry in each direction.  (penta.cu's ClusterCarry is the step for
+// a line split across the blocks of a cluster.)
+template <typename T>
+struct WarpCarry {
+  __device__ __forceinline__ void forward(SegmentMap<T> m, int lane, T& s0,
+                                          T& s1) const {
+    segment_carry<T, false>(m, lane, s0, s1);
+  }
+  __device__ __forceinline__ void backward(SegmentMap<T> m, int lane, T& s0,
+                                           T& s1) const {
+    segment_carry<T, true>(m, lane, s0, s1);
+  }
+};
 
 // The in-place forward/backward substitution of a line of length M with
 // the Create-time LU factors of the band (sub = e_i, low = l_i,
@@ -277,8 +299,8 @@ __device__ __forceinline__ void segment_carry(SegmentMap<T> m, int lane,
 //   A. each lane runs its segment from a zero state (the map's p) and, in
 //      the same loop, from the unit states (1, 0) and (0, 1) with a zero
 //      right-hand side (the columns of A): three independent chains;
-//   B. segment_carry combines the 32 maps into each segment's true
-//      incoming state (5 shuffle rounds);
+//   B. `carry` combines the 32 maps into each segment's true incoming
+//      state (WarpCarry: segment_carry, 5 shuffle rounds);
 //   C. each lane reruns its segment from that state and writes it.
 //
 // Forward z_i = (r_i - e_i z_{i-2} - l_i z_{i-1}) / mu_i over the state
@@ -287,12 +309,12 @@ __device__ __forceinline__ void segment_carry(SegmentMap<T> m, int lane,
 // differs from one thread walking the whole line only through the rounding
 // of the 32 carries.
 // The caller syncs the warp (or block) before reading other lanes' output.
-template <typename T>
+template <typename T, typename Carry = WarpCarry<T>>
 __device__ __forceinline__ void substitute_segmented(
     const T* in, T* v, long long ld, const T* __restrict__ sub,
     const T* __restrict__ low, const T* __restrict__ imu,
     const T* __restrict__ al, const T* __restrict__ be, int M, int L,
-    int lane) {
+    int lane, const Carry& carry = Carry{}) {
   const int a = min(lane * L, M);
   const int b = min(a + L, M);
   T s0, s1;
@@ -311,8 +333,7 @@ __device__ __forceinline__ void substitute_segmented(
       w2 = w1;
       w1 = wz;
     }
-    segment_carry<T, false>(SegmentMap<T>{u1, w1, u2, w2, p1, p2}, lane, s0,
-                            s1);
+    carry.forward(SegmentMap<T>{u1, w1, u2, w2, p1, p2}, lane, s0, s1);
   }
   {  // forward, pass C
     T z1 = s0, z2 = s1;
@@ -339,8 +360,7 @@ __device__ __forceinline__ void substitute_segmented(
       w2 = w1;
       w1 = wx;
     }
-    segment_carry<T, true>(SegmentMap<T>{u1, w1, u2, w2, p1, p2}, lane, s0,
-                           s1);
+    carry.backward(SegmentMap<T>{u1, w1, u2, w2, p1, p2}, lane, s0, s1);
   }
   {  // backward, pass C
     T x1 = s0, x2 = s1;

@@ -1,12 +1,13 @@
 // Batched pentadiagonal substitution with the Create-time LU factors, in
 // the three layouts of the 2D and 3D ADI steps.  Every line of every
 // layout is a segmented recurrence (common.cuh:substitute_segmented): one
-// warp a line, each lane a segment of L = max(ceil(M / 32), 8) | 1
-// elements, so 32 threads work on a line and each walks about 4 L + 10
-// dependent steps instead of 3 M.  L depends only on the line length M
-// (kernels/penta.py:segment_length), and the route (shared-memory tile or
-// device memory) only on M, the dtype and whether the band is cyclic, never
-// on the batch or a launch's window, so a line is computed by the same code
+// warp a line (or, on penta_cols' cluster route, a part of one), each lane
+// a segment of L = max(ceil(M / 32), 8) | 1 elements of it, so 32 threads
+// work on a line and each walks about 4 L + 10 dependent steps instead of
+// 3 M.  L depends only on the line length M (kernels/penta.py:
+// segment_length), and the route (shared-memory tile, cluster or device
+// memory) only on M, the dtype and whether the band is cyclic, never on
+// the batch or a launch's window, so a line is computed by the same code
 // whatever the launch, and a streamed sweep (repro_torch/launch/stream.py,
 // one launch per chunk of lines) equals the monolithic launch bit for bit.
 //
@@ -14,22 +15,41 @@
 // _substitute_pallas (body _substitute_kernel): column layout, an (M, N)
 // right-hand side whose N systems lie along the contiguous axis and whose
 // recurrence runs over the M rows (the y-sweep of the 2D step, the z-sweep
-// of the 3D step).  Two routes, chosen by the wrapper from M and the shared
-// memory a block can hold (kernels/penta.py:cols_per_block):
+// of the 3D step).  Three routes, chosen by the wrapper from M, the dtype
+// and the shared memory a block can hold (kernels/penta.py:cols_geometry):
 //
-// - tile (penta_cols_tile_kernel): a block stages the five factors and an
-//   (M, C) tile of C <= 8 columns in dynamic shared memory with coalesced
-//   loads (line stride ldt, M rounded up to 128 bytes plus 16 bytes, so
-//   the load and store phases hit 32 different banks), C warps run the
-//   segmented recurrences in shared memory, and the block writes the tile
-//   back coalesced with the cyclic rank-4 Woodbury closure
-//   (repro/kernels/penta.py:604-609) applied on the way out.  Device
-//   memory sees the rhs read once and the output written once: what
+// - tile (penta_cols_tile_kernel<T, false>), where 8 columns fit beside
+//   the whole line's factors (float64 M up to 2224): a block stages the
+//   five factors and an (M, C) tile of C <= 8 columns in dynamic shared
+//   memory with coalesced loads (line stride ldt, M rounded up to 128
+//   bytes plus 16 bytes, so the load and store phases hit 32 different
+//   banks), C warps run the segmented recurrences in shared memory, and the
+//   block writes the tile back coalesced with the cyclic rank-4 Woodbury
+//   closure (repro/kernels/penta.py:604-609) applied on the way out.
+//   Device memory sees the rhs read once and the output written once: what
 //   bounds it now is those bytes and the block's serial phases (load,
 //   recurrence, store).
-// - global (penta_cols_global_kernel), for an M whose tile of one column
-//   does not fit: the same warp-per-column recurrence on the column in
-//   device memory (strided, through L1/L2), the closure as the epilogue.
+// - cluster (penta_cols_tile_kernel<T, true>), for longer lines up to what
+//   8 blocks hold (float64 M up to 17792): staged whole, a float64 line of
+//   4096 left room for 2 columns, one block of 2 warps an SM pulling 160 KB
+//   of factors for 64 KB of data (7.3% of its bound at 4096^2).  Now each
+//   line is split across a thread-block cluster of K blocks (the smallest
+//   K of 2, 4 and 8 that lets two blocks of 8 columns share an SM, else
+//   8; never more than 8, the portable cluster size): block k holds rows
+//   [k Mb, k Mb + Mb), Mb = ceil(M / K), their factors and an (Mb, 8)
+//   tile, the shape of the 1024^2 tile block (K = 4 at 4096: 105 KB, 16
+//   warps an SM), loaded by element copies (cp.async) so that a thread's
+//   loads are all in flight at once.  Each warp runs the segmented
+//   recurrence over its part with L = segment_length(Mb) (in registers at
+//   L = 33); the carries cross the blocks through distributed shared
+//   memory (ClusterCarry: one cluster barrier a direction), and the
+//   closure reads y[0], y[1] from block 0 and y[M-2], y[M-1] from block
+//   K - 1 after one more.  The same bytes move as on the tile route, and
+//   the launch allocates nothing.  At 4096^2 it runs at 32% of its bound
+//   (8 waves of blocks whose load, recurrence and store run in turn).
+// - global (penta_cols_global_kernel), beyond: the same warp-per-column
+//   recurrence on the column in device memory (strided, through L1/L2),
+//   the closure as the epilogue.
 //
 // penta_rows replaces repro/kernels/penta.py:_substitute_rows_pallas (body
 // rows_substitute_refs): row layout, a (B, M) right-hand side whose
@@ -85,9 +105,12 @@
 // [row0, row1) of their output (the whole rhs is [0, N) and [0, B)): the
 // systems are independent, so a streamed sweep issues one launch per chunk
 // of systems.
+#include <cooperative_groups.h>
 #include <stdint.h>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -171,12 +194,14 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 // 12 shared-memory accesses an element instead of 16.  The shared-memory
 // and shuffle instructions of the recurrence are what bound the sweeps of
 // short lines (L = 9, M <= 288: the 3D sweeps at 256); this takes a
-// quarter of the former at the cost of 2 kL registers.
-template <typename T, int kL>
+// quarter of the former at the cost of 2 kL registers.  The column sweep's
+// cluster route takes it at L = 33 (parts of 1024 rows: M = 4096 and
+// 8192), where it made the 4096^2 sweep 5% faster (PERF.md).
+template <typename T, int kL, typename Carry = WarpCarry<T>>
 __device__ __forceinline__ void substitute_segmented_regs(
     T* v, const T* __restrict__ sub, const T* __restrict__ low,
     const T* __restrict__ imu, const T* __restrict__ al,
-    const T* __restrict__ be, int M, int lane) {
+    const T* __restrict__ be, int M, int lane, const Carry& carry = Carry{}) {
   const int a = min(lane * kL, M);
   const int n = min(a + kL, M) - a;
   T r[kL];
@@ -201,8 +226,7 @@ __device__ __forceinline__ void substitute_segmented_regs(
         w1 = wz;
       }
     }
-    segment_carry<T, false>(SegmentMap<T>{u1, w1, u2, w2, p1, p2}, lane, s0,
-                            s1);
+    carry.forward(SegmentMap<T>{u1, w1, u2, w2, p1, p2}, lane, s0, s1);
   }
   {  // forward, pass C
     T z1 = s0, z2 = s1;
@@ -235,8 +259,7 @@ __device__ __forceinline__ void substitute_segmented_regs(
         w1 = wx;
       }
     }
-    segment_carry<T, true>(SegmentMap<T>{u1, w1, u2, w2, p1, p2}, lane, s0,
-                           s1);
+    carry.backward(SegmentMap<T>{u1, w1, u2, w2, p1, p2}, lane, s0, s1);
   }
   {  // backward, pass C
     T x1 = s0, x2 = s1;
@@ -267,53 +290,217 @@ __device__ __forceinline__ void solve_line_smem(T* line, const T* f, int M,
                          f + 4 * M, M, L, lane);
 }
 
+// -- thread-block clusters (the column sweep's cluster route) ---------------
+
+// The cluster's barrier in two halves (every thread of every block of the
+// cluster arrives; the wait returns when all have): writes to shared memory
+// before the arrive are seen by reads in any block of the cluster after
+// the wait.  A block whose shared memory others read waits before it exits.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// The previous lane's v (the next lane's when kReverse).
+template <bool kReverse, typename T>
+__device__ __forceinline__ T shfl_prev(T v) {
+  return kReverse ? __shfl_down_sync(kFullMask, v, 1)
+                  : __shfl_up_sync(kFullMask, v, 1);
+}
+
+// Step B of substitute_segmented for a line split across the K blocks of a
+// cluster, block k holding its rows [k Mb, k Mb + Mb): the warp scans its
+// 32 segment maps as segment_carry does, its last lane (lane 0 backward)
+// publishes the composed map of the block's part in `slot`, and after a
+// cluster barrier every lane runs the line's zero start through the maps
+// of the blocks before its own (after it, backward), read from their
+// shared memory in line order, and through the composed map of the lanes
+// before it.  Every warp of every block of the cluster calls it: it holds
+// a cluster barrier.
+template <typename T>
+struct ClusterCarry {
+  SegmentMap<T>* slot;  // this warp's two maps: [0] forward, [1] backward
+  int rank, blocks;     // k and K
+
+  template <bool kReverse>
+  __device__ __forceinline__ void carry(SegmentMap<T> m, int lane, T& s0,
+                                        T& s1) const {
+    segment_scan<T, kReverse>(m, lane);
+    // the composed map of the lanes before this one (the identity for the
+    // first)
+    SegmentMap<T> e;
+    e.a00 = shfl_prev<kReverse>(m.a00);
+    e.a01 = shfl_prev<kReverse>(m.a01);
+    e.a10 = shfl_prev<kReverse>(m.a10);
+    e.a11 = shfl_prev<kReverse>(m.a11);
+    e.p0 = shfl_prev<kReverse>(m.p0);
+    e.p1 = shfl_prev<kReverse>(m.p1);
+    if (lane == (kReverse ? kWarp - 1 : 0))
+      e = SegmentMap<T>{T(1), T(0), T(0), T(1), T(0), T(0)};
+    if (lane == (kReverse ? 0 : kWarp - 1)) slot[kReverse] = m;
+    cluster_sync();
+    cg::cluster_group cluster = cg::this_cluster();
+    T t0 = T(0), t1 = T(0);  // the state entering this block's part
+    for (int j = kReverse ? blocks - 1 : 0; kReverse ? j > rank : j < rank;
+         j += kReverse ? -1 : 1) {
+      const SegmentMap<T> b = cluster.map_shared_rank(slot, j)[kReverse];
+      const T u0 = b.a00 * t0 + b.a01 * t1 + b.p0;
+      const T u1 = b.a10 * t0 + b.a11 * t1 + b.p1;
+      t0 = u0;
+      t1 = u1;
+    }
+    s0 = e.a00 * t0 + e.a01 * t1 + e.p0;
+    s1 = e.a10 * t0 + e.a11 * t1 + e.p1;
+  }
+
+  __device__ __forceinline__ void forward(SegmentMap<T> m, int lane, T& s0,
+                                          T& s1) const {
+    carry<false>(m, lane, s0, s1);
+  }
+  __device__ __forceinline__ void backward(SegmentMap<T> m, int lane, T& s0,
+                                           T& s1) const {
+    carry<true>(m, lane, s0, s1);
+  }
+};
+
 // -- column layout ------------------------------------------------------------
 
-// Column sweep, tile route: block b solves the columns [b C, b C + C) of
-// an (M, n) window of row stride N; blockDim.x = 32 C.
-template <typename T>
-__global__ void __launch_bounds__(256) penta_cols_tile_kernel(
-    const T* __restrict__ sub, const T* __restrict__ low,
-    const T* __restrict__ imu, const T* __restrict__ al,
-    const T* __restrict__ be, const T* __restrict__ w,
-    const T* __restrict__ rhs, T* __restrict__ out, int M, int n, size_t N,
-    int L, int C, int ldt) {
+// Column sweep, tile and cluster routes: the columns [g C, g C + C) of an
+// (M, n) window of row stride N, blockDim.x = 32 C.  Tile route
+// (kCluster false): block g holds the whole lines, Mb = M.  Cluster route:
+// the K blocks of cluster g split each line, block k of it (its rank)
+// holding the rows [k Mb, min(k Mb + Mb, M)) and the factors of those rows;
+// its warps exchange their carries through ClusterCarry, and the cyclic
+// closure reads y[0], y[1] from block 0 and y[M-2], y[M-1] from block K - 1.
+// The cluster route's bound of 2 blocks an SM keeps ptxas within the 128
+// registers a thread that lets its two blocks of 256 threads share an SM
+// (a segment of 33 in registers).  The tile route's bound of 6 keeps it at
+// 40 (8 blocks of the 3D z-sweep at 256 fit an SM's shared memory): at
+// (256, 65536) it ran 0.1836 ms against 0.1856 with no bound (also 40
+// registers) and 0.1855 with a bound of 1 (64 registers; H100).
+// The two routes keep two bodies: the cluster body at K = 1 (a cluster of
+// one block) took 0.3222 ms at (256, 65536) against the tile body's 0.1845
+// (more registers, cp.async loads, the map exchange; 1024^2 within the
+// host-bound noise, 4096^2 untouched; H100, 700 W, PERF.md).
+template <typename T, bool kCluster>
+__global__ void __launch_bounds__(256, kCluster ? 2 : 6)
+    penta_cols_tile_kernel(const T* __restrict__ sub,
+                           const T* __restrict__ low,
+                           const T* __restrict__ imu,
+                           const T* __restrict__ al,
+                           const T* __restrict__ be, const T* __restrict__ w,
+                           const T* __restrict__ rhs, T* __restrict__ out,
+                           int M, int n, size_t N, int L, int C, int ldt,
+                           int Mb) {
   extern __shared__ unsigned char smem_raw[];
-  T* f = reinterpret_cast<T*>(smem_raw);  // sub, low, imu, al, be
-  T* tile = f + 5 * M;                    // C lines of stride ldt
-  for (int i = threadIdx.x; i < M; i += blockDim.x) {
-    f[i] = __ldg(sub + i);
-    f[M + i] = __ldg(low + i);
-    f[2 * M + i] = __ldg(imu + i);
-    f[3 * M + i] = __ldg(al + i);
-    f[4 * M + i] = __ldg(be + i);
+  int rank = 0, blocks = 1;
+  if constexpr (kCluster) {
+    cg::cluster_group cluster = cg::this_cluster();
+    rank = static_cast<int>(cluster.block_rank());
+    blocks = static_cast<int>(cluster.num_blocks());
   }
+  const int base = rank * Mb;             // the block's first row
+  const int Mk = min(Mb, M - base);       // and its rows
+  T* f = reinterpret_cast<T*>(smem_raw);  // sub, low, imu, al, be
+  T* tile = f + 5 * Mb;                   // C lines of stride ldt
   // thread (row r0 + 32 j, column c) in the load and store phases
   const int c = threadIdx.x % C;
   const int r0 = threadIdx.x / C;
-  const int col = blockIdx.x * C + c;
+  const int col = blockIdx.x / blocks * C + c;
+  const T* src = rhs + static_cast<size_t>(base) * N + col;
+  T* dst = out + static_cast<size_t>(base) * N + col;
   T* y = tile + c * ldt;
-  if (col < n) {
-    for (int i = r0; i < M; i += kWarp) y[i] = rhs[i * N + col];
+  if constexpr (kCluster) {
+    // element copies (cp.async): all of a thread's loads in flight at once
+    const T* fs[5] = {sub, low, imu, al, be};
+#pragma unroll
+    for (int k = 0; k < 5; ++k)
+      for (int i = threadIdx.x; i < Mk; i += blockDim.x)
+        elem_load(f + k * Mb + i, fs[k] + base + i);
+    if (col < n) {
+      for (int i = r0; i < Mk; i += kWarp) elem_load(y + i, src + i * N);
+    } else {
+      for (int i = r0; i < Mk; i += kWarp) y[i] = T(0);
+    }
+    elem_commit();
+    elem_wait<0>();
+  } else {
+    for (int i = threadIdx.x; i < Mk; i += blockDim.x) {
+      f[i] = __ldg(sub + base + i);
+      f[Mb + i] = __ldg(low + base + i);
+      f[2 * Mb + i] = __ldg(imu + base + i);
+      f[3 * Mb + i] = __ldg(al + base + i);
+      f[4 * Mb + i] = __ldg(be + base + i);
+    }
+    if (col < n) {
+      for (int i = r0; i < Mk; i += kWarp) y[i] = src[i * N];
+    }
   }
   __syncthreads();
   const int warp = threadIdx.x / kWarp;
-  if (blockIdx.x * C + warp < n) {
-    T* line = tile + warp * ldt;
-    substitute_segmented(line, line, 1, f, f + M, f + 2 * M, f + 3 * M,
-                         f + 4 * M, M, L, threadIdx.x % kWarp);
-  }
-  __syncthreads();
-  if (col >= n) return;
-  if (w == nullptr) {
-    for (int i = r0; i < M; i += kWarp) out[i * N + col] = y[i];
-    return;
-  }
-  const T ym2 = y[M - 2], ym1 = y[M - 1], y0 = y[0], y1 = y[1];
-  for (int i = r0; i < M; i += kWarp) {
-    const T* wi = w + 4 * i;
-    out[i * N + col] = y[i] - (__ldg(wi) * ym2 + __ldg(wi + 1) * ym1 +
+  T* line = tile + warp * ldt;
+  if constexpr (kCluster) {
+    // every warp, a column or not: the carries hold cluster barriers
+    SegmentMap<T>* slots = reinterpret_cast<SegmentMap<T>*>(tile + C * ldt);
+    const ClusterCarry<T> carry{slots + 2 * warp, rank, blocks};
+    if (L == 33)
+      substitute_segmented_regs<T, 33>(line, f, f + Mb, f + 2 * Mb,
+                                       f + 3 * Mb, f + 4 * Mb, Mk,
+                                       threadIdx.x % kWarp, carry);
+    else
+      substitute_segmented(line, line, 1, f, f + Mb, f + 2 * Mb, f + 3 * Mb,
+                           f + 4 * Mb, Mk, L, threadIdx.x % kWarp, carry);
+    T ym2 = T(0), ym1 = T(0), y0 = T(0), y1 = T(0);
+    if (w != nullptr) {
+      cluster_sync();  // every part of the line solved
+      cg::cluster_group cluster = cg::this_cluster();
+      const T* first = cluster.map_shared_rank(y, 0);
+      const T* last = cluster.map_shared_rank(y, blocks - 1);
+      const int Ml = M - (blocks - 1) * Mb;  // rows of the last block
+      ym2 = last[Ml - 2];
+      ym1 = last[Ml - 1];
+      y0 = first[0];
+      y1 = first[1];
+    } else {
+      __syncthreads();
+    }
+    cluster_arrive();  // done with the other blocks' shared memory
+    if (col < n) {
+      for (int i = r0; i < Mk; i += kWarp) {
+        if (w == nullptr) {
+          dst[i * N] = y[i];
+        } else {
+          const T* wi = w + 4 * (base + i);
+          dst[i * N] = y[i] - (__ldg(wi) * ym2 + __ldg(wi + 1) * ym1 +
                                __ldg(wi + 2) * y0 + __ldg(wi + 3) * y1);
+        }
+      }
+    }
+    cluster_wait();  // the others are done with this block's
+  } else {
+    if (blockIdx.x * C + warp < n)
+      substitute_segmented(line, line, 1, f, f + M, f + 2 * M, f + 3 * M,
+                           f + 4 * M, M, L, threadIdx.x % kWarp);
+    __syncthreads();
+    if (col >= n) return;
+    if (w == nullptr) {
+      for (int i = r0; i < M; i += kWarp) dst[i * N] = y[i];
+      return;
+    }
+    const T ym2 = y[M - 2], ym1 = y[M - 1], y0 = y[0], y1 = y[1];
+    for (int i = r0; i < M; i += kWarp) {
+      const T* wi = w + 4 * i;
+      dst[i * N] = y[i] - (__ldg(wi) * ym2 + __ldg(wi + 1) * ym1 +
+                           __ldg(wi + 2) * y0 + __ldg(wi + 3) * y1);
+    }
   }
 }
 
@@ -561,26 +748,56 @@ cudaError_t ready_mid(int bytes) {
 }
 
 // The columns [col0, col1) of an (M, N) rhs: segments of L rows; C columns
-// a block through shared memory (line stride ldt), or C = 0 for the
+// a block through shared memory (line stride ldt), each line split across
+// a cluster of K blocks (K = 1: one block holds it), or C = 0 for the
 // global route.
 template <typename T>
 int launch_cols(void* const* f, const void* w, const void* rhs, void* out,
                 int M, int N, int col0, int col1, int L, int C, int ldt,
-                cudaStream_t stream) {
+                int K, cudaStream_t stream) {
   const int n = col1 - col0;
   const T* F[5];
   for (int k = 0; k < 5; ++k) F[k] = static_cast<const T*>(f[k]);
   const T* r = static_cast<const T*>(rhs) + col0;
   T* o = static_cast<T*>(out) + col0;
   const T* wp = static_cast<const T*>(w);
-  if (C > 0) {
+  if (C > 0 && K > 1) {
+    // kernels/penta.py:cols_tile_bytes: the block's factors, its tile and
+    // its warps' two segment maps
+    static int smem_set = 0;
+    static bool carveout = false;
+    const int Mb = (M + K - 1) / K;
+    const int bytes =
+        (5 * Mb + C * ldt + 12 * C) * static_cast<int>(sizeof(T));
+    cudaError_t e = ready_tile(penta_cols_tile_kernel<T, true>, bytes,
+                               &smem_set, &carveout);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    cudaLaunchAttribute cluster;
+    cluster.id = cudaLaunchAttributeClusterDimension;
+    cluster.val.clusterDim.x = K;
+    cluster.val.clusterDim.y = 1;
+    cluster.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((n + C - 1) / C * K);
+    cfg.blockDim = dim3(kWarp * C);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = stream;
+    cfg.attrs = &cluster;
+    cfg.numAttrs = 1;
+    e = cudaLaunchKernelEx(&cfg, penta_cols_tile_kernel<T, true>, F[0], F[1],
+                           F[2], F[3], F[4], wp, r, o, M, n,
+                           static_cast<size_t>(N), L, C, ldt, Mb);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  } else if (C > 0) {
     static int smem_set = 0;
     const int bytes = (5 * M + C * ldt) * static_cast<int>(sizeof(T));
-    cudaError_t e = allow_smem(penta_cols_tile_kernel<T>, bytes, &smem_set);
+    cudaError_t e =
+        allow_smem(penta_cols_tile_kernel<T, false>, bytes, &smem_set);
     if (e != cudaSuccess) return static_cast<int>(e);
-    penta_cols_tile_kernel<T><<<(n + C - 1) / C, kWarp * C, bytes, stream>>>(
+    penta_cols_tile_kernel<T, false><<<(n + C - 1) / C, kWarp * C, bytes,
+                                       stream>>>(
         F[0], F[1], F[2], F[3], F[4], wp, r, o, M, n,
-        static_cast<size_t>(N), L, C, ldt);
+        static_cast<size_t>(N), L, C, ldt, M);
   } else {
     const int per_block = 8;  // columns (warps) a block
     penta_cols_global_kernel<T>
@@ -658,22 +875,28 @@ int rows_occupancy(int bytes, int* blocks) {
 }  // namespace
 
 // dtype: 0 float32, 1 float64.  w may be null (non-cyclic band).  Solves
-// the columns [col0, col1), 0 <= col0 < col1 <= N, in segments of L rows
-// (32 L >= M), C columns a block in shared memory with line stride
-// ldt >= M, or from device memory when C is 0.
+// the columns [col0, col1), 0 <= col0 < col1 <= N, C columns a block in
+// shared memory with line stride ldt, each line split across a cluster of
+// K <= 8 blocks of Mb = ceil(M / K) rows (the last at least 2), in
+// segments of L rows (32 L >= Mb, ldt >= Mb); or from device memory when C
+// is 0 (K = 1, 32 L >= M).
 RT_EXPORT int penta_cols(int dtype, void* sub, void* low, void* imu, void* al,
                          void* be, void* w, void* rhs, void* out, int M,
                          int N, int col0, int col1, int L, int C, int ldt,
-                         void* stream) {
-  if (col0 < 0 || col1 > N || col0 >= col1 || L < 1 || kWarp * L < M ||
-      C < 0 || C > 8 || (C > 0 && ldt < M))
+                         int K, void* stream) {
+  if (K < 1 || K > 8 || (K > 1 && C == 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int Mb = (M + K - 1) / K;
+  if (col0 < 0 || col1 > N || col0 >= col1 || L < 1 || kWarp * L < Mb ||
+      C < 0 || C > 8 || (C > 0 && ldt < Mb) ||
+      (K > 1 && M - (K - 1) * Mb < 2))
     return static_cast<int>(cudaErrorInvalidValue);
   void* f[5] = {sub, low, imu, al, be};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 1 ? launch_cols<double>(f, w, rhs, out, M, N, col0, col1,
-                                          L, C, ldt, s)
+                                          L, C, ldt, K, s)
                     : launch_cols<float>(f, w, rhs, out, M, N, col0, col1, L,
-                                         C, ldt, s);
+                                         C, ldt, K, s);
 }
 
 // Solves the rows [row0, row1), 0 <= row0 < row1 <= B, in segments of L

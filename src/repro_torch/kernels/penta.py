@@ -25,6 +25,7 @@ cuSten's Create/Compute:
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -295,32 +296,98 @@ def tile_stride(M: int, itemsize: int) -> int:
     return next_multiple(M, 128 // itemsize) + 16 // itemsize
 
 
-def cols_per_block(M: int, itemsize: int, smem_optin: int,
-                   cols: int | None = None) -> int:
-    """Columns a block of the column sweep stages in shared memory beside
-    the five factors: at most 8 (one warp each), fewer when M is long, and
-    0 when not even one fits (the kernel then runs each column in device
-    memory).  ``cols`` (a tuned sweep's geometry, :func:`cols_geometries`)
-    forces that many, 1 to 8: each column is one warp's recurrence
-    whatever the block holds, so the choice changes no result; a count
-    that does not fit raises ``ValueError`` here, before any launch."""
+def cols_per_block(M: int, itemsize: int, smem_optin: int) -> int:
+    """Columns, at most 8 (one warp each), that a block of the column sweep
+    stages in shared memory beside the five factors of a whole line of M:
+    fewer when M is long, 0 when not one fits."""
     free = smem_optin // itemsize - 5 * M
-    fit = max(0, min(COLS_PER_BLOCK, free // tile_stride(M, itemsize)))
-    if cols is None:
-        return fit
-    if not 1 <= cols <= fit:
-        raise ValueError(
-            f"penta_cols cannot stage {cols} columns a block at M = {M} "
-            f"({itemsize}-byte elements): 1 to {fit} fit in the card's "
-            f"{smem_optin} bytes")
-    return cols
+    return max(0, min(COLS_PER_BLOCK, free // tile_stride(M, itemsize)))
+
+
+# The column sweep's cluster route: each line split across a thread-block
+# cluster of K blocks, K one of these (8 is the portable cluster size).
+CLUSTER_SIZES = (2, 4, 8)
+
+
+class ColsGeometry(NamedTuple):
+    """Launch geometry of the column sweep (``penta_cols``)."""
+
+    route: str  # "tile", "cluster" or "global"
+    cluster: int  # K, blocks a line is split across (1 but on the cluster route)
+    cols: int  # C, columns a block; 0 on the global route
+    rows: int  # Mb = ceil(M / K), rows of a line a block holds
+    seg: int  # L, the segment length: segment_length(Mb)
+    ldt: int  # line stride of the tile (elements); 0 on the global route
+    smem: int  # dynamic shared memory a block, bytes
+
+
+def cols_tile_bytes(rows: int, itemsize: int, cols: int, cluster: int) -> int:
+    """Shared memory of a column-sweep block holding ``rows`` rows of
+    ``cols`` lines: the rows' five factors and the tile, and on the
+    cluster route (``cluster`` > 1) each warp's two segment maps of six
+    elements (``csrc/penta.cu:launch_cols``)."""
+    maps = 12 * cols if cluster > 1 else 0
+    return (5 * rows + cols * tile_stride(rows, itemsize) + maps) * itemsize
+
+
+def _cluster_size(M: int, itemsize: int, smem_optin: int) -> int:
+    """K of the cluster route: the smallest of :data:`CLUSTER_SIZES` whose
+    blocks of 8 columns fit two to an SM, else the largest where one
+    block fits; 0 when not even that one does."""
+    for K in CLUSTER_SIZES:
+        smem = cols_tile_bytes(ceil_div(M, K), itemsize, COLS_PER_BLOCK, K)
+        if resident_blocks(smem, smem_optin) >= 2:
+            return K
+    return K if smem <= smem_optin else 0
+
+
+@functools.lru_cache(maxsize=None)
+def cols_geometry(M: int, itemsize: int, smem_optin: int, *,
+                  cols: int | None = None) -> ColsGeometry:
+    """Geometry of a column sweep over lines of M.
+
+    The route depends on M and the dtype alone: the tile route where 8
+    columns fit beside the whole line's factors (:func:`cols_per_block`);
+    else the cluster route, each line split across a cluster of K blocks
+    of Mb = ceil(M / K) rows (:func:`_cluster_size`), where 8 blocks hold
+    it; else the global route, each column in device memory.  A block
+    stages 8 columns, and L = ``segment_length(Mb)``.
+
+    ``cols`` (a tuned sweep's geometry, :func:`cols_geometries`) forces C,
+    1 to 8, on the tile and cluster routes: each column is one warp's
+    recurrence whatever the block holds, and K never changes, so the
+    choice changes no result; on the global route it raises
+    ``ValueError`` here, before any launch.  Cached: every launch asks."""
+    if cols_per_block(M, itemsize, smem_optin) == COLS_PER_BLOCK:
+        route, K = "tile", 1
+    else:
+        K = _cluster_size(M, itemsize, smem_optin)
+        route = "cluster" if K else "global"
+    if route == "global":
+        if cols is not None:
+            raise ValueError(
+                f"penta_cols cannot stage a column at M = {M} ({itemsize}-"
+                f"byte elements) in the card's {smem_optin} bytes: the "
+                f"device-memory route takes no geometry")
+        return ColsGeometry("global", 1, 0, M, segment_length(M), 0, 0)
+    if cols is not None and not 1 <= cols <= COLS_PER_BLOCK:
+        raise ValueError(f"penta_cols stages 1 to {COLS_PER_BLOCK} columns a "
+                         f"block, got {cols}")
+    C = COLS_PER_BLOCK if cols is None else cols
+    rows = ceil_div(M, K)
+    return ColsGeometry(route, K, C, rows, segment_length(rows),
+                        tile_stride(rows, itemsize),
+                        cols_tile_bytes(rows, itemsize, C, K))
 
 
 def cols_geometries(M: int, itemsize: int, smem_optin: int) -> list[dict]:
     """The column sweep's launch geometries a tuned sweep races besides its
-    default one: 1, 2, 4 and 8 columns a block where they fit."""
-    fit = cols_per_block(M, itemsize, smem_optin)
-    return [{"cols": c} for c in (1, 2, 4, 8) if c <= fit and c != fit]
+    default one: 1, 2 and 4 columns a block on the tile route; none on the
+    cluster route, where 8 columns beat 1, 2 and 4 at every shape raced on
+    an H100 (PERF.md, PR 31), nor on the global route."""
+    if cols_geometry(M, itemsize, smem_optin).route != "tile":
+        return []
+    return [{"cols": c} for c in (1, 2, 4)]
 
 
 # The row and plane sweeps (csrc/penta.cu:penta_rows, penta_mid): blocks of
@@ -512,6 +579,11 @@ def mid_geometries(P: int, M: int, N: int, itemsize: int,
     return out
 
 
+# launches of penta_cols by route since import (kept apart from
+# _build.LAUNCHES, which counts each launch once, under its kernel)
+ROUTES: dict[str, int] = {"tile": 0, "cluster": 0, "global": 0}
+
+
 def penta_cols_cuda(
     band: PentaFactors,
     rhs: torch.Tensor,
@@ -525,21 +597,23 @@ def penta_cols_cuda(
     (the cyclic Woodbury matrix) the closure runs as its epilogue.
     ``cols=(c0, c1)`` solves only those columns into ``out``.
     ``geometry`` (``{'cols': C}``, a tuned sweep's) overrides the columns
-    a block (:func:`cols_per_block`)."""
+    a block (:func:`cols_geometry`).  Counts the launch in
+    :data:`ROUTES` under its route."""
     M, N = rhs.shape
     _build.check_cuda(rhs, "rhs", like=rhs, shape=(M, N))
     _check_factors(band, w, rhs, M)
     c0, c1 = _build.window(cols, N, "column", out)
     smem, _ = _build.device_info(rhs.device)
-    C = cols_per_block(M, rhs.element_size(), smem,
-                       cols=(geometry or {}).get("cols"))
+    geo = cols_geometry(M, rhs.element_size(), smem,
+                        cols=(geometry or {}).get("cols"))
     out = _build.out_like(out, rhs)
     _build.launch(
         "penta_cols", rhs.device, _build.dtype_code(rhs),
         *(_build.ptr(f) for f in band), _build.ptr(w), _build.ptr(rhs),
-        _build.ptr(out), M, N, c0, c1, segment_length(M), C,
-        tile_stride(M, rhs.element_size()),
+        _build.ptr(out), M, N, c0, c1, geo.seg, geo.cols, geo.ldt,
+        geo.cluster, route=geo.route,
     )
+    ROUTES[geo.route] += 1
     return out
 
 

@@ -363,8 +363,13 @@ def test_user_point_fn_compile_error_raises_at_create(cuda):
 # (each where the line holds the cyclic band's 6 points).  Past the first
 # two, the segmented recurrence's edges: lines of 6 (shorter than one
 # segment), 31, 33 and 1021 (ragged last segments) and 1024 (32 segments of
-# 33 but the last), 1 or 7 lines; 4000 rows (fewer than 8 columns in a
-# float64 tile) and 40000 (no tile fits: the column sweep in device memory).
+# 33 but the last), 1 or 7 lines; 4000 rows (fewer than 8 float64 columns
+# fit beside the line's factors: the cluster route, 4 blocks of 1000 rows;
+# float32 stays on the tile route), 8192 (the cluster route in both dtypes:
+# float64 8 blocks of 1024 rows, two to an SM, float32 4 blocks of 2048),
+# 17792 (float64 near the route's end: 8 blocks of 2224 rows, one to an SM)
+# and 40000 (not even 8 blocks hold a line: the column sweep in device
+# memory).
 # Then the row sweep's: rows of 256 (1, 7 and the 3D x-sweep's 65536: many
 # groups a block through the ring), 1 or 7 rows of 1021 and 1024 (float64
 # 1021 and float32 1021 take cp.async of one element, 1024 the bulk copy),
@@ -373,7 +378,7 @@ def test_user_point_fn_compile_error_raises_at_create(cuda):
 # rows).
 PENTA_SHAPES = [(64, 64), (37, 29), (6, 7), (31, 1), (33, 7), (1021, 1),
                 (1024, 7), (7, 6), (1, 31), (7, 33), (1, 1021), (7, 1024),
-                (4000, 7), (40000, 4),
+                (4000, 7), (8192, 7), (17792, 3), (40000, 4),
                 (1, 6), (1, 33), (1, 256), (7, 256), (65536, 256), (7, 1021),
                 (1, 1024), (1, 4000), (7, 4000), (1, 40000), (3, 40000)]
 
@@ -399,6 +404,88 @@ def test_penta_sweeps(cuda, shape, dtype):
         got = solve(fac, rhs)
         assert _build.LAUNCHES[kernel] == before + 1
         _assert_close(got, solve(fac, rhs, backend="torch"), dtype, 100)
+
+
+@pytest.mark.parametrize("cyclic", [True, False], ids=["cyclic", "band"])
+def test_penta_cols_cluster_route_4096(cuda, cyclic):
+    """The 2D y-sweep at 4096^2 float64 on the cluster route (each column
+    split across a cluster of 4 blocks) against the plain substitution and
+    Woodbury closure."""
+    n = 4096
+    smem, _ = _build.device_info(cuda)
+    assert P.cols_geometry(n, 8, smem)[:2] == ("cluster", 4)
+    fac = P.cyclic_penta_factor(
+        *P.hyperdiffusion_diagonals(n, 3.0, torch.float64), device=cuda)
+    band, w = fac.band, (fac.w if cyclic else None)
+    rhs = _field((n, n), torch.float64, cuda, 41)
+    before = P.ROUTES["cluster"]
+    got = P.penta_cols_cuda(band, rhs, w)
+    assert P.ROUTES["cluster"] == before + 1
+    want = P.substitute_torch(band, rhs)
+    if cyclic:
+        want = P.woodbury_correct(want, w)
+    _assert_close(got, want, "float64", 100)
+
+
+def test_penta_cols_streamed_4096_bit_for_bit(cuda):
+    """The y-sweep at 4096^2 float64 (cluster route) in column chunks
+    equals the monolithic launch bit for bit, one launch a chunk: the
+    streamed executor's 8 chunks of 512, and ragged windows of 1001 (the
+    last 92; each window's last column group holds one or four of its 8
+    columns)."""
+    from repro_torch.launch.stream import stream_penta_solve
+
+    n = 4096
+    rhs = _field((n, n), torch.float64, cuda, 42)
+    fac = P.cyclic_penta_factor(
+        *P.hyperdiffusion_diagonals(n, 3.0, torch.float64), device=cuda)
+    for cyclic, f in ((True, fac), (False, fac.band)):
+        want = (P.cyclic_penta_solve_factored if cyclic
+                else P.penta_solve_factored)(f, rhs)
+        before = _build.LAUNCHES["penta_cols"]
+        got = stream_penta_solve(f, rhs, cyclic=cyclic, chunk_cols=512,
+                                 streams=2)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["penta_cols"] == before + 8
+        assert torch.equal(got, want), cyclic
+        got = torch.empty_like(rhs)
+        for c0 in range(0, n, 1001):
+            P.penta_cols_cuda(fac.band, rhs, fac.w if cyclic else None,
+                              cols=(c0, min(c0 + 1001, n)), out=got)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["penta_cols"] == before + 13
+        assert torch.equal(got, want), cyclic
+
+
+def test_penta_cols_routes_counted(cuda):
+    """``penta.ROUTES`` counts each ``penta_cols`` launch under its route:
+    one ``cluster`` launch a y-sweep at 4096^2 and one ``tile`` launch at
+    256^2; the ``repro.launch`` span names the route; ``_build.LAUNCHES``
+    counts each launch once, under its kernel."""
+    from repro_torch.runtime import spans
+
+    for n, route in ((4096, "cluster"), (256, "tile")):
+        data = _field((n, n), torch.float64, cuda, 43)
+        op = create("hyperdiffusion", (n, n), mode="adi", alpha=3.0,
+                    device=cuda)
+        op.solve_y(data)  # warm
+        torch.cuda.synchronize()
+        routes, launches = dict(P.ROUTES), dict(_build.LAUNCHES)
+        spans.enable()
+        try:
+            op.solve_y(data)
+        finally:
+            spans.disable()
+        torch.cuda.synchronize()
+        moved = {k: v - routes[k] for k, v in P.ROUTES.items()
+                 if v != routes[k]}
+        assert moved == {route: 1}, (n, moved)
+        launched = {k: v - launches[k] for k, v in _build.LAUNCHES.items()
+                    if v != launches[k]}
+        assert launched == {"penta_cols": 1}, (n, launched)
+        got = [s.fields for s in spans.take() if s.name == "repro.launch"]
+        assert got == [{"kernel": "penta_cols", "route": route}], (n, got)
+    assert not set(P.ROUTES) & set(_build.LAUNCHES)
 
 
 # Past the first three, the segmented row recurrence's edges (rows of 6,
@@ -984,7 +1071,8 @@ def test_every_plan_geometry_is_bit_for_bit_the_default(cuda, case):
         assert torch.equal(got, want), (case, g)
 
 
-# (layout, shape) of each sweep at the path's shapes, cyclic and not
+# (layout, shape) of each sweep at the path's shapes, cyclic and not (the
+# column sweep's cluster route, 4096^2, offers no geometry to race)
 _SWEEP_CASES = {
     "cols 1024^2": ("cols", (1024, 1024)),
     "cols 3D z (256, 65536)": ("cols", (256, 256 * 256)),

@@ -202,43 +202,74 @@ SEG_MS = (6, 31, 32, 33, 64, 1021)
 SEG_BETA = 2.8e3
 
 
-def _seg_scan(A, p, reverse):
-    """Hillis-Steele inclusive scan of the 32 lanes' affine maps (axis 0),
-    as ``segment_carry``: lane k composes its map after lane k - d's
-    (k + d when ``reverse``), for d = 1, 2, 4, 8, 16.  Returns the state
-    entering each lane's segment."""
+def _seg_scan(A, p, reverse, blocks=1):
+    """The carries of the segmented recurrence: the state entering each
+    lane's segment, for ``blocks`` blocks of 32 lanes (axis 0, block-major)
+    that split one line.  In each block, the Hillis-Steele inclusive scan of
+    its 32 lanes' affine maps, as ``segment_scan``: lane k composes its map
+    after lane k - d's (k + d when ``reverse``), for d = 1, 2, 4, 8, 16.
+    Across blocks, as ``ClusterCarry``: the zero start runs through the
+    composed maps of the blocks before each block (after it when
+    ``reverse``), in line order, then through the composed map of the lanes
+    before each lane in its block.  One block is ``segment_carry``."""
     K = TP.WARP
+    A = A.reshape((blocks, K) + A.shape[1:])
+    p = p.reshape((blocks, K) + p.shape[1:])
     d = 1
     while d < K:
         if reverse:
-            Ab, pb = np.concatenate([A[d:], A[-d:]]), np.concatenate([p[d:], p[-d:]])
+            Ab = np.concatenate([A[:, d:], A[:, -d:]], 1)
+            pb = np.concatenate([p[:, d:], p[:, -d:]], 1)
             valid = np.arange(K) + d < K
         else:
-            Ab, pb = np.concatenate([A[:d], A[:-d]]), np.concatenate([p[:d], p[:-d]])
+            Ab = np.concatenate([A[:, :d], A[:, :-d]], 1)
+            pb = np.concatenate([p[:, :d], p[:, :-d]], 1)
             valid = np.arange(K) >= d
-        p_new = np.einsum("kbij,kbj->kbi", A, pb) + p
-        A_new = np.einsum("kbij,kbjl->kbil", A, Ab)
+        p_new = np.einsum("gkbij,gkbj->gkbi", A, pb) + p
+        A_new = np.einsum("gkbij,gkbjl->gkbil", A, Ab)
         A = np.where(valid[:, None, None, None], A_new, A)
         p = np.where(valid[:, None, None], p_new, p)
         d *= 2
-    zero = np.zeros_like(p[:1])
-    return np.concatenate([p[1:], zero]) if reverse else np.concatenate([zero, p[:-1]])
+    # the composed map of the lanes before each lane (the identity first)
+    eye = np.broadcast_to(np.eye(2, dtype=A.dtype), A[:, :1].shape)
+    zero = np.zeros_like(p[:, :1])
+    if reverse:
+        eA, ep = np.concatenate([A[:, 1:], eye], 1), np.concatenate([p[:, 1:], zero], 1)
+    else:
+        eA, ep = np.concatenate([eye, A[:, :-1]], 1), np.concatenate([zero, p[:, :-1]], 1)
+    # the state entering each block: its predecessors' maps in line order
+    last = 0 if reverse else K - 1
+    t = np.zeros_like(p[:, 0])
+    order = range(blocks - 2, -1, -1) if reverse else range(1, blocks)
+    for g in order:
+        prev = g + 1 if reverse else g - 1
+        t[g] = np.einsum("bij,bj->bi", A[prev, last], t[prev]) + p[prev, last]
+    s = np.einsum("gkbij,gbj->gkbi", eA, t) + ep
+    return s.reshape((blocks * K,) + s.shape[2:])
 
 
-def _seg_direction(step, r, L, M, reverse):
+def _seg_direction(step, r, L, M, reverse, blocks=1):
     """One direction of the segmented recurrence over an (M, B) array:
     ``step(i, r_i, s1, s2)`` is the recurrence's new value at row i from
-    the state (s1, s2).  Pass A: every lane runs its segment from a zero
-    state and from the unit states with a zero right-hand side; the carry
-    scan; pass C: every lane reruns its segment from its true state."""
+    the state (s1, s2).  ``blocks`` blocks split the line, block g holding
+    the rows [g Mb, g Mb + Mb), Mb = ceil(M / blocks), each of its 32 lanes
+    a segment of L of them.  Pass A: every lane runs its segment from a
+    zero state and from the unit states with a zero right-hand side; the
+    carries (:func:`_seg_scan`); pass C: every lane reruns its segment from
+    its true state."""
     K, B = TP.WARP, r.shape[1]
     dt = r.dtype.type
-    rows = np.arange(K)[:, None] * L + np.arange(L)[None, :]  # (lane, step)
+    Mb = -(-M // blocks)
+    lane = np.arange(blocks * K)
+    first = (lane // K) * Mb + (lane % K) * L
+    stop = np.minimum(np.minimum(first + L, (lane // K + 1) * Mb), M)
+    rows = first[:, None] + np.arange(L)[None, :]  # (lane, step)
+    alive = rows < stop[:, None]
     order = range(L - 1, -1, -1) if reverse else range(L)
 
     def run(s1, s2, rhs_on, out=None):
         for j in order:
-            live = (rows[:, j] < M)[:, None]
+            live = alive[:, j][:, None]
             i = np.minimum(rows[:, j], M - 1)
             v = step(i, r[i] if rhs_on else np.zeros_like(s1), s1, s2)
             if out is not None:
@@ -246,29 +277,32 @@ def _seg_direction(step, r, L, M, reverse):
             s1, s2 = np.where(live, v, s1), np.where(live, s1, s2)
         return s1, s2
 
-    zero, one = np.zeros((K, B), r.dtype), np.ones((K, B), r.dtype)
+    n = blocks * K
+    zero, one = np.zeros((n, B), r.dtype), np.ones((n, B), r.dtype)
     p1, p2 = run(zero, zero, True)
     u1, u2 = run(one, zero, False)
     w1, w2 = run(zero, one, False)
     A = np.stack([np.stack([u1, w1], -1), np.stack([u2, w2], -1)], -2)
-    s = _seg_scan(A, np.stack([p1, p2], -1), reverse)
+    s = _seg_scan(A, np.stack([p1, p2], -1), reverse, blocks)
     out = np.empty_like(r)
     run(s[..., 0], s[..., 1], True, out)
     assert dt == out.dtype.type
     return out
 
 
-def _segmented_substitute(fac, rhs, L, w=None):
+def _segmented_substitute(fac, rhs, L, w=None, blocks=1):
     """numpy model of the segmented substitution of an (M, B) rhs with
-    segments of L rows, then the Woodbury closure when ``w`` is given."""
+    segments of L rows, the line split across ``blocks`` blocks (the
+    column sweep's cluster route), then the Woodbury closure when ``w`` is
+    given."""
     sub, low, imu, al, be = (_np(f) for f in fac)
     M = rhs.shape[0]
     z = _seg_direction(
         lambda i, r, z1, z2: (r - sub[i, None] * z2 - low[i, None] * z1)
-        * imu[i, None], rhs, L, M, reverse=False)
+        * imu[i, None], rhs, L, M, reverse=False, blocks=blocks)
     x = _seg_direction(
         lambda i, r, x1, x2: r - al[i, None] * x1 - be[i, None] * x2,
-        z, L, M, reverse=True)
+        z, L, M, reverse=True, blocks=blocks)
     if w is not None:
         x = _np(TP.woodbury_correct(torch.as_tensor(x), torch.as_tensor(_np(w))))
     return x
@@ -344,6 +378,97 @@ def test_segmented_substitution_model_planes(cyclic, dtype, M):
                                .astype(np.float64), cyclic=cyclic)
     dense = np.asarray(dense).reshape(M, P, N).transpose(1, 0, 2)
     _close(got, dense, dtype, scale=100.0)
+
+
+# H100: opt-in shared memory a block (bytes)
+H100_SMEM = 232448
+
+
+@pytest.mark.parametrize("M", (2305, 4096, 4097))
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cyclic", [False, True], ids=["band", "cyclic"])
+def test_segmented_substitution_model_cluster(cyclic, dtype, M):
+    """The column sweep's cluster route (csrc/penta.cu:ClusterCarry)
+    modelled in numpy: each line split across the K blocks of the float64
+    geometry on an H100, 32 lanes a block, the carries composed within each
+    block and then across the blocks in the kernel's order, against the
+    reference's jnp substitution and the dense oracle.  K = 4 at all three
+    M; ragged last segments (2305: Mb = 577, L = 19; 4097: Mb = 1025,
+    L = 33) and a short last block (574 and 1022 rows)."""
+    geo = TP.cols_geometry(M, 8, H100_SMEM)
+    assert (geo.route, geo.cluster) == ("cluster", 4)
+    bands = TP.hyperdiffusion_diagonals(M, SEG_BETA, dtype)
+    jb = [jnp.asarray(b) for b in bands]
+    rhs = np.asarray(np.random.default_rng(M).standard_normal((M, 3)), dtype)
+    if cyclic:
+        ref_fac = RP.cyclic_penta_factor(*jb)
+        fac = TP.cyclic_penta_factor(*bands, device="cpu")
+        want = RP.cyclic_penta_solve_factored(ref_fac, jnp.asarray(rhs),
+                                              backend="jnp")
+        got = _segmented_substitute(fac.band, rhs, geo.seg, fac.w,
+                                    blocks=geo.cluster)
+    else:
+        ref_fac = RP.penta_factor(*jb)
+        fac = TP.penta_factor(*bands, device="cpu")
+        want = RP._substitute_jnp(ref_fac, jnp.asarray(rhs))
+        got = _segmented_substitute(fac, rhs, geo.seg, blocks=geo.cluster)
+    assert got.dtype == np.dtype(dtype)
+    _close(got, want, dtype)
+    dense = RR.penta_solve_ref(*(jnp.asarray(b, jnp.float64) for b in bands),
+                               rhs.astype(np.float64), cyclic=cyclic)
+    _close(got, dense, dtype, scale=100.0)
+
+
+def test_cols_geometry():
+    """The column sweep's routes on an H100: the tile route with 8 columns
+    where they fit beside the whole line's factors (the 3D z-sweep at 256,
+    1024^2, float32 at 4096); past that, in float64, the cluster route,
+    each line split across K blocks (K = 4 at 4096: blocks of 1024 rows,
+    two an SM; K = 8 at 8192) up to what 8 blocks hold; beyond, the global
+    route.  The route depends on M and the dtype alone."""
+    for M in (256, 1024):
+        g = TP.cols_geometry(M, 8, H100_SMEM)
+        assert g == TP.ColsGeometry(
+            "tile", 1, 8, M, TP.segment_length(M), TP.tile_stride(M, 8),
+            (5 * M + 8 * TP.tile_stride(M, 8)) * 8)
+    g = TP.cols_geometry(4096, 4, H100_SMEM)
+    assert (g.route, g.cluster, g.cols, g.rows, g.seg) == ("tile", 1, 8, 4096,
+                                                          129)
+    cluster = (5 * 1024 + 8 * 1026 + 12 * 8) * 8
+    for M, K in ((4096, 4), (8192, 8)):
+        g = TP.cols_geometry(M, 8, H100_SMEM)
+        assert g == TP.ColsGeometry("cluster", K, 8, 1024, 33, 1026, cluster)
+    assert TP.resident_blocks(cluster, H100_SMEM) == 2
+    # the switch: fewer than 8 columns beside the whole line's factors
+    assert TP.cols_per_block(2224, 8, H100_SMEM) == 8
+    assert TP.cols_per_block(2225, 8, H100_SMEM) == 7
+    assert TP.cols_geometry(2224, 8, H100_SMEM).route == "tile"
+    g = TP.cols_geometry(2225, 8, H100_SMEM)
+    assert (g.route, g.cluster, g.rows, g.seg) == ("cluster", 4, 557, 19)
+    # two blocks an SM from K = 4 up; one of 8 up to the limit of 8 blocks
+    g = TP.cols_geometry(12000, 8, H100_SMEM)
+    assert (g.route, g.cluster, g.rows, g.seg) == ("cluster", 8, 1500, 47)
+    assert TP.resident_blocks(g.smem, H100_SMEM) == 1
+    assert TP.cols_geometry(17792, 8, H100_SMEM).route == "cluster"
+    for M in (17793, 40000):
+        assert TP.cols_geometry(M, 8, H100_SMEM) == TP.ColsGeometry(
+            "global", 1, 0, M, TP.segment_length(M), 0, 0)
+    g = TP.cols_geometry(8192, 4, H100_SMEM)
+    assert (g.route, g.cluster, g.rows, g.seg) == ("cluster", 4, 2048, 65)
+    # tuned geometries: 1, 2 and 4 columns on the tile route, none on the
+    # others; a forced C keeps K and L as the default's
+    assert TP.cols_geometries(256, 8, H100_SMEM) == [
+        {"cols": 1}, {"cols": 2}, {"cols": 4}]
+    for M in (4096, 8192, 40000):
+        assert TP.cols_geometries(M, 8, H100_SMEM) == []
+    g = TP.cols_geometry(4096, 8, H100_SMEM, cols=2)
+    assert g == TP.ColsGeometry("cluster", 4, 2, 1024, 33, 1026,
+                                (5 * 1024 + 2 * 1026 + 24) * 8)
+    for bad in (0, 9):
+        with pytest.raises(ValueError, match="1 to 8 columns"):
+            TP.cols_geometry(4096, 8, H100_SMEM, cols=bad)
+    with pytest.raises(ValueError, match="device-memory route"):
+        TP.cols_geometry(40000, 8, H100_SMEM, cols=1)
 
 
 def test_segment_geometry():
