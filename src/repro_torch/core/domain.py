@@ -48,10 +48,13 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.stencil2d import stencil2d_cuda, stencil2d_torch
+from repro_torch.runtime import spans as _spans
 
 # collectives issued since the last reset_collectives(): halo strips sent
-# point to point, all-to-all reshards, all-gathers of a whole field
-COLLECTIVES: dict[str, int] = {"p2p": 0, "all_to_all": 0, "all_gather": 0}
+# point to point, all-to-all reshards, all-gathers of a whole field,
+# all-reduces of partial sums (the distributed diagnostics)
+COLLECTIVES: dict[str, int] = {"p2p": 0, "all_to_all": 0, "all_gather": 0,
+                               "all_reduce": 0}
 
 
 def reset_collectives() -> None:
@@ -108,6 +111,12 @@ class DomainDecomposition:
         """This rank's position along ``axis`` (0 for None)."""
         return 0 if axis is None else self.mesh.get_local_rank(axis)
 
+    @functools.cached_property
+    def rings(self) -> dict:
+        """The halo exchange's neighbours over each axis (:func:`_ring`),
+        worked out at the axis's first exchange."""
+        return {}
+
     @property
     def field_spec(self) -> tuple:
         if self.ensemble_axis:
@@ -151,26 +160,47 @@ def gather(x: DTensor) -> torch.Tensor:
     return x.full_tensor()
 
 
+def _ring(mesh: DeviceMesh, axis_name: str | None,
+          rings: dict | None = None) -> tuple | None:
+    """The circular neighbours over ``axis_name``: ``(group, up, down)``,
+    the axis's group and the global ranks above and below this one, or
+    None with one shard on the axis (the neighbour is myself).  Kept in
+    ``rings`` (:attr:`DomainDecomposition.rings`) once worked out."""
+    if rings is not None and axis_name in rings:
+        return rings[axis_name]
+    n = 1 if axis_name is None else mesh.size(mesh.mesh_dim_names.index(axis_name))
+    ring = None
+    if n > 1:
+        group = mesh.get_group(axis_name)
+        me = mesh.get_local_rank(axis_name)
+        ring = (group, dist.get_global_rank(group, (me + 1) % n),
+                dist.get_global_rank(group, (me - 1) % n))
+    if rings is not None:
+        rings[axis_name] = ring
+    return ring
+
+
 def _post_exchange(block, lo: int, hi: int, axis: int, axis_name: str | None,
-                   mesh: DeviceMesh) -> Callable[[], tuple]:
+                   mesh: DeviceMesh, rings: dict | None = None
+                   ) -> Callable[[], tuple]:
     """Post the exchange of (lo, hi) halo strips along ``axis`` with the
-    circular neighbours over ``axis_name``; return ``finish()``, which waits
-    and gives ``(lo_halo, hi_halo)`` (None for a zero extent).  The lo halo
-    is the lower neighbour's last ``lo`` slices, the hi halo the upper
-    neighbour's first ``hi``."""
+    circular neighbours over ``axis_name`` (:func:`_ring`, kept in
+    ``rings``); return ``finish()``, which waits and gives ``(lo_halo,
+    hi_halo)`` (None for a zero extent).  The lo halo is the lower
+    neighbour's last ``lo`` slices, the hi halo the upper neighbour's
+    first ``hi``."""
     extent = block.shape[axis]
     if max(lo, hi) > extent:
         raise ValueError(
             f"halo ({lo}, {hi}) wider than the local block's extent {extent}")
     lo_strip = block.narrow(axis, extent - lo, lo) if lo else None
     hi_strip = block.narrow(axis, 0, hi) if hi else None
-    n = 1 if axis_name is None else mesh.size(mesh.mesh_dim_names.index(axis_name))
-    if n == 1 or not (lo or hi):  # the neighbour is myself, or no halo
+    if not (lo or hi):  # no halo
         return lambda: (lo_strip, hi_strip)
-    group = mesh.get_group(axis_name)
-    me = mesh.get_local_rank(axis_name)
-    up = dist.get_global_rank(group, (me + 1) % n)
-    down = dist.get_global_rank(group, (me - 1) % n)
+    ring = _ring(mesh, axis_name, rings)
+    if ring is None:  # the neighbour is myself
+        return lambda: (lo_strip, hi_strip)
+    group, up, down = ring
     ops, halos = [], [None, None]
     # tags tell the two strips apart where up == down (n == 2); NCCL, which
     # ignores tags, matches them in this order
@@ -214,15 +244,25 @@ def halo_pad(
     """Return the block (any leading dims) padded with neighbour halos:
     trailing shape (ny_loc + top + bottom, nx_loc + left + right).
     Circular exchange: non-periodic masking happens at the caller.
-    ``during()`` runs while the first exchange is in flight."""
+    ``during()`` runs while the first exchange is in flight.  The span
+    ``'repro.dist.halo'``."""
+    if _spans.ON:
+        with _spans.span("repro.dist.halo"):
+            return _halo_pad(block, halos, dd, during)
+    return _halo_pad(block, halos, dd, during)
+
+
+def _halo_pad(block, halos, dd, during):
     top, bottom, left, right = halos
-    finish = _post_exchange(block, top, bottom, -2, dd.y_axis, dd.mesh)
+    finish = _post_exchange(block, top, bottom, -2, dd.y_axis, dd.mesh,
+                            dd.rings)
     if during is not None and (top or bottom):
         during()
         during = None
     up, down = finish()
     padded = _cat(up, block, down, -2)
-    finish = _post_exchange(padded, left, right, -1, dd.x_axis, dd.mesh)
+    finish = _post_exchange(padded, left, right, -1, dd.x_axis, dd.mesh,
+                            dd.rings)
     if during is not None:
         during()
     lf, rt = finish()

@@ -3,7 +3,9 @@ inside the program, off by default.
 
 A span is one pass of the host through one layer boundary: a chunk of
 the Cahn–Hilliard driver, its RHS and its in-place update, an ADI sweep,
-a plan's Compute, ``api.compute``, the diagnostics, a kernel launch.  The
+a plan's Compute, ``api.compute``, the diagnostics, a kernel launch, and
+the distributed solver's step, bootstrap, halo exchanges, reshards and
+diagnostics.  The
 sites sit beside the chaos hooks (:mod:`repro_torch.runtime.chaos`) and
 carry ``repro.*`` names:
 
@@ -18,6 +20,17 @@ carry ``repro.*`` names:
 ``repro.ch.diagnostics``     ``coarsening_metrics``' function
 ``repro.launch``             ``kernels._build.launch``, from the chaos
                              hook to the launch counter (``kernel``)
+``repro.dist.step``          one step of ``DistributedCahnHilliard``
+                             (``step`` or each of ``multi_step``'s): the
+                             root of a distributed step
+``repro.dist.bootstrap``     ``DistributedCahnHilliard.initial_step``
+``repro.dist.halo``          ``core.domain.halo_pad``: a halo exchange
+``repro.dist.reshard``       one all-to-all between two layouts of the
+                             distributed solver (``src``, ``dst``,
+                             ``bytes_sent``: the bytes this rank sends
+                             off itself)
+``repro.dist.diagnostics``   the function ``DistributedCahnHilliard.
+                             metrics`` returns
 ===========================  ==========================================
 
 - **Off** (the default), each site costs one test of :data:`ON`: it

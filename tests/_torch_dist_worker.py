@@ -24,6 +24,7 @@ from repro_torch.core.cahn_hilliard import CHConfig
 from repro_torch.core.dist_ch import DistributedCahnHilliard, make_layouts
 from repro_torch.launch.mesh import make_mesh_for
 from repro_torch.launch.stream import stream_stencil_apply_dist
+from repro_torch.runtime import spans
 
 
 def main(rank, world, init_file, in_npz, out_dir):
@@ -98,6 +99,48 @@ def main(rank, world, init_file, in_npz, out_dir):
                                                     chunk_rows=16))
     counts["torch_all_gathers"] = sum(
         n for op, n in comm.get_comm_counts().items() if "gather" in str(op))
+
+    # the eq. 3 bootstrap in the two RHS modes that have it, then 8 steps
+    boots = {}
+    for mode in ("fused", "stencil"):
+        boot_solver = DistributedCahnHilliard(
+            CHConfig(nx=64, ny=64, dt=1e-3, rhs_mode=mode, device="cpu"), dd)
+        D.reset_collectives()
+        boots[mode] = boot_solver.initial_step(inp["c0"])
+        counts[f"boot-{mode}"] = dict(D.COLLECTIVES)
+        keep(f"dist_boot-{mode}", boots[mode])
+    D.reset_collectives()
+    multi = solver.multi_step(boots["fused"], c0, 8)
+    counts["multi-collectives"] = dict(D.COLLECTIVES)
+    keep("dist_ch8", multi[0])
+    # the same 8 steps one call at a time
+    one = (boots["fused"], c0)
+    for _ in range(8):
+        one = solver.step(*one)
+    counts["multi-same"] = [bool(torch.equal(m.to_local(), o.to_local()))
+                            for m, o in zip(multi, one, strict=True)]
+    try:
+        DistributedCahnHilliard(CHConfig(nx=64, ny=64, dt=1e-3,
+                                         rhs_mode="batch1d", device="cpu"),
+                                dd).initial_step(inp["c0"])
+    except ValueError as exc:
+        counts["boot-batch1d"] = str(exc)
+
+    # the sharded diagnostics of the field the 3 steps left ("dist_ch")
+    D.reset_collectives()
+    counts["metrics"] = [float(v) for v in solver.metrics()(c_n)]
+    counts["metrics-collectives"] = dict(D.COLLECTIVES)
+
+    # one step with the spans on, then off: the tree, and the same bits
+    spans.enable()
+    on = solver.step(c1, c0)[0].to_local()
+    spans.disable()
+    records = spans.take()
+    off = solver.step(c1, c0)[0].to_local()
+    counts["spans-off"] = len(spans.take())
+    counts["spans-same"] = bool(torch.equal(on, off))
+    root = [r.id for r in records if r.name == "repro.dist.step"]
+    counts["spans"] = [[r.name, r.parent in root, r.fields] for r in records]
     lay = make_layouts(dd)
     counts["layouts"] = [[p.dim for p in ps]
                          for ps in (lay.block, lay.xsweep, lay.ysweep)]

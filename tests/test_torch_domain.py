@@ -239,6 +239,102 @@ class TestDistributedCahnHilliard:
             _same(got[m], co)
 
 
+def _plain_reference(n=64):
+    """``bench/reference/ch2d.py``'s plain reference (Fourier symbols) of
+    the 64^2 configuration the world runs."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    from bench.reference.ch2d import Reference
+
+    cfg = TCH.CHConfig(nx=n, ny=n, dt=1e-3, device="cpu")
+    return Reference(dict(lx=cfg.lx, ly=cfg.ly, dt=cfg.dt, D=cfg.D,
+                          gamma=cfg.gamma), (n, n))
+
+
+def _sent_bytes(rank, src, dst, n=64, itemsize=8):
+    """The bytes rank ``rank`` of the (4, 2) mesh sends off itself in a
+    reshard of an n^2 field: its box under ``src`` less the part it keeps
+    under ``dst``."""
+    i, j = divmod(rank, 2)
+    boxes = dict(block=((16 * i, 16 * i + 16), (32 * j, 32 * j + 32)),
+                 xsweep=((8 * rank, 8 * rank + 8), (0, n)),
+                 ysweep=((0, n), (8 * rank, 8 * rank + 8)))
+    a, b = boxes[src], boxes[dst]
+    kept = 1
+    for (a0, a1), (b0, b1) in zip(a, b):
+        kept *= max(0, min(a1, b1) - max(a0, b0))
+    size = (a[0][1] - a[0][0]) * (a[1][1] - a[1][0])
+    return itemsize * (size - kept)
+
+
+class TestDistributedBootstrapAndDiagnostics:
+    @pytest.mark.parametrize("mode", ["fused", "stencil"])
+    def test_initial_step_matches_single_device(self, world, mode):
+        inp = world["inp"]
+        got = world["results"][f"dist_boot-{mode}"]
+        own = TCH.CahnHilliardADI(TCH.CHConfig(
+            nx=64, ny=64, dt=1e-3, rhs_mode=mode, device="cpu"))
+        _same(got, own.initial_step(torch.as_tensor(inp["c0"])))
+        plain = _plain_reference().bootstrap(torch.as_tensor(inp["c0"]))
+        _close(got, plain, CH_TOL)
+        _close(got, inp["c1"], CH_TOL)  # the reference package's C^1
+
+    def test_initial_step_reshards_and_gathers_nothing(self, world):
+        for c in world["counts"]:
+            for mode in ("fused", "stencil"):
+                boot = c[f"boot-{mode}"]
+                assert boot["all_to_all"] == 4 and boot["p2p"] > 0, boot
+                assert boot["all_gather"] == 0 and boot["all_reduce"] == 0
+            assert "batch1d" in c["boot-batch1d"]
+
+    def test_eight_steps_match_the_plain_reference(self, world):
+        ref = _plain_reference()
+        c0 = torch.as_tensor(world["inp"]["c0"])
+        c_n, c_nm1 = ref.bootstrap(c0), c0
+        for _ in range(8):
+            c_n, c_nm1 = ref.step(c_n, c_nm1)
+        _close(world["results"]["dist_ch8"], c_n, CH_TOL)
+
+    def test_multi_step_is_step_after_step(self, world):
+        for c in world["counts"]:
+            assert c["multi-same"] == [True, True]
+            coll = c["multi-collectives"]
+            assert coll["all_to_all"] == 3 * 8 and coll["p2p"] == 4 * 8, coll
+            assert coll["all_gather"] == 0 and coll["all_reduce"] == 0, coll
+
+    def test_metrics_match_the_gathered_field(self, world):
+        cfg = TCH.CHConfig(nx=64, ny=64, dt=1e-3, device="cpu")
+        field = torch.as_tensor(world["results"]["dist_ch"])
+        want = [float(v) for v in TCH.coarsening_metrics(cfg)(field)]
+        mass_scale = cfg.lx * cfg.ly * float(field.square().mean().sqrt())
+        scales = [abs(want[0]), abs(want[1]), abs(want[2]), mass_scale]
+        for c in world["counts"]:
+            for got, w, sc in zip(c["metrics"], want, scales, strict=True):
+                assert abs(got - w) <= 1e-12 * sc, (c["metrics"], want)
+            coll = c["metrics-collectives"]
+            assert coll["all_reduce"] == 1 and coll["all_gather"] == 0, coll
+            assert coll["all_to_all"] == 2 and coll["p2p"] == 4, coll
+
+    def test_step_spans(self, world):
+        for rank, c in enumerate(world["counts"]):
+            names = [name for name, _, _ in c["spans"]]
+            assert sorted(names) == sorted(
+                ["repro.dist.step", "repro.dist.halo"]
+                + ["repro.dist.reshard"] * 3), names
+            for name, in_step, fields in c["spans"]:
+                if name == "repro.dist.step":
+                    continue
+                assert in_step, (name, c["spans"])
+                if name == "repro.dist.reshard":
+                    assert fields["bytes_sent"] == _sent_bytes(
+                        rank, fields["src"], fields["dst"]), fields
+            pairs = [(f["src"], f["dst"]) for n, _, f in c["spans"]
+                     if n == "repro.dist.reshard"]
+            assert pairs == [("block", "xsweep"), ("xsweep", "ysweep"),
+                             ("ysweep", "block")]
+            assert c["spans-off"] == 0 and c["spans-same"] is True
+
+
 class TestStreamedDistWorld:
     @pytest.mark.parametrize("bc", ["periodic", "np"])
     def test_matches_single_device(self, world, bc):
@@ -339,7 +435,8 @@ class TestOneRank:
             plan, torch.as_tensor(f), one_rank,
             torch.as_tensor(init) if bc == "np" else None, overlap=overlap)
         assert isinstance(got, DTensor)
-        assert D.COLLECTIVES == {"p2p": 0, "all_to_all": 0, "all_gather": 0}
+        assert D.COLLECTIVES == {"p2p": 0, "all_to_all": 0, "all_gather": 0,
+                                 "all_reduce": 0}
         _close(got.to_local(), ref, STENCIL_TOL)
         _same(got.to_local(), plan.apply(
             torch.as_tensor(f), torch.as_tensor(init) if bc == "np" else None))
@@ -385,7 +482,8 @@ class TestOneRank:
         D.reset_collectives()
         cn, cm = solver.multi_step(torch.tensor(c1), torch.tensor(c0), 3)
         # at one rank the reshards are no-ops and the exchange the local wrap
-        assert D.COLLECTIVES == {"p2p": 0, "all_to_all": 0, "all_gather": 0}
+        assert D.COLLECTIVES == {"p2p": 0, "all_to_all": 0, "all_gather": 0,
+                                 "all_reduce": 0}
         _close(cn.to_local(), cr, CH_TOL)
         _close(cm.to_local(), mr, CH_TOL)
         single = TCH.CahnHilliardADI(TCH.CHConfig(nx=32, ny=32, dt=1e-3,

@@ -1342,6 +1342,20 @@ _NCCL_SCRIPT = textwrap.dedent("""
     tol = tolerance_for("float64", scale=100)
     err = float((a.to_local() - want).abs().max())
     assert err <= tol["atol"] + tol["rtol"] * float(want.abs().max()), err
+    # the eq. 3 bootstrap through the plans' padded-block launches and the
+    # sharded diagnostics, against the single-device results
+    from repro_torch.core.cahn_hilliard import coarsening_metrics
+    boot = solver.initial_step(c0)
+    err = float((boot.to_local() - c1).abs().max())
+    assert err <= tol["atol"] + tol["rtol"] * float(c1.abs().max()), err
+    D.reset_collectives()
+    got = [float(v) for v in solver.metrics()(a)]
+    assert D.COLLECTIVES["all_reduce"] == 0, D.COLLECTIVES  # one rank
+    want = [float(v) for v in coarsening_metrics(cfg)(a.to_local())]
+    scales = [abs(want[0]), abs(want[1]), abs(want[2]),
+              cfg.lx * cfg.ly * float(a.to_local().square().mean().sqrt())]
+    for g, w, sc in zip(got, want, scales):
+        assert abs(g - w) <= 1e-12 * sc, (got, want)
     dist.destroy_process_group()
     print("NCCL-OK")
 """)
@@ -1352,9 +1366,9 @@ def test_one_rank_nccl_world(cuda):
     ``stream_stencil_apply_dist``) in a one-rank NCCL world, in a
     subprocess of its own: the distributed stencil (weighted, cube,
     CUDA-source and translated point functions; one the translator
-    refuses raises) and CH step
-    against the single-device kernels, their launches, the streamed apply
-    bit for bit the unstreamed one."""
+    refuses raises) and CH step, its eq. 3 bootstrap and its sharded
+    diagnostics against the single-device kernels, their launches, the
+    streamed apply bit for bit the unstreamed one."""
     root = Path(__file__).resolve().parents[1]
     proc = subprocess.run(
         [sys.executable, "-c", _NCCL_SCRIPT], capture_output=True, text=True,
