@@ -340,16 +340,23 @@ def main() -> int:
     for name, fn in kernels.items():
         times[f"{name}, events"] = time_ms(fn)
         times[f"{name}, device"] = device_ms(fn)
+    def set_knob(module, knob, value):
+        # the module's cached geometries read the knob: forget them
+        setattr(module, knob, value)
+        for obj in vars(module).values():
+            if hasattr(obj, "cache_clear"):
+                obj.cache_clear()
+
     same = {}
     for label, module, knob, value, name in variants:
         kept = getattr(module, knob)
         want = kernels[name]()
-        setattr(module, knob, value)
+        set_knob(module, knob, value)
         try:
             times[f"{name} {label}, device"] = device_ms(kernels[name])
             same[f"{name} {label}"] = bool(torch.equal(kernels[name](), want))
         finally:
-            setattr(module, knob, kept)
+            set_knob(module, knob, kept)
     print(json.dumps(dict(tree=str(tree), label=args.label, card=card,
                           device=torch.cuda.get_device_name(0),
                           torch=torch.__version__, ms=times,

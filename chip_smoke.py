@@ -377,7 +377,10 @@ LONG_M = (40000, 64)  # a column sweep whose (M, C) tile fits no block
 # column sweeps on the cluster route, each line split across 4 blocks (the
 # benchmark's 4096^2 y-sweep) and 8 blocks
 CLUSTER_COLS = ((4096, 4096), (8192, 384))
-LONG_ROWS = (3, 40000)  # a row sweep whose row fits no block beside the factors
+# row sweeps on the cluster route, each row split across 8 blocks (the
+# benchmark's 4096^2 x-sweep, and the distributed cell's 2048 rows of 8192)
+CLUSTER_ROWS = ((4096, 4096), (2048, 8192))
+LONG_ROWS = (3, 40000)  # a float64 row sweep whose row 8 blocks do not hold
 LONG_MID = (2, 6000, 16)  # a plane sweep whose one-column tile fits no block
 N_TIMED_3D = 20
 # 3D streaming (phase 4f): the budget that cuts the 256^3 float64 LOD step
@@ -3328,10 +3331,12 @@ def main() -> int:
         return dict(nx=nx, L=L, S=ceil_div(nx, L), **geo._asdict())
 
     def penta_rows_geometry(B, M, dtype, cyclic=True):
-        L = P.segment_length(M)
         geo = P.rows_geometry_on(torch.device("cuda"), getattr(torch, dtype),
                                  M, B, cyclic=cyclic)
-        return dict(B=B, M=M, L=L, S=ceil_div(M, L), **geo._asdict())
+        Mb = ceil_div(M, geo.cluster)
+        L = P.segment_length(Mb)
+        return dict(B=B, M=M, L=L, S=ceil_div(Mb, L) * geo.cluster,
+                    **geo._asdict())
 
     def penta_mid_geometry(shape, dtype):
         L = P.segment_length(shape[1])
@@ -3351,6 +3356,8 @@ def main() -> int:
         "chunk": penta_rows_geometry(N_MAIN // N_CHUNKS, N_MAIN, "float64"),
         f"penta_rows {LONG_ROWS} float64, long M":
             penta_rows_geometry(*LONG_ROWS, "float64"),
+        **{f"penta_rows {shape} float64, cluster route":
+           penta_rows_geometry(*shape, "float64") for shape in CLUSTER_ROWS},
         f"penta_mid ({N3}, {N3}, {N3}) float64":
             penta_mid_geometry((N3,) * 3, "float64"),
         f"penta_mid {RAGGED_3D} float64": penta_mid_geometry(RAGGED_3D,
@@ -3610,6 +3617,41 @@ def main() -> int:
                 return got
 
             cases.append(("penta_cols", label, "float64", cluster_cols))
+
+    # the row sweep on its cluster route (8 blocks a row; the plain band's
+    # rows of 4096 fit a block whole: the tile route), each launch counted
+    # once under its route in P.ROWS_ROUTES
+    rows_launches = {}  # label -> (expected route, P.ROWS_ROUTES moved)
+    for shape in CLUSTER_ROWS:
+        fac_r = P.cyclic_penta_factor(
+            *P.hyperdiffusion_diagonals(shape[1], beta_full), device=dev)
+        rhs_r = (torch.rand(shape, generator=torch.Generator().manual_seed(6),
+                            dtype=torch.float64) * 2 - 1).to(dev)
+        for cyclic in (True, False):
+            route = "tile" if (shape[1], cyclic) == (4096, False) else "cluster"
+            geo = P.rows_geometry_on(dev, torch.float64, shape[1], shape[0],
+                                     cyclic=cyclic)
+            if (geo.route, geo.cluster) != (route, 8 if route == "cluster"
+                                            else 1):
+                raise PhaseError(f"penta_rows {shape} cyclic={cyclic}: "
+                                 f"{geo.route} route with {geo.cluster} "
+                                 f"blocks a row, not {route}")
+            label = (f"{'cyclic' if cyclic else 'plain-band'} rows cluster "
+                     f"{shape[0]}x{shape[1]}")
+
+            def cluster_rows(b, f=fac_r, r=rhs_r, cyc=cyclic, label=label,
+                             route=route):
+                n0 = dict(P.ROWS_ROUTES)
+                got = (P.cyclic_penta_solve_factored_rows(f, r, backend=b)
+                       if cyc else P.penta_solve_factored_rows(f.band, r,
+                                                               backend=b))
+                if b == "cuda":
+                    rows_launches[label] = (route, {
+                        k: v - n0[k] for k, v in P.ROWS_ROUTES.items()
+                        if v != n0[k]})
+                return got
+
+            cases.append(("penta_rows", label, "float64", cluster_rows))
 
     # the row and plane sweeps at a long M: neither a row nor a one-column
     # tile fits a block beside the factors, so each line is solved in
@@ -3890,6 +3932,16 @@ def main() -> int:
               f"{label}: {moved} cluster launch(es) counted", flush=True)
         if moved != 1:
             failures.append(f"penta_cols {label}: {moved} cluster launches")
+    for label, (route, moved) in rows_launches.items():
+        ok = moved == {route: 1}
+        checks.append(dict(kernel="penta_rows", label=f"{label} route",
+                           dtype="float64", route=route, routes_moved=moved,
+                           ok=ok))
+        print(f"[check] {'ok ' if ok else 'BAD'} penta_rows     "
+              f"{label}: launches by route {moved}, expected 1 {route}",
+              flush=True)
+        if not ok:
+            failures.append(f"penta_rows {label}: launches by route {moved}")
     for kernel, label, run in streamed:
         got, want = run()
         torch.cuda.synchronize()

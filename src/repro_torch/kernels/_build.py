@@ -80,9 +80,9 @@ _L = ctypes.c_longlong
 _ENTRY_POINTS = {
     "penta.cu": (
         ("penta_cols", [_I] + [_P] * 5 + [_P, _P, _P] + [_I] * 8 + [_P]),
-        ("penta_rows", [_I] + [_P] * 5 + [_P, _P, _P] + [_I] * 8 + [_P]),
+        ("penta_rows", [_I] + [_P] * 5 + [_P, _P, _P] + [_I] * 9 + [_P]),
         ("penta_mid", [_I] + [_P] * 5 + [_P, _P, _P] + [_I] * 6 + [_P]),
-        ("penta_rows_occupancy", [_I, _I, _P]),
+        ("penta_rows_occupancy", [_I, _I, _I, _P]),
     ),
     "stencil2d.cu": (
         ("stencil2d", [_I, _I, _I, _P, _P, _P, _P] + [_I] * 10 + [_P] * 4),
@@ -369,8 +369,9 @@ def device_info(device: torch.device) -> tuple[int, int]:
 
 
 def occupancy(name: str, device: torch.device, *args) -> int:
-    """Resident blocks an SM of ``device`` holds, from the C entry point
-    ``name`` (its ``args`` and then the int it writes); no launch."""
+    """Resident blocks an SM (or clusters a card) of ``device`` holds, from
+    the C entry point ``name`` (its ``args`` and then the int it writes);
+    no launch."""
     lib, fn = build()["libs"][name]
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device):

@@ -1,11 +1,12 @@
 // Batched pentadiagonal substitution with the Create-time LU factors, in
 // the three layouts of the 2D and 3D ADI steps.  Every line of every
 // layout is a segmented recurrence (common.cuh:substitute_segmented): one
-// warp a line (or, on penta_cols' cluster route, a part of one), each lane
-// a segment of L = max(ceil(M / 32), 8) | 1 elements of it, so 32 threads
-// work on a line and each walks about 4 L + 10 dependent steps instead of
-// 3 M.  L depends only on the line length M (kernels/penta.py:
-// segment_length), and the route (shared-memory tile, cluster or device
+// warp a line (or, on the cluster routes of penta_cols and penta_rows, a
+// part of one of K parts), each lane a segment of L = max(ceil(M / 32), 8)
+// | 1 elements of it (M / K on a cluster route), so 32 threads work on a
+// line and each walks about 4 L + 10 dependent steps instead of 3 M.  L
+// depends only on the line length M (kernels/penta.py: segment_length),
+// and the route (shared-memory tile, cluster or device
 // memory) only on M, the dtype and whether the band is cyclic, never on
 // the batch or a launch's window, so a line is computed by the same code
 // whatever the launch, and a streamed sweep (repro_torch/launch/stream.py,
@@ -58,10 +59,11 @@
 // threads busy at 1024^2, the factors read from device memory at every
 // step: 36x its byte bound).  Now (kernels/penta.py:rows_geometry):
 //
-// - tile (penta_rows_tile_kernel): about one grid of resident blocks walks
-//   the groups of G <= 8 rows; each block stages the five factors, and W
-//   when the band is cyclic, once in shared memory, then keeps a ring of
-//   `depth` (1 or 2) row groups there.  A group is contiguous in device
+// - tile (penta_rows_tile_kernel<T, false>), where a whole row fits beside
+//   the factors (float64 M up to 2905 when cyclic, 4842 for a plain band):
+//   about one grid of resident blocks walks the groups of G <= 8 rows; each
+//   block stages the five factors, and W when the band is cyclic, once in
+//   shared memory, then keeps a ring of `depth` (1 or 2) row groups there.  A group is contiguous in device
 //   memory, so where its address and the row's bytes are multiples of 16
 //   one thread loads it with one bulk copy (cp.async.bulk, the 1D TMA)
 //   that completes on an mbarrier; otherwise (odd M in float64, float32
@@ -77,10 +79,27 @@
 //   written once, so it is bound by those bytes, by the shared-memory
 //   traffic of the recurrence (about 18 accesses an element) and, for
 //   short rows, by the carries' shuffles.
-// - global (penta_rows_global_kernel), for a row whose tile does not fit
-//   beside the factors (M above ~4800 in float64, ~2900 when cyclic): the
-//   same warp-a-row recurrence on the row in device memory, the closure as
-//   the epilogue.
+// - cluster (penta_rows_tile_kernel<T, true>), for longer rows up to what 8
+//   blocks hold (float64 M up to 23136 when cyclic): on the global route a
+//   cyclic float64 row of 4096 took a warp walking its 32 segments of 129
+//   in device memory, each load of the warp touching 32 lines 1 KB apart,
+//   the factors re-read at every step (4.9% of its bound at 4096^2).  Now
+//   each row is split across a thread-block cluster of K blocks (the
+//   smallest K of 2, 4 and 8 that lets two blocks of 8 rows with a ring of
+//   2 share an SM, else 8: K = 8 at 4096, parts of 512, 101 KB a block,
+//   0.236 ms at 4096^2 where K = 4, one block an SM, took 0.266; at 8192
+//   parts of 1024, one block an SM): block k stages the factors and W
+//   of the elements [k Mb, k Mb + Mb), Mb = ceil(M / K), once, then keeps
+//   its pieces of the row groups in a ring as the tile route does, loaded
+//   by bulk copies of one row piece each.  Each warp runs the segmented
+//   recurrence over its row's part with L = segment_length(Mb); the carries
+//   cross the blocks through distributed shared memory (ClusterCarry, as
+//   penta_cols' cluster route), and the closure reads y[0], y[1] from block
+//   0 and y[M-2], y[M-1] from block K - 1 after one more cluster barrier.
+//   The same bytes move as on the tile route, and the launch allocates
+//   nothing: a persistent grid of as many clusters as the card holds.
+// - global (penta_rows_global_kernel), beyond: the same warp-a-row
+//   recurrence on the row in device memory, the closure as the epilogue.
 //
 // penta_mid replaces repro/kernels/penta.py:_substitute_mid_pallas (body
 // _substitute_mid_kernel) and its closure mid_woodbury_correct: plane
@@ -133,9 +152,12 @@ __host__ __device__ int rows_stage_len(int M, bool cyclic) {
   return round_up((cyclic ? 9 : 5) * M, kVec<T>);
 }
 
+// On the cluster route (K > 1, M the part of a row a block holds), each
+// warp's two segment maps and the four ends of its row follow the slots.
 template <typename T>
-int rows_smem_bytes(int M, bool cyclic, int G, int depth) {
-  return 16 + (rows_stage_len<T>(M, cyclic) + depth * G * round_up(M, kVec<T>)) *
+int rows_smem_bytes(int M, bool cyclic, int G, int depth, int K) {
+  return 16 + (rows_stage_len<T>(M, cyclic) + depth * G * round_up(M, kVec<T>) +
+               (K > 1 ? 16 * kWarps : 0)) *
                   static_cast<int>(sizeof(T));
 }
 
@@ -522,17 +544,14 @@ __global__ void __launch_bounds__(256) penta_cols_global_kernel(
 
 // Row sweep, tile route: the groups g = blockIdx.x, blockIdx.x + gridDim.x,
 // ... of G rows of an (n, M) window (row stride M), through a ring of
-// `depth` (1 or 2) slots in shared memory; blockDim.x = 256.  The bound of
-// 3 blocks an SM lets ptxas take the registers the ring and the segment in
-// registers need (80 in float64); left to itself it took 64 and spilled.
+// `depth` (1 or 2) slots in shared memory; blockDim.x = 256.
 template <typename T>
-__global__ void __launch_bounds__(kBlock, 3) penta_rows_tile_kernel(
+__device__ __forceinline__ void rows_tile_sweep(
     const T* __restrict__ sub, const T* __restrict__ low,
     const T* __restrict__ imu, const T* __restrict__ al,
     const T* __restrict__ be, const T* __restrict__ w,
     const T* __restrict__ rhs, T* __restrict__ out, int n, int M, int L,
-    int G, int depth) {
-  extern __shared__ __align__(16) unsigned char smem16[];
+    int G, int depth, unsigned char* smem16) {
   unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem16);
   T* f = reinterpret_cast<T*>(smem16 + 16);  // sub, low, imu, al, be, W
   T* fw = f + 5 * M;
@@ -623,6 +642,195 @@ __global__ void __launch_bounds__(kBlock, 3) penta_rows_tile_kernel(
     __syncthreads();  // slot s is read out: free for the group after next
     if (depth == 1 && next < groups) issue(next, 0);
   }
+}
+
+// The part of a row a block of the cluster route holds, solved in place by
+// the calling warp with the part's staged factors f (stride Mb) and the
+// carries of `carry`; a segment of 17 or 33 (parts of 512 and 1024: rows
+// of 4096 and 8192 over 8 blocks) is kept in registers.
+template <typename T>
+__device__ __forceinline__ void solve_part_smem(T* part, const T* f, int Mb,
+                                                int Mk, int L, int lane,
+                                                const ClusterCarry<T>& carry) {
+  const T *e = f, *l = f + Mb, *m = f + 2 * Mb, *a = f + 3 * Mb,
+          *b = f + 4 * Mb;
+  if (L == 17)
+    substitute_segmented_regs<T, 17>(part, e, l, m, a, b, Mk, lane, carry);
+  else if (L == 33)
+    substitute_segmented_regs<T, 33>(part, e, l, m, a, b, Mk, lane, carry);
+  else
+    substitute_segmented(part, part, 1, e, l, m, a, b, Mk, L, lane, carry);
+}
+
+// Row sweep, cluster route: each row of an (n, M) window split across the K
+// blocks of a cluster, block k of it (its rank) holding the elements
+// [k Mb, min(k Mb + Mb, M)) of every row and the factors of those elements,
+// and W's four columns at a stride of Mb (W's rows of four put the
+// write-out's loads on four times the banks' wavefronts: 0.291 against
+// 0.236 ms at 4096^2 on an H100, PERF.md).  The cluster c = blockIdx.x / K
+// walks the groups c, c + C, ... (C clusters in the grid) of G <= 8 rows
+// through a ring of `depth` slots,
+// each of its blocks holding its (G, Mb) piece of the group: a row's piece
+// is contiguous, so it loads with one bulk copy where its address and bytes
+// are multiples of 16, else by element copies.  Warp r runs the part of row
+// r of the group, its carries crossing the blocks through ClusterCarry;
+// every warp of every block calls it, a row or not (a warp without one
+// runs a part of length 0), since it holds cluster barriers, and the K
+// blocks walk the same groups in the same order.  The cyclic closure reads
+// y[0], y[1] from block 0 and y[M-2], y[M-1] from block K - 1 after one more
+// cluster barrier, from the ends each warp writes beside the ring (a slot
+// is refilled while the others may still be reading, the ends only after
+// two more cluster barriers), and is applied on the coalesced write-out.
+template <typename T>
+__device__ __forceinline__ void rows_cluster_sweep(
+    const T* __restrict__ sub, const T* __restrict__ low,
+    const T* __restrict__ imu, const T* __restrict__ al,
+    const T* __restrict__ be, const T* __restrict__ w,
+    const T* __restrict__ rhs, T* __restrict__ out, int n, int M, int L,
+    int G, int depth, int Mb, unsigned char* smem16) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int K = static_cast<int>(cluster.num_blocks());
+  const int base = rank * Mb;        // the block's first element of a row
+  const int Mk = min(Mb, M - base);  // and its elements
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem16);
+  T* f = reinterpret_cast<T*>(smem16 + 16);  // sub, low, imu, al, be, W
+  T* fw = f + 5 * Mb;
+  const int ldr = round_up(Mb, kVec<T>);
+  T* ring = f + rows_stage_len<T>(Mb, w != nullptr);
+  SegmentMap<T>* maps = reinterpret_cast<SegmentMap<T>*>(ring + depth * G * ldr);
+  T* ends = reinterpret_cast<T*>(maps + 2 * kWarps);  // y0, y1, y[-2], y[-1]
+  const int groups = (n + G - 1) / G;
+  const int clusters = gridDim.x / K;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  // every piece of a group is a 16-byte aligned run of a multiple of 16 bytes
+  const bool bulk = reinterpret_cast<uintptr_t>(rhs) % 16 == 0 &&
+                    M % kVec<T> == 0 && Mb % kVec<T> == 0;
+  if (bulk && threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int i = threadIdx.x; i < Mk; i += kBlock) {
+    f[i] = __ldg(sub + base + i);
+    f[Mb + i] = __ldg(low + base + i);
+    f[2 * Mb + i] = __ldg(imu + base + i);
+    f[3 * Mb + i] = __ldg(al + base + i);
+    f[4 * Mb + i] = __ldg(be + base + i);
+  }
+  if (w != nullptr) {  // W's four columns, each of stride Mb
+    for (int i = threadIdx.x; i < 4 * Mk; i += kBlock)
+      fw[(i & 3) * Mb + (i >> 2)] = __ldg(w + 4 * base + i);
+  }
+  __syncthreads();
+
+  // load this block's piece of group g into slot s
+  auto issue = [&](int g, int s) {
+    const int r0 = g * G, nr = min(G, n - r0);
+    T* dst = ring + s * G * ldr;
+    const T* src = rhs + static_cast<size_t>(r0) * M + base;
+    if (bulk) {
+      if (threadIdx.x == 0) {
+        const unsigned bytes = static_cast<unsigned>(Mk) * sizeof(T);
+        // the slot's earlier generic accesses come before the async write
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        mbar_expect_tx(bar + s, bytes * nr);
+        for (int r = 0; r < nr; ++r)
+          bulk_load(dst + r * ldr, src + static_cast<size_t>(r) * M, bytes,
+                    bar + s);
+      }
+    } else {
+      for (int r = 0; r < nr; ++r)
+        for (int i = threadIdx.x; i < Mk; i += kBlock)
+          elem_load(dst + r * ldr + i, src + static_cast<size_t>(r) * M + i);
+      elem_commit();
+    }
+  };
+
+  int g = blockIdx.x / K;
+  if (g < groups) issue(g, 0);
+  for (int j = 0; g < groups; ++j, g += clusters) {
+    const int s = depth == 2 ? (j & 1) : 0;
+    const int uses = depth == 2 ? (j >> 1) : j;  // earlier fills of slot s
+    const int next = g + clusters;
+    if (depth == 2) {
+      if (next < groups)
+        issue(next, s ^ 1);
+      else if (!bulk)
+        elem_commit();  // an empty group keeps wait_group 1 exact
+    }
+    if (bulk) {
+      mbar_wait(bar + s, uses & 1);
+    } else {
+      if (depth == 2)
+        elem_wait<1>();
+      else
+        elem_wait<0>();
+      __syncthreads();
+    }
+    const int r0 = g * G, nr = min(G, n - r0);
+    const int len = warp < nr ? Mk : 0;
+    T* part = ring + (s * G + min(warp, G - 1)) * ldr;
+    solve_part_smem(part, f, Mb, len, L, lane,
+                    ClusterCarry<T>{maps + 2 * warp, rank, K});
+    __syncwarp();
+    T ym2 = T(0), ym1 = T(0), y0 = T(0), y1 = T(0);
+    if (w != nullptr) {
+      T* e = ends + 4 * warp;
+      if (lane == 0 && len > 0) {
+        e[0] = part[0];
+        e[1] = part[1];
+        e[2] = part[Mk - 2];
+        e[3] = part[Mk - 1];
+      }
+      cluster_sync();  // every part of the group's rows solved
+      const T* first = cluster.map_shared_rank(ends, 0) + 4 * warp;
+      const T* last = cluster.map_shared_rank(ends, K - 1) + 4 * warp;
+      y0 = first[0];
+      y1 = first[1];
+      ym2 = last[2];
+      ym1 = last[3];
+    }
+    if (len > 0) {
+      T* dst = out + static_cast<size_t>(r0 + warp) * M + base;
+      if (w == nullptr) {
+        for (int i = lane; i < Mk; i += kWarp) dst[i] = part[i];
+      } else {
+        for (int i = lane; i < Mk; i += kWarp)
+          dst[i] = part[i] - (fw[i] * ym2 + fw[Mb + i] * ym1 +
+                              fw[2 * Mb + i] * y0 + fw[3 * Mb + i] * y1);
+      }
+    }
+    __syncthreads();  // slot s is read out: free for the group after next
+    if (depth == 1 && next < groups) issue(next, 0);
+  }
+  cluster_sync();  // the others are done with this block's maps and ends
+}
+
+// Row sweep, tile and cluster routes: the same template, two bodies
+// (kernels/penta.py:rows_geometry picks the route from M, the dtype and
+// whether the band is cyclic).  The tile route's bound of 3 blocks an SM
+// lets ptxas take the registers the ring and the segment in registers need
+// (80 in float64); left to itself it took 64 and spilled.  The cluster
+// route's bound of 2 keeps it within the 128 registers a thread that let
+// its two blocks of 256 threads share an SM (rows of 4096 in float64: parts
+// of 512, K = 8) with a segment of 33 in registers.
+template <typename T, bool kCluster>
+__global__ void __launch_bounds__(kBlock, kCluster ? 2 : 3)
+    penta_rows_tile_kernel(const T* __restrict__ sub,
+                           const T* __restrict__ low,
+                           const T* __restrict__ imu,
+                           const T* __restrict__ al,
+                           const T* __restrict__ be, const T* __restrict__ w,
+                           const T* __restrict__ rhs, T* __restrict__ out,
+                           int n, int M, int L, int G, int depth, int Mb) {
+  extern __shared__ __align__(16) unsigned char smem16[];
+  if constexpr (kCluster)
+    rows_cluster_sweep(sub, low, imu, al, be, w, rhs, out, n, M, L, G, depth,
+                       Mb, smem16);
+  else
+    rows_tile_sweep(sub, low, imu, al, be, w, rhs, out, n, M, L, G, depth,
+                    smem16);
 }
 
 // Row sweep, global route: warp g solves row g of an (n, M) window in
@@ -733,11 +941,30 @@ cudaError_t ready_tile(K kernel, int bytes, int* current, bool* carveout) {
   return allow_smem(kernel, bytes, current);
 }
 
-template <typename T>
+template <typename T, bool kCluster>
 cudaError_t ready_rows(int bytes) {
   static int smem_set = 0;
   static bool carveout = false;
-  return ready_tile(penta_rows_tile_kernel<T>, bytes, &smem_set, &carveout);
+  return ready_tile(penta_rows_tile_kernel<T, kCluster>, bytes, &smem_set,
+                    &carveout);
+}
+
+// The launch of the row sweep's cluster route: clusters of K blocks.
+inline cudaLaunchConfig_t rows_cluster_config(int blocks, int bytes, int K,
+                                              cudaStream_t stream,
+                                              cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = K;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kBlock);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 template <typename T>
@@ -809,12 +1036,13 @@ int launch_cols(void* const* f, const void* w, const void* rhs, void* out,
 }
 
 // The rows [row0, row1) of a (B, M) rhs: segments of L elements; groups of
-// G rows through a ring of `depth` slots on `blocks` blocks, or G = 0 for
+// G rows through a ring of `depth` slots on `blocks` blocks, each row split
+// across a cluster of K of them (K = 1: one block holds it), or G = 0 for
 // the global route.
 template <typename T>
 int launch_rows(void* const* f, const void* w, const void* rhs, void* out,
                 int M, int row0, int row1, int L, int G, int depth,
-                int blocks, cudaStream_t stream) {
+                int blocks, int K, cudaStream_t stream) {
   const int n = row1 - row0;
   const size_t off = static_cast<size_t>(row0) * M;
   const T* F[5];
@@ -822,12 +1050,23 @@ int launch_rows(void* const* f, const void* w, const void* rhs, void* out,
   const T* r = static_cast<const T*>(rhs) + off;
   T* o = static_cast<T*>(out) + off;
   const T* wp = static_cast<const T*>(w);
-  if (G > 0) {
-    const int bytes = rows_smem_bytes<T>(M, w != nullptr, G, depth);
-    cudaError_t e = ready_rows<T>(bytes);
+  if (G > 0 && K > 1) {
+    const int Mb = (M + K - 1) / K;
+    const int bytes = rows_smem_bytes<T>(Mb, w != nullptr, G, depth, K);
+    cudaError_t e = ready_rows<T, true>(bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
-    penta_rows_tile_kernel<T><<<blocks, kBlock, bytes, stream>>>(
-        F[0], F[1], F[2], F[3], F[4], wp, r, o, n, M, L, G, depth);
+    cudaLaunchAttribute cluster;
+    const cudaLaunchConfig_t cfg =
+        rows_cluster_config(blocks, bytes, K, stream, &cluster);
+    e = cudaLaunchKernelEx(&cfg, penta_rows_tile_kernel<T, true>, F[0], F[1],
+                           F[2], F[3], F[4], wp, r, o, n, M, L, G, depth, Mb);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  } else if (G > 0) {
+    const int bytes = rows_smem_bytes<T>(M, w != nullptr, G, depth, 1);
+    cudaError_t e = ready_rows<T, false>(bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    penta_rows_tile_kernel<T, false><<<blocks, kBlock, bytes, stream>>>(
+        F[0], F[1], F[2], F[3], F[4], wp, r, o, n, M, L, G, depth, M);
   } else {
     penta_rows_global_kernel<T><<<(n + kWarps - 1) / kWarps, kBlock, 0,
                                   stream>>>(F[0], F[1], F[2], F[3], F[4], wp,
@@ -865,11 +1104,20 @@ int launch_mid(void* const* f, const void* w, const void* rhs, void* out,
 }
 
 template <typename T>
-int rows_occupancy(int bytes, int* blocks) {
-  cudaError_t e = ready_rows<T>(bytes);
+int rows_occupancy(int bytes, int K, int* count) {
+  if (K == 1) {
+    cudaError_t e = ready_rows<T, false>(bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        count, penta_rows_tile_kernel<T, false>, kBlock, bytes));
+  }
+  cudaError_t e = ready_rows<T, true>(bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, penta_rows_tile_kernel<T>, kBlock, bytes));
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg =
+      rows_cluster_config(K, bytes, K, nullptr, &cluster);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      count, penta_rows_tile_kernel<T, true>, &cfg));
 }
 
 }  // namespace
@@ -900,21 +1148,28 @@ RT_EXPORT int penta_cols(int dtype, void* sub, void* low, void* imu, void* al,
 }
 
 // Solves the rows [row0, row1), 0 <= row0 < row1 <= B, in segments of L
-// elements (32 L >= M): groups of G rows through a ring of depth 1 or 2 in
-// shared memory on `blocks` blocks, or from device memory when G is 0.
+// elements: groups of G rows through a ring of depth 1 or 2 in shared
+// memory on `blocks` blocks, each row split across a cluster of K <= 8 of
+// them (G <= 8, blocks a multiple of K) in parts of Mb = ceil(M / K) (the
+// last at least 2; 32 L >= Mb), or from device memory when G is 0 (K = 1,
+// 32 L >= M).
 RT_EXPORT int penta_rows(int dtype, void* sub, void* low, void* imu, void* al,
                          void* be, void* w, void* rhs, void* out, int B,
                          int M, int row0, int row1, int L, int G, int depth,
-                         int blocks, void* stream) {
-  if (row0 < 0 || row1 > B || row0 >= row1 || L < 1 || kWarp * L < M ||
-      G < 0 || (G > 0 && (depth < 1 || depth > 2 || blocks < 1)))
+                         int blocks, int K, void* stream) {
+  if (K < 1 || K > 8 || (K > 1 && (G < 1 || G > kWarps || blocks % K != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int Mb = (M + K - 1) / K;
+  if (row0 < 0 || row1 > B || row0 >= row1 || L < 1 || kWarp * L < Mb ||
+      G < 0 || (G > 0 && (depth < 1 || depth > 2 || blocks < 1)) ||
+      (K > 1 && M - (K - 1) * Mb < 2))
     return static_cast<int>(cudaErrorInvalidValue);
   void* f[5] = {sub, low, imu, al, be};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 1 ? launch_rows<double>(f, w, rhs, out, M, row0, row1, L, G,
-                                          depth, blocks, s)
+                                          depth, blocks, K, s)
                     : launch_rows<float>(f, w, rhs, out, M, row0, row1, L, G,
-                                         depth, blocks, s);
+                                         depth, blocks, K, s);
 }
 
 // Solves a (P, M, N) rhs along its middle axis in segments of L rows
@@ -934,11 +1189,14 @@ RT_EXPORT int penta_mid(int dtype, void* sub, void* low, void* imu, void* al,
                                         s);
 }
 
-// Resident blocks an SM of the current device holds of the row sweep's
-// tile kernel with `bytes` of dynamic shared memory: what the registers
-// and shared memory allow (the persistent grid's size).
-RT_EXPORT int penta_rows_occupancy(int dtype, int bytes, int* blocks) {
-  if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
-  return dtype == 1 ? rows_occupancy<double>(bytes, blocks)
-                    : rows_occupancy<float>(bytes, blocks);
+// The persistent grid's size, as the current device reports it for the row
+// sweep with `bytes` of dynamic shared memory a block: for K = 1 the tile
+// kernel's resident blocks an SM, for clusters of K > 1 blocks the cluster
+// kernel's clusters the device holds at once (what the registers, shared
+// memory and the placement of clusters allow).
+RT_EXPORT int penta_rows_occupancy(int dtype, int bytes, int K, int* count) {
+  if (bytes < 0 || K < 1 || K > 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dtype == 1 ? rows_occupancy<double>(bytes, K, count)
+                    : rows_occupancy<float>(bytes, K, count);
 }

@@ -304,8 +304,9 @@ def cols_per_block(M: int, itemsize: int, smem_optin: int) -> int:
     return max(0, min(COLS_PER_BLOCK, free // tile_stride(M, itemsize)))
 
 
-# The column sweep's cluster route: each line split across a thread-block
-# cluster of K blocks, K one of these (8 is the portable cluster size).
+# The cluster routes of the column and row sweeps: each line split across
+# a thread-block cluster of K blocks, K one of these (8 is the portable
+# cluster size).
 CLUSTER_SIZES = (2, 4, 8)
 
 
@@ -408,12 +409,13 @@ MID_MAX_COLS = 16
 class RowsGeometry(NamedTuple):
     """Launch geometry of the row sweep (``penta_rows``)."""
 
-    route: str  # "tile" (rows staged in shared memory) or "global"
+    route: str  # "tile" (rows staged whole), "cluster" or "global"
     rows: int  # G, rows a group (one warp each); 0 on the global route
     depth: int  # ring depth, 1 or 2; 0 on the global route
-    blocks: int  # grid size
+    blocks: int  # grid size (K blocks a cluster on the cluster route)
     smem: int  # dynamic shared memory a block, bytes
     blocks_per_sm: int  # resident blocks an SM the grid was sized for
+    cluster: int = 1  # K, blocks a row is split across (1 but on the cluster route)
 
 
 class MidGeometry(NamedTuple):
@@ -435,64 +437,108 @@ def resident_blocks(smem: int, smem_optin: int) -> int:
 
 
 def rows_tile_bytes(M: int, itemsize: int, cyclic: bool, rows: int,
-                    depth: int) -> int:
+                    depth: int, cluster: int = 1) -> int:
     """Shared memory of a row-sweep block: 16 bytes of mbarriers, the five
     factors (and the (M, 4) Woodbury matrix when cyclic) rounded up to 16
-    bytes, and ``depth`` slots of ``rows`` rows whose stride is M rounded
-    up to 16 bytes (``csrc/penta.cu:rows_smem_bytes``)."""
+    bytes, ``depth`` slots of ``rows`` rows whose stride is M rounded up to
+    16 bytes, and on the cluster route (``cluster`` > 1, M the part of a
+    row a block holds) each warp's two segment maps of six elements and
+    the four ends of its row that the closure reads
+    (``csrc/penta.cu:rows_smem_bytes``)."""
     vec = 16 // itemsize
     stage = next_multiple((9 if cyclic else 5) * M, vec)
-    return 16 + (stage + depth * rows * next_multiple(M, vec)) * itemsize
+    ends = 16 * BLOCK_WARPS if cluster > 1 else 0
+    return 16 + (stage + depth * rows * next_multiple(M, vec) + ends) * itemsize
 
 
+def _rows_fit(M: int, itemsize: int, cyclic: bool, smem_optin: int,
+              cluster: int) -> int:
+    """Rows of M (parts of a row, on the cluster route) a block of the row
+    sweep holds beside the factors."""
+    row_bytes = next_multiple(M, 16 // itemsize) * itemsize
+    return (smem_optin - rows_tile_bytes(M, itemsize, cyclic, 0, 0, cluster)) \
+        // row_bytes
+
+
+def _rows_cluster_size(M: int, itemsize: int, cyclic: bool,
+                       smem_optin: int) -> int:
+    """K of the row sweep: 1 (the tile route) where a whole row fits beside
+    the factors; else the smallest of :data:`CLUSTER_SIZES` whose blocks
+    of 8 rows with a ring of 2 fit two to an SM, else the largest where a
+    block holds one part of a row; 0 (the global route) when not even
+    that one does."""
+    if _rows_fit(M, itemsize, cyclic, smem_optin, 1) >= 1:
+        return 1
+    for K in CLUSTER_SIZES:
+        smem = rows_tile_bytes(ceil_div(M, K), itemsize, cyclic, BLOCK_WARPS,
+                               ROWS_RING, K)
+        if resident_blocks(smem, smem_optin) >= 2:
+            return K
+    return K if _rows_fit(ceil_div(M, K), itemsize, cyclic, smem_optin, K) >= 1 \
+        else 0
+
+
+@functools.lru_cache(maxsize=None)
 def rows_geometry(M: int, itemsize: int, n_rows: int, smem_optin: int,
                   n_sms: int, *, cyclic: bool, depth: int | None = None,
-                  blocks_per_sm: int | None = None,
-                  rows: int | None = None) -> RowsGeometry:
+                  blocks_per_sm: int | None = None, rows: int | None = None,
+                  clusters: int | None = None) -> RowsGeometry:
     """Geometry of a row sweep over ``n_rows`` rows of length M.
 
     The route depends on M, the dtype and ``cyclic`` alone: the tile route
-    when one row fits in shared memory beside the factors (and W), else
-    the row is solved in device memory.  A group holds one row a warp, at
-    most 8, fewer when the rows would not spread over all SMs or the ring
-    does not fit; the ring keeps ``depth`` groups (``ROWS_RING`` by
-    default, 1 when two groups do not fit).  The grid is the groups or one
-    grid of resident blocks, whichever is smaller, and each block walks
-    the groups ``blockIdx.x + k * blocks``.
+    when one row fits in shared memory beside the factors (and W); else the
+    cluster route, each row split across a cluster of K blocks of
+    Mb = ceil(M / K) elements (:func:`_rows_cluster_size`), where 8 blocks
+    hold it; else the row is solved in device memory.  A group holds one
+    row (one part of a row, on the cluster route) a warp, at most 8, fewer
+    when the rows would not spread over all SMs or the ring does not fit;
+    the ring keeps ``depth`` groups (``ROWS_RING`` by default, 1 when two
+    groups do not fit).  The grid is the groups or one grid of resident
+    blocks (``clusters`` resident clusters, as the card reports them, on
+    the cluster route), whichever is smaller, and each block (cluster)
+    walks the groups ``b, b + grid, ...``.
 
     ``rows`` with ``depth`` (a tuned sweep's geometry,
     :func:`rows_geometries`) force the group, 1 to 8 rows, and the ring
     depth, 1 or 2: each row is one warp's recurrence whatever the group
     and the ring, so the choice changes no result; a ring that does not
-    fit raises ``ValueError`` here, before any launch."""
+    fit raises ``ValueError`` here, before any launch.  Cached: every
+    launch asks."""
     forced = rows is not None
     if forced and (not 1 <= rows <= BLOCK_WARPS or depth not in (1, 2)):
         raise ValueError(
             f"penta_rows takes 1 to {BLOCK_WARPS} rows a group and a ring of "
             f"1 or 2, got rows {rows}, depth {depth}")
     depth = ROWS_RING if depth is None else depth
-    row_bytes = next_multiple(M, 16 // itemsize) * itemsize
-    fit = (smem_optin - rows_tile_bytes(M, itemsize, cyclic, 0, 0)) // row_bytes
+    K = _rows_cluster_size(M, itemsize, cyclic, smem_optin)
+    Mb = ceil_div(M, max(K, 1))
+    fit = _rows_fit(Mb, itemsize, cyclic, smem_optin, max(K, 1))
     if forced and rows * depth > fit:
         raise ValueError(
             f"penta_rows cannot ring {depth} groups of {rows} rows of {M} "
             f"({itemsize}-byte elements) in the card's {smem_optin} bytes")
-    if fit < 1:
+    if K == 0:
         return RowsGeometry("global", 0, 0, ceil_div(n_rows, BLOCK_WARPS), 0, 0)
     if not forced:
-        rows = max(1, min(BLOCK_WARPS, ceil_div(n_rows, n_sms), fit // depth))
+        rows = max(1, min(BLOCK_WARPS, ceil_div(n_rows * K, n_sms), fit // depth))
         depth = max(1, min(depth, fit // rows))
-    smem = rows_tile_bytes(M, itemsize, cyclic, rows, depth)
+    smem = rows_tile_bytes(Mb, itemsize, cyclic, rows, depth, K)
     per_sm = blocks_per_sm or resident_blocks(smem, smem_optin)
-    blocks = min(ceil_div(n_rows, rows), per_sm * n_sms)
-    return RowsGeometry("tile", rows, depth, blocks, smem, per_sm)
+    groups = ceil_div(n_rows, rows)
+    if K == 1:
+        return RowsGeometry("tile", rows, depth, min(groups, per_sm * n_sms),
+                            smem, per_sm)
+    clusters = clusters or max(1, per_sm * n_sms // K)
+    return RowsGeometry("cluster", rows, depth, K * min(groups, clusters), smem,
+                        per_sm, K)
 
 
 def rows_geometries(M: int, itemsize: int, n_rows: int, smem_optin: int,
                     n_sms: int, *, cyclic: bool) -> list[dict]:
     """The row sweep's launch geometries a tuned sweep races besides its
     default one: groups of 1, 2, 4 and 8 rows with rings of 1 and 2, where
-    they fit.  None where rows take the global route."""
+    they fit.  None where rows take the cluster route (as for the column
+    sweep's) or the global route."""
     geo = rows_geometry(M, itemsize, n_rows, smem_optin, n_sms, cyclic=cyclic)
     if geo.route != "tile":
         return []
@@ -579,9 +625,11 @@ def mid_geometries(P: int, M: int, N: int, itemsize: int,
     return out
 
 
-# launches of penta_cols by route since import (kept apart from
-# _build.LAUNCHES, which counts each launch once, under its kernel)
+# launches of penta_cols (ROUTES) and of penta_rows (ROWS_ROUTES) by route
+# since import (kept apart from _build.LAUNCHES, which counts each launch
+# once, under its kernel)
 ROUTES: dict[str, int] = {"tile": 0, "cluster": 0, "global": 0}
+ROWS_ROUTES: dict[str, int] = {"tile": 0, "cluster": 0, "global": 0}
 
 
 def penta_cols_cuda(
@@ -620,14 +668,17 @@ def penta_cols_cuda(
 _OCCUPANCY: dict = {}
 
 
-def _rows_occupancy(device: torch.device, dtype: torch.dtype, smem: int) -> int:
-    """Resident blocks an SM of ``device`` holds of the row sweep's tile
-    kernel with ``smem`` bytes, from the card."""
-    key = (device.index, dtype, smem)
+def _rows_occupancy(device: torch.device, dtype: torch.dtype, smem: int,
+                    cluster: int = 1) -> int:
+    """From the card: resident blocks an SM of ``device`` holds of the row
+    sweep's tile kernel with ``smem`` bytes, or, for a ``cluster`` of K > 1
+    blocks, the clusters of the cluster route's kernel the card holds at
+    once."""
+    key = (device.index, dtype, smem, cluster)
     if key not in _OCCUPANCY:
         _OCCUPANCY[key] = max(1, _build.occupancy(
             "penta_rows_occupancy", device,
-            _build.dtype_code(torch.empty(0, dtype=dtype)), smem))
+            _build.dtype_code(torch.empty(0, dtype=dtype)), smem, cluster))
     return _OCCUPANCY[key]
 
 
@@ -635,13 +686,19 @@ def rows_geometry_on(device: torch.device, dtype: torch.dtype, M: int,
                      n_rows: int, *, cyclic: bool,
                      geometry: dict | None = None) -> RowsGeometry:
     """:func:`rows_geometry` on a card, the blocks an SM holds lowered to
-    what its registers allow; ``geometry`` (``{'rows': G, 'depth': d}``,
-    a tuned sweep's) forces the group and the ring."""
+    what its registers allow, and on the cluster route the grid sized by
+    the clusters the card holds at once; ``geometry`` (``{'rows': G,
+    'depth': d}``, a tuned sweep's) forces the group and the ring."""
     smem, sms = _build.device_info(device)
     isz = dtype.itemsize
     over = dict(rows=geometry["rows"], depth=geometry["depth"]) if geometry \
         else {}
     geo = rows_geometry(M, isz, n_rows, smem, sms, cyclic=cyclic, **over)
+    if geo.route == "cluster":
+        geo = rows_geometry(M, isz, n_rows, smem, sms, cyclic=cyclic,
+                            depth=geo.depth, rows=over.get("rows"),
+                            clusters=_rows_occupancy(device, dtype, geo.smem,
+                                                     geo.cluster))
     if geo.route == "tile":
         occ = _rows_occupancy(device, dtype, geo.smem)
         if occ < geo.blocks_per_sm:
@@ -671,9 +728,11 @@ def penta_rows_cuda(
     """Launch the row-layout kernel on a (B, M) CUDA rhs; with ``w`` the
     Woodbury closure runs on the kernel's write-out.  ``rows=(r0, r1)``
     solves only those rows into ``out``.  Any M: rows whose tile does not
-    fit in shared memory are solved in device memory.  ``geometry``
+    fit in shared memory are split across a thread-block cluster, or
+    solved in device memory past what 8 blocks hold.  ``geometry``
     (``{'rows': G, 'depth': d}``, a tuned sweep's) overrides the group
-    and the ring (:func:`rows_geometry`)."""
+    and the ring (:func:`rows_geometry`).  Counts the launch in
+    :data:`ROWS_ROUTES` under its route."""
     B, M = rhs.shape
     _build.check_cuda(rhs, "rhs", like=rhs, shape=(B, M))
     _check_factors(band, w, rhs, M)
@@ -684,9 +743,11 @@ def penta_rows_cuda(
     _build.launch(
         "penta_rows", rhs.device, _build.dtype_code(rhs),
         *(_build.ptr(f) for f in band), _build.ptr(w), _build.ptr(rhs),
-        _build.ptr(out), B, M, r0, r1, segment_length(M), geo.rows,
-        geo.depth, geo.blocks,
+        _build.ptr(out), B, M, r0, r1,
+        segment_length(ceil_div(M, geo.cluster)), geo.rows, geo.depth,
+        geo.blocks, geo.cluster, route=geo.route,
     )
+    ROWS_ROUTES[geo.route] += 1
     return out
 
 

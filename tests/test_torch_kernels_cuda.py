@@ -373,8 +373,9 @@ def test_user_point_fn_compile_error_raises_at_create(cuda):
 # Then the row sweep's: rows of 256 (1, 7 and the 3D x-sweep's 65536: many
 # groups a block through the ring), 1 or 7 rows of 1021 and 1024 (float64
 # 1021 and float32 1021 take cp.async of one element, 1024 the bulk copy),
-# 4000 (float64 cyclic in device memory, the plain band in a tile of one
-# row a group) and 40000 (no tile fits: the row in device memory; 1 and 3
+# 4000 (float64 cyclic split across a cluster of 8 blocks, the plain band
+# in a tile of one row a group) and 40000 (float64: not even 8 blocks hold
+# a row, the row in device memory; float32: the cluster route; 1 and 3
 # rows).
 PENTA_SHAPES = [(64, 64), (37, 29), (6, 7), (31, 1), (33, 7), (1021, 1),
                 (1024, 7), (7, 6), (1, 31), (7, 33), (1, 1021), (7, 1024),
@@ -486,6 +487,109 @@ def test_penta_cols_routes_counted(cuda):
         got = [s.fields for s in spans.take() if s.name == "repro.launch"]
         assert got == [{"kernel": "penta_cols", "route": route}], (n, got)
     assert not set(P.ROUTES) & set(_build.LAUNCHES)
+
+
+def _rows_route(cuda, M, cyclic):
+    """(route, K) of a float64 row sweep over rows of M on the card."""
+    geo = P.rows_geometry(M, 8, 64, *_build.device_info(cuda), cyclic=cyclic)
+    return geo.route, geo.cluster
+
+
+@pytest.mark.parametrize("cyclic", [True, False], ids=["cyclic", "band"])
+@pytest.mark.parametrize("shape", [(4096, 4096), (2048, 8192)])
+def test_penta_rows_cluster_route(cuda, shape, cyclic):
+    """The x-sweep at 4096^2 and on the distributed cell's 2048 rows of 8192,
+    float64, against the plain substitution and Woodbury closure: each
+    cyclic row split across a cluster of 8 blocks (the plain band's rows of
+    4096 fit a block whole: the tile route), one launch counted under its
+    route in ``P.ROWS_ROUTES``."""
+    B, M = shape
+    route = ("tile", 1) if (M, cyclic) == (4096, False) else ("cluster", 8)
+    assert _rows_route(cuda, M, cyclic) == route
+    fac = P.cyclic_penta_factor(
+        *P.hyperdiffusion_diagonals(M, 3.0, torch.float64), device=cuda)
+    band, w = fac.band, (fac.w if cyclic else None)
+    rhs = _field(shape, torch.float64, cuda, 44)
+    before = dict(P.ROWS_ROUTES)
+    got = P.penta_rows_cuda(band, rhs, w)
+    moved = {k: v - before[k] for k, v in P.ROWS_ROUTES.items()
+             if v != before[k]}
+    assert moved == {route[0]: 1}, moved
+    want = P.substitute_rows_torch(band, rhs)
+    if cyclic:
+        want = P.rows_woodbury_correct(want, w)
+    _assert_close(got, want, "float64", 100)
+
+
+@pytest.mark.parametrize("M", [4096, 4097])
+def test_penta_rows_cluster_streamed_bit_for_bit(cuda, M):
+    """The row sweep on its cluster route in row windows equals the
+    monolithic launch bit for bit, one launch a window: the streamed
+    executor's 4 chunks of 256, row 0 alone and windows of 203 rows from
+    row 1 (each window's last group ragged), and a rhs that starts 8 bytes
+    off 16, whose pieces load by element copies where the aligned rhs's
+    (M = 4096) load by bulk copies.  M = 4097 (parts of 513) loads by
+    element copies throughout, its last block's part short (506)."""
+    from repro_torch.launch.stream import stream_penta_solve_rows
+
+    B = 1024
+    fac = P.cyclic_penta_factor(
+        *P.hyperdiffusion_diagonals(M, 3.0, torch.float64), device=cuda)
+    assert _rows_route(cuda, M, True) == ("cluster", 8)
+    base = _field((B * M + 1,), torch.float64, cuda, 45)
+    rhs = base[:-1].view(B, M).clone()
+    shifted = base[1:].view(B, M)  # 8 bytes off: element copies
+    rhs.copy_(shifted)
+    assert shifted.data_ptr() % 16 == 8
+    for cyclic, f in ((True, fac), (False, fac.band)):
+        w = fac.w if cyclic else None
+        before = _build.LAUNCHES["penta_rows"]
+        want = P.penta_rows_cuda(fac.band, rhs, w)
+        assert torch.equal(P.penta_rows_cuda(fac.band, shifted, w), want)
+        got = stream_penta_solve_rows(f, rhs, cyclic=cyclic, chunk_rows=256,
+                                      streams=2)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["penta_rows"] == before + 2 + 4
+        assert torch.equal(got, want), cyclic
+        got = torch.full_like(rhs, float("nan"))
+        P.penta_rows_cuda(fac.band, rhs, w, rows=(0, 1), out=got)
+        for r0 in range(1, B, 203):
+            P.penta_rows_cuda(fac.band, rhs, w, rows=(r0, min(r0 + 203, B)),
+                              out=got)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["penta_rows"] == before + 6 + 1 + 6
+        assert torch.equal(got, want), cyclic
+
+
+def test_penta_rows_routes_counted(cuda):
+    """``penta.ROWS_ROUTES`` counts each ``penta_rows`` launch under its
+    route: one ``cluster`` launch an x-sweep at 4096^2, one ``tile`` launch
+    at 256^2; the ``repro.launch`` span names the route; ``_build.LAUNCHES``
+    counts each launch once, under its kernel."""
+    from repro_torch.runtime import spans
+
+    for n, route in ((4096, "cluster"), (256, "tile")):
+        data = _field((n, n), torch.float64, cuda, 46)
+        op = create("hyperdiffusion", (n, n), mode="adi", alpha=3.0,
+                    device=cuda)
+        op.solve_x(data)  # warm
+        torch.cuda.synchronize()
+        routes, launches = dict(P.ROWS_ROUTES), dict(_build.LAUNCHES)
+        spans.enable()
+        try:
+            op.solve_x(data)
+        finally:
+            spans.disable()
+        torch.cuda.synchronize()
+        moved = {k: v - routes[k] for k, v in P.ROWS_ROUTES.items()
+                 if v != routes[k]}
+        assert moved == {route: 1}, (n, moved)
+        launched = {k: v - launches[k] for k, v in _build.LAUNCHES.items()
+                    if v != launches[k]}
+        assert launched == {"penta_rows": 1}, (n, launched)
+        got = [s.fields for s in spans.take() if s.name == "repro.launch"]
+        assert got == [{"kernel": "penta_rows", "route": route}], (n, got)
+    assert not set(P.ROWS_ROUTES) & set(_build.LAUNCHES)
 
 
 # Past the first three, the segmented row recurrence's edges (rows of 6,

@@ -380,8 +380,9 @@ def test_segmented_substitution_model_planes(cyclic, dtype, M):
     _close(got, dense, dtype, scale=100.0)
 
 
-# H100: opt-in shared memory a block (bytes)
+# H100: opt-in shared memory a block (bytes), SMs
 H100_SMEM = 232448
+H100 = (H100_SMEM, 132)
 
 
 @pytest.mark.parametrize("M", (2305, 4096, 4097))
@@ -417,6 +418,45 @@ def test_segmented_substitution_model_cluster(cyclic, dtype, M):
     dense = RR.penta_solve_ref(*(jnp.asarray(b, jnp.float64) for b in bands),
                                rhs.astype(np.float64), cyclic=cyclic)
     _close(got, dense, dtype, scale=100.0)
+
+
+@pytest.mark.parametrize("M", (2906, 4096, 4097, 8192))
+@pytest.mark.parametrize("cyclic", [False, True], ids=["band", "cyclic"])
+def test_segmented_substitution_model_rows_cluster(cyclic, M):
+    """The row sweep's cluster route (csrc/penta.cu:rows_cluster_sweep)
+    modelled in numpy on the transposed (M, B) layout: each float64 row
+    split across the K blocks of the cyclic row geometry on an H100, 32
+    lanes a block with L = segment_length(Mb), the carries composed within
+    each block and then across the blocks in the kernel's order, the
+    closure from the whole row's ends, against the reference's jnp row
+    substitution and the dense oracle.  K = 8 at all four M: parts of 364,
+    512, 513 and 1024 (L = 13, 17, 17, 33), a short last block at 2906
+    (358) and 4097 (506).  The plain band runs the same split (at 2906 and
+    4096 its rows take the tile route, at 8192 this one)."""
+    geo = TP.rows_geometry(M, 8, 3, *H100, cyclic=True)
+    assert (geo.route, geo.cluster) == ("cluster", 8)
+    L = TP.segment_length(-(-M // geo.cluster))
+    bands = TP.hyperdiffusion_diagonals(M, SEG_BETA, "float64")
+    jb = [jnp.asarray(b) for b in bands]
+    rhs = np.random.default_rng(M).standard_normal((3, M))
+    if cyclic:
+        ref_fac = RP.cyclic_penta_factor(*jb)
+        fac = TP.cyclic_penta_factor(*bands, device="cpu")
+        want = RP.cyclic_penta_solve_factored_rows(ref_fac, jnp.asarray(rhs),
+                                                   backend="jnp")
+        got = _segmented_substitute(fac.band, rhs.T.copy(), L, fac.w,
+                                    blocks=geo.cluster).T
+    else:
+        ref_fac = RP.penta_factor(*jb)
+        fac = TP.penta_factor(*bands, device="cpu")
+        want = RP._substitute_rows_jnp(ref_fac, jnp.asarray(rhs))
+        got = _segmented_substitute(fac, rhs.T.copy(), L,
+                                    blocks=geo.cluster).T
+    assert got.dtype == np.float64
+    _close(got, want, "float64")
+    dense = RR.penta_solve_ref(*(jnp.asarray(b) for b in bands), rhs.T,
+                               cyclic=cyclic)
+    _close(got, np.asarray(dense).T, "float64", scale=100.0)
 
 
 def test_cols_geometry():
@@ -488,12 +528,20 @@ def test_segment_geometry():
     assert TP.cols_per_block(40000, 8, 232448) == 0
 
 
-def test_rows_geometry():
+@pytest.mark.parametrize("case", ["tile", "cluster4096", "cluster8192",
+                                  "global"])
+def test_rows_geometry(case):
     """The row sweep's geometry on an H100 (232448 B opt-in shared memory a
     block, 132 SMs): route, rows a group, ring depth, blocks, and the
-    long-row switch to device memory, which depends on M, the dtype and
-    the closure alone."""
+    long-row switches, which depend on M, the dtype and the closure alone:
+    past the tile route each row splits across a cluster of K blocks of
+    Mb = ceil(M / K) (K = 8: the smallest K whose blocks of 8 rows with a
+    ring of 2 fit two to an SM, else 8), L = segment_length(Mb); past what
+    8 blocks hold, the row is solved in device memory."""
     H100 = (232448, 132)
+    if case != "tile":
+        _rows_geometry_long(case, H100)
+        return
     g = TP.rows_geometry(1024, 8, 1024, *H100, cyclic=True, depth=2)
     # factors and W (72 KB) and two groups of 8 rows of 8 KB: one block an SM
     assert g == TP.RowsGeometry("tile", 8, 2, 128, 204816, 1)
@@ -519,17 +567,81 @@ def test_rows_geometry():
     assert (g.route, g.rows, g.depth) == ("tile", 1, 2)
     g = TP.rows_geometry(4400, 8, 7, *H100, cyclic=False, depth=2)
     assert (g.route, g.rows, g.depth) == ("tile", 1, 1)
-    # the long-row switch: a row beside the factors (and W when cyclic)
-    for M, cyclic, isz in ((2905, True, 8), (4842, False, 8), (5810, True, 4),
-                           (9684, False, 4)):
+    # the long-row switch: a row beside the factors (and W when cyclic);
+    # past it, the cluster route with K = 8 (parts of Mb = ceil(M / 8), whose
+    # blocks of 8 rows with a ring of 2 fit three or two to an SM), for 3
+    # rows one row a group, a cluster a group
+    for M, cyclic, isz, Mb, L, per_sm in (
+            (2905, True, 8, 364, 13, 3), (4842, False, 8, 606, 19, 2),
+            (5810, True, 4, 727, 23, 3), (9684, False, 4, 1211, 39, 2)):
         assert TP.rows_geometry(M, isz, 3, *H100, cyclic=cyclic).route == "tile"
         g = TP.rows_geometry(M + 1, isz, 3, *H100, cyclic=cyclic)
-        assert g == TP.RowsGeometry("global", 0, 0, 1, 0, 0)
+        smem = TP.rows_tile_bytes(Mb, isz, cyclic, 1, 2, 8)
+        assert g == TP.RowsGeometry("cluster", 1, 2, 8 * 3, smem,
+                                    TP.resident_blocks(smem, H100[0]), 8)
+        assert -(-(M + 1) // g.cluster) == Mb and TP.segment_length(Mb) == L
+        assert TP.resident_blocks(TP.rows_tile_bytes(
+            Mb, isz, cyclic, 8, 2, 8), H100[0]) == per_sm
     assert TP.rows_geometry(40000, 8, 65536, *H100, cyclic=True) == \
         TP.RowsGeometry("global", 0, 0, 8192, 0, 0)
     # the route never depends on the window
     for n in (1, 7, 128, 1024, 65536):
         assert TP.rows_geometry(1024, 8, n, *H100, cyclic=True).route == "tile"
+
+
+def _rows_geometry_long(case, H100):
+    """The cluster and global routes of :func:`test_rows_geometry`."""
+    if case == "global":
+        # past what 8 blocks hold (a part of a row beside its factors, W,
+        # the maps and the ends), the row is solved in device memory
+        for M, cyclic, isz in ((23136, True, 8), (38560, False, 8),
+                               (46376, True, 4), (77304, False, 4)):
+            for n in (1, 3, 4096):
+                g = TP.rows_geometry(M, isz, n, *H100, cyclic=cyclic)
+                assert (g.route, g.cluster, g.rows, g.depth) == (
+                    "cluster", 8, 1, 1)
+                assert g.smem <= H100[0]
+                assert TP.rows_geometry(M + 1, isz, n, *H100, cyclic=cyclic) \
+                    == TP.RowsGeometry("global", 0, 0, -(-n // 8), 0, 0)
+        # a forced ring that does not fit raises on the cluster route too
+        with pytest.raises(ValueError, match="cannot ring"):
+            TP.rows_geometry(23136, 8, 64, *H100, cyclic=True, rows=1, depth=2)
+        return
+    # the 4096^2 x-sweep (cyclic float64 rows): K = 8, parts of 512, 8 rows
+    # a group and a ring of 2, 101 KB a block, two an SM (K = 4, parts of
+    # 1024, 201 KB: one); 33 clusters on 132 SMs.  The 8192-long rows of the
+    # distributed x-sweep (2048 a card): K = 8, parts of 1024, one block an
+    # SM; 16 clusters.
+    M, n_rows, smem, per_sm, L = {
+        "cluster4096": (4096, 4096, 16 + (9 * 512 + 16 * 512 + 128) * 8, 2,
+                        17),
+        "cluster8192": (8192, 2048, 16 + (9 * 1024 + 16 * 1024 + 128) * 8, 1,
+                        33),
+    }[case]
+    g = TP.rows_geometry(M, 8, n_rows, *H100, cyclic=True)
+    assert (g.route, g.cluster, g.rows, g.smem) == ("cluster", 8, 8, smem)
+    assert g == TP.RowsGeometry("cluster", 8, 2, 8 * (per_sm * 132 // 8),
+                                smem, per_sm, 8)
+    assert TP.segment_length(-(-M // g.cluster)) == L
+    assert TP.resident_blocks(TP.rows_tile_bytes(M // 4, 8, True, 8, 2, 4),
+                              H100[0]) == 1
+    # the card's clusters size the grid, never the route, K or the group
+    g5 = TP.rows_geometry(M, 8, n_rows, *H100, cyclic=True, clusters=5)
+    assert g5 == g._replace(blocks=8 * 5)
+    # the route, K and L depend on M, the dtype and the closure alone: not on
+    # the rows of a launch's window
+    for n in (1, 3, 7, 128, 511, n_rows, 65536):
+        gn = TP.rows_geometry(M, 8, n, *H100, cyclic=True)
+        assert (gn.route, gn.cluster) == ("cluster", 8)
+        assert gn.blocks % 8 == 0 and gn.blocks <= 8 * -(-n // gn.rows)
+    # the plain band of the same length: the tile route at 4096 (a row fits
+    # beside the five factors), the cluster route at 8192
+    assert TP.rows_geometry(M, 8, n_rows, *H100, cyclic=False)[:1] == (
+        ("tile",) if M == 4096 else ("cluster",))
+    # no tuned geometry is raced on the cluster route; a forced one keeps K
+    assert TP.rows_geometries(M, 8, n_rows, *H100, cyclic=True) == []
+    gf = TP.rows_geometry(M, 8, n_rows, *H100, cyclic=True, rows=2, depth=1)
+    assert (gf.route, gf.cluster, gf.rows, gf.depth) == ("cluster", 8, 2, 1)
 
 
 def test_mid_geometry():
